@@ -1,0 +1,416 @@
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py            # full run: kernels, then the slice
+    python3 chip_smoke.py --quick    # build + check the kernels only
+
+1. Prints the card's name and power limit (``nvidia-smi``) and builds the
+   three CUDA kernels of ``neuroimagedisttraining_tpu_torch/csrc`` with one
+   ``nvcc`` per source, all started together.
+2. Holds each kernel against its plain PyTorch version on the card at the
+   flagship shapes, with the tolerance stated beside it, and times kernel,
+   plain version and (where one exists) the one PyTorch call computing the
+   same function; ``bound_ms`` is the least time the card could take.
+   Times are device times (``ms``), taken while a spin kernel holds the
+   stream until the host has queued the whole call, beside the host's time
+   to queue it (``host_ms``).
+3. Runs the flagship SalientGrads slice through ``build_experiment`` and
+   ``engine.train()``: a synthetic cohort of 48 subjects over 4 sites at
+   121x145x121, ``3DCNN``, batch 16, IterSNIP 1, 1 epoch, 2 rounds,
+   ``--fused_update`` and ``NIDT_FAST_STEM=1``. The launch counters are set
+   to 0 just before and read just after: every kernel must have launched.
+4. Runs the slice on a small input (69^3, 4 sites, 2 rounds) twice under
+   one phase-1 mask, through the kernels and through the plain paths, and
+   holds the two runs' losses and weights against each other.
+5. Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and
+   last ``{"ok": true, "device": {...}}``.
+
+Without a CUDA device, or without the package beside it, it fails before
+printing any result. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+# published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# spin-kernel cycles per second of the host's queueing time to cover; above
+# the H100's 1.98 GHz boost clock, so a spin lasts at least that long
+SPIN_CYCLES_PER_S = 2.0e9
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def main(argv: list[str]) -> int:
+    quick = "--quick" in argv
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
+    sys.path.insert(0, str(HERE))
+    try:
+        import neuroimagedisttraining_tpu_torch as pkg
+    except ImportError as e:
+        fail(f"the port package is not beside this script: {e}")
+    if Path(pkg.__file__).resolve().parent.parent != HERE:
+        fail(f"imported the port from {pkg.__file__}, not from {HERE}")
+    from neuroimagedisttraining_tpu_torch.device import resolve_device
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+    from neuroimagedisttraining_tpu_torch.ops import fused_update as FU
+    from neuroimagedisttraining_tpu_torch.ops import stemconv as SC
+    from neuroimagedisttraining_tpu_torch.ops import topk as TK
+
+    dev = resolve_device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    built = _cuda.build(["stem_dw", "fused_sgd", "count_ge"])
+    print(json.dumps({"build_seconds": round(time.perf_counter() - t0, 3),
+                      "per_source": {k: round(v, 3)
+                                     for k, v in built.items()}}))
+    for name in ("stem_dw", "fused_sgd", "count_ge"):
+        log = (_cuda.BUILD / f"{name}.ptxas.txt")
+        if log.exists():
+            lines = [ln.strip() for ln in log.read_text().splitlines()
+                     if "registers" in ln or "spill" in ln]
+            print(f"ptxas {name}: " + " | ".join(lines))
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+
+    def flush():
+        scratch.zero_()  # 256 MB write: the next call finds L2 cold
+
+    def time_ms(fn, iters: int) -> tuple[float, float]:
+        """(device ms, host ms) per call of ``fn``, L2 flushed before each.
+        A spin kernel holds the stream while the host queues the call, so
+        the events around it time the device alone, not the host's gaps
+        between launches; host ms is the wall time the call takes to queue
+        its work. Where the spin ends before the call is queued, the call
+        is timed again under a spin twice as long."""
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        queue_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        spin = int(max(4 * queue_s, 2e-3) * SPIN_CYCLES_PER_S)
+        dev_ms, host_ms, retries = [], [], 0
+        while len(dev_ms) < iters:
+            flush()
+            torch.cuda._sleep(spin)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            t = time.perf_counter()
+            fn()
+            host = time.perf_counter() - t
+            late = s.query()  # the device reached the call before its end
+            e.record()
+            e.synchronize()
+            if late and retries < 4:
+                retries += 1
+                spin *= 2
+                continue
+            if late:
+                print(json.dumps({"timing_note": "spin outran the host; "
+                                  "this call's time includes host gaps"}))
+            dev_ms.append(s.elapsed_time(e))
+            host_ms.append(host * 1e3)
+        return sum(dev_ms) / iters, sum(host_ms) / iters
+
+    rows = []
+
+    # ---- kernel 1: stem weight gradient at the flagship shape ----
+    B, D, H, W = 16, 121, 145, 121
+    od, oh, ow = (D - 5) // 2 + 1, (H - 5) // 2 + 1, (W - 5) // 2 + 1
+    x = torch.randint(0, 256, (B, D, H, W, 1), generator=gen, device=dev
+                      ).to(torch.float32)
+    # g as the convolution's backward hands it over: NCDHW memory, seen
+    # through the reference's channels-last shape
+    g_ncdhw = torch.randn((B, 64, od, oh, ow), generator=gen, device=dev)
+    g = g_ncdhw.permute(0, 2, 3, 4, 1)
+    dw_k = SC.stem_dw(x, g)
+    dw_p = SC.stem_dw_plain(x, g)
+    torch.cuda.synchronize()
+    err = float((dw_k - dw_p).abs().max())
+    scale = float(dw_p.abs().max())
+    tol = 1e-4 * scale  # f32 sums of 3.95 M products in different orders
+    if not err <= tol:
+        fail(f"stem_dw disagrees with its plain version: {err} > {tol}")
+    R = B * od * oh * ow
+    b_ms, b_by = bound_ms(4.0 * (x.numel() + g.numel() + 125 * 64),
+                          2.0 * R * 125 * 64)
+    k_ms = k_host = p_ms = l_ms = None
+    stem_extra = {}
+    if not quick:
+        x_ncdhw = x.reshape(B, 1, D, H, W)
+        lib = torch.nn.grad.conv3d_weight(x_ncdhw, (64, 1, 5, 5, 5), g_ncdhw,
+                                          stride=2)
+        lib_err = float((lib.permute(2, 3, 4, 1, 0) - dw_p).abs().max())
+        print(json.dumps({"stem_dw_library_vs_plain_max_abs_err": lib_err}))
+        k_ms, k_host = time_ms(lambda: SC.stem_dw(x, g), 10)
+        p_ms, _ = time_ms(lambda: SC.stem_dw_plain(x, g), 3)
+        l_ms, _ = time_ms(lambda: torch.nn.grad.conv3d_weight(
+            x_ncdhw, (64, 1, 5, 5, 5), g_ncdhw, stride=2), 10)
+        # the copy a kernel reading g channels-last would need per call
+        t_ms, _ = time_ms(lambda: g.contiguous(), 10)
+        stem_extra["g_transpose_ms"] = t_ms
+        del x_ncdhw, lib
+    rows.append({"name": "stem_dw", "route": "cuda",
+                 "source": "neuroimagedisttraining_tpu_torch/csrc/stem_dw.cu",
+                 "replaces": "neuroimagedisttraining_tpu/ops/stemconv.py:112",
+                 "max_abs_err": err, "tolerance": tol, "ms": k_ms,
+                 "host_ms": k_host, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": l_ms,
+                 "library": "torch.nn.grad.conv3d_weight", **stem_extra})
+    del x, g, g_ncdhw, dw_k, dw_p
+    torch.cuda.empty_cache()
+
+    # ---- kernel 2: fused SGD tail over the flagship AlexNet3D leaves ----
+    from neuroimagedisttraining_tpu_torch.models import create_model
+
+    shapes = [tuple(p.shape) for p in
+              create_model("3dcnn", (121, 145, 121)).parameters()]
+    n_params = sum(math.prod(s) for s in shapes)
+
+    def leaves(scale, gen):
+        return [torch.randn(s, generator=gen, device=dev) * scale
+                for s in shapes]
+
+    p0, g0, t0_ = leaves(0.05, gen), leaves(0.01, gen), leaves(0.01, gen)
+    m0 = [(torch.rand(s, generator=gen, device=dev) < 0.5).to(torch.float32)
+          for s in shapes]
+    lr = torch.tensor(0.01, dtype=torch.float32, device=dev)
+    f_err = 0.0
+    for clip in (10.0, 1e6):  # the clip stage taken, then skipped
+        pk, tk = [p.clone() for p in p0], [t.clone() for t in t0_]
+        pp, tp = [p.clone() for p in p0], [t.clone() for t in t0_]
+        kw = dict(clip=clip, wd=5e-4, momentum=0.9, lr=lr)
+        FU.fused_sgd_step(pk, g0, tk, m0, **kw)
+        FU.sgd_step_plain(pp, g0, tp, m0, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(pk + tk, pp + tp):
+            f_err = max(f_err, float((a - b).abs().max()))
+    if f_err != 0.0:  # each operation rounded on its own in both: bit-equal
+        fail(f"fused_sgd is not bit-equal to its plain version: {f_err}")
+    # the kernel's work: read p, g, t, mask and write p, t once per step
+    fb_ms, fb_by = bound_ms(4.0 * 6 * n_params, 0.0)
+    kw = dict(clip=10.0, wd=5e-4, momentum=0.9)
+    fk_ms = fk_host = fp_ms = None
+    step = {}
+    if not quick:
+        # ms / plain_ms: the 24 launches and their plain chain on the same
+        # device scalars; step: the whole step, global norm included
+        scal = FU.sgd_scalars(g0, clip=kw["clip"], lr=lr)
+        fk_ms, fk_host = time_ms(
+            lambda: FU.fused_sgd_apply(pk, g0, tk, m0, scal, **kw), 20)
+        fp_ms, _ = time_ms(
+            lambda: FU.sgd_apply_plain(pp, g0, tp, m0, scal, **kw), 10)
+        s_ms, s_host = time_ms(
+            lambda: FU.fused_sgd_step(pk, g0, tk, m0, lr=lr, **kw), 10)
+        sp_ms, _ = time_ms(
+            lambda: FU.sgd_step_plain(pp, g0, tp, m0, lr=lr, **kw), 10)
+        step = {"step_ms": s_ms, "step_host_ms": s_host,
+                "plain_step_ms": sp_ms}
+    rows.append({"name": "fused_sgd", "route": "cuda",
+                 "source": "neuroimagedisttraining_tpu_torch/csrc/fused_sgd.cu",
+                 "replaces":
+                     "neuroimagedisttraining_tpu/ops/fused_update.py:131",
+                 "max_abs_err": f_err, "tolerance": 0.0, "ms": fk_ms,
+                 "host_ms": fk_host, "plain_ms": fp_ms, "bound_ms": fb_ms,
+                 "bound_by": fb_by, "library_ms": None, "library": None,
+                 "leaves": len(shapes), "params": n_params, **step})
+    del p0, g0, t0_, m0, pk, tk, pp, tp
+    torch.cuda.empty_cache()
+
+    # ---- kernel 3: count >= thresholds over the flagship score vector ----
+    n_scores = sum(math.prod(s) for s in shapes if len(s) >= 2)
+    xs = torch.rand(n_scores, generator=gen, device=dev) ** 3
+    xs = xs / xs.sum()
+    thr = TK.linspace(xs.min(), xs.max(), 512)
+    c_k = TK.count_ge(xs, thr)
+    c_p = TK.count_ge_plain(xs, thr)
+    torch.cuda.synchronize()
+    c_err = float((c_k - c_p).abs().max())
+    if c_err != 0.0:  # integer counts: exact
+        fail(f"count_ge disagrees with its plain version: {c_err}")
+    # the kernel sorts its ladder: an unsorted one with ties, NaN and +-inf,
+    # over scores holding NaN and +-inf, must count exactly the same
+    x2 = xs.clone()
+    x2[::997], x2[1::991], x2[2::983] = (float("nan"), float("inf"),
+                                         float("-inf"))
+    perm = torch.randperm(512, generator=gen, device=dev)
+    thr2 = torch.cat([thr[perm[:400]], thr[:96], thr.new_tensor(
+        [float("nan")] * 14 + [float("inf"), float("-inf")])])
+    c2_err = float((TK.count_ge(x2, thr2)
+                    - TK.count_ge_plain(x2, thr2)).abs().max())
+    if c2_err != 0.0:
+        fail(f"count_ge on an unsorted ladder with NaN disagrees: {c2_err}")
+    del x2, thr2
+    k = n_scores // 2
+    thr_gpu = TK.kth_largest(xs, k)
+    thr_cpu = TK.kth_largest(xs.cpu(), k)  # plain counts on the host
+    if thr_gpu.cpu().view(torch.int32) != thr_cpu.view(torch.int32):
+        fail(f"kth_largest on the card {thr_gpu.item()} != plain "
+             f"{thr_cpu.item()}")
+    exact = torch.topk(xs, k).values[-1]
+    # x read once, thresholds read and counts written once; a binary search
+    # over the sorted ladder: ceil(log2(nbins + 1)) compares per element
+    cb_ms, cb_by = bound_ms(4.0 * (n_scores + 2 * 512),
+                            n_scores * math.ceil(math.log2(512 + 1)))
+    extra = {"kth_largest_equals_topk": bool(exact == thr_gpu)}
+    ck_ms = ck_host = cp_ms = None
+    if not quick:
+        ck_ms, ck_host = time_ms(lambda: TK.count_ge(xs, thr), 50)
+        cp_ms, _ = time_ms(lambda: TK.count_ge_plain(xs, thr), 5)
+        extra.update(
+            kth_largest_ms=time_ms(lambda: TK.kth_largest(xs, k), 20)[0],
+            kth_largest_library_ms=time_ms(
+                lambda: torch.topk(xs, k).values[-1], 20)[0],
+            kth_largest_library="torch.topk(x, k).values[-1]")
+    rows.append({"name": "count_ge", "route": "cuda",
+                 "source": "neuroimagedisttraining_tpu_torch/csrc/count_ge.cu",
+                 "replaces": "neuroimagedisttraining_tpu/ops/topk.py:59",
+                 "max_abs_err": c_err, "tolerance": 0.0, "ms": ck_ms,
+                 "host_ms": ck_host, "plain_ms": cp_ms, "bound_ms": cb_ms,
+                 "bound_by": cb_by, "library_ms": None, "library": None, "n": n_scores,
+                 "nbins": 512, **extra})
+    del xs, thr, c_k, c_p
+    torch.cuda.empty_cache()
+
+    # ---- the slice: flagship SalientGrads through the user entry points ----
+    launches = {r["name"]: None for r in rows}
+    if not quick:
+        os.environ["NIDT_FAST_STEM"] = "1"
+        from neuroimagedisttraining_tpu_torch.__main__ import (
+            add_args, build_experiment, config_from_args,
+        )
+        import argparse
+
+        args = add_args(argparse.ArgumentParser()).parse_args([
+            "--algorithm", "salientgrads", "--dataset", "synthetic",
+            "--model", "3DCNN", "--synthetic_shape", "121", "145", "121",
+            "--synthetic_num_subjects", "48", "--client_num_in_total", "4",
+            "--batch_size", "16", "--itersnip_iteration", "1",
+            "--epochs", "1", "--comm_round", "2", "--fused_update"])
+        cfg = config_from_args(args)
+        t0 = time.perf_counter()
+        engine, info = build_experiment(cfg, "cuda")
+        setup_s = time.perf_counter() - t0
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        result = engine.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = _cuda.counts()
+        n = [int(v) for v in engine.data.n_train]
+        steps = sum(math.ceil(v / cfg.optim.batch_size) for v in n) \
+            * cfg.optim.epochs * cfg.fed.comm_round
+        losses = [h["train_loss"] for h in result["history"]]
+        metrics = [result["final_global"][m] for m in ("acc", "loss", "auc")]
+        print(json.dumps({
+            "card": card, "partition": info["train_counts"],
+            "setup_seconds": setup_s, "train_seconds": train_s,
+            "phase1_seconds": result["phase1_seconds"],
+            "round_seconds": [h["round_seconds"] for h in result["history"]],
+            "train_loss": losses, "mask_density": result["mask_density"],
+            "final_global": result["final_global"],
+            "final_personal": result["final_personal"],
+            "launches": launches, "local_steps": steps,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}))
+        if not all(math.isfinite(v) for v in losses + metrics):
+            fail(f"non-finite losses or metrics: {losses} {metrics}")
+        if abs(result["mask_density"] - cfg.sparsity.dense_ratio) > 0.01:
+            fail(f"mask density {result['mask_density']} is not within 0.01 "
+                 f"of {cfg.sparsity.dense_ratio}")
+        for name in ("stem_dw", "fused_sgd", "count_ge"):
+            if not launches.get(name, 0) > 0:
+                fail(f"the slice never launched the {name} kernel")
+        per_step = {"stem_dw": launches["stem_dw"] / (steps + len(n)),
+                    "fused_sgd": launches["fused_sgd"] / steps,
+                    "count_ge": launches["count_ge"]}
+        for r in rows:
+            print(json.dumps({"kernel": r["name"], "kernel_ms": r["ms"],
+                              "host_ms": r["host_ms"],
+                              "plain_ms": r["plain_ms"],
+                              "library_ms": r["library_ms"],
+                              "bound_ms": r["bound_ms"],
+                              "launches_per_step": per_step[r["name"]],
+                              "card": card}))
+
+        # ---- the slice on a small input: kernels against plain paths ----
+        def small(kernels: bool):
+            os.environ["NIDT_FAST_STEM"] = "1" if kernels else "0"
+            argv = ["--synthetic_shape", "69", "69", "69",
+                    "--synthetic_num_subjects", "24",
+                    "--client_num_in_total", "4", "--batch_size", "4",
+                    "--epochs", "1", "--comm_round", "2"]
+            if kernels:
+                argv.append("--fused_update")
+            return build_experiment(config_from_args(
+                add_args(argparse.ArgumentParser()).parse_args(argv)),
+                "cuda")[0]
+
+        probe = small(True)
+        init_p, init_b = probe.init_global_state()
+        masks, _ = probe.generate_global_mask(init_p, init_b)
+        # fresh engines under one mask draw the same permutations and
+        # dropout: the runs differ only in the stem dW's summation order
+        # (fused_sgd is bit-equal to the plain chain)
+        plain = small(False).train(masks=masks)
+        kern = small(True).train(masks=masks)
+        moved = max(float((v - init_p[k]).abs().max())
+                    for k, v in plain["params"].items())
+        p_err = max(float((kern["params"][k] - v).abs().max())
+                    for k, v in plain["params"].items())
+        lp = [h["train_loss"] for h in plain["history"]]
+        lk = [h["train_loss"] for h in kern["history"]]
+        ep, ek = plain["final_global"]["loss"], kern["final_global"]["loss"]
+        print(json.dumps({"small_input_check": {
+            "shape": [69, 69, 69], "train_loss_plain": lp,
+            "train_loss_kernels": lk, "eval_loss_plain": ep,
+            "eval_loss_kernels": ek, "param_max_abs_err": p_err,
+            "largest_weight_change": moved}}))
+        if not all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lk, lp)):
+            fail(f"small-input train losses differ: {lk} vs plain {lp}")
+        if not p_err <= 1e-3 * moved:
+            fail(f"small-input params differ by {p_err} (largest weight "
+                 f"change {moved})")
+        if not abs(ek - ep) <= 1e-3 * abs(ep):
+            fail(f"small-input eval loss {ek} vs plain {ep}")
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

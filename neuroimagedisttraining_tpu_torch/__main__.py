@@ -1,0 +1,122 @@
+"""CLI of the port:
+
+    python -m neuroimagedisttraining_tpu_torch --algorithm salientgrads \\
+        --dataset synthetic --model 3DCNN --synthetic_shape 121 145 121 \\
+        [--fused_update] [--device cuda|cpu] ...
+
+Flag names are the reference CLI's for the flags this slice takes. It
+prints one line per round and, last, one JSON line with the final metrics.
+``NIDT_FAST_STEM=1`` arms the stem weight-gradient kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import sys
+
+import torch
+
+from neuroimagedisttraining_tpu_torch.config import (
+    DataConfig, ExperimentConfig, FedConfig, OptimConfig, SparsityConfig,
+)
+
+
+def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    parser.add_argument("--algorithm", type=str, default="salientgrads",
+                        choices=["salientgrads"])
+    parser.add_argument("--model", type=str, default="3DCNN")
+    parser.add_argument("--dataset", type=str, default="synthetic",
+                        choices=["synthetic"])
+    parser.add_argument("--batch_size", type=int, default=16)
+    parser.add_argument("--lr", type=float, default=0.01)
+    parser.add_argument("--lr_decay", type=float, default=0.998)
+    parser.add_argument("--wd", type=float, default=5e-4)
+    parser.add_argument("--momentum", type=float, default=0.9)
+    parser.add_argument("--grad_clip", type=float, default=10.0)
+    parser.add_argument("--epochs", type=int, default=2)
+    parser.add_argument("--client_num_in_total", type=int, default=21)
+    parser.add_argument("--frac", type=float, default=1.0)
+    parser.add_argument("--comm_round", type=int, default=200)
+    parser.add_argument("--frequency_of_the_test", type=int, default=1)
+    parser.add_argument("--seed", type=int, default=1024)
+    parser.add_argument("--seed_split", type=int, default=42)
+    parser.add_argument("--dense_ratio", type=float, default=0.5)
+    parser.add_argument("--itersnip_iteration", type=int, default=1)
+    parser.add_argument("--fused_update", action="store_true")
+    parser.add_argument("--synthetic_num_subjects", type=int, default=256)
+    parser.add_argument("--synthetic_shape", type=int, nargs=3,
+                        default=[121, 145, 121])
+    parser.add_argument("--synthetic_signal", type=float, default=12.0)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu")
+    return parser
+
+
+def config_from_args(args) -> ExperimentConfig:
+    return ExperimentConfig(
+        model=args.model, num_classes=1, algorithm=args.algorithm,
+        seed=args.seed,
+        data=DataConfig(dataset=args.dataset,
+                        synthetic_num_subjects=args.synthetic_num_subjects,
+                        synthetic_shape=tuple(args.synthetic_shape),
+                        synthetic_signal=args.synthetic_signal,
+                        seed_split=args.seed_split),
+        optim=OptimConfig(lr=args.lr, lr_decay=args.lr_decay, wd=args.wd,
+                          momentum=args.momentum, batch_size=args.batch_size,
+                          epochs=args.epochs, grad_clip=args.grad_clip,
+                          fused_update=args.fused_update),
+        fed=FedConfig(client_num_in_total=args.client_num_in_total,
+                      frac=args.frac, comm_round=args.comm_round,
+                      frequency_of_the_test=args.frequency_of_the_test),
+        sparsity=SparsityConfig(dense_ratio=args.dense_ratio,
+                                itersnip_iterations=args.itersnip_iteration),
+    )
+
+
+def build_experiment(cfg: ExperimentConfig, device: str = "cuda"):
+    """Cohort -> site federation on the device -> model -> trainer ->
+    engine. Returns ``(engine, partition_info)``."""
+    from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
+    from neuroimagedisttraining_tpu_torch.data.federate import federate_cohort
+    from neuroimagedisttraining_tpu_torch.data.synthetic import (
+        generate_synthetic_abcd,
+    )
+    from neuroimagedisttraining_tpu_torch.device import resolve_device
+    from neuroimagedisttraining_tpu_torch.engines.salientgrads import (
+        SalientGradsEngine,
+    )
+    from neuroimagedisttraining_tpu_torch.models import create_model
+
+    dev = resolve_device(device)
+    d = cfg.data
+    cohort = generate_synthetic_abcd(
+        num_subjects=d.synthetic_num_subjects, shape=d.synthetic_shape,
+        signal=d.synthetic_signal,
+        num_sites=max(4, cfg.fed.client_num_in_total // 4), seed=cfg.seed)
+    fed, info = federate_cohort(cohort, dev, seed=d.seed_split)
+    model = create_model(cfg.model, d.synthetic_shape, cfg.num_classes)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    trainer = LocalTrainer(model, cfg.optim, dev, gen)
+    return SalientGradsEngine(cfg, fed, trainer), info
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = add_args(argparse.ArgumentParser(
+        prog="neuroimagedisttraining_tpu_torch")).parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(message)s",
+                        stream=sys.stdout)
+    cfg = config_from_args(args)
+    engine, info = build_experiment(cfg, args.device)
+    logging.info("partition: %s", json.dumps(info["train_counts"]))
+    result = engine.train()
+    print(json.dumps({"mask_density": result["mask_density"],
+                      "final_global": result["final_global"],
+                      "final_personal": result["final_personal"],
+                      "history": result["history"]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

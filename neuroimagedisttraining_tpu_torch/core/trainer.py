@@ -1,0 +1,140 @@
+"""The local trainer: client-side SGD and evaluation.
+
+A client's state is two dicts of tensors keyed by the model's parameter and
+buffer names (``params``, ``bstats`` for the BatchNorm running stats); the
+model runs on them through ``torch.func.functional_call``, so one module
+serves every client.
+
+- ``local_train``: E epochs of minibatch SGD on the client's padded data,
+  walking per-epoch permutations in ``batch_size`` strides. The last batch
+  of an epoch wraps to the epoch's start; the wrapped filler rows weigh 0
+  in the loss (the mean is the true partial batch's) but still reach
+  BatchNorm, as in the reference. A client runs ``ceil(n / B)`` steps per
+  epoch; the reference's further masked no-op steps are skipped.
+- ``evaluate``: chunked eval returning correct / loss sum / total and the
+  raw logits for AUC.
+
+Randomness (epoch permutations, dropout keep-masks) comes from an explicit
+``torch.Generator`` on the trainer's device; ``perms`` and ``dropout_masks``
+can be given instead, so tests can feed the reference's draws.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch.func import functional_call
+
+from neuroimagedisttraining_tpu_torch.config import OptimConfig
+from neuroimagedisttraining_tpu_torch.core.losses import (
+    bce_with_logits, predictions,
+)
+from neuroimagedisttraining_tpu_torch.core.optim import LocalOptimizer
+
+State = dict[str, torch.Tensor]
+
+
+def epoch_permutations(generator: torch.Generator, epochs: int,
+                       max_samples: int, n_valid: int,
+                       device: torch.device) -> torch.Tensor:
+    """[epochs, max_samples]: per epoch, a uniform permutation of the valid
+    rows ``[0, n_valid)`` followed by the padded rows."""
+    u = torch.rand((epochs, max_samples), generator=generator, device=device)
+    u[:, n_valid:] = 2.0
+    return torch.argsort(u, dim=-1)
+
+
+class LocalTrainer:
+    """Trainer bound to one model, optimizer config and device."""
+
+    def __init__(self, model: torch.nn.Module, optim: OptimConfig,
+                 device: torch.device, generator: torch.Generator,
+                 dropout_masks: tuple[torch.Tensor, torch.Tensor] | None = None):
+        self.model = model.to(device)
+        self.optim_cfg = optim
+        self.device = device
+        self.generator = generator
+        #: fixed dropout keep-masks for every training forward (tests);
+        #: None draws fresh ones from ``generator``
+        self.dropout_masks = dropout_masks
+        self.opt = LocalOptimizer(optim)
+
+    @staticmethod
+    def _prep(x: torch.Tensor) -> torch.Tensor:
+        """uint8 [B, D, H, W] -> float32 [B, 1, D, H, W], raw cast."""
+        return x.to(torch.float32).unsqueeze(1)
+
+    def apply(self, params: State, bstats: State, x: torch.Tensor,
+              train: bool) -> torch.Tensor:
+        """Logits of prepared input ``x``; in training mode the BatchNorm
+        running stats in ``bstats`` are updated in place."""
+        kw = {"train": train}
+        if train:
+            kw["dropout_masks"] = self.dropout_masks
+            kw["generator"] = self.generator
+        return functional_call(self.model, (params, bstats), (x,), kw)
+
+    def loss_and_grad(self, params: State, bstats: State, x, y,
+                      weights: torch.Tensor | None = None):
+        """One batch in training mode: ``(loss, grads, new_bstats)``; the
+        inputs are left unchanged."""
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        new_b = {k: v.clone() for k, v in bstats.items()}
+        logits = self.apply(leaves, new_b, self._prep(x), train=True)
+        loss = bce_with_logits(logits, y, weights)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads)), new_b
+
+    def local_train(self, params: State, bstats: State, X: torch.Tensor,
+                    y: torch.Tensor, n_valid: int, lr, epochs: int,
+                    batch_size: int, max_samples: int,
+                    mask: State | None = None,
+                    perms: torch.Tensor | None = None):
+        """E epochs of local SGD from ``(params, bstats)`` (left unchanged).
+        Returns ``(params, bstats, mean_loss)``; ``mask`` re-applies the
+        sparse mask after every step."""
+        n_valid = int(n_valid)
+        my_steps = math.ceil(n_valid / batch_size)
+        if perms is None:
+            perms = epoch_permutations(self.generator, epochs, max_samples,
+                                       n_valid, self.device)
+        perms = perms.to(self.device)
+        p = {k: v.detach().clone() for k, v in params.items()}
+        b = {k: v.clone() for k, v in bstats.items()}
+        names = list(p)
+        p_list = [p[k] for k in names]
+        m_list = [mask[k] for k in names] if mask is not None else None
+        trace = self.opt.init(p_list)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        offsets = torch.arange(batch_size, device=self.device)
+        for e in range(epochs):
+            for s in range(my_steps):
+                pos = s * batch_size + offsets
+                idx = perms[e][pos % max(n_valid, 1)]
+                w = (pos < n_valid).to(torch.float32)
+                loss, grads, b = self.loss_and_grad(p, b, X[idx], y[idx], w)
+                self.opt.step(p_list, [grads[k] for k in names], trace, lr,
+                              m_list)
+                loss_sum = loss_sum + loss
+        return p, b, loss_sum / max(epochs * my_steps, 1)
+
+    @torch.no_grad()
+    def evaluate(self, params: State, bstats: State, X: torch.Tensor,
+                 y: torch.Tensor, valid: torch.Tensor, batch_size: int = 32):
+        """Chunked eval: ``test_correct``, ``test_loss`` (sum),
+        ``test_total`` and the raw ``scores`` (logits) for AUC."""
+        correct = torch.zeros((), device=self.device)
+        loss = torch.zeros((), device=self.device)
+        scores = []
+        v_all = valid.to(torch.float32)
+        for i in range(0, X.shape[0], batch_size):
+            xb, yb, vb = (X[i:i + batch_size], y[i:i + batch_size],
+                          v_all[i:i + batch_size])
+            logits = self.apply(params, bstats, self._prep(xb), train=False)
+            correct = correct + torch.sum(
+                (predictions(logits) == yb.to(torch.int32)) * vb)
+            loss = loss + bce_with_logits(logits, yb, vb) * torch.sum(vb)
+            scores.append(logits.reshape(-1))
+        return {"test_correct": correct, "test_loss": loss,
+                "test_total": torch.sum(v_all), "scores": torch.cat(scores)}

@@ -1,0 +1,69 @@
+"""FederatedData: the federation's data as padded client stacks on the
+device.
+
+``X[C, Nmax, D, H, W]`` stays uint8 (the cohort's 8-bit volumes) and is
+cast raw to float32 per batch by the trainer; ``y[C, Nmax]`` int32 and the
+true counts ``n[C]`` (also kept on the host as numpy, where the Python
+client loop reads them).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from neuroimagedisttraining_tpu_torch.data.partition import site_partition
+
+
+@dataclass
+class FederatedData:
+    X_train: torch.Tensor   # [C, Ntr_max, D, H, W] uint8
+    y_train: torch.Tensor   # [C, Ntr_max] int32
+    n_train: np.ndarray     # [C] true sample counts (host)
+    X_test: torch.Tensor
+    y_test: torch.Tensor
+    n_test: np.ndarray
+
+    @property
+    def num_clients(self) -> int:
+        return int(self.X_train.shape[0])
+
+
+def _stack_pad(X: np.ndarray, y: np.ndarray, idx_map: dict[int, np.ndarray]):
+    C = len(idx_map)
+    nmax = max(1, max(len(v) for v in idx_map.values()))
+    Xs = np.zeros((C, nmax) + X.shape[1:], dtype=X.dtype)
+    ys = np.zeros((C, nmax), dtype=np.int32)
+    ns = np.zeros((C,), dtype=np.int64)
+    for c in range(C):
+        idx = idx_map[c]
+        Xs[c, : len(idx)] = X[idx]
+        ys[c, : len(idx)] = y[idx]
+        ns[c] = len(idx)
+    return Xs, ys, ns
+
+
+def build_federated_data(X: np.ndarray, y: np.ndarray,
+                         train_map: dict[int, np.ndarray],
+                         test_map: dict[int, np.ndarray],
+                         device: torch.device) -> FederatedData:
+    """Stack, pad and move the federation to ``device``."""
+    Xtr, ytr, ntr = _stack_pad(X, y, train_map)
+    Xte, yte, nte = _stack_pad(X, y, test_map)
+    put = lambda a: torch.from_numpy(a).to(device)
+    return FederatedData(X_train=put(Xtr), y_train=put(ytr), n_train=ntr,
+                         X_test=put(Xte), y_test=put(yte), n_test=nte)
+
+
+def federate_cohort(data: dict[str, np.ndarray], device: torch.device,
+                    seed: int = 42) -> tuple[FederatedData, dict]:
+    """Partition a cohort ``{X, y, site}`` into site clients."""
+    train_map, test_map, sites = site_partition(data["site"], seed=seed)
+    info = {"partition_method": "site", "sites": sites.tolist(),
+            "client_num": len(train_map),
+            "train_counts": [int(len(train_map[c])) for c in sorted(train_map)]}
+    fed = build_federated_data(data["X"], data["y"], train_map, test_map,
+                               device)
+    return fed, info

@@ -1,0 +1,152 @@
+"""SalientGrads: one global SNIP mask, then masked sample-weighted FedAvg.
+
+- Phase 1 (once): every client with data scores ``|w * grad|`` by IterSNIP
+  on its own rows; the server takes the mean over those clients and keeps
+  the global top ``dense_ratio`` of the maskable weights
+  (``ops/snip.py``; the threshold comes from the count-greater-or-equal
+  kernel of ``ops/topk.py``). ``snip_mask=False`` keeps every weight.
+- Phase 2 (rounds): the sampled clients train from the global model with
+  the mask re-applied after every step; FedAvg weighs them by sample count;
+  each client's personal model is its latest local result; the global and
+  personal models are evaluated on the clients' test rows.
+
+``perms_for(round_idx, client, n_valid)`` and ``snip_idx_for(client,
+n_valid)`` may supply the epoch permutations and the IterSNIP batch rows
+(the tests feed the reference's draws); by default both come from the
+trainer's generator.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+import torch
+
+from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.ops.masks import mask_density, ones_mask
+from neuroimagedisttraining_tpu_torch.ops.snip import (
+    iter_snip_scores, mask_from_scores,
+)
+
+log = logging.getLogger(__name__)
+
+
+class SalientGradsEngine(FederatedEngine):
+    def __init__(self, cfg, data, trainer, perms_for=None, snip_idx_for=None):
+        super().__init__(cfg, data, trainer)
+        self.perms_for = perms_for
+        self.snip_idx_for = snip_idx_for
+
+    # ---------- phase 1: the global mask ----------
+
+    def generate_global_mask(self, params, bstats):
+        """``(masks, threshold)`` from the mean IterSNIP scores."""
+        s = self.cfg.sparsity
+        masks, thr = mask_from_scores(self.mean_scores(params, bstats),
+                                      keep_ratio=s.dense_ratio)
+        if not s.snip_mask:
+            masks = ones_mask(params)
+        return masks, thr
+
+    def mean_scores(self, params, bstats):
+        """IterSNIP scores averaged over the clients that hold data."""
+        s, o = self.cfg.sparsity, self.cfg.optim
+        total, wsum = None, 0
+        for c in range(self.num_clients):
+            n = int(self.data.n_train[c])
+            if n == 0:  # no rows: weighs 0 in the mean
+                continue
+            idx = self.snip_idx_for(c, n) if self.snip_idx_for else None
+            sc = iter_snip_scores(self.trainer, params, bstats,
+                                  self.data.X_train[c], self.data.y_train[c],
+                                  n, s.itersnip_iterations, o.batch_size,
+                                  idx_stack=idx)
+            total = sc if total is None else {k: total[k] + sc[k]
+                                              for k in total}
+            wsum += 1
+        return {k: v / max(wsum, 1) for k, v in total.items()}
+
+    # ---------- phase 2: one masked round ----------
+
+    def run_round(self, round_idx, params, bstats, per_params, per_bstats,
+                  masks, sampled):
+        """Local training of the sampled clients, FedAvg, personal update.
+        Returns ``(params, bstats, per_params, per_bstats, loss, n_bad)``."""
+        o = self.cfg.optim
+        lr = self.round_lr(round_idx)
+        nmax = int(self.data.X_train.shape[1])
+        ups_p, ups_b, losses = [], [], []
+        for c in sampled:
+            n = int(self.data.n_train[c])
+            perms = (self.perms_for(round_idx, int(c), n)
+                     if self.perms_for else None)
+            p, b, loss = self.trainer.local_train(
+                params, bstats, self.data.X_train[c], self.data.y_train[c],
+                n, lr, o.epochs, o.batch_size, nmax, mask=masks, perms=perms)
+            ups_p.append(p)
+            ups_b.append(b)
+            losses.append(loss)
+        ns_host = self.data.n_train[sampled]
+        ns = torch.as_tensor(ns_host, device=self.device)
+        new_p, new_b, loss, n_bad = self.sanitize_aggregate(
+            ups_p, ups_b, params, bstats, ns, torch.stack(losses))
+        real = ns_host > 0
+        per_params = self.scatter_sampled_rows(per_params, ups_p, sampled, real)
+        per_bstats = self.scatter_sampled_rows(per_bstats, ups_b, sampled, real)
+        return new_p, new_b, per_params, per_bstats, loss, n_bad
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def train(self, init_state=None, masks=None) -> dict:
+        """The whole run. ``init_state``: initial ``(params, bstats)``
+        (default: :meth:`init_global_state`); ``masks``: a phase-1 mask to
+        train under instead of computing one (as a resumed run does)."""
+        cfg = self.cfg
+        if init_state is None:
+            params, bstats = self.init_global_state()
+        else:
+            params = {k: v.to(self.device) for k, v in init_state[0].items()}
+            bstats = {k: v.to(self.device) for k, v in init_state[1].items()}
+        t0 = time.perf_counter()
+        if masks is None:
+            masks, thr = self.generate_global_mask(params, bstats)
+        else:
+            masks = {k: v.to(self.device) for k, v in masks.items()}
+            thr = None
+        density = float(mask_density(masks))
+        phase1_seconds = time.perf_counter() - t0
+        log.info("global SNIP mask density = %.4f (target %.4f)", density,
+                 cfg.sparsity.dense_ratio)
+        per_params = [params] * self.num_clients
+        per_bstats = [bstats] * self.num_clients
+        history = []
+        last = cfg.fed.comm_round - 1
+        for r in range(cfg.fed.comm_round):
+            sampled = self.client_sampling(r)
+            t0 = time.perf_counter()
+            params, bstats, per_params, per_bstats, loss, n_bad = \
+                self.run_round(r, params, bstats, per_params, per_bstats,
+                               masks, sampled)
+            loss_h, bad_h = torch.stack([loss, n_bad.to(loss.dtype)]).tolist()
+            self._sync()
+            entry = {"round": r, "train_loss": loss_h,
+                     "round_seconds": time.perf_counter() - t0}
+            if bad_h:
+                log.warning("round %d: %d non-finite uploads dropped", r,
+                            int(bad_h))
+            if r % cfg.fed.frequency_of_the_test == 0 or r == last:
+                m = self.eval_global(params, bstats)
+                mp = self.eval_personalized(per_params, per_bstats)
+                entry.update(m, personal_acc=mp["acc"])
+            log.info("round %d: %s", r, entry)
+            history.append(entry)
+        m_global = self.eval_global(params, bstats)
+        m_person = self.eval_personalized(per_params, per_bstats)
+        return {"params": params, "batch_stats": bstats, "masks": masks,
+                "threshold": thr, "mask_density": density,
+                "phase1_seconds": phase1_seconds, "history": history,
+                "per_params": per_params, "per_bstats": per_bstats,
+                "final_global": m_global, "final_personal": m_person}

@@ -1,0 +1,97 @@
+"""Carry weights and masks between the reference package's flax trees and
+the port's state dicts.
+
+flax ``params`` / ``batch_stats`` are nested dicts of numpy arrays (e.g.
+``params["f0"]["conv"]["kernel"]``); the port's state is flat dicts keyed
+``"f0.conv.weight"``. Per leaf:
+
+- conv ``kernel`` DHWIO -> ``weight`` OIDHW (``permute(4, 3, 0, 1, 2)``);
+- dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]``;
+- BatchNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
+- ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
+
+A mask tree is congruent with ``params`` and converts the same way. The
+port flattens channels-last before ``fc1``, so the dense kernels need no
+row permutation.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+_PARAM_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _to_torch_layout(leaf: str, a: np.ndarray) -> np.ndarray:
+    if leaf == "kernel" and a.ndim == 5:
+        return np.transpose(a, (4, 3, 0, 1, 2))
+    if leaf == "kernel" and a.ndim == 2:
+        return a.T
+    return a
+
+
+def _to_flax_layout(leaf: str, a: np.ndarray) -> np.ndarray:
+    if leaf == "kernel" and a.ndim == 5:
+        return np.transpose(a, (2, 3, 4, 1, 0))
+    if leaf == "kernel" and a.ndim == 2:
+        return a.T
+    return a
+
+
+def _convert(tree: Mapping, names: dict[str, str]) -> dict[str, torch.Tensor]:
+    out = {}
+    for path, a in _flatten(tree).items():
+        *mods, leaf = path
+        a = np.ascontiguousarray(_to_torch_layout(leaf, np.asarray(a)))
+        out[".".join((*mods, names[leaf]))] = torch.from_numpy(
+            a.astype(np.float32))
+    return out
+
+
+def params_from_flax(params: Mapping, batch_stats: Mapping
+                     ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """flax ``(params, batch_stats)`` -> the port's ``(params, bstats)``
+    (CPU float32 tensors)."""
+    return _convert(params, _PARAM_NAMES), _convert(batch_stats, _STAT_NAMES)
+
+
+def masks_from_flax(masks: Mapping) -> dict[str, torch.Tensor]:
+    """A flax mask tree (congruent with ``params``) -> the port's masks."""
+    return _convert(masks, _PARAM_NAMES)
+
+
+def params_to_flax(params: Mapping[str, torch.Tensor],
+                   bstats: Mapping[str, torch.Tensor],
+                   like_params: Mapping, like_stats: Mapping
+                   ) -> tuple[dict, dict]:
+    """The port's state -> nested numpy trees with the structure of
+    ``like_params`` / ``like_stats`` (a flax tree of the same model)."""
+    def back(tree, names, state):
+        def walk(t, prefix):
+            out = {}
+            for k, v in t.items():
+                if isinstance(v, Mapping):
+                    out[k] = walk(v, prefix + (k,))
+                else:
+                    a = state[".".join((*prefix, names[k]))]
+                    out[k] = np.ascontiguousarray(_to_flax_layout(
+                        k, a.detach().cpu().numpy()))
+            return out
+        return walk(tree, ())
+
+    return (back(like_params, _PARAM_NAMES, params),
+            back(like_stats, _STAT_NAMES, bstats))

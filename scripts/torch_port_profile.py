@@ -1,0 +1,138 @@
+"""Where the time goes in the port's flagship SalientGrads run, on one
+CUDA card.
+
+    python3 scripts/torch_port_profile.py [--out DIR]
+
+Builds the flagship slice as ``chip_smoke.py`` does (48 synthetic subjects
+over 4 sites at 121x145x121, ``3DCNN``, batch 16, ``--fused_update``,
+``NIDT_FAST_STEM=1``), runs phase 1 and one round to warm up, then traces
+phase 1 and one phase-2 round with ``torch.profiler``. For each window it
+prints the wall time, the device time summed over kernels (and its share
+of the wall time: the device's busy share, one stream), the time by kernel
+family, and the top kernels; with ``--out``, a Chrome trace of each
+window is written there. The last line is one JSON object with the same numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+FAMILIES = (
+    ("port:stem_dw", ("stem_dw",)),
+    ("port:fused_sgd", ("fused_sgd",)),
+    ("port:count_ge", ("count_ge",)),
+    ("conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "sm90_",
+                      "winograd", "fprop", "dgrad", "wgrad")),
+    ("pool", ("pool",)),
+    ("reduce", ("reduce",)),
+    ("gemm", ("gemm", "gemv", "cutlass")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+def summarize(prof, wall_s: float, top: int = 12) -> dict:
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((e.key, t / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    fams: dict[str, float] = {}
+    for name, ms, _ in rows:
+        fams[family(name)] = fams.get(family(name), 0.0) + ms
+    return {
+        "wall_ms": wall_s * 1e3,
+        "device_ms": device_ms,
+        "device_busy_share": device_ms / (wall_s * 1e3),
+        "by_family_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+        "top_kernels": [{"name": n[:120], "ms": ms, "calls": c}
+                        for n, ms, c in rows[:top]],
+    }
+
+
+def main(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=None,
+                    help="directory for the Chrome traces (none if unset)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_port_profile: needs a CUDA card", file=sys.stderr)
+        return 1
+    os.environ["NIDT_FAST_STEM"] = "1"
+    from neuroimagedisttraining_tpu_torch.__main__ import (
+        add_args, build_experiment, config_from_args,
+    )
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+
+    _cuda.build(["stem_dw", "fused_sgd", "count_ge"])
+    cfg = config_from_args(add_args(argparse.ArgumentParser()).parse_args([
+        "--synthetic_shape", "121", "145", "121",
+        "--synthetic_num_subjects", "48", "--client_num_in_total", "4",
+        "--batch_size", "16", "--itersnip_iteration", "1", "--epochs", "1",
+        "--comm_round", "2", "--fused_update"]))
+    engine, info = build_experiment(cfg, "cuda")
+    params, bstats = engine.init_global_state()
+    C = engine.num_clients
+    masks, _ = engine.generate_global_mask(params, bstats)  # warm-up
+    state = engine.run_round(0, params, bstats, [params] * C, [bstats] * C,
+                             masks, engine.client_sampling(0))
+    torch.cuda.synchronize()
+    out = Path(args.out) if args.out else None
+    if out is not None:
+        out.mkdir(parents=True, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card)
+    result = {"card": card, "partition": info["train_counts"]}
+    windows = {
+        "phase1": lambda: engine.generate_global_mask(params, bstats),
+        "round": lambda: engine.run_round(1, *state[:4], masks,
+                                          engine.client_sampling(1)),
+    }
+    for name, fn in windows.items():
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if out is not None:
+            prof.export_chrome_trace(str(out / f"{name}.trace.json"))
+        s = summarize(prof, wall)
+        result[name] = s
+        print(f"== {name}: wall {s['wall_ms']:.3f} ms, device "
+              f"{s['device_ms']:.3f} ms (busy {s['device_busy_share']:.3f})")
+        for fam, ms in s["by_family_ms"].items():
+            print(f"   {fam:16s} {ms:10.3f} ms")
+        for k in s["top_kernels"]:
+            print(f"   {k['ms']:10.3f} ms x{k['calls']:4d}  {k['name']}")
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,56 @@
+"""The port stands alone: no module of ``neuroimagedisttraining_tpu_torch``,
+and not ``chip_smoke.py``, imports JAX, flax, optax or the reference
+package, and importing the port compiles nothing."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "neuroimagedisttraining_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "neuroimagedisttraining_tpu")
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_reference_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_without_jax_or_cuda():
+    """A fresh interpreter imports every port module with JAX blocked:
+    nothing reaches JAX, and no kernel is built at import time."""
+    mods = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                  .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+    code = (
+        "import sys, importlib\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from neuroimagedisttraining_tpu_torch.ops import _cuda\n"
+        "assert not _cuda._libs, _cuda._libs\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -1,0 +1,363 @@
+"""The port's three kernels, held on the CPU against the reference package.
+
+On a CPU tensor each wrapper of ``neuroimagedisttraining_tpu_torch.ops``
+runs its plain PyTorch version; these tests pin that version to the JAX
+reference (its Pallas kernel in interpret mode, and its XLA fallback) on
+inputs made with numpy from a seed. The CUDA kernels themselves are held
+against the same plain versions on the card by ``chip_smoke.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from neuroimagedisttraining_tpu.config import OptimConfig as JOptim
+from neuroimagedisttraining_tpu.core import optim as JO
+from neuroimagedisttraining_tpu.ops import fused_update as JFU
+from neuroimagedisttraining_tpu.ops import snip as JSNIP
+from neuroimagedisttraining_tpu.ops import stemconv as JSC
+from neuroimagedisttraining_tpu.ops import topk as JTK
+from neuroimagedisttraining_tpu_torch.config import OptimConfig
+from neuroimagedisttraining_tpu_torch.core import optim as PO
+from neuroimagedisttraining_tpu_torch.ops import _cuda
+from neuroimagedisttraining_tpu_torch.ops import fused_update as PFU
+from neuroimagedisttraining_tpu_torch.ops import snip as PSNIP
+from neuroimagedisttraining_tpu_torch.ops import stemconv as PSC
+from neuroimagedisttraining_tpu_torch.ops import topk as PTK
+
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: stem weight gradient
+# ---------------------------------------------------------------------------
+
+def test_stem_dw_plain_matches_reference():
+    """Plain dW == the Pallas split-K kernel (interpret mode; R = 9464 spans
+    one 8192 block plus the ragged tail) and the XLA kernel-grad. f32 sums
+    of 9464 products in different orders: 1e-5 of the largest entry."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 29, 31, 29, 1)).astype(np.float32)
+    g = rng.standard_normal((4, 13, 14, 13, 64)).astype(np.float32)
+    ref = np.asarray(JSC._dw_reference(jnp.asarray(x), jnp.asarray(g)))
+    pal = np.asarray(JSC._dw_pallas(jnp.asarray(x), jnp.asarray(g),
+                                    interpret=True))
+    before = _cuda.counts().get("stem_dw", 0)
+    port = PSC.stem_dw(_t(x), _t(g)).numpy()
+    assert port.shape == (5, 5, 5, 1, 64)
+    tol = 1e-5 * np.abs(ref).max()
+    np.testing.assert_allclose(port, ref, rtol=0, atol=tol)
+    np.testing.assert_allclose(port, pal, rtol=0, atol=tol)
+    # the CPU path is the plain version: no kernel launch is counted
+    assert _cuda.counts().get("stem_dw", 0) == before
+
+
+def test_stem_conv3d_grads_match_reference():
+    """The autograd Function's (y, dx, dW) == the reference's custom VJP
+    (its CPU path is XLA autodiff), layouts converted; 1e-5 of the
+    largest entry (f32 sums in different orders)."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 13, 15, 13, 1)).astype(np.float32)
+    w = rng.standard_normal((5, 5, 5, 1, 8)).astype(np.float32)
+
+    def loss(x_, w_):
+        return jnp.sum(JSC.stem_conv3d(x_, w_) ** 2)
+
+    y_ref = np.asarray(JSC.stem_conv3d(jnp.asarray(x), jnp.asarray(w)))
+    gx, gw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    xt = _t(x[..., 0])[:, None].requires_grad_(True)        # NCDHW
+    wt = _t(np.transpose(w, (4, 3, 0, 1, 2))).requires_grad_(True)  # OIDHW
+    y = PSC.stem_conv3d(xt, wt)
+    (y ** 2).sum().backward()
+    for port, ref in (
+            (y.detach().permute(0, 2, 3, 4, 1).numpy(), y_ref),
+            (xt.grad[:, 0].numpy(), np.asarray(gx)[..., 0]),
+            (wt.grad.permute(2, 3, 4, 1, 0).numpy(), np.asarray(gw))):
+        np.testing.assert_allclose(port, ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
+
+
+def test_stem_dw_takes_the_ncdhw_view():
+    """g as the convolution's backward hands it over (the channels-last
+    view of NCDHW memory, the layout the kernel reads) gives the same dW
+    as a contiguous channels-last g: bit-equal, the same products."""
+    rng = np.random.default_rng(9)
+    x = _t(rng.standard_normal((2, 17, 19, 17, 1)).astype(np.float32))
+    g_ncdhw = _t(rng.standard_normal((2, 64, 7, 8, 7)).astype(np.float32))
+    view = g_ncdhw.permute(0, 2, 3, 4, 1)
+    assert not view.is_contiguous()
+    np.testing.assert_array_equal(PSC.stem_dw(x, view).numpy(),
+                                  PSC.stem_dw(x, view.contiguous()).numpy())
+
+
+def test_stem_dw_refuses_other_devices():
+    """A tensor neither on the CPU nor on a CUDA device is refused, never
+    routed to the plain path."""
+    x = torch.zeros(1, 13, 13, 13, 1)
+    g = torch.zeros(1, 5, 5, 5, 64)
+    assert PSC.stem_dw(x, g).shape == (5, 5, 5, 1, 64)
+    with pytest.raises(ValueError):
+        PSC.stem_dw(x.to("meta"), g.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: fused SGD tail
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("clip,wd,mom,masked", [
+    (10.0, 5e-4, 0.9, True),
+    (1e-3, 0.0, 0.0, False),
+])
+def test_fused_sgd_step_matches_reference(clip, wd, mom, masked):
+    """The port's fused step (plain path on the CPU) == the reference's
+    XLA fallback and its Pallas kernel in interpret mode, on a lane-
+    unaligned leaf. rtol 1e-6 / atol 1e-7: XLA's CPU fusion contracts a
+    multiply and an add into one FMA where the port rounds each."""
+    rng = np.random.default_rng(7)
+    shapes = {"b": (5,), "w": (13, 57)}
+    p = {k: rng.standard_normal(s).astype(np.float32)
+         for k, s in shapes.items()}
+    g = {k: (v * 0.3 + 0.1).astype(np.float32) for k, v in p.items()}
+    t = {k: np.ones_like(v) for k, v in p.items()} if mom > 0 else None
+    m = ({k: (v > 0).astype(np.float32) for k, v in p.items()}
+         if masked else None)
+    lr = np.float32(0.05)
+    jt = (lambda d: None if d is None else
+          {k: jnp.asarray(v) for k, v in d.items()})
+    kw = dict(clip=clip, wd=wd, momentum=mom, lr=jnp.float32(lr))
+    refs = [JFU.fused_sgd_step(jt(p), jt(g), jt(t), jt(m), use_pallas=False,
+                               **kw),
+            JFU.fused_sgd_step(jt(p), jt(g), jt(t), jt(m), use_pallas=False,
+                               interpret=True, **kw)]
+    names = sorted(shapes)
+    pp = [_t(p[k]).clone() for k in names]
+    tp = [_t(t[k]).clone() for k in names] if t is not None else None
+    mp = [_t(m[k]) for k in names] if m is not None else None
+    PFU.fused_sgd_step(pp, [_t(g[k]) for k in names], tp, mp, clip=clip,
+                       wd=wd, momentum=mom, lr=torch.tensor(lr))
+    for rp, rt in refs:
+        for i, k in enumerate(names):
+            np.testing.assert_allclose(pp[i].numpy(), np.asarray(rp[k]),
+                                       rtol=1e-6, atol=1e-7)
+            if mom > 0:
+                np.testing.assert_allclose(tp[i].numpy(), np.asarray(rt[k]),
+                                           rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("clip", [0.0, 1e-3, 1e6])
+def test_fused_sgd_apply_matches_step(clip):
+    """The step is the device scalars ``[ok, gnorm, lr]`` and then the
+    per-leaf pass: bit-equal to the plain step, whether the clip stage is
+    off, taken or skipped."""
+    rng = np.random.default_rng(13)
+    shapes = [(6, 5), (11,)]
+    p = [_t(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+    g = [_t(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+    t = [_t(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+    m = [(a > 0).to(torch.float32) for a in p]
+    lr = torch.tensor(np.float32(0.05))
+    kw = dict(clip=clip, wd=5e-4, momentum=0.9)
+    scal = PFU.sgd_scalars(g, clip=clip, lr=lr)
+    assert scal.dtype == torch.float32 and scal.shape == (3,)
+    if clip > 0:
+        gnorm = PFU.global_norm(g)
+        assert float(scal[0]) == float(gnorm < clip)
+        assert float(scal[1]) == float(gnorm)
+    assert float(scal[2]) == float(lr)
+    pa, ta = [a.clone() for a in p], [a.clone() for a in t]
+    PFU.fused_sgd_apply(pa, g, ta, m, scal, **kw)
+    ps, ts = [a.clone() for a in p], [a.clone() for a in t]
+    PFU.sgd_step_plain(ps, g, ts, m, lr=lr, **kw)
+    for a, b in zip(pa + ta, ps + ts):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_local_optimizer_matches_optax_chain(fused):
+    """Three steps of the port's SGD (plain chain, or the fused path) ==
+    the reference's optax chain at unit lr scaled by lr after momentum.
+    Same tolerance and reason as the fused-step test."""
+    rng = np.random.default_rng(11)
+    p = {"a": rng.standard_normal((7, 9)).astype(np.float32),
+         "b": rng.standard_normal((3,)).astype(np.float32)}
+    cfg = dict(lr=0.05, grad_clip=1.0, wd=5e-4, momentum=0.9)
+    jopt = JO.make_local_optimizer(JOptim(**cfg))
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    js = jopt.init(jp)
+    popt = PO.LocalOptimizer(OptimConfig(fused_update=fused, **cfg))
+    names = sorted(p)
+    pp = [_t(p[k]).clone() for k in names]
+    tr = popt.init(pp)
+    for step in range(3):
+        g = {k: (rng.standard_normal(v.shape) * (step + 1)).astype(np.float32)
+             for k, v in p.items()}
+        upd, js = jopt.update({k: jnp.asarray(v) for k, v in g.items()}, js,
+                              jp, jnp.float32(0.05))
+        jp = jax.tree.map(jnp.add, jp, upd)
+        popt.step(pp, [_t(g[k]) for k in names], tr,
+                  torch.tensor(np.float32(0.05)))
+    for i, k in enumerate(names):
+        np.testing.assert_allclose(pp[i].numpy(), np.asarray(jp[k]),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def test_round_lr_bit_equal():
+    """lr * lr_decay**round: float32 integer power by repeated squaring,
+    bit-equal to the reference across the 200-round schedule."""
+    cfg = OptimConfig()
+    rounds = [0, 1, 2, 3, 5, 7, 8, 31, 64, 100, 127, 199]
+    ref = np.asarray([JO.round_lr(JOptim(), r) for r in rounds])
+    port = np.asarray([PO.round_lr(cfg, r, torch.device("cpu")).numpy()
+                       for r in rounds])
+    np.testing.assert_array_equal(port.view(np.int32), ref.view(np.int32))
+
+
+def test_global_norm_matches_optax():
+    rng = np.random.default_rng(2)
+    leaves = [rng.standard_normal(s).astype(np.float32)
+              for s in ((4, 5), (7,), (3, 3, 3))]
+    ref = float(optax.global_norm([jnp.asarray(a) for a in leaves]))
+    port = float(PFU.global_norm([_t(a) for a in leaves]))
+    assert port == pytest.approx(ref, rel=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: count >= thresholds and the top-k threshold
+# ---------------------------------------------------------------------------
+
+def _scores(kind: str, n: int, rng) -> np.ndarray:
+    if kind == "normal":
+        return rng.standard_normal(n).astype(np.float32)
+    if kind == "saliency":  # heavy-tailed, normalized like SNIP scores
+        x = np.abs(rng.standard_normal(n)).astype(np.float32) ** 3
+        return (x / x.sum()).astype(np.float32)
+    return rng.integers(0, 50, n).astype(np.float32)  # many ties
+
+
+def test_linspace_ladder_bit_equal():
+    """The port's ladder == ``jnp.linspace`` run op by op (the reference's
+    formula: ``start * (1 - i/(n-1)) + stop * i/(n-1)``, stop appended),
+    bit for bit, on brackets from wide to a few ulps."""
+    rng = np.random.default_rng(0)
+    for t in range(60):
+        lo, hi = np.sort(rng.standard_normal(2).astype(np.float32)
+                         * rng.choice([1e-6, 1e-3, 1.0, 1e3])
+                         ).astype(np.float32)
+        if t % 3 == 0:
+            hi = np.float32(lo + np.float32(1e-6) * abs(lo))
+        with jax.disable_jit():
+            ref = np.asarray(jnp.linspace(jnp.float32(lo), jnp.float32(hi),
+                                          512))
+        port = PTK.linspace(torch.tensor(lo, dtype=torch.float32),
+                             torch.tensor(hi, dtype=torch.float32), 512).numpy()
+        np.testing.assert_array_equal(port.view(np.int32),
+                                      ref.view(np.int32))
+
+
+@pytest.mark.parametrize("kind", ["normal", "saliency", "ties"])
+def test_count_ge_exact(kind):
+    """Counts over a 512-threshold ladder == the reference's XLA counting
+    pass, exactly (integer counts below 2^24)."""
+    rng = np.random.default_rng(1)
+    x = _scores(kind, 40_000, rng)
+    thr = np.linspace(x.min(), x.max(), 512).astype(np.float32)
+    ref = np.asarray(JTK._count_ge_xla(JTK._pad_to_blocks(jnp.asarray(x)),
+                                       jnp.asarray(thr)))
+    port = PTK.count_ge(_t(x), _t(thr)).numpy()
+    np.testing.assert_array_equal(port, ref)
+
+
+def test_count_ge_unsorted_ladder_with_nonfinite_values():
+    """The kernel sorts its ladder; its plain version must count any ladder
+    exactly as ``x >= thr`` does: unsorted, with ties, NaN (counts nothing)
+    and +-inf thresholds, over scores holding NaN (never counted), +-inf
+    and signed zeros."""
+    rng = np.random.default_rng(6)
+    special = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0], np.float32)
+    for _ in range(20):
+        x = rng.integers(-5, 5, int(rng.integers(1, 400))).astype(np.float32)
+        hit = rng.random(x.size) < 0.2
+        x[hit] = rng.choice(special, hit.sum())
+        thr = rng.integers(-6, 6, int(rng.integers(1, 60))).astype(np.float32)
+        hit = rng.random(thr.size) < 0.3
+        thr[hit] = rng.choice(special, hit.sum())
+        with np.errstate(invalid="ignore"):
+            ref = (x[:, None] >= thr[None, :]).sum(0).astype(np.float32)
+        np.testing.assert_array_equal(PTK.count_ge(_t(x), _t(thr)).numpy(),
+                                      ref)
+
+
+@pytest.mark.parametrize("kind", ["normal", "saliency", "ties"])
+def test_kth_largest_bit_equal(kind):
+    """The threshold is bit-equal to the reference's ``kth_largest``
+    (XLA counting path) run op by op, over sizes and ranks. Against the
+    JIT-compiled reference, whose CPU code contracts the ladder's
+    multiply-adds into FMAs (a ladder value may move by one ulp where the
+    bracket has not reached float resolution), the masks ``x >= thr`` are
+    identical."""
+    rng = np.random.default_rng({"normal": 0, "saliency": 1, "ties": 2}[kind])
+    for _ in range(4):
+        n = int(rng.integers(100, 50_000))
+        k = int(rng.integers(1, n))
+        x = _scores(kind, n, rng)
+        with jax.disable_jit():
+            ref = np.asarray(JTK.kth_largest(jnp.asarray(x), k,
+                                             use_pallas=False))
+        ref_jit = np.asarray(JTK.kth_largest(jnp.asarray(x), k,
+                                             use_pallas=False))
+        port = PTK.kth_largest(_t(x), k).numpy()
+        assert port.view(np.int32) == ref.view(np.int32), (n, k, port, ref)
+        np.testing.assert_array_equal(x >= port, x >= ref_jit)
+
+
+def test_kth_largest_nonfinite_is_nan():
+    x = np.arange(1000, dtype=np.float32)
+    x[17] = np.nan
+    assert np.isnan(float(PTK.kth_largest(_t(x), 10)))
+    mask, thr = PTK.topk_threshold_mask(_t(np.arange(10, dtype=np.float32)),
+                                        3)
+    assert float(thr) == 7.0 and int(mask.sum()) == 3
+
+
+def test_mask_from_scores_matches_reference():
+    """Global mask from a score tree == the reference's on the same scores
+    (thresholds bit-equal is not required: the score sum runs in another
+    order; the masks must agree)."""
+    rng = np.random.default_rng(4)
+    jscores = {"c": {"kernel": np.abs(rng.standard_normal((3, 3, 3, 2, 4))
+                                      ).astype(np.float32),
+                     "bias": np.zeros(4, np.float32)},
+               "d": {"kernel": np.abs(rng.standard_normal((8, 5))
+                                      ).astype(np.float32)}}
+    jmasks, _ = JSNIP.mask_from_scores(
+        jax.tree.map(jnp.asarray, jscores), keep_ratio=0.3)
+    from neuroimagedisttraining_tpu_torch.weights import masks_from_flax
+    pscores = masks_from_flax(jscores)
+    pmasks, _ = PSNIP.mask_from_scores(pscores, keep_ratio=0.3)
+    ref = masks_from_flax(jax.tree.map(np.asarray, jmasks))
+    for k in ref:
+        np.testing.assert_array_equal(pmasks[k].numpy(), ref[k].numpy())
+
+
+@pytest.mark.parametrize("poison", ["nan", "zero"])
+def test_mask_from_scores_fails_loudly(poison):
+    s = {"a.weight": torch.ones(4, 4), "a.bias": torch.zeros(4)}
+    if poison == "nan":
+        s["a.weight"][1, 2] = float("nan")
+    else:
+        s["a.weight"].zero_()
+    with pytest.raises(FloatingPointError):
+        PSNIP.mask_from_scores(s, keep_ratio=0.5)
