@@ -12,12 +12,21 @@
    same function; ``bound_ms`` is the least time the card could take.
    Times are device times (``ms``), taken while a spin kernel holds the
    stream until the host has queued the whole call, beside the host's time
-   to queue it (``host_ms``).
+   to queue it (``host_ms``). ``stem_dw`` is held on the slice's integral
+   x and on a Gaussian x (a TF32 low part in every element), and two calls
+   must be bit-equal; its bound is at the split-TF32 tensor-core rate,
+   two products where x holds TF32 values only and three otherwise
+   (``bound_fp32_cores_ms`` beside it). ``kth_largest`` (row
+   ``kth_select``) must equal the host's plain loop bit for bit on four
+   kinds of scores, run with no host sync, in at most 6 device operations
+   (``torch.profiler``), and is timed against ``torch.topk``.
 3. Runs the flagship SalientGrads slice through ``build_experiment`` and
    ``engine.train()``: a synthetic cohort of 48 subjects over 4 sites at
    121x145x121, ``3DCNN``, batch 16, IterSNIP 1, 1 epoch, 2 rounds,
-   ``--fused_update`` and ``NIDT_FAST_STEM=1``. The launch counters are set
-   to 0 just before and read just after: every kernel must have launched.
+   ``--fused_update`` and ``NIDT_FAST_STEM=1``. The launch counters (one
+   per device kernel launched) are set to 0 just before and read just
+   after: every kernel of that path (``stem_dw``, ``fused_sgd``,
+   ``kth_select``) must have launched.
 4. Runs the slice on a small input (69^3, 4 sites, 2 rounds) twice under
    one phase-1 mask, through the kernels and through the plain paths, and
    holds the two runs' losses and weights against each other.
@@ -42,7 +51,8 @@ HERE = Path(__file__).resolve().parent
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+FP32_OPS_PER_S = 67e12      # CUDA cores
+TF32_OPS_PER_S = 495e12     # tensor cores, dense
 # spin-kernel cycles per second of the host's queueing time to cover; above
 # the H100's 1.98 GHz boost clock, so a spin lasts at least that long
 SPIN_CYCLES_PER_S = 2.0e9
@@ -53,9 +63,10 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -148,25 +159,59 @@ def main(argv: list[str]) -> int:
     # ---- kernel 1: stem weight gradient at the flagship shape ----
     B, D, H, W = 16, 121, 145, 121
     od, oh, ow = (D - 5) // 2 + 1, (H - 5) // 2 + 1, (W - 5) // 2 + 1
-    x = torch.randint(0, 256, (B, D, H, W, 1), generator=gen, device=dev
-                      ).to(torch.float32)
     # g as the convolution's backward hands it over: NCDHW memory, seen
     # through the reference's channels-last shape
     g_ncdhw = torch.randn((B, 64, od, oh, ow), generator=gen, device=dev)
     g = g_ncdhw.permute(0, 2, 3, 4, 1)
-    dw_k = SC.stem_dw(x, g)
-    dw_p = SC.stem_dw_plain(x, g)
-    torch.cuda.synchronize()
-    err = float((dw_k - dw_p).abs().max())
-    scale = float(dw_p.abs().max())
-    tol = 1e-4 * scale  # f32 sums of 3.95 M products in different orders
-    if not err <= tol:
-        fail(f"stem_dw disagrees with its plain version: {err} > {tol}")
+    # the slice's x (the raw cast of 8-bit volumes: integers, whose TF32 low
+    # part is 0) and a Gaussian x (a low part in every element); tolerance:
+    # f32 sums of 3.95 M products in different orders, split-TF32 products
+    errs = {}
+    for kind in ("gaussian", "integral"):
+        if kind == "gaussian":
+            x = torch.randn((B, D, H, W, 1), generator=gen, device=dev)
+        else:
+            x = torch.randint(0, 256, (B, D, H, W, 1), generator=gen,
+                              device=dev).to(torch.float32)
+        dw_k = SC.stem_dw(x, g)
+        dw_k2 = SC.stem_dw(x, g)
+        dw_p = SC.stem_dw_plain(x, g)
+        torch.cuda.synchronize()
+        e = float((dw_k - dw_p).abs().max())
+        t = 1e-4 * float(dw_p.abs().max())
+        if not e <= t:
+            fail(f"stem_dw ({kind} x) disagrees with its plain version: "
+                 f"{e} > {t}")
+        if not torch.equal(dw_k.view(torch.int32), dw_k2.view(torch.int32)):
+            fail(f"stem_dw ({kind} x): two calls on the same inputs differ")
+        errs[kind] = (e, t)
+        if kind == "gaussian":
+            del x
+    err, tol = errs["integral"]
+    # rows wider than one item (OW > 64) take the kernel's per-row copies
+    xw = torch.randn((2, 21, 25, 141, 1), generator=gen, device=dev)
+    gw = torch.randn((2, 64, 9, 11, 69), generator=gen, device=dev
+                     ).permute(0, 2, 3, 4, 1)
+    pw = SC.stem_dw_plain(xw, gw)
+    ew = float((SC.stem_dw(xw, gw) - pw).abs().max())
+    if not ew <= 1e-4 * float(pw.abs().max()):
+        fail(f"stem_dw at OW = 69 disagrees with its plain version: {ew}")
+    del xw, gw, pw
     R = B * od * oh * ow
-    b_ms, b_by = bound_ms(4.0 * (x.numel() + g.numel() + 125 * 64),
-                          2.0 * R * 125 * 64)
+    flops = 2.0 * R * 125 * 64
+    nbytes = 4.0 * (x.numel() + g.numel() + 125 * 64)
+    # split TF32 on the tensor cores: three products, or two where every x
+    # is a TF32 value (low 13 mantissa bits 0, the kernel's own test), as
+    # the timed x (the slice's integers) is
+    x_lo = bool(((x.view(torch.int32) & 0x1FFF) != 0).any())
+    products = 3 if x_lo else 2
+    b_ms, b_by = bound_ms(nbytes, products * flops, TF32_OPS_PER_S)
+    stem_extra = {"tf32_products": products,
+                  "bound_fp32_cores_ms": bound_ms(nbytes, flops)[0],
+                  "gaussian_max_abs_err": errs["gaussian"][0],
+                  "gaussian_tolerance": errs["gaussian"][1],
+                  "wide_rows_max_abs_err": ew}
     k_ms = k_host = p_ms = l_ms = None
-    stem_extra = {}
     if not quick:
         x_ncdhw = x.reshape(B, 1, D, H, W)
         lib = torch.nn.grad.conv3d_weight(x_ncdhw, (64, 1, 5, 5, 5), g_ncdhw,
@@ -188,7 +233,7 @@ def main(argv: list[str]) -> int:
                  "host_ms": k_host, "plain_ms": p_ms, "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": l_ms,
                  "library": "torch.nn.grad.conv3d_weight", **stem_extra})
-    del x, g, g_ncdhw, dw_k, dw_p
+    del x, g, g_ncdhw, dw_k, dw_k2, dw_p
     torch.cuda.empty_cache()
 
     # ---- kernel 2: fused SGD tail over the flagship AlexNet3D leaves ----
@@ -273,33 +318,85 @@ def main(argv: list[str]) -> int:
         fail(f"count_ge on an unsorted ladder with NaN disagrees: {c2_err}")
     del x2, thr2
     k = n_scores // 2
+    # the select on the card == the plain loop on the host, bit for bit, on
+    # four kinds of scores: the flagship's (uniform^3, normalised), normal,
+    # many ties, and a lognormal tail whose k-th value sits near the
+    # bottom (there 4 x 512 bins stop short of float resolution)
+    kinds = {
+        "uniform3": (xs, k),
+        "normal": (torch.randn(n_scores, generator=gen, device=dev), k),
+        "ties": (torch.randint(0, 50, (n_scores,), generator=gen,
+                               device=dev).to(torch.float32), k),
+        "tail": (torch.exp(4.0 * torch.randn(n_scores, generator=gen,
+                                             device=dev)),
+                 int(0.95 * n_scores)),
+    }
+    for kind, (v, kk) in kinds.items():
+        got = TK.kth_largest(v, kk).cpu()
+        want = TK.kth_largest(v.cpu(), kk)  # the plain loop on the host
+        if got.view(torch.int32) != want.view(torch.int32):
+            fail(f"kth_largest ({kind}) on the card {got.item()} != plain "
+                 f"{want.item()}")
+    kind_names = sorted(kinds)
+    del kinds, v
     thr_gpu = TK.kth_largest(xs, k)
-    thr_cpu = TK.kth_largest(xs.cpu(), k)  # plain counts on the host
-    if thr_gpu.cpu().view(torch.int32) != thr_cpu.view(torch.int32):
-        fail(f"kth_largest on the card {thr_gpu.item()} != plain "
-             f"{thr_cpu.item()}")
+    # no host sync inside the select, and its launches on the card
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    TK.kth_largest(xs, k)
+    torch.cuda.set_sync_debug_mode("default")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        TK.kth_largest(xs, k)
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if device_ops and len(device_ops) > 6:
+        fail(f"kth_largest ran {len(device_ops)} device operations, more "
+             f"than 6: {device_ops}")
     exact = torch.topk(xs, k).values[-1]
     # x read once, thresholds read and counts written once; a binary search
     # over the sorted ladder: ceil(log2(nbins + 1)) compares per element
-    cb_ms, cb_by = bound_ms(4.0 * (n_scores + 2 * 512),
-                            n_scores * math.ceil(math.log2(512 + 1)))
-    extra = {"kth_largest_equals_topk": bool(exact == thr_gpu)}
+    search = math.ceil(math.log2(512 + 1))
+    cb_ms, cb_by = bound_ms(4.0 * (n_scores + 2 * 512), n_scores * search)
+    # the select: one read of x from HBM (its later passes find the 10 MB
+    # in L2, for which the data sheet gives no rate), two compares an
+    # element for min/max and a search an element in each of 4 rounds
+    kb_ms, kb_by = bound_ms(4.0 * (n_scores + 1), n_scores * (2 + 4 * search))
     ck_ms = ck_host = cp_ms = None
+    kl_ms = kl_host = kp_ms = kt_ms = None
     if not quick:
         ck_ms, ck_host = time_ms(lambda: TK.count_ge(xs, thr), 50)
         cp_ms, _ = time_ms(lambda: TK.count_ge_plain(xs, thr), 5)
-        extra.update(
-            kth_largest_ms=time_ms(lambda: TK.kth_largest(xs, k), 20)[0],
-            kth_largest_library_ms=time_ms(
-                lambda: torch.topk(xs, k).values[-1], 20)[0],
-            kth_largest_library="torch.topk(x, k).values[-1]")
+        kl_ms, kl_host = time_ms(lambda: TK.kth_largest(xs, k), 20)
+        kp_ms, _ = time_ms(lambda: TK.kth_largest_plain(xs, k), 5)
+        kt_ms, _ = time_ms(lambda: torch.topk(xs, k).values[-1], 20)
+    # the standalone count (the TPU kernel's function); the main path runs
+    # it inside the select (next row), so its launch count there is 0
     rows.append({"name": "count_ge", "route": "cuda",
                  "source": "neuroimagedisttraining_tpu_torch/csrc/count_ge.cu",
                  "replaces": "neuroimagedisttraining_tpu/ops/topk.py:59",
                  "max_abs_err": c_err, "tolerance": 0.0, "ms": ck_ms,
                  "host_ms": ck_host, "plain_ms": cp_ms, "bound_ms": cb_ms,
-                 "bound_by": cb_by, "library_ms": None, "library": None, "n": n_scores,
-                 "nbins": 512, **extra})
+                 "bound_by": cb_by, "library_ms": None, "library": None,
+                 "n": n_scores, "nbins": 512, "kth_largest_ms": kl_ms,
+                 # None where the profiler saw no device activity
+                 "kth_largest_launches": len(device_ops) or None,
+                 "kth_largest_library_ms": kt_ms})
+    # kth_largest on the card: the min/max pass and 4 counting rounds of
+    # count_ge.cu; max_abs_err over the four kinds held bit-equal above
+    rows.append({"name": "kth_select", "route": "cuda",
+                 "source": "neuroimagedisttraining_tpu_torch/csrc/count_ge.cu",
+                 "replaces": "neuroimagedisttraining_tpu/ops/topk.py:59",
+                 "max_abs_err": 0.0, "tolerance": 0.0, "ms": kl_ms,
+                 "host_ms": kl_host, "plain_ms": kp_ms, "bound_ms": kb_ms,
+                 "bound_by": kb_by, "library_ms": kt_ms,
+                 "library": "torch.topk(x, k).values[-1]", "n": n_scores,
+                 "k": k, "nbins": 512, "rounds": 4,
+                 "equals_topk": bool(exact == thr_gpu),
+                 "kinds_bit_equal": kind_names,
+                 "device_ops": len(device_ops) or None})
     del xs, thr, c_k, c_p
     torch.cuda.empty_cache()
 
@@ -348,19 +445,23 @@ def main(argv: list[str]) -> int:
         if abs(result["mask_density"] - cfg.sparsity.dense_ratio) > 0.01:
             fail(f"mask density {result['mask_density']} is not within 0.01 "
                  f"of {cfg.sparsity.dense_ratio}")
-        for name in ("stem_dw", "fused_sgd", "count_ge"):
+        # the main path's kernels (the standalone count_ge is not one)
+        for name in ("stem_dw", "fused_sgd", "kth_select"):
             if not launches.get(name, 0) > 0:
                 fail(f"the slice never launched the {name} kernel")
-        per_step = {"stem_dw": launches["stem_dw"] / (steps + len(n)),
+        # device kernel launches: per local or SNIP step, per phase 1
+        per_call = {"stem_dw": launches["stem_dw"] / (steps + len(n)),
                     "fused_sgd": launches["fused_sgd"] / steps,
-                    "count_ge": launches["count_ge"]}
+                    "count_ge": launches["count_ge"],
+                    "kth_select": launches["kth_select"]}
         for r in rows:
             print(json.dumps({"kernel": r["name"], "kernel_ms": r["ms"],
                               "host_ms": r["host_ms"],
                               "plain_ms": r["plain_ms"],
                               "library_ms": r["library_ms"],
                               "bound_ms": r["bound_ms"],
-                              "launches_per_step": per_step[r["name"]],
+                              "launches_per_step_or_phase1":
+                                  per_call[r["name"]],
                               "card": card}))
 
         # ---- the slice on a small input: kernels against plain paths ----

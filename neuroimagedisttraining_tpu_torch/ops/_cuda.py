@@ -33,16 +33,17 @@ _lock = threading.Lock()
 
 
 class LaunchCounter:
-    """How many times a wrapper launched its kernel. Each wrapper adds one
-    where it launches, and nowhere else (the plain CPU path counts
-    nothing), so a run can show its main path went through the kernels."""
+    """How many device kernels a wrapper launched. Each wrapper adds one
+    per kernel it launches, where it launches them, and nowhere else (the
+    plain CPU path counts nothing), so a run can show its main path went
+    through the kernels."""
 
     def __init__(self, kernel: str):
         self.kernel = kernel
         self.count = 0
 
-    def add(self) -> None:
-        self.count += 1
+    def add(self, launches: int = 1) -> None:
+        self.count += launches
 
 
 #: every kernel's counter, by kernel name

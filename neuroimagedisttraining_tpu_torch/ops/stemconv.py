@@ -5,7 +5,10 @@ whole 121x145x121 volume, and that layer's weight gradient contracts about
 4 M output positions onto a [125, 64] result. :func:`stem_conv3d` keeps the
 forward as ``F.conv3d`` (cuDNN) and computes dW with the CUDA kernel in
 ``csrc/stem_dw.cu``, which replaces the TPU kernel of the reference package
-(``ops/stemconv.py``, ``_dw_pallas`` -> ``_dw_kernel``); dx is the
+(``ops/stemconv.py``, ``_dw_pallas`` -> ``_dw_kernel``): a split-K product
+on the tensor cores in split TF32 (each operand as a TF32 high part and a
+TF32 remainder, three products summed in f32), which keeps fp32 accuracy
+while the port runs with TF32 off; dx is the
 transposed convolution, computed only when the input needs a gradient
 (training data never does).
 
@@ -88,12 +91,16 @@ def stem_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             f"stem_dw: g must be the {(b, od, oh, ow, C_OUT)} view of a "
             f"contiguous NCDHW tensor, got {tuple(g.shape)} strides "
             f"{g.stride()}")
+    if x.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("stem_dw: x and g must be 16-byte aligned (the "
+                         "kernel copies 16-byte chunks)")
     _cuda.check_device(x, g)
     lib = _cuda.load("stem_dw", _SIG)
     dev = x.device
     nparts = _num_parts(dev.index if dev.index is not None
                         else torch.cuda.current_device())
-    part = torch.empty((nparts, K ** 3, C_OUT), dtype=torch.float32,
+    # nparts partials [125, 64], then one int flag per part
+    part = torch.empty(nparts * (K ** 3 * C_OUT + 1), dtype=torch.float32,
                        device=dev)
     dw = torch.empty((K ** 3, C_OUT), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -101,8 +108,14 @@ def stem_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                                  dw.data_ptr(), nparts, b, d, h, w, od, oh,
                                  ow, _cuda.stream_ptr(dev))
     _cuda.check_launch(lib, err, "stem_dw_launch")
-    LAUNCHES.add()
+    LAUNCHES.add(3)  # the x low-part pass, the partial products, the reduce
     return dw.reshape(K, K, K, 1, C_OUT)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, copied where its memory is not 16-byte aligned."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 class _StemConv3d(torch.autograd.Function):
@@ -122,8 +135,8 @@ class _StemConv3d(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             b, _, d, h, wd = x.shape
             # a view: the kernel reads gy's own NCDHW memory
-            g = gy.contiguous().permute(0, 2, 3, 4, 1)
-            dw = stem_dw(x.contiguous().reshape(b, d, h, wd, 1), g)
+            g = _aligned(gy).permute(0, 2, 3, 4, 1)
+            dw = stem_dw(_aligned(x).reshape(b, d, h, wd, 1), g)
             dw = dw.permute(4, 3, 0, 1, 2).contiguous()  # DHWIO -> OIDHW
         return dx, dw
 

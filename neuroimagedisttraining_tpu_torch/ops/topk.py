@@ -3,12 +3,18 @@ histogram-select: each of ``rounds`` rounds counts ``x >= t`` over a ladder
 of ``nbins`` thresholds spanning the bracket and narrows the bracket to the
 longest prefix of bins still holding at least ``k`` elements. With 4 rounds
 of 512 bins the bracket shrinks by 512^4 > 2^32: the result is the exact
-k-th largest float32 value, with no sort of the vector.
+k-th largest float32 value, with no sort of the vector (where the k-th
+value sits near the bottom of heavy-tailed scores the ladder stops at a
+float's resolution first, in the reference too: the contract is parity
+with the reference's loop, not the true k-th value).
 
 The counting pass is the CUDA kernel of ``csrc/count_ge.cu`` (replacing
 the TPU kernel of the reference package, ``ops/topk.py``
-``_count_ge_pallas`` -> ``_count_ge_kernel``); the bracket loop around it
-stays plain PyTorch on the device (no host sync between rounds).
+``_count_ge_pallas`` -> ``_count_ge_kernel``). On the card the whole
+select runs in that source, 1 + ``rounds`` launches over a zeroed device
+state and no host sync: a min/max pass, then one counting launch per round
+whose last block applies :func:`select_bracket` and builds the next ladder.
+On the CPU it is the plain loop below, op by op.
 
 The ladder is the reference's ``linspace`` formula,
 ``start * (1 - i / (n - 1)) + stop * i / (n - 1)`` with ``stop`` appended,
@@ -25,12 +31,16 @@ import torch
 
 from neuroimagedisttraining_tpu_torch.ops import _cuda
 
-LAUNCHES = _cuda.counter("count_ge")
+LAUNCHES = _cuda.counter("count_ge")  # the standalone count_ge kernel
+SELECT_LAUNCHES = _cuda.counter("kth_select")  # kth_largest's kernels
 MAX_BINS = 1024  # the widest ladder the kernel sorts in shared memory
 _P = ctypes.c_void_p
-_SIG = {"count_ge_num_blocks": [ctypes.POINTER(ctypes.c_int)],
-        "count_ge_launch": [_P, ctypes.c_longlong, _P, ctypes.c_int, _P,
-                            ctypes.c_int, _P]}
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIG = {"count_ge_num_blocks": [ctypes.POINTER(_I)],
+        "count_ge_launch": [_P, _L, _P, _I, _P, _I, _P],
+        "kth_state_layout": [ctypes.POINTER(_I), ctypes.POINTER(_I)],
+        "kth_select_launch": [_P, _L, _L, _I, _I, _P, _I, _P]}
 
 
 def linspace(lo: torch.Tensor, hi: torch.Tensor, num: int) -> torch.Tensor:
@@ -96,6 +106,41 @@ def count_ge(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
     return counts.to(torch.float32)
 
 
+def select_bracket(thr: torch.Tensor, counts: torch.Tensor, k: int,
+                   hi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The next bracket from one round's ladder ``thr`` and its ``counts``:
+    ``[thr[j], thr[j + 1]]`` for ``j`` the last index of the longest prefix
+    of ``counts >= k`` (0 when there is none), and the old ``hi`` above the
+    ladder's top. Counts fall as the threshold rises, except for sub-ulp
+    ladder wiggle in the last rounds: hence the prefix, not the number of
+    counts >= k. The kernel's last block does the same."""
+    nbins = thr.numel()
+    prefix = torch.cumprod((counts >= k).to(torch.int32), 0)
+    j = torch.clamp(prefix.sum() - 1, min=0).reshape(1)
+    # gather, not thr[j]: indexing with a 0-d tensor reads it on the host
+    pair = thr.gather(0, torch.cat([j, torch.clamp(j + 1, max=nbins - 1)]))
+    return pair[0], torch.where(j[0] + 1 < nbins, pair[1], hi)
+
+
+def kth_largest_plain(x: torch.Tensor, k: int, rounds: int = 4,
+                      nbins: int = 512) -> torch.Tensor:
+    """The select as the reference runs it, op by op (plain counts)."""
+    lo, hi = x.min(), x.max()
+    for _ in range(rounds):
+        thr = linspace(lo, hi, nbins)
+        lo, hi = select_bracket(thr, count_ge_plain(x, thr), k, hi)
+    ok = torch.isfinite(x).all()
+    return torch.where(ok, lo, torch.full_like(lo, float("nan")))
+
+
+@functools.lru_cache(maxsize=None)
+def _state_layout() -> tuple[int, int]:
+    lib = _cuda.load("count_ge", _SIG)
+    nbytes, off = ctypes.c_int(0), ctypes.c_int(0)
+    lib.kth_state_layout(ctypes.byref(nbytes), ctypes.byref(off))
+    return nbytes.value, off.value
+
+
 def kth_largest(x: torch.Tensor, k: int, rounds: int = 4,
                 nbins: int = 512) -> torch.Tensor:
     """Exact (float32) k-th largest value of 1-D ``x`` as a 0-d tensor;
@@ -106,19 +151,29 @@ def kth_largest(x: torch.Tensor, k: int, rounds: int = 4,
     if not 2 <= nbins <= MAX_BINS:
         raise ValueError(f"nbins must be in [2, {MAX_BINS}]")
     x = x.to(torch.float32).contiguous()
-    lo, hi = x.min(), x.max()
-    for _ in range(rounds):
-        thr = linspace(lo, hi, nbins)
-        counts = count_ge(x, thr)
-        # counts fall as the threshold rises, except for sub-ulp ladder
-        # wiggle in the last rounds: take the longest prefix with >= k
-        prefix = torch.cumprod((counts >= k).to(torch.int32), 0)
-        j = torch.clamp(prefix.sum() - 1, min=0).reshape(1)
-        # gather, not thr[j]: indexing with a 0-d tensor reads it on the host
-        pair = thr.gather(0, torch.cat([j, torch.clamp(j + 1, max=nbins - 1)]))
-        lo, hi = pair[0], torch.where(j[0] + 1 < nbins, pair[1], hi)
-    ok = torch.isfinite(x).all()
-    return torch.where(ok, lo, torch.full_like(lo, float("nan")))
+    if x.device.type == "cpu":
+        return kth_largest_plain(x, k, rounds, nbins)
+    if x.device.type != "cuda":
+        raise ValueError(f"kth_largest: tensor on {x.device}")
+    if x.numel() == 0:
+        raise ValueError("kth_largest of an empty vector")
+    if x.data_ptr() % 16:
+        x = x.clone()  # a fresh allocation: 16-byte aligned for the kernel
+    _cuda.check_device(x)
+    lib = _cuda.load("count_ge", _SIG)
+    dev = x.device
+    nbytes, result_at = _state_layout()
+    # counts, ladder, bracket and result: zeroed once, then kept by the
+    # kernels (each launch's last block leaves its counts zero)
+    state = torch.zeros((nbytes + 7) // 8, dtype=torch.int64, device=dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(dev):
+        err = lib.kth_select_launch(x.data_ptr(), x.numel(), k, nbins, rounds,
+                                    state.data_ptr(), _num_blocks(index),
+                                    _cuda.stream_ptr(dev))
+    _cuda.check_launch(lib, err, "kth_select_launch")
+    SELECT_LAUNCHES.add(1 + rounds)  # the min/max pass, one launch a round
+    return state.view(torch.float32)[result_at // 4]
 
 
 def topk_threshold_mask(x: torch.Tensor, k: int, **kw):

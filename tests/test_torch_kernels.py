@@ -65,6 +65,52 @@ def test_stem_dw_plain_matches_reference():
     assert _cuda.counts().get("stem_dw", 0) == before
 
 
+def _tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``: through the int32 view."""
+    bits = (a.view(torch.int32) + 0x1000) & -0x2000
+    return bits.view(torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "integral"])
+def test_stem_dw_split_tf32_matches_reference(kind):
+    """The numeric design of the stem dW kernel, emulated: each operand is
+    split into hi = tf32(v) and lo = tf32(v - hi) and each tap sums
+    lo*hi + hi*lo + hi*hi (exact products of TF32 values; summed in float64
+    here). Within 1e-5 of the largest entry of the reference on Gaussian x
+    and on the slice's integral 0..255 x; a single TF32 product is not."""
+    rng = np.random.default_rng(3)
+    if kind == "gaussian":
+        x = rng.standard_normal((4, 29, 31, 29, 1)).astype(np.float32)
+    else:
+        x = rng.integers(0, 256, (4, 29, 31, 29, 1)).astype(np.float32)
+    g = rng.standard_normal((4, 13, 14, 13, 64)).astype(np.float32)
+    ref = np.asarray(JSC._dw_reference(jnp.asarray(x), jnp.asarray(g)))
+    xb, g2 = _t(x[..., 0]), _t(g).reshape(-1, 64)
+    gh = _tf32_rna(g2)
+    gl = _tf32_rna(g2 - gh)
+    split, single = [], []
+    od, oh, ow = g.shape[1:4]
+    for kd in range(5):
+        for kh in range(5):
+            for kw in range(5):
+                a = xb[:, kd:kd + 2 * od - 1:2, kh:kh + 2 * oh - 1:2,
+                       kw:kw + 2 * ow - 1:2].reshape(1, -1)
+                ah = _tf32_rna(a)
+                al = _tf32_rna(a - ah)
+                split.append(al.double() @ gh.double()
+                             + ah.double() @ gl.double()
+                             + ah.double() @ gh.double())
+                single.append(ah.double() @ gh.double())
+    split = torch.cat(split).reshape(5, 5, 5, 1, 64).numpy()
+    single = torch.cat(single).reshape(5, 5, 5, 1, 64).numpy()
+    tol = 1e-5 * np.abs(ref).max()
+    np.testing.assert_allclose(split, ref, rtol=0, atol=tol)
+    assert np.abs(single - ref).max() > tol  # why the split is needed
+    if kind == "integral":  # x's low part is exactly zero there
+        assert not _tf32_rna(xb - _tf32_rna(xb)).any()
+
+
 def test_stem_conv3d_grads_match_reference():
     """The autograd Function's (y, dx, dW) == the reference's custom VJP
     (its CPU path is XLA autodiff), layouts converted; 1e-5 of the
@@ -244,6 +290,8 @@ def _scores(kind: str, n: int, rng) -> np.ndarray:
     if kind == "saliency":  # heavy-tailed, normalized like SNIP scores
         x = np.abs(rng.standard_normal(n)).astype(np.float32) ** 3
         return (x / x.sum()).astype(np.float32)
+    if kind == "tail":  # lognormal, sigma 4: ladders stop above float resolution
+        return rng.lognormal(0.0, 4.0, n).astype(np.float32)
     return rng.integers(0, 50, n).astype(np.float32)  # many ties
 
 
@@ -300,27 +348,82 @@ def test_count_ge_unsorted_ladder_with_nonfinite_values():
                                       ref)
 
 
-@pytest.mark.parametrize("kind", ["normal", "saliency", "ties"])
+@pytest.mark.parametrize("kind", ["normal", "saliency", "ties", "tail"])
 def test_kth_largest_bit_equal(kind):
     """The threshold is bit-equal to the reference's ``kth_largest``
     (XLA counting path) run op by op, over sizes and ranks. Against the
     JIT-compiled reference, whose CPU code contracts the ladder's
     multiply-adds into FMAs (a ladder value may move by one ulp where the
     bracket has not reached float resolution), the masks ``x >= thr`` are
-    identical."""
-    rng = np.random.default_rng({"normal": 0, "saliency": 1, "ties": 2}[kind])
+    identical. ``tail``: lognormal scores with the k-th value near the
+    bottom (k ~ 0.95 n), where 4 x 512 bins do not reach float resolution:
+    the bracket is the reference's, not the true k-th value, and the JIT's
+    one-ulp ladder moves may show in the mask, so only the op-by-op result
+    is held there."""
+    rng = np.random.default_rng(
+        {"normal": 0, "saliency": 1, "ties": 2, "tail": 3}[kind])
     for _ in range(4):
         n = int(rng.integers(100, 50_000))
-        k = int(rng.integers(1, n))
+        k = (int(0.95 * n) + int(rng.integers(-3, 4)) if kind == "tail"
+             else int(rng.integers(1, n)))
         x = _scores(kind, n, rng)
         with jax.disable_jit():
             ref = np.asarray(JTK.kth_largest(jnp.asarray(x), k,
                                              use_pallas=False))
-        ref_jit = np.asarray(JTK.kth_largest(jnp.asarray(x), k,
-                                             use_pallas=False))
         port = PTK.kth_largest(_t(x), k).numpy()
         assert port.view(np.int32) == ref.view(np.int32), (n, k, port, ref)
+        if kind == "tail":
+            continue
+        ref_jit = np.asarray(JTK.kth_largest(jnp.asarray(x), k,
+                                             use_pallas=False))
         np.testing.assert_array_equal(x >= port, x >= ref_jit)
+
+
+def _reference_bracket(thr, counts, k, hi):
+    """The reference's ``round_fn`` bracket update (``ops/topk.py``), on
+    one round's ladder and counts."""
+    nbins = thr.shape[0]
+    prefix = jnp.cumprod((counts >= k).astype(jnp.int32))
+    j = jnp.maximum(jnp.sum(prefix) - 1, 0)
+    return thr[j], jnp.where(j + 1 < nbins,
+                             thr[jnp.minimum(j + 1, nbins - 1)], hi)
+
+
+@pytest.mark.parametrize("case", ["wiggle", "none_reach_k", "all_reach_k",
+                                  "first_only", "late_rise", "random"])
+def test_select_bracket_matches_reference(case):
+    """The plain bracket update (the kernel's last-block epilogue has the
+    same rule) == the reference's on crafted counts that do not fall
+    monotonically: the longest prefix of counts >= k, not their number."""
+    rng = np.random.default_rng(8)
+    nbins, k = 16, 10
+    thr = np.sort(rng.standard_normal(nbins)).astype(np.float32)
+    hi = np.float32(thr[-1] + 1)
+    counts = {
+        "wiggle": [30, 25, 20, 12, 9, 11, 10, 3, 0, 0, 0, 0, 0, 0, 0, 0],
+        "none_reach_k": [9] * nbins,
+        "all_reach_k": [40] * nbins,
+        "first_only": [10, 9] + [0] * (nbins - 2),
+        "late_rise": [5] + [20] * (nbins - 1),
+        "random": list(rng.integers(0, 20, nbins)),
+    }[case]
+    counts = np.asarray(counts, np.float32)
+    rlo, rhi = _reference_bracket(jnp.asarray(thr), jnp.asarray(counts), k,
+                                  jnp.float32(hi))
+    plo, phi = PTK.select_bracket(_t(thr), _t(counts), k, torch.tensor(hi))
+    assert float(plo) == float(rlo) and float(phi) == float(rhi)
+
+
+def test_kth_largest_refuses_other_devices():
+    """Neither on the CPU (plain loop) nor on a CUDA device (the kernels):
+    refused, never routed to the plain loop."""
+    x = torch.arange(16, dtype=torch.float32)
+    before = _cuda.counts()
+    assert float(PTK.kth_largest(x, 4)) == 12.0
+    # the plain loop launches nothing: neither the select nor the count
+    assert _cuda.counts() == before and "kth_select" in before
+    with pytest.raises(ValueError):
+        PTK.kth_largest(x.to("meta"), 4)
 
 
 def test_kth_largest_nonfinite_is_nan():
