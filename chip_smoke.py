@@ -19,14 +19,23 @@
    (``bound_fp32_cores_ms`` beside it). ``kth_largest`` (row
    ``kth_select``) must equal the host's plain loop bit for bit on four
    kinds of scores, run with no host sync, in at most 6 device operations
-   (``torch.profiler``), and is timed against ``torch.topk``.
+   (``torch.profiler``), and is timed against ``torch.topk``. The fused
+   SGD step over the flagship's 24 leaves: its pass under given scalars
+   and the whole step with the clip skipped or off are bit-equal to the
+   plain chain; with the clip taken (gnorm ~ 3 x clip) its norm is within
+   rtol 2e-6 of the plain one and the step within a stated tolerance; two
+   calls are bit-equal; a step is at most 2 device operations with no
+   host sync. ``ms`` is the whole step, ``apply_ms`` the pass alone,
+   ``library_ms`` the nearest torch chain (``clip_grad_norm_``,
+   ``torch._fused_sgd_``, a masking ``_foreach_mul_``) with its error.
 3. Runs the flagship SalientGrads slice through ``build_experiment`` and
    ``engine.train()``: a synthetic cohort of 48 subjects over 4 sites at
    121x145x121, ``3DCNN``, batch 16, IterSNIP 1, 1 epoch, 2 rounds,
    ``--fused_update`` and ``NIDT_FAST_STEM=1``. The launch counters (one
    per device kernel launched) are set to 0 just before and read just
    after: every kernel of that path (``stem_dw``, ``fused_sgd``,
-   ``kth_select``) must have launched.
+   ``kth_select``) must have launched, ``fused_sgd`` exactly twice a
+   local step.
 4. Runs the slice on a small input (69^3, 4 sites, 2 rounds) twice under
    one phase-1 mask, through the kernels and through the plain paths, and
    holds the two runs' losses and weights against each other.
@@ -237,6 +246,8 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     # ---- kernel 2: fused SGD tail over the flagship AlexNet3D leaves ----
+    from torch.profiler import ProfilerActivity, profile
+
     from neuroimagedisttraining_tpu_torch.models import create_model
 
     shapes = [tuple(p.shape) for p in
@@ -247,50 +258,157 @@ def main(argv: list[str]) -> int:
         return [torch.randn(s, generator=gen, device=dev) * scale
                 for s in shapes]
 
+    def bit_equal(xs, ys) -> bool:
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(xs, ys))
+
+    def device_ops(fn) -> list[str]:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
     p0, g0, t0_ = leaves(0.05, gen), leaves(0.01, gen), leaves(0.01, gen)
     m0 = [(torch.rand(s, generator=gen, device=dev) < 0.5).to(torch.float32)
           for s in shapes]
+
+    def state():
+        return [p.clone() for p in p0], [t.clone() for t in t0_]
+
     lr = torch.tensor(0.01, dtype=torch.float32, device=dev)
-    f_err = 0.0
-    for clip in (10.0, 1e6):  # the clip stage taken, then skipped
-        pk, tk = [p.clone() for p in p0], [t.clone() for t in t0_]
-        pp, tp = [p.clone() for p in p0], [t.clone() for t in t0_]
-        kw = dict(clip=clip, wd=5e-4, momentum=0.9, lr=lr)
-        FU.fused_sgd_step(pk, g0, tk, m0, **kw)
-        FU.sgd_step_plain(pp, g0, tp, m0, **kw)
-        torch.cuda.synchronize()
-        for a, b in zip(pk + tk, pp + tp):
-            f_err = max(f_err, float((a - b).abs().max()))
-    if f_err != 0.0:  # each operation rounded on its own in both: bit-equal
-        fail(f"fused_sgd is not bit-equal to its plain version: {f_err}")
-    # the kernel's work: read p, g, t, mask and write p, t once per step
-    fb_ms, fb_by = bound_ms(4.0 * 6 * n_params, 0.0)
-    kw = dict(clip=10.0, wd=5e-4, momentum=0.9)
-    fk_ms = fk_host = fp_ms = None
-    step = {}
+    wd, mom = 5e-4, 0.9
+    gnorm_p = FU.global_norm(g0)
+    # the clip taken far from its boundary: gnorm ~ 3 x clip
+    clip = float(gnorm_p) / 3
+    kw = dict(clip=clip, wd=wd, momentum=mom)
+    # the pass under given scalars == the plain pass bit for bit (each
+    # operation rounded on its own in both), the clip stage taken and not
+    for ok in (0.0, 1.0):
+        scal = torch.stack([torch.full_like(gnorm_p, ok), gnorm_p, lr])
+        (pk, tk), (pp, tp) = state(), state()
+        FU.fused_sgd_apply(pk, g0, tk, m0, scal, **kw)
+        FU.sgd_apply_plain(pp, g0, tp, m0, scal, **kw)
+        if not bit_equal(pk + tk, pp + tp):
+            fail(f"fused_sgd_apply (ok = {ok}) is not bit-equal to the plain "
+                 "pass under the same scalars")
+    # the whole step where the clip is skipped (1e6) or off (0): bit-equal
+    # to the plain step, since ok and lr are then exact on both sides
+    for c in (1e6, 0.0):
+        (pk, tk), (pp, tp) = state(), state()
+        FU.fused_sgd_step(pk, g0, tk, m0, clip=c, wd=wd, momentum=mom, lr=lr)
+        FU.sgd_step_plain(pp, g0, tp, m0, clip=c, wd=wd, momentum=mom, lr=lr)
+        if not bit_equal(pk + tk, pp + tp):
+            fail(f"fused_sgd_step (clip {c}) is not bit-equal to the plain "
+                 "step")
+    # the clip taken: the kernel's fp64 norm within rtol 2e-6 of the plain
+    # fp32 one; the step == the plain pass under the kernel's own scalars,
+    # bit for bit, and within a tolerance of the plain step (clip / gnorm
+    # differs by up to 2e-6 relative, and each output by one rounding)
+    (pk, tk), (pp, tp), (pq, tq) = state(), state(), state()
+    scal_k = FU.fused_sgd_step(pk, g0, tk, m0, lr=lr, **kw).clone()
+    FU.sgd_apply_plain(pp, g0, tp, m0, scal_k, **kw)
+    FU.sgd_step_plain(pq, g0, tq, m0, lr=lr, **kw)
+    _, apply_blocks, norm_blocks = FU._library(torch.cuda.current_device())
+    gnorm_b = FU.global_norm_blocked(g0, norm_blocks)
+    torch.cuda.synchronize()
+    gnorm_k = float(scal_k[1])
+    gnorm_err = abs(gnorm_k - float(gnorm_p)) / float(gnorm_p)
+    if not gnorm_err <= 2e-6:
+        fail(f"fused_sgd's global norm {gnorm_k} is not within rtol 2e-6 of "
+             f"the plain {float(gnorm_p)}")
+    if float(scal_k[0]) != 0.0 or float(scal_k[2]) != float(lr):
+        fail(f"fused_sgd's scalars {scal_k.tolist()}: the clip at gnorm / 3 "
+             "was not taken, or lr was not copied")
+    if not bit_equal(pk + tk, pp + tp):
+        fail("fused_sgd_step is not bit-equal to the plain pass under its own "
+             "scalars")
+    f_err = max(float((a - b).abs().max()) for a, b in zip(pk + tk, pq + tq))
+    f_tol = 1e-5 * max(float(b.abs().max()) for b in pq + tq)
+    if not f_err <= f_tol:
+        fail(f"fused_sgd_step (clip taken) is {f_err} from the plain step, "
+             f"over {f_tol}")
+    # two calls on the same inputs: bit-equal, scalars included
+    pk2, tk2 = state()
+    scal_k2 = FU.fused_sgd_step(pk2, g0, tk2, m0, lr=lr, **kw)
+    if not bit_equal(pk + tk + [scal_k], pk2 + tk2 + [scal_k2]):
+        fail("fused_sgd_step: two calls on the same inputs differ")
+    # no host sync (a new table, then the kept one), and 2 device operations
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    pk2, tk2 = state()
+    for _ in range(2):
+        FU.fused_sgd_step(pk2, g0, tk2, m0, lr=lr, **kw)
+    torch.cuda.set_sync_debug_mode("default")
+    step_ops = device_ops(lambda: FU.fused_sgd_step(pk2, g0, tk2, m0, lr=lr,
+                                                    **kw))
+    if len(step_ops) > 2:
+        fail(f"fused_sgd_step ran {len(step_ops)} device operations, more "
+             f"than 2: {step_ops}")
+    # the nearest library chain (not the same function bit for bit:
+    # clip_grad_norm_ scales by clip / (gnorm + 1e-6) and the fused SGD
+    # contracts into FMAs), on copies: clip_grad_norm_ writes the grads
+    fused_sgd_ = getattr(torch, "_fused_sgd_", None)
+    lr_f = float(lr)
+    gl = [g.clone() for g in g0]
+    pl, tl = state()
+    for pi, gi in zip(pl, gl):
+        pi.grad = gi  # clip_grad_norm_ clips the .grad of what it is given
+
+    def library_chain():
+        torch.nn.utils.clip_grad_norm_(pl, clip, foreach=True)
+        fused_sgd_(pl, gl, tl, weight_decay=wd, momentum=mom, lr=lr_f,
+                   dampening=0.0, nesterov=False, maximize=False,
+                   is_first_step=False)
+        torch._foreach_mul_(pl, m0)
+
+    lib_err = None
+    if fused_sgd_ is not None:
+        library_chain()
+        lib_err = max(float((a - b).abs().max())
+                      for a, b in zip(pl + tl, pq + tq))
+    # bytes: p, g, momentum and mask read once, p and momentum written once
+    # (the norm's read of g is the pass's; its second read finds g in L2);
+    # operations: 2 for the norm and 9 for the update an element
+    fb_ms, fb_by = bound_ms(4.0 * 6 * n_params, 11.0 * n_params)
+    fk_ms = fk_host = fp_ms = fl_ms = None
+    timed = {}
     if not quick:
-        # ms / plain_ms: the 24 launches and their plain chain on the same
-        # device scalars; step: the whole step, global norm included
-        scal = FU.sgd_scalars(g0, clip=kw["clip"], lr=lr)
+        scal = FU.sgd_scalars(g0, clip=clip, lr=lr)
         fk_ms, fk_host = time_ms(
+            lambda: FU.fused_sgd_step(pk, g0, tk, m0, lr=lr, **kw), 20)
+        a_ms, a_host = time_ms(
             lambda: FU.fused_sgd_apply(pk, g0, tk, m0, scal, **kw), 20)
         fp_ms, _ = time_ms(
-            lambda: FU.sgd_apply_plain(pp, g0, tp, m0, scal, **kw), 10)
-        s_ms, s_host = time_ms(
-            lambda: FU.fused_sgd_step(pk, g0, tk, m0, lr=lr, **kw), 10)
-        sp_ms, _ = time_ms(
             lambda: FU.sgd_step_plain(pp, g0, tp, m0, lr=lr, **kw), 10)
-        step = {"step_ms": s_ms, "step_host_ms": s_host,
-                "plain_step_ms": sp_ms}
+        pa_ms, _ = time_ms(
+            lambda: FU.sgd_apply_plain(pp, g0, tp, m0, scal, **kw), 10)
+        if fused_sgd_ is not None:
+            fl_ms, _ = time_ms(library_chain, 20)
+        timed = {"apply_ms": a_ms, "apply_host_ms": a_host,
+                 "plain_apply_ms": pa_ms}
     rows.append({"name": "fused_sgd", "route": "cuda",
                  "source": "neuroimagedisttraining_tpu_torch/csrc/fused_sgd.cu",
                  "replaces":
                      "neuroimagedisttraining_tpu/ops/fused_update.py:131",
-                 "max_abs_err": f_err, "tolerance": 0.0, "ms": fk_ms,
+                 "max_abs_err": f_err, "tolerance": f_tol, "ms": fk_ms,
                  "host_ms": fk_host, "plain_ms": fp_ms, "bound_ms": fb_ms,
-                 "bound_by": fb_by, "library_ms": None, "library": None,
-                 "leaves": len(shapes), "params": n_params, **step})
-    del p0, g0, t0_, m0, pk, tk, pp, tp
+                 "bound_by": fb_by, "library_ms": fl_ms,
+                 "library": "clip_grad_norm_(foreach) + torch._fused_sgd_ + "
+                            "_foreach_mul_(masks)",
+                 "library_max_abs_err": lib_err, "leaves": len(shapes),
+                 "params": n_params, "chunks": FU.plan_chunks(
+                     [math.prod(s) for s in shapes]).nchunks,
+                 "blocks": {"apply": apply_blocks, "norm": norm_blocks},
+                 "gnorm_rel_err": gnorm_err,
+                 "gnorm_blocked_rel_err":
+                     abs(gnorm_k - float(gnorm_b)) / float(gnorm_b),
+                 "device_ops_per_step": len(step_ops) or None,
+                 "bit_equal": ["apply (ok 0 and 1)", "step (clip 1e6)",
+                               "step (clip 0)", "step (clip taken) vs the "
+                               "plain pass under its scalars",
+                               "two calls"], **timed})
+    del p0, g0, t0_, m0, pk, tk, pp, tp, pq, tq, pk2, tk2, gl, pl, tl
     torch.cuda.empty_cache()
 
     # ---- kernel 3: count >= thresholds over the flagship score vector ----
@@ -345,16 +463,10 @@ def main(argv: list[str]) -> int:
     torch.cuda.set_sync_debug_mode("error")
     TK.kth_largest(xs, k)
     torch.cuda.set_sync_debug_mode("default")
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        TK.kth_largest(xs, k)
-        torch.cuda.synchronize()
-    device_ops = [e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    if device_ops and len(device_ops) > 6:
-        fail(f"kth_largest ran {len(device_ops)} device operations, more "
-             f"than 6: {device_ops}")
+    kth_ops = device_ops(lambda: TK.kth_largest(xs, k))
+    if len(kth_ops) > 6:
+        fail(f"kth_largest ran {len(kth_ops)} device operations, more "
+             f"than 6: {kth_ops}")
     exact = torch.topk(xs, k).values[-1]
     # x read once, thresholds read and counts written once; a binary search
     # over the sorted ladder: ceil(log2(nbins + 1)) compares per element
@@ -382,7 +494,7 @@ def main(argv: list[str]) -> int:
                  "bound_by": cb_by, "library_ms": None, "library": None,
                  "n": n_scores, "nbins": 512, "kth_largest_ms": kl_ms,
                  # None where the profiler saw no device activity
-                 "kth_largest_launches": len(device_ops) or None,
+                 "kth_largest_launches": len(kth_ops) or None,
                  "kth_largest_library_ms": kt_ms})
     # kth_largest on the card: the min/max pass and 4 counting rounds of
     # count_ge.cu; max_abs_err over the four kinds held bit-equal above
@@ -396,7 +508,7 @@ def main(argv: list[str]) -> int:
                  "k": k, "nbins": 512, "rounds": 4,
                  "equals_topk": bool(exact == thr_gpu),
                  "kinds_bit_equal": kind_names,
-                 "device_ops": len(device_ops) or None})
+                 "device_ops": len(kth_ops) or None})
     del xs, thr, c_k, c_p
     torch.cuda.empty_cache()
 
@@ -449,6 +561,10 @@ def main(argv: list[str]) -> int:
         for name in ("stem_dw", "fused_sgd", "kth_select"):
             if not launches.get(name, 0) > 0:
                 fail(f"the slice never launched the {name} kernel")
+        # the fused step: the norm and the pass, one launch each a step
+        if launches["fused_sgd"] != 2 * steps:
+            fail(f"fused_sgd launched {launches['fused_sgd']} kernels in "
+                 f"{steps} local steps, not 2 a step")
         # device kernel launches: per local or SNIP step, per phase 1
         per_call = {"stem_dw": launches["stem_dw"] / (steps + len(n)),
                     "fused_sgd": launches["fused_sgd"] / steps,
@@ -481,8 +597,9 @@ def main(argv: list[str]) -> int:
         init_p, init_b = probe.init_global_state()
         masks, _ = probe.generate_global_mask(init_p, init_b)
         # fresh engines under one mask draw the same permutations and
-        # dropout: the runs differ only in the stem dW's summation order
-        # (fused_sgd is bit-equal to the plain chain)
+        # dropout: the runs differ in the stem dW's summation order and,
+        # where the clip is taken, in the global norm's (fused_sgd is
+        # bit-equal to the plain chain only where the clip is not taken)
         plain = small(False).train(masks=masks)
         kern = small(True).train(masks=masks)
         moved = max(float((v - init_p[k]).abs().max())

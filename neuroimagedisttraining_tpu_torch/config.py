@@ -22,8 +22,8 @@ class OptimConfig:
     batch_size: int = 16
     epochs: int = 2
     grad_clip: float = 10.0
-    # one pass of the fused CUDA kernel per leaf (ops/fused_update.py)
-    # instead of the stage-by-stage chain
+    # the fused CUDA step (ops/fused_update.py: the global norm, then one
+    # pass over every leaf) instead of the stage-by-stage chain
     fused_update: bool = False
 
 

@@ -5,9 +5,10 @@ mask ``p *= mask``. The momentum buffers start at zero every round (the
 reference builds a fresh optimizer per round).
 
 ``fused_update=False`` runs the chain as plain PyTorch operations
-(``ops.fused_update.sgd_step_plain``); ``fused_update=True`` runs it as one
-pass of the CUDA kernel per leaf (``ops.fused_update.fused_sgd_step``,
-which takes the same plain path for CPU tensors). Both update in place.
+(``ops.fused_update.sgd_step_plain``); ``fused_update=True`` runs it as the
+fused CUDA step, the global norm and then one pass over every leaf
+(``ops.fused_update.fused_sgd_step``, which takes the same plain path for
+CPU tensors). Both update in place.
 """
 
 from __future__ import annotations

@@ -1,39 +1,65 @@
 """Fused masked-SGD tail: clip + weight decay + momentum + update + mask in
-one pass over each parameter leaf, updating params and momentum in place.
+one pass over every parameter leaf, updating params and momentum in place.
 
 The stage-by-stage SGD chain reads and writes a params-sized intermediate
-per stage. :func:`fused_sgd_apply` launches the CUDA kernel of
-``csrc/fused_sgd.cu`` (which replaces the TPU kernel of the reference
-package, ``ops/fused_update.py`` ``_leaf_pallas`` -> ``_make_kernel``)
-once per leaf: read param, grad, momentum, mask; write param, momentum.
-The global-norm reduction for the clip stays one separate pass
-(:func:`sgd_scalars`); its result and the lr stay on the device, in a
-3-float buffer ``[ok, gnorm, lr]`` the kernel reads. clip, wd and momentum
-are Python floats passed by value.
+per stage. On CUDA tensors :func:`fused_sgd_step` makes one host call that
+queues two kernels of ``csrc/fused_sgd.cu`` (which replaces the TPU kernel
+of the reference package, ``ops/fused_update.py`` ``_leaf_pallas`` ->
+``_make_kernel``): the global norm of the grads, finished on the device
+into a 3-float buffer ``[ok, gnorm, lr]``, then one multi-tensor pass over
+every leaf reading those scalars (read param, grad, momentum, mask; write
+param, momentum). Without a clip the step is the pass alone.
+:func:`fused_sgd_apply` is the pass under given scalars. clip, wd and
+momentum are Python floats passed by value; the per-round lr stays on the
+device.
+
+The pass works on a table of leaf descriptors cut into fixed chunks
+(:func:`plan_chunks`). The host table is kept between calls: within one
+``local_train`` the params, momentum and mask of a client stay the same
+tensors from step to step, and only the grad pointers are written anew.
 
 :func:`sgd_apply_plain` is the same arithmetic in plain PyTorch, in the
 reference's operation order (``where(ok, g, (g / gnorm) * clip)``,
 ``g + wd * p``, ``g + momentum * t``, ``p + (-lr) * g``, ``p * mask``),
-each operation rounded on its own as the kernel does. It is the wrapper's
+each operation rounded on its own as the kernel does. It is the wrappers'
 CPU path and, through :func:`sgd_step_plain`, the unfused optimizer chain
-(core/optim.py).
+(core/optim.py). Given the same scalars the kernel is bit-equal to it; its
+global norm is summed in fp64 in the order of :func:`global_norm_blocked`
+and agrees with :func:`global_norm` within rtol 2e-6.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import operator
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from neuroimagedisttraining_tpu_torch.ops import _cuda
 
 LAUNCHES = _cuda.counter("fused_sgd")
+CHUNK = 4096        # floats a chunk: a block's unit of work
+MAX_LEAVES = 32     # leaf descriptors in the kernels' table
+LEAF_WORDS = 6      # a descriptor: p, g, t, m, n, first chunk (int64 each)
+# the kernels' table parameter (descriptors, leaf and chunk counts) must
+# fit, beside under 128 bytes of other parameters, in the classic 4 KB
+# kernel-parameter limit
+TABLE_BYTES = MAX_LEAVES * LEAF_WORDS * 8 + 8
+TABLE_BUDGET = 4096 - 128
+assert TABLE_BYTES <= TABLE_BUDGET
+CLIP, WD, TRACE, MASK = 1, 2, 4, 8  # the kernels' stage flags
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIG = {"fused_sgd_launch": [_P, _P, _P, _P, _P, ctypes.c_longlong, _F, _F,
-                             _F, _I, _I, _I, _I, _I, _P]}
+_SIG = {"fused_sgd_layout": [ctypes.POINTER(_I)] * 3,
+        "fused_sgd_num_blocks": [ctypes.POINTER(_I)] * 2,
+        "fused_sgd_apply_launch": [_P, _I, _I, _F, _F, _F, _I, _P, _I, _P],
+        "fused_sgd_step_launch": [_P, _I, _I, _F, _F, _F, _I, _P, _F, _P, _P,
+                                  _I, _I, _P]}
 
 
 def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
@@ -82,61 +108,266 @@ def sgd_step_plain(params, grads, trace, mask, *, clip: float, wd: float,
                     momentum=momentum)
 
 
+# ---------------------------------------------------------------------------
+# the chunk and leaf-table planner (pure Python; the kernels read its plan)
+# ---------------------------------------------------------------------------
+
+class Plan(NamedTuple):
+    """The chunks of one table: ``first[i]`` is leaf ``i``'s first chunk."""
+    nchunks: int
+    first: tuple[int, ...]
+
+
+def plan_chunks(sizes) -> Plan:
+    """Cut leaves of ``sizes`` elements into ``CHUNK``-element chunks, a
+    leaf's last chunk ragged and no chunk straddling two leaves. Raises
+    where the leaves do not fit one table (more than ``MAX_LEAVES``)."""
+    sizes = [int(n) for n in sizes]
+    if len(sizes) > MAX_LEAVES:
+        raise ValueError(f"fused_sgd: {len(sizes)} leaves; one table holds "
+                         f"at most {MAX_LEAVES}")
+    if any(n < 0 for n in sizes):
+        raise ValueError(f"negative leaf size in {sizes}")
+    first, c = [], 0
+    for n in sizes:
+        first.append(c)
+        c += -(-n // CHUNK)
+    if c >= 2 ** 31:
+        raise ValueError(f"{c} chunks: too many for a launch")
+    return Plan(c, tuple(first))
+
+
+def chunk_leaf(first, c: int) -> int:
+    """The leaf owning chunk ``c``: the last whose first
+    chunk is <= c, by the kernels' binary search (an empty leaf owns none)."""
+    lo, hi = 0, len(first) - 1
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if first[mid] <= c:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def global_norm_blocked(grads, nblocks: int) -> torch.Tensor:
+    """The kernel's global norm in plain PyTorch: block ``b`` of
+    ``min(nblocks, chunks)`` sums the squares of chunks ``b``,
+    ``b + nblocks``, ... in fp64 into one partial; the partials are summed
+    in fp64 and ``sqrt`` is rounded to float32 once. Sums inside a chunk
+    run in another fp64 order than the kernel's."""
+    zero = torch.zeros((), dtype=torch.float64, device=grads[0].device)
+    plan = plan_chunks([g.numel() for g in grads])
+    leaves = [g.reshape(-1).double() for g in grads]
+    sums = []
+    for c in range(plan.nchunks):
+        i = chunk_leaf(plan.first, c)
+        x = leaves[i][(c - plan.first[i]) * CHUNK:][:CHUNK]
+        sums.append(torch.sum(x * x))
+    blocks = max(min(nblocks, plan.nchunks), 1)
+    partials = [sum(sums[b::blocks], zero) for b in range(blocks)]
+    return torch.sqrt(torch.stack(partials).sum()).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA path
+# ---------------------------------------------------------------------------
+
 @functools.lru_cache(maxsize=None)
-def _max_blocks(device_index: int) -> int:
-    return 8 * torch.cuda.get_device_properties(
-        device_index).multi_processor_count
+def _library(device_index: int) -> tuple[ctypes.CDLL, int, int]:
+    """The loaded kernels, checked against this module's table layout, and
+    the most blocks a launch of the pass and of the norm uses on the device
+    (one resident wave of each)."""
+    lib = _cuda.load("fused_sgd", _SIG)
+    got = [ctypes.c_int(0) for _ in range(3)]
+    lib.fused_sgd_layout(*map(ctypes.byref, got))
+    if [v.value for v in got] != [CHUNK, MAX_LEAVES, LEAF_WORDS]:
+        raise RuntimeError(f"csrc/fused_sgd.cu's table layout "
+                           f"{[v.value for v in got]} != the wrapper's")
+    apply_n, norm_n = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _cuda.check_launch(lib, lib.fused_sgd_num_blocks(
+            ctypes.byref(apply_n), ctypes.byref(norm_n)),
+            "fused_sgd_num_blocks")
+    return lib, apply_n.value, norm_n.value
+
+
+_dtype = operator.attrgetter("dtype")
+_shape = operator.attrgetter("shape")
+
+
+def _check_leaves(what: str, leaves, shapes, dev: torch.device) -> None:
+    """Every leaf a contiguous float32 tensor of its param's shape on
+    ``dev``: checked a list at a time (a leaf at a time costs a step more
+    host time than its launches), then leaf by leaf to name a failure."""
+    n = len(shapes)
+    index = -1 if dev.type == "cpu" else dev.index
+    if (list(map(_dtype, leaves)) == [torch.float32] * n
+            and list(map(torch.Tensor.get_device, leaves)) == [index] * n
+            and all(map(torch.Tensor.is_contiguous, leaves))
+            and list(map(_shape, leaves)) == shapes):
+        return
+    for i, (x, shape) in enumerate(zip(leaves, shapes)):
+        if (x.dtype is not torch.float32 or x.device != dev
+                or not x.is_contiguous() or x.shape != shape):
+            raise ValueError(
+                f"fused_sgd: {what} leaf {i} must be a contiguous float32 "
+                f"tensor of shape {tuple(shape)} on {dev}; got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}, strides {x.stride()}")
+
+
+class _Table:
+    """The host table of one list of leaves: ``LEAF_WORDS`` int64 words a
+    leaf, as the kernels read them. Holds the params,
+    momentum and mask tensors it describes, so that while a caller steps
+    the same tensors their pointers stay valid and only the grads'
+    pointers are written anew."""
+
+    def __init__(self, params, trace, mask, dev: torch.device):
+        n = len(params)
+        if any(x is not None and len(x) != n for x in (trace, mask)):
+            raise ValueError("fused_sgd: params, momentum and mask lists "
+                             "differ in length")
+        self.shapes = [p.shape for p in params]
+        self.held = [*params, *(trace or ()), *(mask or ())]
+        for what, leaves in (("param", params), ("momentum", trace),
+                             ("mask", mask)):
+            if leaves is not None:
+                _check_leaves(what, leaves, self.shapes, dev)
+        self.ptrs = [x.data_ptr() for x in self.held]
+        plan = plan_chunks([p.numel() for p in params])
+        rows = np.zeros((n, LEAF_WORDS), np.int64)
+        rows[:, 0] = self.ptrs[:n]
+        if trace is not None:
+            rows[:, 2] = self.ptrs[n:2 * n]
+        if mask is not None:
+            rows[:, 3] = self.ptrs[-n:]
+        rows[:, 4] = [p.numel() for p in params]
+        rows[:, 5] = plan.first
+        self.rows = rows
+        self.nchunks = plan.nchunks
+        self.dev = dev
+        self.rows_ptr = rows.ctypes.data
+
+    def holds(self, params, trace, mask) -> bool:
+        """True where the lists are the tensors of this table, at the same
+        addresses."""
+        leaves = [*params, *(trace or ()), *(mask or ())]
+        return (len(leaves) == len(self.held)
+                and len(params) == len(self.shapes)
+                and all(map(operator.is_, leaves, self.held))
+                and list(map(torch.Tensor.data_ptr, leaves)) == self.ptrs)
+
+    def set_grads(self, grads) -> None:
+        if len(grads) != len(self.shapes):
+            raise ValueError(f"fused_sgd: {len(grads)} grads for "
+                             f"{len(self.shapes)} params")
+        _check_leaves("grad", grads, self.shapes, self.dev)
+        self.rows[:, 1] = list(map(torch.Tensor.data_ptr, grads))
+
+
+_last_table: _Table | None = None
+
+
+def _table(params, grads, trace, mask, momentum: float) -> _Table:
+    """The table of these leaves (the last one where it holds them), with
+    the grads' pointers written in."""
+    global _last_table
+    dev = params[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_sgd: unsupported device {dev}")
+    if momentum > 0 and trace is None:
+        raise ValueError("fused_sgd: momentum > 0 needs momentum buffers")
+    trace = trace if momentum > 0 else None
+    tab = _last_table
+    if tab is None or not tab.holds(params, trace, mask):
+        tab = _Table(params, trace, mask, dev)
+        _cuda.check_device(*tab.held)
+        _last_table = tab
+    tab.set_grads(grads)
+    return tab
+
+
+def _flags(clip: float, wd: float, momentum: float, mask) -> int:
+    return ((CLIP if clip > 0 else 0) | (WD if wd > 0 else 0)
+            | (TRACE if momentum > 0 else 0) | (MASK if mask is not None
+                                                 else 0))
+
+
+_workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(dev: torch.device, stream: int, npartials: int):
+    """The step's device buffers on one stream: ``scal`` ``[ok, gnorm, lr]``
+    and ``work`` (the norm's ticket, then one fp64 partial a block), zeroed
+    once and left so by every step."""
+    ws = _workspaces.get((dev.index, stream))
+    if ws is None or ws[1].numel() < 1 + npartials:
+        ws = _workspaces[(dev.index, stream)] = (
+            torch.zeros(3, dtype=torch.float32, device=dev),
+            torch.zeros(1 + npartials, dtype=torch.float64, device=dev))
+    return ws
 
 
 def fused_sgd_apply(params, grads, trace, mask, scal: torch.Tensor, *,
                     clip: float, wd: float, momentum: float) -> None:
-    """The fused pass over every leaf with the scalars of
+    """The fused pass over every leaf with the scalars ``scal`` of
     :func:`sgd_scalars`, in place on ``params`` and ``trace`` (None when
-    momentum is 0); ``mask`` is None for dense runs. One kernel launch per
-    leaf on CUDA tensors; the plain chain on CPU tensors."""
+    momentum is 0); ``mask`` is None for dense runs. One kernel launch on
+    CUDA tensors; the plain chain on CPU tensors."""
     dev = params[0].device
     if dev.type == "cpu":
         sgd_apply_plain(params, grads, trace, mask, scal, clip=clip, wd=wd,
                         momentum=momentum)
         return
-    if dev.type != "cuda":
-        raise ValueError(f"fused_sgd_apply: unsupported device {dev}")
-    has_trace = momentum > 0
-    leaves = [*params, *grads, *(trace if has_trace else ()),
-              *(mask if mask is not None else ())]
-    for t in (*leaves, scal):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("fused_sgd kernel takes contiguous float32 "
-                             f"tensors (got {t.dtype}, strides {t.stride()})")
-    if scal.numel() != 3:
-        raise ValueError(f"scal must be [ok, gnorm, lr], got {scal.shape}")
-    _cuda.check_device(*leaves, scal)
-    lib = _cuda.load("fused_sgd", _SIG)
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = _cuda.stream_ptr(dev)
+    tab = _table(params, grads, trace, mask, momentum)
+    if (scal.dtype != torch.float32 or scal.numel() != 3
+            or not scal.is_contiguous() or scal.device != dev):
+        raise ValueError(f"scal must be [ok, gnorm, lr] float32 on {dev}, got "
+                         f"{scal.dtype} {tuple(scal.shape)} on {scal.device}")
+    lib, apply_blocks, _ = _library(dev.index)
     with torch.cuda.device(dev):
-        for i, (p, g) in enumerate(zip(params, grads)):
-            t = trace[i] if has_trace else None
-            m = mask[i] if mask is not None else None
-            if any(o is not None and o.shape != p.shape for o in (g, t, m)):
-                raise ValueError(f"leaf {i}: grad/momentum/mask shapes differ "
-                                 f"from the param's {tuple(p.shape)}")
-            err = lib.fused_sgd_launch(
-                p.data_ptr(), g.data_ptr(),
-                t.data_ptr() if t is not None else None,
-                m.data_ptr() if m is not None else None,
-                scal.data_ptr(), p.numel(), clip, wd, momentum,
-                int(clip > 0), int(wd > 0), int(has_trace),
-                int(m is not None), _max_blocks(index), stream)
-            _cuda.check_launch(lib, err, "fused_sgd_launch")
-            LAUNCHES.add()
+        err = lib.fused_sgd_apply_launch(
+            tab.rows_ptr, len(tab.shapes), tab.nchunks, clip, wd, momentum,
+            _flags(clip, wd, momentum, mask), scal.data_ptr(), apply_blocks,
+            _cuda.stream_ptr(dev))
+    _cuda.check_launch(lib, err, "fused_sgd_apply_launch")
+    LAUNCHES.add(1)
 
 
 def fused_sgd_step(params, grads, trace, mask, *, clip: float, wd: float,
-                   momentum: float, lr) -> None:
+                   momentum: float, lr) -> torch.Tensor | None:
     """One fused SGD step over lists of leaves, in place on ``params`` and
-    ``trace``: :func:`sgd_scalars`, then :func:`fused_sgd_apply`. ``lr``
-    may be a 0-d device tensor (the per-round lr)."""
-    fused_sgd_apply(params, grads, trace, mask,
-                    sgd_scalars(grads, clip=clip, lr=lr), clip=clip, wd=wd,
-                    momentum=momentum)
+    ``trace``; ``lr`` may be a 0-d device tensor (the per-round lr). On
+    CUDA tensors one host call queues the norm and the pass (the pass alone
+    without a clip). Returns the step's scalars ``[ok, gnorm, lr]`` where
+    there is a clip (on the card, a buffer the next step on this device
+    and stream overwrites), else None."""
+    dev = params[0].device
+    if dev.type == "cpu":
+        scal = sgd_scalars(grads, clip=clip, lr=lr)
+        sgd_apply_plain(params, grads, trace, mask, scal, clip=clip, wd=wd,
+                        momentum=momentum)
+        return scal if clip > 0 else None
+    tab = _table(params, grads, trace, mask, momentum)
+    if isinstance(lr, torch.Tensor) and lr.device.type != "cpu":
+        if (lr.dtype != torch.float32 or lr.numel() != 1
+                or lr.device != dev):
+            raise ValueError(f"fused_sgd: lr must be one float32 on {dev}, "
+                             f"got {lr.dtype} {tuple(lr.shape)} on "
+                             f"{lr.device}")
+        lr_ptr, lr_value = lr.data_ptr(), 0.0
+    else:
+        lr_ptr, lr_value = None, float(lr)
+    lib, apply_blocks, norm_blocks = _library(dev.index)
+    stream = _cuda.stream_ptr(dev)
+    scal, work = _workspace(dev, stream, norm_blocks)
+    with torch.cuda.device(dev):
+        err = lib.fused_sgd_step_launch(
+            tab.rows_ptr, len(tab.shapes), tab.nchunks, clip, wd, momentum,
+            _flags(clip, wd, momentum, mask), lr_ptr, lr_value,
+            scal.data_ptr(), work.data_ptr(), apply_blocks, norm_blocks,
+            stream)
+    _cuda.check_launch(lib, err, "fused_sgd_step_launch")
+    LAUNCHES.add(2 if clip > 0 else 1)
+    return scal if clip > 0 else None

@@ -280,6 +280,139 @@ def test_global_norm_matches_optax():
     assert port == pytest.approx(ref, rel=1e-6)
 
 
+def _flagship_sizes():
+    from neuroimagedisttraining_tpu_torch.models import create_model
+    return [p.numel() for p in
+            create_model("3dcnn", (121, 145, 121)).parameters()]
+
+
+_PLAN_CASES = {
+    "flagship": _flagship_sizes,
+    # n = 1, n % 4 != 0, one element past a chunk, exact chunks, empty
+    "ragged": lambda: [1, 4097, 3, 8191, 5, 4096, 7, 0, 12289, 2],
+    "one_large_many_small": lambda: [3 * 4096 * 97 + 3] + list(range(1, 32)),
+    # the most leaves one table holds
+    "many_leaves": lambda: [int(n) for n in np.random.default_rng(5)
+                            .integers(0, 20_000, 32)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PLAN_CASES))
+def test_plan_chunks_covers_every_element(case):
+    """The planner's chunks, looked up as the kernels look them up (the
+    last leaf whose first chunk <= c), cover every element of every leaf
+    exactly once; no chunk straddles two leaves; the table fits the
+    kernel-parameter budget."""
+    sizes = _PLAN_CASES[case]()
+    plan = PFU.plan_chunks(sizes)
+    assert len(plan.first) == len(sizes) <= PFU.MAX_LEAVES
+    if case == "flagship":
+        assert len(sizes) == 24 and sum(sizes) == 2_570_241
+        assert plan.nchunks == 645
+    cover = [np.zeros(n, np.int32) for n in sizes]
+    for c in range(plan.nchunks):
+        i = PFU.chunk_leaf(plan.first, c)
+        off = (c - plan.first[i]) * PFU.CHUNK
+        assert 0 <= off < sizes[i]  # the chunk lies inside one leaf
+        cover[i][off:off + PFU.CHUNK] += 1
+    for i, cv in enumerate(cover):
+        assert (cv == 1).all(), (i, sizes[i])
+    assert PFU.TABLE_BYTES <= PFU.TABLE_BUDGET
+
+
+def test_plan_chunks_refuses_what_no_table_holds():
+    """More leaves than one table holds, or a negative leaf size, is
+    refused: the planner never hands the kernels a table they cannot take
+    (and nothing falls back to the plain chain)."""
+    assert PFU.TABLE_BYTES == 32 * 48 + 8
+    with pytest.raises(ValueError, match="at most 32"):
+        PFU.plan_chunks([5] * 33)
+    with pytest.raises(ValueError):
+        PFU.plan_chunks([5, -1])
+    assert PFU.plan_chunks([5] * 32).nchunks == 32
+
+
+@pytest.mark.parametrize("nblocks", [1, 7, 1056])
+def test_global_norm_blocked_matches_optax(nblocks):
+    """The kernel's blocked fp64 norm (chunks dealt to blocks, fp64
+    partials, one rounding of the sqrt), over 32 ragged leaves (a full
+    table), == ``optax.global_norm`` within rtol 2e-6."""
+    rng = np.random.default_rng(nblocks)
+    sizes = [int(n) for n in rng.integers(1, 30_000, 31)] + [70_001]
+    leaves = [(rng.standard_normal(n) * rng.choice([1e-3, 1.0, 30.0])
+               ).astype(np.float32) for n in sizes]
+    ref = float(optax.global_norm([jnp.asarray(a) for a in leaves]))
+    port = PFU.global_norm_blocked([_t(a) for a in leaves], nblocks)
+    assert port.dtype == torch.float32
+    assert float(port) == pytest.approx(ref, rel=2e-6)
+
+
+@pytest.mark.parametrize("entry", ["step", "apply"])
+def test_fused_sgd_refuses_other_devices(entry, monkeypatch):
+    """Leaves neither on the CPU nor on a CUDA device are refused by both
+    entry points, never routed to the plain chain."""
+    def plain(*a, **k):
+        raise AssertionError("routed to the plain chain")
+    monkeypatch.setattr(PFU, "sgd_apply_plain", plain)
+    monkeypatch.setattr(PFU, "sgd_scalars", plain)
+    leaves = [torch.zeros(3, 5, device="meta"), torch.zeros(7, device="meta")]
+    kw = dict(clip=1.0, wd=5e-4, momentum=0.9)
+    with pytest.raises(ValueError, match="unsupported device"):
+        if entry == "step":
+            PFU.fused_sgd_step(leaves, leaves, leaves, None, lr=0.1, **kw)
+        else:
+            PFU.fused_sgd_apply(leaves, leaves, leaves, None,
+                                torch.zeros(3, device="meta"), **kw)
+
+
+def test_fused_sgd_host_table():
+    """The host table the kernels read: one row of int64 words a leaf (p,
+    g, momentum, mask pointers, size, first chunk), kept while the caller
+    steps the same params, momentum and mask, with only the grad column
+    rewritten; each grad is checked for dtype, contiguity and shape."""
+    rng = np.random.default_rng(21)
+    shapes = [(5, 3), (1,), (4099,), (2, 4096)]
+    p = [_t(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+    t = [torch.zeros_like(a) for a in p]
+    m = [torch.ones_like(a) for a in p]
+    g = [torch.ones_like(a) for a in p]
+    dev = torch.device("cpu")
+    tab = PFU._Table(p, t, m, dev)
+    tab.set_grads(g)
+    want = [[a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
+             a.numel(), f] for a, b, c, d, f in
+            zip(p, g, t, m, PFU.plan_chunks([a.numel() for a in p]).first)]
+    np.testing.assert_array_equal(tab.rows, np.asarray(want, np.int64))
+    assert tab.nchunks == 1 + 1 + 2 + 2
+    assert tab.holds(p, t, m) and not tab.holds(p, t, None)
+    assert not tab.holds([p[0].clone(), *p[1:]], t, m)
+    g2 = [torch.ones_like(a) for a in p]
+    tab.set_grads(g2)
+    assert list(tab.rows[:, 1]) == [a.data_ptr() for a in g2]
+    no_trace = PFU._Table(p, None, m, dev)
+    assert (no_trace.rows[:, 2] == 0).all() and (no_trace.rows[:, 3] != 0).all()
+    for bad in (g[2].double(), torch.ones(4099, 2)[:, 0], torch.ones(4100)):
+        with pytest.raises(ValueError):
+            tab.set_grads([g[0], g[1], bad, g[3]])
+
+
+@pytest.mark.parametrize("clip", [0.0, 1e-3])
+def test_fused_sgd_step_returns_its_scalars(clip):
+    """With a clip the step returns its ``[ok, gnorm, lr]`` (the plain
+    scalars on the CPU); without one, None."""
+    rng = np.random.default_rng(17)
+    p = [_t(rng.standard_normal(s).astype(np.float32)) for s in ((6, 5), (3,))]
+    g = [a * 0.5 for a in p]
+    lr = torch.tensor(np.float32(0.05))
+    scal = PFU.fused_sgd_step(p, g, None, None, clip=clip, wd=0.0,
+                              momentum=0.0, lr=lr)
+    if clip == 0:
+        assert scal is None
+    else:
+        np.testing.assert_array_equal(
+            scal.numpy(), PFU.sgd_scalars(g, clip=clip, lr=lr).numpy())
+
+
 # ---------------------------------------------------------------------------
 # kernel 3: count >= thresholds and the top-k threshold
 # ---------------------------------------------------------------------------
