@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py            # full run: kernels, then the slice
+    python3 chip_smoke.py            # full run: kernels, then the engines
     python3 chip_smoke.py --quick    # build + check the kernels only
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
@@ -36,11 +36,27 @@
    after: every kernel of that path (``stem_dw``, ``fused_sgd``,
    ``kth_select``) must have launched, ``fused_sgd`` exactly twice a
    local step.
-4. Runs the slice on a small input (69^3, 4 sites, 2 rounds) twice under
-   one phase-1 mask, through the kernels and through the plain paths, and
-   holds the two runs' losses and weights against each other.
-5. Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and
-   last ``{"ok": true, "device": {...}}``.
+4. Runs the dense engines on the same flagship slice, each through
+   ``build_experiment`` and ``engine.train()`` with the counters set to 0
+   just before and read just after: FedAvg (``--frac 0.75``, so 3 of the
+   4 clients a round, then the final fine-tune of all 4), FedProx, Ditto
+   (both tracks) and Local-only. Each must show ``fused_sgd`` = 2 and
+   ``stem_dw`` = 3 launches a local step, counted on the host from the
+   clients' rows, no top-k launch, and finite losses and metrics. One more
+   FedAvg round runs under torch's sync debug mode; the port's lines that
+   synchronized with the host are printed.
+5. Runs SalientGrads, FedProx and Ditto on a small input (69^3, 4 sites,
+   2 rounds) through the kernels and through the plain paths (SalientGrads
+   under one phase-1 mask), and holds the two runs' losses, weights
+   (global and personal) and evaluation losses against each other. cuDNN
+   runs its deterministic algorithms here, so each path repeats bit for
+   bit and the two differ by the kernels alone; a second FedProx and Ditto
+   run through the kernels must equal the first. Every ``stem_dw`` and
+   ``fused_sgd`` call of the kernel runs is also held against its plain
+   version on the call's own inputs (``PerCallCheck``).
+6. Prints one JSON line per kernel, the ``{"kernels": [...]}`` line (with
+   each kernel's launches on every engine's run), and last
+   ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it fails before
 printing any result. It imports nothing of JAX.
@@ -77,6 +93,137 @@ def bound_ms(nbytes: float, ops: float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def local_steps(engine) -> int:
+    """Local SGD steps of ``engine.train()``, counted on the host from the
+    clients' row counts: the sampled clients' epochs each round (Ditto's
+    personal epochs too), and FedAvg's / FedProx's fine-tune of every
+    client."""
+    cfg = engine.cfg
+    B, E = cfg.optim.batch_size, cfg.optim.epochs
+    per = [math.ceil(int(n) / B) for n in engine.data.n_train]
+    if cfg.algorithm == "local":
+        return sum(per) * E * cfg.fed.comm_round
+    if cfg.algorithm == "ditto":
+        E += cfg.fed.local_epochs
+    steps = sum(sum(per[c] for c in engine.client_sampling(r)) * E
+                for r in range(cfg.fed.comm_round))
+    if cfg.algorithm in ("fedavg", "fedprox"):
+        steps += sum(per) * cfg.optim.epochs
+    return steps
+
+
+def hidden_syncs(fn) -> list[str]:
+    """Run ``fn`` with torch's sync debug mode at "warn"; the port's source
+    lines (file:line) where a synchronizing CUDA operation ran."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "neuroimagedisttraining_tpu_torch" in f.filename]
+        f = frames[-1] if frames else None
+        sites.append(f"{Path(f.filename).name}:{f.lineno}" if f
+                     else f"{filename}:{lineno}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sites
+
+
+class PerCallCheck:
+    """Inside ``with``, every ``stem_dw`` and ``fused_sgd`` call that an
+    engine makes is also computed by its plain version on the same inputs
+    (no launch, so no count): ``stem_dw`` within 1e-4 of the plain dW's
+    largest entry, as at the flagship shape; ``fused_sgd`` bit-equal to the
+    plain pass under the kernel's own scalars, and within 1e-5 of the
+    largest entry of the plain step's params and momentum (the kernel's
+    fp64 global norm against the plain fp32 one where the clip is taken).
+    ``worst`` holds each kernel's largest error over its tolerance,
+    ``inexact`` the steps that were not bit-equal."""
+
+    def __init__(self):
+        from neuroimagedisttraining_tpu_torch.core import optim
+        from neuroimagedisttraining_tpu_torch.ops import fused_update as FU
+        from neuroimagedisttraining_tpu_torch.ops import stemconv as SC
+        self.SC, self.optim, self.FU = SC, optim, FU
+        self.orig_dw, self.orig_step = SC.stem_dw, optim.fused_sgd_step
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls = {"stem_dw": 0, "fused_sgd": 0}
+        self.worst = {"stem_dw": 0.0, "fused_sgd": 0.0}
+        self.inexact = self.clip_taken = 0
+
+    def _err(self, name: str, got, ref, tol_of) -> None:
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        tol = tol_of * max(float(b.abs().max()) for b in ref)
+        self.worst[name] = max(self.worst[name], err / max(tol, 1e-30))
+        self.calls[name] += 1
+
+    def dw(self, x, g):
+        out = self.orig_dw(x, g)
+        self._err("stem_dw", [out], [self.SC.stem_dw_plain(x, g)], 1e-4)
+        return out
+
+    def step(self, params, grads, trace, mask, **kw):
+        def copy():
+            return ([p.clone() for p in params],
+                    None if trace is None else [t.clone() for t in trace])
+        (pa, ta), (ps, ts) = copy(), copy()
+        scal = self.orig_step(params, grads, trace, mask, **kw)
+        own = {k: v for k, v in kw.items() if k != "lr"}
+        if scal is None:  # no clip: the plain step has the same scalars
+            own_scal = self.FU.sgd_scalars(grads, clip=0.0, lr=kw["lr"])
+        else:
+            own_scal = scal.clone()
+            self.clip_taken += int(float(own_scal[0]) < 0.5)
+        self.FU.sgd_apply_plain(pa, grads, ta, mask, own_scal, **own)
+        self.FU.sgd_step_plain(ps, grads, ts, mask, **kw)
+        got = params + (trace or [])
+        self.inexact += not all(
+            torch_equal_bits(a, b) for a, b in zip(got, pa + (ta or [])))
+        self._err("fused_sgd", got, ps + (ts or []), 1e-5)
+        return scal
+
+    def __enter__(self):
+        self.SC.stem_dw, self.optim.fused_sgd_step = self.dw, self.step
+        return self
+
+    def __exit__(self, *exc):
+        self.SC.stem_dw = self.orig_dw
+        self.optim.fused_sgd_step = self.orig_step
+
+    def check(self, what: str) -> dict:
+        """Fails unless both kernels ran and every call was within its
+        tolerance; returns what was seen."""
+        seen = {"calls": dict(self.calls), "worst_err_over_tol":
+                dict(self.worst), "fused_sgd_not_bit_equal": self.inexact,
+                "fused_sgd_clip_taken": self.clip_taken}
+        if not all(self.calls.values()):
+            fail(f"{what}: a kernel was not called: {self.calls}")
+        if not all(v <= 1.0 for v in self.worst.values()) or self.inexact:
+            fail(f"{what}: a kernel call disagrees with its plain version "
+                 f"on the run's own inputs: {seen}")
+        return seen
+
+
+def torch_equal_bits(a, b) -> bool:
+    import torch
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def main(argv: list[str]) -> int:
@@ -514,6 +661,7 @@ def main(argv: list[str]) -> int:
 
     # ---- the slice: flagship SalientGrads through the user entry points ----
     launches = {r["name"]: None for r in rows}
+    by_path: dict[str, dict] = {}  # kernel launches of each engine's run
     if not quick:
         os.environ["NIDT_FAST_STEM"] = "1"
         from neuroimagedisttraining_tpu_torch.__main__ import (
@@ -521,13 +669,17 @@ def main(argv: list[str]) -> int:
         )
         import argparse
 
-        args = add_args(argparse.ArgumentParser()).parse_args([
-            "--algorithm", "salientgrads", "--dataset", "synthetic",
-            "--model", "3DCNN", "--synthetic_shape", "121", "145", "121",
-            "--synthetic_num_subjects", "48", "--client_num_in_total", "4",
-            "--batch_size", "16", "--itersnip_iteration", "1",
-            "--epochs", "1", "--comm_round", "2", "--fused_update"])
-        cfg = config_from_args(args)
+        def flagship(algorithm: str, *extra: str):
+            return config_from_args(add_args(argparse.ArgumentParser())
+                                    .parse_args([
+                "--algorithm", algorithm, "--dataset", "synthetic",
+                "--model", "3DCNN", "--synthetic_shape", "121", "145", "121",
+                "--synthetic_num_subjects", "48", "--client_num_in_total",
+                "4", "--batch_size", "16", "--itersnip_iteration", "1",
+                "--epochs", "1", "--comm_round", "2", "--fused_update",
+                *extra]))
+
+        cfg = flagship("salientgrads")
         t0 = time.perf_counter()
         engine, info = build_experiment(cfg, "cuda")
         setup_s = time.perf_counter() - t0
@@ -580,10 +732,61 @@ def main(argv: list[str]) -> int:
                                   per_call[r["name"]],
                               "card": card}))
 
+        by_path["salientgrads"] = launches
+
+        # ---- the dense engines at full width, each its own main path ----
+        for algorithm, extra in (("fedavg", ("--frac", "0.75")),
+                                 ("fedprox", ()), ("ditto", ()),
+                                 ("local", ())):
+            ecfg = flagship(algorithm, *extra)
+            t0 = time.perf_counter()
+            engine, info = build_experiment(ecfg, "cuda")
+            setup_s = time.perf_counter() - t0
+            steps = local_steps(engine)
+            _cuda.reset_counts()
+            t0 = time.perf_counter()
+            result = engine.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            got = _cuda.counts()
+            by_path[algorithm] = got
+            losses = [h["train_loss"] for h in result["history"]]
+            metrics = [result["final_personal"][m]
+                       for m in ("acc", "loss", "auc")]
+            syncs = (hidden_syncs(lambda: engine.run_round(
+                2, result["params"], result["batch_stats"],
+                engine.client_sampling(2))) if algorithm == "fedavg"
+                else None)
+            print(json.dumps({
+                "engine": algorithm, "card": card,
+                "partition": info["train_counts"],
+                "sampled": [engine.client_sampling(r).tolist()
+                            for r in range(ecfg.fed.comm_round)],
+                "setup_seconds": setup_s, "train_seconds": train_s,
+                "round_seconds": result["round_seconds"],
+                "finetune_seconds": result.get("finetune_seconds"),
+                "train_loss": losses,
+                "final_personal": result["final_personal"],
+                "final_global": result.get("final_global"),
+                "launches": got, "local_steps": steps,
+                "sync_warnings": syncs,
+                "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}))
+            if not all(math.isfinite(v) for v in losses + metrics):
+                fail(f"{algorithm}: non-finite losses or metrics: {losses} "
+                     f"{metrics}")
+            if got["fused_sgd"] != 2 * steps or got["stem_dw"] != 3 * steps:
+                fail(f"{algorithm}: {got} in {steps} local steps, not "
+                     "fused_sgd 2 and stem_dw 3 a step")
+            if got["kth_select"] or got["count_ge"]:
+                fail(f"{algorithm} launched the top-k kernels: {got}")
+            del engine, result
+            torch.cuda.empty_cache()
+
         # ---- the slice on a small input: kernels against plain paths ----
-        def small(kernels: bool):
+        def small(kernels: bool, algorithm: str = "salientgrads"):
             os.environ["NIDT_FAST_STEM"] = "1" if kernels else "0"
-            argv = ["--synthetic_shape", "69", "69", "69",
+            argv = ["--algorithm", algorithm,
+                    "--synthetic_shape", "69", "69", "69",
                     "--synthetic_num_subjects", "24",
                     "--client_num_in_total", "4", "--batch_size", "4",
                     "--epochs", "1", "--comm_round", "2"]
@@ -593,6 +796,13 @@ def main(argv: list[str]) -> int:
                 add_args(argparse.ArgumentParser()).parse_args(argv)),
                 "cuda")[0]
 
+        # cuDNN's default algorithms are not reproducible from run to run:
+        # two plain FedProx or Ditto runs here differed by up to 1.6e-2 of
+        # the largest weight change (scripts/torch_small_spread.py). With
+        # its deterministic algorithms each path repeats bit for bit, so
+        # the runs below differ by the kernels alone.
+        torch.backends.cudnn.deterministic = True
+        per_call = PerCallCheck()
         probe = small(True)
         init_p, init_b = probe.init_global_state()
         masks, _ = probe.generate_global_mask(init_p, init_b)
@@ -601,7 +811,9 @@ def main(argv: list[str]) -> int:
         # where the clip is taken, in the global norm's (fused_sgd is
         # bit-equal to the plain chain only where the clip is not taken)
         plain = small(False).train(masks=masks)
-        kern = small(True).train(masks=masks)
+        with per_call:
+            kern = small(True).train(masks=masks)
+        calls = per_call.check("salientgrads small input")
         moved = max(float((v - init_p[k]).abs().max())
                     for k, v in plain["params"].items())
         p_err = max(float((kern["params"][k] - v).abs().max())
@@ -613,7 +825,7 @@ def main(argv: list[str]) -> int:
             "shape": [69, 69, 69], "train_loss_plain": lp,
             "train_loss_kernels": lk, "eval_loss_plain": ep,
             "eval_loss_kernels": ek, "param_max_abs_err": p_err,
-            "largest_weight_change": moved}}))
+            "largest_weight_change": moved, "per_call": calls}}))
         if not all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lk, lp)):
             fail(f"small-input train losses differ: {lk} vs plain {lp}")
         if not p_err <= 1e-3 * moved:
@@ -621,8 +833,65 @@ def main(argv: list[str]) -> int:
                  f"change {moved})")
         if not abs(ek - ep) <= 1e-3 * abs(ep):
             fail(f"small-input eval loss {ek} vs plain {ep}")
+
+        # FedProx (with its fine-tune) and Ditto (both tracks) on the small
+        # input: through the kernels and through the plain paths. Their runs
+        # chain three and four steps a client, and where a ReLU input lies
+        # within fp32 rounding of 0 the kernels' rounding flips the unit:
+        # held at the tolerances of tests/torch_port_support.py TRAJECTORY
+        # (weights 5e-2 of the largest change, eval loss rtol 2e-2), train
+        # losses rtol 1e-4
+        for algorithm in ("fedprox", "ditto"):
+            plain_eng = small(False, algorithm)
+            init_p, _ = plain_eng.init_global_state()
+            plain = plain_eng.train()
+            per_call.reset()
+            with per_call:
+                kern = small(True, algorithm).train()
+            calls = per_call.check(f"{algorithm} small input")
+            # the kernels' run once more: bit for bit the same
+            again = small(True, algorithm).train()
+            if not all(torch_equal_bits(v, again["params"][k])
+                       for k, v in kern["params"].items()):
+                fail(f"{algorithm} small input: two runs through the kernels "
+                     "differ")
+            pairs = {"global": (kern["params"], plain["params"])}
+            per = ("personal_params" if algorithm == "ditto" else "personal")
+            for c in range(plain_eng.num_clients):
+                pk, pp = kern[per], plain[per]
+                if algorithm != "ditto":
+                    pk, pp = pk["params"], pp["params"]
+                pairs[f"personal {c}"] = (pk[c], pp[c])
+            moved = max(float((v - init_p[k]).abs().max())
+                        for st in (pr[1] for pr in pairs.values())
+                        for k, v in st.items())
+            p_err = max(float((a[k] - v).abs().max())
+                        for a, b in pairs.values() for k, v in b.items())
+            lp = [h["train_loss"] for h in plain["history"]]
+            lk = [h["train_loss"] for h in kern["history"]]
+            ep = plain["final_personal"]["loss"]
+            ek = kern["final_personal"]["loss"]
+            print(json.dumps({"small_input_check": {
+                "engine": algorithm, "shape": [69, 69, 69],
+                "train_loss_plain": lp, "train_loss_kernels": lk,
+                "personal_eval_loss_plain": ep,
+                "personal_eval_loss_kernels": ek,
+                "param_max_abs_err": p_err, "states": sorted(pairs),
+                "largest_weight_change": moved, "per_call": calls}}))
+            if not all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lk, lp)):
+                fail(f"{algorithm} small-input train losses differ: {lk} vs "
+                     f"plain {lp}")
+            if not p_err <= 5e-2 * moved:
+                fail(f"{algorithm} small-input params differ by {p_err} "
+                     f"(largest weight change {moved})")
+            if not abs(ek - ep) <= 2e-2 * abs(ep):
+                fail(f"{algorithm} small-input personal eval loss {ek} vs "
+                     f"plain {ep}")
+        torch.backends.cudnn.deterministic = False
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["launches_by_path"] = {k: v.get(r["name"], 0)
+                                 for k, v in by_path.items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 """CLI of the port:
 
-    python -m neuroimagedisttraining_tpu_torch --algorithm salientgrads \\
+    python -m neuroimagedisttraining_tpu_torch \\
+        --algorithm fedavg|fedprox|salientgrads|ditto|local \\
         --dataset synthetic --model 3DCNN --synthetic_shape 121 145 121 \\
-        [--fused_update] [--device cuda|cpu] ...
+        [--fused_update] [--device cuda|cpu] [--log_dir LOG] ...
 
-Flag names are the reference CLI's for the flags this slice takes. It
-prints one line per round and, last, one JSON line with the final metrics.
+Flag names are the reference CLI's for the flags the port takes. It logs
+the rounds and prints, last, one JSON line with what the engine returns
+except its model states (``mask_density`` for SalientGrads only).
 ``NIDT_FAST_STEM=1`` arms the stem weight-gradient kernel.
 """
 
@@ -21,11 +23,12 @@ import torch
 from neuroimagedisttraining_tpu_torch.config import (
     DataConfig, ExperimentConfig, FedConfig, OptimConfig, SparsityConfig,
 )
+from neuroimagedisttraining_tpu_torch.engines import ENGINES, create_engine
 
 
 def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    parser.add_argument("--algorithm", type=str, default="salientgrads",
-                        choices=["salientgrads"])
+    parser.add_argument("--algorithm", type=str, default="fedavg",
+                        choices=sorted(ENGINES))
     parser.add_argument("--model", type=str, default="3DCNN")
     parser.add_argument("--dataset", type=str, default="synthetic",
                         choices=["synthetic"])
@@ -36,6 +39,9 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--momentum", type=float, default=0.9)
     parser.add_argument("--grad_clip", type=float, default=10.0)
     parser.add_argument("--epochs", type=int, default=2)
+    parser.add_argument("--batch_order", type=str, default="shuffle",
+                        choices=["shuffle", "replacement"],
+                        help="per-epoch shuffled strides or i.i.d. draws")
     parser.add_argument("--client_num_in_total", type=int, default=21)
     parser.add_argument("--frac", type=float, default=1.0)
     parser.add_argument("--comm_round", type=int, default=200)
@@ -44,11 +50,17 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--seed_split", type=int, default=42)
     parser.add_argument("--dense_ratio", type=float, default=0.5)
     parser.add_argument("--itersnip_iteration", type=int, default=1)
+    parser.add_argument("--stratified_sampling", action="store_true")
+    parser.add_argument("--lamda", type=float, default=0.5)
+    parser.add_argument("--local_epochs", type=int, default=1)
     parser.add_argument("--fused_update", action="store_true")
     parser.add_argument("--synthetic_num_subjects", type=int, default=256)
     parser.add_argument("--synthetic_shape", type=int, nargs=3,
                         default=[121, 145, 121])
     parser.add_argument("--synthetic_signal", type=float, default=12.0)
+    parser.add_argument("--log_dir", type=str, default=None,
+                        help="write <log_dir>/<dataset>/<identity>.log and "
+                             ".metrics.jsonl (none if unset)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     return parser
@@ -57,7 +69,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 def config_from_args(args) -> ExperimentConfig:
     return ExperimentConfig(
         model=args.model, num_classes=1, algorithm=args.algorithm,
-        seed=args.seed,
+        seed=args.seed, log_dir=args.log_dir,
         data=DataConfig(dataset=args.dataset,
                         synthetic_num_subjects=args.synthetic_num_subjects,
                         synthetic_shape=tuple(args.synthetic_shape),
@@ -66,12 +78,15 @@ def config_from_args(args) -> ExperimentConfig:
         optim=OptimConfig(lr=args.lr, lr_decay=args.lr_decay, wd=args.wd,
                           momentum=args.momentum, batch_size=args.batch_size,
                           epochs=args.epochs, grad_clip=args.grad_clip,
+                          batch_order=args.batch_order,
                           fused_update=args.fused_update),
         fed=FedConfig(client_num_in_total=args.client_num_in_total,
                       frac=args.frac, comm_round=args.comm_round,
-                      frequency_of_the_test=args.frequency_of_the_test),
+                      frequency_of_the_test=args.frequency_of_the_test,
+                      lamda=args.lamda, local_epochs=args.local_epochs),
         sparsity=SparsityConfig(dense_ratio=args.dense_ratio,
-                                itersnip_iterations=args.itersnip_iteration),
+                                itersnip_iterations=args.itersnip_iteration,
+                                stratified_sampling=args.stratified_sampling),
     )
 
 
@@ -84,9 +99,6 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda"):
         generate_synthetic_abcd,
     )
     from neuroimagedisttraining_tpu_torch.device import resolve_device
-    from neuroimagedisttraining_tpu_torch.engines.salientgrads import (
-        SalientGradsEngine,
-    )
     from neuroimagedisttraining_tpu_torch.models import create_model
 
     dev = resolve_device(device)
@@ -99,7 +111,7 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda"):
     model = create_model(cfg.model, d.synthetic_shape, cfg.num_classes)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     trainer = LocalTrainer(model, cfg.optim, dev, gen)
-    return SalientGradsEngine(cfg, fed, trainer), info
+    return create_engine(cfg.algorithm, cfg, fed, trainer), info
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -111,11 +123,20 @@ def main(argv: list[str] | None = None) -> int:
     engine, info = build_experiment(cfg, args.device)
     logging.info("partition: %s", json.dumps(info["train_counts"]))
     result = engine.train()
-    print(json.dumps({"mask_density": result["mask_density"],
-                      "final_global": result["final_global"],
-                      "final_personal": result["final_personal"],
-                      "history": result["history"]}))
+    print(json.dumps({k: v for k, v in result.items()
+                      if not _holds_tensor(v)}))
     return 0
+
+
+def _holds_tensor(v) -> bool:
+    """A model state (or anything else holding a tensor): not printed."""
+    if isinstance(v, torch.Tensor):
+        return True
+    if isinstance(v, dict):
+        return any(_holds_tensor(x) for x in v.values())
+    if isinstance(v, (list, tuple)):
+        return any(_holds_tensor(x) for x in v)
+    return False
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Configuration dataclasses: the fields of the reference's config that the
-SalientGrads slice reads, with the reference's defaults (the canonical ABCD
+ported engines read, with the reference's defaults (the canonical ABCD
 run: 3DCNN, 21 site-clients, batch 16, 200 rounds, SGD lr 0.01 decayed
 0.998 per round, weight decay 5e-4, momentum 0.9, global-norm clip 10,
-dense ratio 0.5).
+dense ratio 0.5; Ditto's lamda 0.5 and 1 personal epoch).
 """
 
 from __future__ import annotations
@@ -22,6 +22,9 @@ class OptimConfig:
     batch_size: int = 16
     epochs: int = 2
     grad_clip: float = 10.0
+    # "shuffle": walk a fresh per-epoch permutation in batch_size strides
+    # (the reference DataLoader); "replacement": i.i.d. uniform draws
+    batch_order: str = "shuffle"
     # the fused CUDA step (ops/fused_update.py: the global norm, then one
     # pass over every leaf) instead of the stage-by-stage chain
     fused_update: bool = False
@@ -46,6 +49,8 @@ class SparsityConfig:
     dense_ratio: float = 0.5
     snip_mask: bool = True
     itersnip_iterations: int = 1
+    # label-balanced IterSNIP batches instead of uniform ones
+    stratified_sampling: bool = False
 
 
 @dataclass(frozen=True)
@@ -56,6 +61,9 @@ class FedConfig:
     frac: float = 1.0
     comm_round: int = 200
     frequency_of_the_test: int = 1
+    # Ditto's proximal weight (also FedProx's mu) and personal epochs
+    lamda: float = 0.5
+    local_epochs: int = 1
 
     @property
     def client_num_per_round(self) -> int:
@@ -68,9 +76,26 @@ class ExperimentConfig:
 
     model: str = "3DCNN"
     num_classes: int = 1
-    algorithm: str = "salientgrads"
+    algorithm: str = "fedavg"
     seed: int = 1024
+    # LOG/<dataset>/<identity>.log and .metrics.jsonl go here; None writes
+    # no experiment log
+    log_dir: str | None = None
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     fed: FedConfig = field(default_factory=FedConfig)
     sparsity: SparsityConfig = field(default_factory=SparsityConfig)
+
+    def identity(self) -> str:
+        """The experiment's identity string (the reference's log file name,
+        with its default Dirichlet alpha 0.3 and tag ``exp``: the port
+        partitions by site and takes no tag)."""
+        d, o, f, s = self.data, self.optim, self.fed, self.sparsity
+        parts = [
+            self.algorithm, d.dataset, self.model,
+            f"c{f.client_num_in_total}", f"frac{f.frac}", f"r{f.comm_round}",
+            f"e{o.epochs}", f"b{o.batch_size}", f"lr{o.lr}", f"dec{o.lr_decay}",
+            f"wd{o.wd}", f"part-{d.partition_method}0.3",
+            f"dr{s.dense_ratio}", f"seed{self.seed}", "exp",
+        ]
+        return "_".join(str(p) for p in parts)

@@ -50,10 +50,10 @@ def round_lr(cfg: OptimConfig, round_idx: int,
              device: torch.device) -> torch.Tensor:
     """``lr * lr_decay ** round`` in float32 as a 0-d device tensor; the
     power is taken by repeated squaring in float32, as the reference's
-    integer power is."""
-    y = int(round_idx)
-    if y < 0:
-        raise ValueError("round_idx must be >= 0")
+    integer power is, and a negative round takes the reciprocal of the
+    power of its magnitude (FedAvg's final fine-tune runs at round -1,
+    i.e. ``lr / lr_decay``)."""
+    y = abs(int(round_idx))
     x = np.float32(cfg.lr_decay)
     acc = np.float32(1.0)
     first = True
@@ -64,5 +64,9 @@ def round_lr(cfg: OptimConfig, round_idx: int,
         y >>= 1
         if y > 0:
             x = np.float32(x * x)
-    return torch.tensor(np.float32(cfg.lr) * acc, dtype=torch.float32,
-                        device=device)
+    if round_idx < 0:
+        acc = np.float32(np.float32(1.0) / acc)
+    # copied without a stream sync: the copy from pageable memory is
+    # staged before the call returns
+    return torch.tensor(np.float32(cfg.lr) * acc, dtype=torch.float32
+                        ).to(device, non_blocking=True)

@@ -10,13 +10,17 @@ serves every client.
   of an epoch wraps to the epoch's start; the wrapped filler rows weigh 0
   in the loss (the mean is the true partial batch's) but still reach
   BatchNorm, as in the reference. A client runs ``ceil(n / B)`` steps per
-  epoch; the reference's further masked no-op steps are skipped.
+  epoch; the reference's further masked no-op steps are skipped. Under
+  ``batch_order="replacement"`` each step draws its rows uniformly
+  instead. FedProx and Ditto add a proximal pull toward a reference
+  model after every step.
 - ``evaluate``: chunked eval returning correct / loss sum / total and the
   raw logits for AUC.
 
-Randomness (epoch permutations, dropout keep-masks) comes from an explicit
-``torch.Generator`` on the trainer's device; ``perms`` and ``dropout_masks``
-can be given instead, so tests can feed the reference's draws.
+Randomness (epoch permutations, replacement batch rows, dropout keep-masks)
+comes from an explicit ``torch.Generator`` on the trainer's device;
+``perms``, ``batch_idx`` and ``dropout_masks`` can be given instead, so
+tests can feed the reference's draws.
 """
 
 from __future__ import annotations
@@ -43,6 +47,15 @@ def epoch_permutations(generator: torch.Generator, epochs: int,
     u = torch.rand((epochs, max_samples), generator=generator, device=device)
     u[:, n_valid:] = 2.0
     return torch.argsort(u, dim=-1)
+
+
+def prox_pull_(params: list[torch.Tensor], ref: list[torch.Tensor], lr,
+               lamda: float) -> None:
+    """The proximal pull ``w -= (lr * lamda) * (w - ref)`` in place, in
+    the reference's order of operations (three multi-tensor passes)."""
+    d = torch._foreach_sub(params, ref)
+    torch._foreach_mul_(d, lr * lamda)
+    torch._foreach_sub_(params, d)
 
 
 class LocalTrainer:
@@ -90,32 +103,60 @@ class LocalTrainer:
                     y: torch.Tensor, n_valid: int, lr, epochs: int,
                     batch_size: int, max_samples: int,
                     mask: State | None = None,
-                    perms: torch.Tensor | None = None):
+                    prox_lamda: float | None = None,
+                    prox_ref: State | None = None,
+                    perms: torch.Tensor | None = None,
+                    batch_idx: torch.Tensor | None = None):
         """E epochs of local SGD from ``(params, bstats)`` (left unchanged).
         Returns ``(params, bstats, mean_loss)``; ``mask`` re-applies the
-        sparse mask after every step."""
+        sparse mask after every step.
+
+        Under ``batch_order="replacement"`` each step draws ``batch_size``
+        rows uniformly from ``[0, n_valid)`` with an unweighted loss;
+        ``batch_idx`` ``[epochs * ceil(n_valid / B), B]`` gives the rows
+        instead (``perms`` is then unused).
+
+        ``prox_lamda`` / ``prox_ref``: after each step (and the mask) the
+        proximal pull ``w -= (lr * lamda) * (w - ref)``, in place, so the
+        fused step keeps its table of the leaves' addresses."""
         n_valid = int(n_valid)
         my_steps = math.ceil(n_valid / batch_size)
-        if perms is None:
+        shuffle = self.optim_cfg.batch_order == "shuffle"
+        if shuffle and perms is None:
             perms = epoch_permutations(self.generator, epochs, max_samples,
                                        n_valid, self.device)
-        perms = perms.to(self.device)
+        if shuffle:
+            perms = perms.to(self.device)
+        elif batch_idx is not None:
+            batch_idx = batch_idx.to(self.device)
         p = {k: v.detach().clone() for k, v in params.items()}
         b = {k: v.clone() for k, v in bstats.items()}
         names = list(p)
         p_list = [p[k] for k in names]
         m_list = [mask[k] for k in names] if mask is not None else None
+        ref_list = ([prox_ref[k] for k in names] if prox_lamda is not None
+                    else None)
         trace = self.opt.init(p_list)
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         offsets = torch.arange(batch_size, device=self.device)
         for e in range(epochs):
             for s in range(my_steps):
-                pos = s * batch_size + offsets
-                idx = perms[e][pos % max(n_valid, 1)]
-                w = (pos < n_valid).to(torch.float32)
+                if shuffle:
+                    pos = s * batch_size + offsets
+                    idx = perms[e][pos % max(n_valid, 1)]
+                    w = (pos < n_valid).to(torch.float32)
+                else:
+                    idx = (batch_idx[e * my_steps + s] if batch_idx is not None
+                           else torch.randint(0, max(n_valid, 1),
+                                              (batch_size,),
+                                              generator=self.generator,
+                                              device=self.device))
+                    w = None
                 loss, grads, b = self.loss_and_grad(p, b, X[idx], y[idx], w)
                 self.opt.step(p_list, [grads[k] for k in names], trace, lr,
                               m_list)
+                if prox_lamda is not None:
+                    prox_pull_(p_list, ref_list, lr, prox_lamda)
                 loss_sum = loss_sum + loss
         return p, b, loss_sum / max(epochs * my_steps, 1)
 

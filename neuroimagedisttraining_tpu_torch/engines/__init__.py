@@ -1,1 +1,27 @@
-"""Federated engines (the SalientGrads slice)."""
+"""Federated engines, by the reference CLI's algorithm names."""
+
+from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.engines.ditto import DittoEngine
+from neuroimagedisttraining_tpu_torch.engines.fedavg import FedAvgEngine
+from neuroimagedisttraining_tpu_torch.engines.fedprox import FedProxEngine
+from neuroimagedisttraining_tpu_torch.engines.local import LocalEngine
+from neuroimagedisttraining_tpu_torch.engines.salientgrads import (
+    SalientGradsEngine,
+)
+
+ENGINES = {
+    "fedavg": FedAvgEngine,
+    "fedprox": FedProxEngine,
+    "salientgrads": SalientGradsEngine,
+    "sailentgrads": SalientGradsEngine,  # the reference's spelling
+    "ditto": DittoEngine,
+    "local": LocalEngine,
+}
+
+
+def create_engine(name: str, *args, **kwargs) -> FederatedEngine:
+    try:
+        cls = ENGINES[name.lower()]
+    except KeyError:
+        raise ValueError(f"unknown algorithm {name!r}; have {sorted(ENGINES)}")
+    return cls(*args, **kwargs)

@@ -1,14 +1,22 @@
-"""The engine pieces SalientGrads needs: client sampling, the sample-weighted
-FedAvg with its non-finite-upload guard, personal-state scatter, and
-global / personal evaluation.
+"""The pieces every engine shares: client sampling, local training of one
+client, the sample-weighted FedAvg with its non-finite-upload guard,
+personal-state lists and their scatter, global / personal evaluation, the
+reference's ``stat_info`` accumulators and the experiment log.
 
 Clients run one after another in a Python loop (PyTorch's form of the
 reference's ``vmap`` over a client axis); their states are dicts of
 tensors on the device, and a round syncs with the host only where the
-host needs a value (the evaluation metrics).
+host needs a value (the round's loss and evaluation metrics).
+
+``perms_for(round_idx, client, n_valid[, track])`` may supply a client's
+epoch permutations (the tests feed the reference's draws; ``track`` is
+``"personal"`` for Ditto's personal track and absent otherwise); by
+default they come from the trainer's generator.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -18,21 +26,37 @@ from neuroimagedisttraining_tpu_torch.core.losses import binary_auc
 from neuroimagedisttraining_tpu_torch.core.optim import round_lr
 from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
 from neuroimagedisttraining_tpu_torch.data.federate import FederatedData
+from neuroimagedisttraining_tpu_torch.utils.logging import ExperimentLogger
 
 State = dict[str, torch.Tensor]
+
+log = logging.getLogger(__name__)
 
 
 class FederatedEngine:
     """Shared state and helpers of a federated run."""
 
     def __init__(self, cfg: ExperimentConfig, data: FederatedData,
-                 trainer: LocalTrainer):
+                 trainer: LocalTrainer, perms_for=None):
         self.cfg = cfg
         self.data = data
         self.trainer = trainer
         self.device = trainer.device
         self.num_clients = data.num_clients
         self.real_clients = int(np.sum(data.n_train > 0))
+        self.max_samples = int(data.X_train.shape[1])
+        self.perms_for = perms_for
+        self.log = (ExperimentLogger(cfg.log_dir, cfg.data.dataset,
+                                     cfg.identity())
+                    if cfg.log_dir else None)
+        # the reference's accounting (its stat_info): communicated
+        # parameters and training FLOPs summed over rounds, non-finite
+        # uploads dropped, and the accuracy at every evaluation
+        self.stat_info: dict = {
+            "sum_comm_params": 0.0, "sum_training_flops": 0.0,
+            "nonfinite_uploads": 0.0,
+            "global_test_acc": [], "person_test_acc": [],
+        }
 
     # ---------- state ----------
 
@@ -47,6 +71,22 @@ class FederatedEngine:
         params = {k: v.detach().clone() for k, v in model.named_parameters()}
         bstats = {k: v.clone() for k, v in model.named_buffers()}
         return params, bstats
+
+    def start_state(self, init_state=None) -> tuple[State, State]:
+        """The run's initial ``(params, bstats)`` on the device: the given
+        ``init_state``, or :meth:`init_global_state`."""
+        if init_state is None:
+            return self.init_global_state()
+        return tuple({k: v.to(self.device) for k, v in st.items()}
+                     for st in init_state)
+
+    @staticmethod
+    def broadcast_states(params: State, bstats: State, n: int
+                         ) -> tuple[list[State], list[State]]:
+        """``n`` per-client copies of one state: the personal models. Each
+        client owns its tensors (none is shared between clients)."""
+        return ([{k: v.clone() for k, v in params.items()} for _ in range(n)],
+                [{k: v.clone() for k, v in bstats.items()} for _ in range(n)])
 
     # ---------- sampling ----------
 
@@ -64,6 +104,76 @@ class FederatedEngine:
 
     def round_lr(self, round_idx: int) -> torch.Tensor:
         return round_lr(self.cfg.optim, round_idx, self.device)
+
+    # ---------- local training ----------
+
+    def client_train(self, round_idx: int, c: int, params: State,
+                     bstats: State, lr, epochs: int, track: str = "global",
+                     **kw):
+        """Local SGD of client ``c`` from ``(params, bstats)`` on its rows:
+        ``(params, bstats, mean_loss)``. ``kw`` goes to ``local_train``
+        (``mask``, ``prox_lamda``, ``prox_ref``)."""
+        n = int(self.data.n_train[c])
+        perms = None
+        if self.perms_for is not None:
+            perms = (self.perms_for(round_idx, c, n) if track == "global"
+                     else self.perms_for(round_idx, c, n, track))
+        return self.trainer.local_train(
+            params, bstats, self.data.X_train[c], self.data.y_train[c], n,
+            lr, epochs, self.cfg.optim.batch_size, self.max_samples,
+            perms=perms, **kw)
+
+    def train_and_aggregate(self, round_idx: int, params: State,
+                            bstats: State, sampled, lr, **kw):
+        """The sampled clients train from the global model for ``epochs``;
+        FedAvg of their uploads. Returns ``(params, bstats, loss, n_bad,
+        uploads)``, ``uploads`` the clients' ``(params, bstats)`` lists."""
+        ups_p, ups_b, losses = [], [], []
+        for c in sampled:
+            p, b, loss = self.client_train(round_idx, int(c), params, bstats,
+                                           lr, self.cfg.optim.epochs, **kw)
+            ups_p.append(p)
+            ups_b.append(b)
+            losses.append(loss)
+        ns = self.to_device(self.data.n_train[sampled])
+        new_p, new_b, loss, n_bad = self.sanitize_aggregate(
+            ups_p, ups_b, params, bstats, ns, torch.stack(losses))
+        return new_p, new_b, loss, n_bad, (ups_p, ups_b)
+
+    # ---------- host boundaries ----------
+
+    def to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the device, copied without a stream sync (the
+        copy from pageable memory is staged before the call returns)."""
+        return torch.from_numpy(np.asarray(a)).to(self.device,
+                                                  non_blocking=True)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def read_round(self, round_idx: int, loss: torch.Tensor,
+                   n_bad: torch.Tensor | None = None) -> float:
+        """The round's loss on the host (one device read); non-finite
+        uploads go into ``stat_info`` with a warning."""
+        if n_bad is None:
+            return float(loss)
+        loss_h, bad_h = torch.stack([loss, n_bad.to(loss.dtype)]).tolist()
+        if bad_h:
+            self.stat_info["nonfinite_uploads"] += bad_h
+            log.warning("round %d: %d non-finite uploads dropped", round_idx,
+                        int(bad_h))
+        return loss_h
+
+    def metrics(self, round_idx: int, **values) -> None:
+        """One metrics record in the experiment log, where there is one."""
+        if self.log is not None:
+            self.log.metrics(round_idx, **values)
+
+    def is_eval_round(self, round_idx: int) -> bool:
+        f = self.cfg.fed
+        return (round_idx % f.frequency_of_the_test == 0
+                or round_idx == f.comm_round - 1)
 
     # ---------- aggregation ----------
 

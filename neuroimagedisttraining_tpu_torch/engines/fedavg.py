@@ -1,0 +1,86 @@
+"""FedAvg: classical federated averaging, with the reference's final
+fine-tune.
+
+A round samples clients (``np.random.seed(round)``, as the reference
+does), trains each sampled client from the round's global model, and
+averages their uploads weighted by sample count (a non-finite upload is
+dropped). The global model is evaluated every ``frequency_of_the_test``
+rounds and at the last round. After the last round every client fine-tunes
+the aggregated model on its own rows at ``round_lr(-1)``, i.e.
+``lr / lr_decay`` (the reference passes round -1 there), which gives the
+personal models; then the global and personal models are evaluated.
+
+``_prox_kwargs`` ties the local objective to the round's incoming global
+model; FedAvg adds nothing, FedProx (engines/fedprox.py) its proximal pull.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+
+log = logging.getLogger(__name__)
+
+
+class FedAvgEngine(FederatedEngine):
+
+    def _prox_kwargs(self, global_params) -> dict:
+        """Extra ``local_train`` arguments for the round's local training."""
+        return {}
+
+    def run_round(self, round_idx, params, bstats, sampled):
+        """Local training of the sampled clients and FedAvg. Returns
+        ``(params, bstats, loss, n_bad)``."""
+        new_p, new_b, loss, n_bad, _ = self.train_and_aggregate(
+            round_idx, params, bstats, sampled, self.round_lr(round_idx),
+            **self._prox_kwargs(params))
+        return new_p, new_b, loss, n_bad
+
+    def finetune(self, params, bstats):
+        """Every client trains the aggregated model for ``epochs`` at
+        ``round_lr(-1)``: the personal ``(params, bstats)`` lists."""
+        lr = self.round_lr(-1)
+        per_params, per_bstats = [], []
+        for c in range(self.num_clients):
+            p, b, _ = self.client_train(self.cfg.fed.comm_round, c, params,
+                                        bstats, lr, self.cfg.optim.epochs)
+            per_params.append(p)
+            per_bstats.append(b)
+        return per_params, per_bstats
+
+    def train(self, init_state=None) -> dict:
+        """The whole run from ``init_state`` (default
+        :meth:`init_global_state`)."""
+        cfg = self.cfg
+        params, bstats = self.start_state(init_state)
+        history, round_seconds = [], []
+        for r in range(cfg.fed.comm_round):
+            sampled = self.client_sampling(r)
+            log.info("round %d: clients %s", r, sampled.tolist())
+            t0 = time.perf_counter()
+            params, bstats, loss, n_bad = self.run_round(r, params, bstats,
+                                                         sampled)
+            loss_h = self.read_round(r, loss, n_bad)
+            self._sync()
+            round_seconds.append(time.perf_counter() - t0)
+            if self.is_eval_round(r):
+                m = self.eval_global(params, bstats)
+                self.stat_info["global_test_acc"].append(m["acc"])
+                self.metrics(r, train_loss=loss_h, **m)
+                history.append({"round": r, "train_loss": loss_h, **m})
+                log.info("round %d: %s", r, history[-1])
+        t0 = time.perf_counter()
+        per_params, per_bstats = self.finetune(params, bstats)
+        self._sync()
+        finetune_seconds = time.perf_counter() - t0
+        m_global = self.eval_global(params, bstats)
+        m_person = self.eval_personalized(per_params, per_bstats)
+        self.stat_info["person_test_acc"].append(m_person["acc"])
+        self.metrics(-1, global_=m_global, personal=m_person)
+        return {"params": params, "batch_stats": bstats,
+                "personal": {"params": per_params, "batch_stats": per_bstats},
+                "history": history, "final_global": m_global,
+                "final_personal": m_person, "round_seconds": round_seconds,
+                "finetune_seconds": finetune_seconds}

@@ -10,10 +10,14 @@
   each client's personal model is its latest local result; the global and
   personal models are evaluated on the clients' test rows.
 
-``perms_for(round_idx, client, n_valid)`` and ``snip_idx_for(client,
-n_valid)`` may supply the epoch permutations and the IterSNIP batch rows
-(the tests feed the reference's draws); by default both come from the
-trainer's generator.
+``perms_for`` (engines/base.py) and ``snip_idx_for(client, n_valid)`` may
+supply the epoch permutations and the IterSNIP batch rows (the tests feed
+the reference's draws); by default both come from the trainer's generator.
+
+``stat_info`` holds the reference's accounting: the training FLOPs per
+sample under the mask's densities times the round's samples and epochs,
+and the mask's nonzero count per sampled client as communicated
+parameters.
 """
 
 from __future__ import annotations
@@ -21,9 +25,10 @@ from __future__ import annotations
 import logging
 import time
 
-import torch
+import numpy as np
 
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.ops import flops as flops_ops
 from neuroimagedisttraining_tpu_torch.ops.masks import mask_density, ones_mask
 from neuroimagedisttraining_tpu_torch.ops.snip import (
     iter_snip_scores, mask_from_scores,
@@ -34,8 +39,7 @@ log = logging.getLogger(__name__)
 
 class SalientGradsEngine(FederatedEngine):
     def __init__(self, cfg, data, trainer, perms_for=None, snip_idx_for=None):
-        super().__init__(cfg, data, trainer)
-        self.perms_for = perms_for
+        super().__init__(cfg, data, trainer, perms_for)
         self.snip_idx_for = snip_idx_for
 
     # ---------- phase 1: the global mask ----------
@@ -61,6 +65,7 @@ class SalientGradsEngine(FederatedEngine):
             sc = iter_snip_scores(self.trainer, params, bstats,
                                   self.data.X_train[c], self.data.y_train[c],
                                   n, s.itersnip_iterations, o.batch_size,
+                                  stratified=s.stratified_sampling,
                                   idx_stack=idx)
             total = sc if total is None else {k: total[k] + sc[k]
                                               for k in total}
@@ -73,43 +78,20 @@ class SalientGradsEngine(FederatedEngine):
                   masks, sampled):
         """Local training of the sampled clients, FedAvg, personal update.
         Returns ``(params, bstats, per_params, per_bstats, loss, n_bad)``."""
-        o = self.cfg.optim
-        lr = self.round_lr(round_idx)
-        nmax = int(self.data.X_train.shape[1])
-        ups_p, ups_b, losses = [], [], []
-        for c in sampled:
-            n = int(self.data.n_train[c])
-            perms = (self.perms_for(round_idx, int(c), n)
-                     if self.perms_for else None)
-            p, b, loss = self.trainer.local_train(
-                params, bstats, self.data.X_train[c], self.data.y_train[c],
-                n, lr, o.epochs, o.batch_size, nmax, mask=masks, perms=perms)
-            ups_p.append(p)
-            ups_b.append(b)
-            losses.append(loss)
-        ns_host = self.data.n_train[sampled]
-        ns = torch.as_tensor(ns_host, device=self.device)
-        new_p, new_b, loss, n_bad = self.sanitize_aggregate(
-            ups_p, ups_b, params, bstats, ns, torch.stack(losses))
-        real = ns_host > 0
+        new_p, new_b, loss, n_bad, (ups_p, ups_b) = self.train_and_aggregate(
+            round_idx, params, bstats, sampled, self.round_lr(round_idx),
+            mask=masks)
+        real = self.data.n_train[sampled] > 0
         per_params = self.scatter_sampled_rows(per_params, ups_p, sampled, real)
         per_bstats = self.scatter_sampled_rows(per_bstats, ups_b, sampled, real)
         return new_p, new_b, per_params, per_bstats, loss, n_bad
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def train(self, init_state=None, masks=None) -> dict:
         """The whole run. ``init_state``: initial ``(params, bstats)``
         (default: :meth:`init_global_state`); ``masks``: a phase-1 mask to
         train under instead of computing one (as a resumed run does)."""
         cfg = self.cfg
-        if init_state is None:
-            params, bstats = self.init_global_state()
-        else:
-            params = {k: v.to(self.device) for k, v in init_state[0].items()}
-            bstats = {k: v.to(self.device) for k, v in init_state[1].items()}
+        params, bstats = self.start_state(init_state)
         t0 = time.perf_counter()
         if masks is None:
             masks, thr = self.generate_global_mask(params, bstats)
@@ -120,31 +102,43 @@ class SalientGradsEngine(FederatedEngine):
         phase1_seconds = time.perf_counter() - t0
         log.info("global SNIP mask density = %.4f (target %.4f)", density,
                  cfg.sparsity.dense_ratio)
-        per_params = [params] * self.num_clients
-        per_bstats = [bstats] * self.num_clients
+        self.stat_info["mask_density"] = density
+        flops_per_sample = flops_ops.count_training_flops_per_sample(
+            self.trainer.model, cfg.data.synthetic_shape,
+            flops_ops.densities_from_masks(masks))
+        # communicated parameters per client per round: the mask's nonzero
+        # count (ones on the leaves that are not masked)
+        comm_per_client = flops_ops.count_communication_params(masks)
+        per_params, per_bstats = self.broadcast_states(params, bstats,
+                                                       self.num_clients)
         history = []
-        last = cfg.fed.comm_round - 1
         for r in range(cfg.fed.comm_round):
             sampled = self.client_sampling(r)
             t0 = time.perf_counter()
             params, bstats, per_params, per_bstats, loss, n_bad = \
                 self.run_round(r, params, bstats, per_params, per_bstats,
                                masks, sampled)
-            loss_h, bad_h = torch.stack([loss, n_bad.to(loss.dtype)]).tolist()
+            loss_h = self.read_round(r, loss, n_bad)
             self._sync()
             entry = {"round": r, "train_loss": loss_h,
                      "round_seconds": time.perf_counter() - t0}
-            if bad_h:
-                log.warning("round %d: %d non-finite uploads dropped", r,
-                            int(bad_h))
-            if r % cfg.fed.frequency_of_the_test == 0 or r == last:
+            n_samples = float(np.sum(self.data.n_train[sampled]))
+            self.stat_info["sum_training_flops"] += (
+                flops_per_sample * cfg.optim.epochs * n_samples)
+            self.stat_info["sum_comm_params"] += comm_per_client * len(sampled)
+            if self.is_eval_round(r):
                 m = self.eval_global(params, bstats)
                 mp = self.eval_personalized(per_params, per_bstats)
+                self.stat_info["global_test_acc"].append(m["acc"])
+                self.stat_info["person_test_acc"].append(mp["acc"])
+                self.metrics(r, train_loss=loss_h, **m,
+                             personal_acc=mp["acc"])
                 entry.update(m, personal_acc=mp["acc"])
             log.info("round %d: %s", r, entry)
             history.append(entry)
         m_global = self.eval_global(params, bstats)
         m_person = self.eval_personalized(per_params, per_bstats)
+        self.metrics(-1, global_=m_global, personal=m_person)
         return {"params": params, "batch_stats": bstats, "masks": masks,
                 "threshold": thr, "mask_density": density,
                 "phase1_seconds": phase1_seconds, "history": history,

@@ -41,17 +41,28 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 
 
 class Conv3d(nn.Module):
-    """Parameters of a 3D convolution: ``weight`` OIDHW, ``bias``."""
+    """A 3D convolution: ``weight`` OIDHW, ``bias``; ``fast_stem`` takes
+    the stride-2 5^3 single-channel stem through ``ops.stemconv``."""
 
-    def __init__(self, c_in: int, c_out: int, kernel: int):
+    def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1,
+                 pad: int = 0, fast_stem: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(c_out, c_in, kernel, kernel,
                                                kernel))
         self.bias = nn.Parameter(torch.empty(c_out))
+        self.stride, self.pad = stride, pad
+        self.fast_stem = fast_stem
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.weight, self.weight[0].numel(), generator)
         nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        if self.fast_stem:
+            return (stem_conv3d(x, self.weight)
+                    + self.bias.view(1, -1, 1, 1, 1))
+        return F.conv3d(x, self.weight, self.bias, stride=self.stride,
+                        padding=self.pad)
 
 
 class Linear(nn.Module):
@@ -112,20 +123,14 @@ class ConvBNReLU3D(nn.Module):
     def __init__(self, c_in: int, features: int, kernel: int = 3,
                  stride: int = 1, pad: int = 0, fast_stem: bool = False):
         super().__init__()
-        self.conv = Conv3d(c_in, features, kernel)
-        self.bn = BatchNorm3d(features)
-        self.stride, self.pad = stride, pad
         self.fast_stem = (fast_stem and kernel == 5 and stride == 2
                           and pad == 0 and c_in == 1)
+        self.conv = Conv3d(c_in, features, kernel, stride, pad,
+                           self.fast_stem)
+        self.bn = BatchNorm3d(features)
 
     def forward(self, x, train: bool):
-        if self.fast_stem:
-            x = (stem_conv3d(x, self.conv.weight)
-                 + self.conv.bias.view(1, -1, 1, 1, 1))
-        else:
-            x = F.conv3d(x, self.conv.weight, self.conv.bias,
-                         stride=self.stride, padding=self.pad)
-        return F.relu(self.bn(x, train))
+        return F.relu(self.bn(self.conv(x), train))
 
 
 class AlexNet3D_Dropout(nn.Module):

@@ -2,10 +2,11 @@
 
 The saliency of a weight is ``|w * dL/dw|`` on a training batch (the
 gradient of the loss with respect to a multiplicative mask at 1). IterSNIP
-averages it over ``iterations`` batches drawn uniformly from the client's
-valid rows. The server averages the clients' scores, normalizes them by
+averages it over ``iterations`` batches drawn from the client's valid
+rows. The server averages the clients' scores, normalizes them by
 their global sum and keeps the top ``keep_ratio`` fraction across all
 layers, with the threshold from the histogram-select of ``ops/topk.py``.
+With ``stratified_sampling`` the IterSNIP batches are label-balanced.
 """
 
 from __future__ import annotations
@@ -37,13 +38,34 @@ def iter_snip_batch_indices(generator: torch.Generator, iterations: int,
                          generator=generator, device=device)
 
 
+def stratified_batch_indices(generator: torch.Generator, y: torch.Tensor,
+                             iterations: int, batch_size: int,
+                             n_valid: int) -> torch.Tensor:
+    """[iterations, batch_size] label-balanced draws with replacement:
+    each valid row weighs ``1 / count(its label)`` among the valid rows,
+    so every class is drawn with equal expected frequency."""
+    valid = torch.arange(y.shape[0], device=y.device) < int(n_valid)
+    eq = (y[None, :] == y[:, None]) & valid[None, :]
+    cnt = eq.sum(dim=1)
+    w = torch.where(valid, 1.0 / torch.clamp(cnt, min=1),
+                    torch.zeros((), device=y.device))
+    return torch.multinomial(w, iterations * batch_size, replacement=True,
+                             generator=generator
+                             ).reshape(iterations, batch_size)
+
+
 def iter_snip_scores(trainer: LocalTrainer, params: State, bstats: State,
                      X: torch.Tensor, y: torch.Tensor, n_valid: int,
                      iterations: int, batch_size: int,
+                     stratified: bool = False,
                      idx_stack: torch.Tensor | None = None) -> State:
-    """Mean saliency over ``iterations`` batches (``idx_stack`` gives the
-    batch rows; drawn from the trainer's generator when None)."""
-    if idx_stack is None:
+    """Mean saliency over ``iterations`` batches, drawn uniformly from the
+    valid rows or label-balanced when ``stratified`` (``idx_stack`` gives
+    the batch rows; drawn from the trainer's generator when None)."""
+    if idx_stack is None and stratified:
+        idx_stack = stratified_batch_indices(trainer.generator, y,
+                                             iterations, batch_size, n_valid)
+    elif idx_stack is None:
         idx_stack = iter_snip_batch_indices(trainer.generator, iterations,
                                             batch_size, n_valid,
                                             trainer.device)

@@ -1,12 +1,14 @@
-"""Where the time goes in the port's flagship SalientGrads run, on one
-CUDA card.
+"""Where the time goes in the port's flagship run, on one CUDA card.
 
-    python3 scripts/torch_port_profile.py [--out DIR]
+    python3 scripts/torch_port_profile.py [--algorithm salientgrads|fedavg]
+                                          [--out DIR]
 
-Builds the flagship slice as ``chip_smoke.py`` does (48 synthetic subjects
+Builds the flagship run as ``chip_smoke.py`` does (48 synthetic subjects
 over 4 sites at 121x145x121, ``3DCNN``, batch 16, ``--fused_update``,
-``NIDT_FAST_STEM=1``), runs phase 1 and one round to warm up, then traces
-phase 1 and one phase-2 round with ``torch.profiler``. For each window it
+``NIDT_FAST_STEM=1``). SalientGrads (the default): runs phase 1 and one
+round to warm up, then traces phase 1 and one phase-2 round. FedAvg: runs
+one round to warm up, then traces one round and the final fine-tune of
+every client. Windows are traced with ``torch.profiler``. For each window it
 prints the wall time, the device time summed over kernels (and its share
 of the wall time: the device's busy share, one stream), the time by kernel
 family, and the top kernels; with ``--out``, a Chrome trace of each
@@ -73,6 +75,8 @@ def summarize(prof, wall_s: float, top: int = 12) -> dict:
 
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--algorithm", default="salientgrads",
+                    choices=["salientgrads", "fedavg"])
     ap.add_argument("--out", default=None,
                     help="directory for the Chrome traces (none if unset)")
     args = ap.parse_args(argv)
@@ -87,16 +91,31 @@ def main(argv: list[str]) -> int:
 
     _cuda.build(["stem_dw", "fused_sgd", "count_ge"])
     cfg = config_from_args(add_args(argparse.ArgumentParser()).parse_args([
+        "--algorithm", args.algorithm,
         "--synthetic_shape", "121", "145", "121",
         "--synthetic_num_subjects", "48", "--client_num_in_total", "4",
         "--batch_size", "16", "--itersnip_iteration", "1", "--epochs", "1",
         "--comm_round", "2", "--fused_update"]))
     engine, info = build_experiment(cfg, "cuda")
     params, bstats = engine.init_global_state()
-    C = engine.num_clients
-    masks, _ = engine.generate_global_mask(params, bstats)  # warm-up
-    state = engine.run_round(0, params, bstats, [params] * C, [bstats] * C,
-                             masks, engine.client_sampling(0))
+    if args.algorithm == "fedavg":
+        state = engine.run_round(0, params, bstats, engine.client_sampling(0))
+        windows = {
+            "round": lambda: engine.run_round(1, *state[:2],
+                                              engine.client_sampling(1)),
+            "finetune": lambda: engine.finetune(*state[:2]),
+        }
+    else:
+        C = engine.num_clients
+        masks, _ = engine.generate_global_mask(params, bstats)  # warm-up
+        state = engine.run_round(0, params, bstats, [params] * C,
+                                 [bstats] * C, masks,
+                                 engine.client_sampling(0))
+        windows = {
+            "phase1": lambda: engine.generate_global_mask(params, bstats),
+            "round": lambda: engine.run_round(1, *state[:4], masks,
+                                              engine.client_sampling(1)),
+        }
     torch.cuda.synchronize()
     out = Path(args.out) if args.out else None
     if out is not None:
@@ -108,12 +127,8 @@ def main(argv: list[str]) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card)
-    result = {"card": card, "partition": info["train_counts"]}
-    windows = {
-        "phase1": lambda: engine.generate_global_mask(params, bstats),
-        "round": lambda: engine.run_round(1, *state[:4], masks,
-                                          engine.client_sampling(1)),
-    }
+    result = {"card": card, "algorithm": args.algorithm,
+              "partition": info["train_counts"]}
     for name, fn in windows.items():
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()

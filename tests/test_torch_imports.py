@@ -54,3 +54,15 @@ def test_port_imports_without_jax_or_cuda():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", [
+    "engines/fedavg.py", "engines/fedprox.py", "engines/ditto.py",
+    "engines/local.py", "ops/flops.py", "utils/logging.py"])
+def test_engine_slice_modules_are_checked(module):
+    """The dense engines' modules are among the sources checked above (none
+    imports JAX or the reference package)."""
+    path = PORT / module
+    assert path in SOURCES
+    assert not [m for m in _imported_modules(path)
+                if m.split(".")[0] in FORBIDDEN]

@@ -117,7 +117,7 @@ def _run_both(tmp):
         jax.tree.map(np.asarray, jres["masks"])))
     pmasks, pthr = peng.generate_global_mask(*init)
     assert _cuda.counts() == before  # CPU run: plain paths, no launches
-    return jres, pres, (pmasks, pthr), peng, init
+    return jres, pres, (pmasks, pthr), peng, init, jeng
 
 
 def test_global_mask_matches(runs):
@@ -126,7 +126,7 @@ def test_global_mask_matches(runs):
     the two sides' fp32 saliencies (each within ~1e-4 of the other, see
     test_torch_modules) may rank them differently; at most 1e-4 of the
     maskable weights."""
-    jres, _, (pmasks, pthr), peng, init = runs
+    jres, _, (pmasks, pthr), peng, init, _ = runs
     ref = masks_from_flax(jax.tree.map(np.asarray, jres["masks"]))
     scores = peng.mean_scores(*init)
     norm = sum(float(s.double().sum()) for k, s in scores.items()
@@ -154,7 +154,7 @@ def test_round_loss_and_global_params_match(runs):
     ~1e-4 relative, so the weights agree to that fraction of how far the
     round moved them), pruned weights exactly 0; its BN stats rtol 5e-4
     (the stem's E[x^2] - E[x]^2, as in test_torch_modules)."""
-    jres, pres, _, _, (init_p, _) = runs
+    jres, pres, _, _, (init_p, _), _ = runs
     assert pres["history"][0]["train_loss"] == pytest.approx(
         jres["history"][0]["train_loss"], rel=1e-5)
     ref_p, ref_b = params_from_flax(jax.tree.map(np.asarray, jres["params"]),
@@ -177,9 +177,25 @@ def test_eval_metrics_match(runs, which):
     """Global and personal evaluation: accuracy and AUC equal (a few test
     rows whose logits sit far from 0 against the rounding drift), loss
     rtol 1e-4."""
-    jres, pres, _, _, _ = runs
+    jres, pres, _, _, _, _ = runs
     ref, got = jres[which], pres[which]
     assert got["acc"] == pytest.approx(ref["acc"], abs=1e-9)
     assert got["acc_pooled"] == pytest.approx(ref["acc_pooled"], abs=1e-9)
     assert got["auc"] == pytest.approx(ref["auc"], abs=1e-9)
     assert got["loss"] == pytest.approx(ref["loss"], rel=1e-4)
+
+
+def test_stat_info_matches(runs):
+    """The reference's accounting under the same mask: mask density,
+    training FLOPs (per sample under the mask's densities, times the
+    round's samples and epochs) and communicated parameters (the mask's
+    nonzero count per sampled client) equal; the evaluation accuracies
+    within 1e-9; no non-finite upload on either side."""
+    _, _, _, peng, _, jeng = runs
+    ref, got = jeng.stat_info, peng.stat_info
+    for k in ("mask_density", "sum_training_flops", "sum_comm_params",
+              "nonfinite_uploads"):
+        assert got[k] == ref[k], k
+    assert got["sum_training_flops"] > 0 and got["sum_comm_params"] > 0
+    for k in ("global_test_acc", "person_test_acc"):
+        assert got[k] == pytest.approx(ref[k], abs=1e-9), k

@@ -63,3 +63,145 @@ def jax_alexnet(shape, seed: int = 0, **optim_kw):
                                    jnp.zeros((1,) + tuple(shape)))
     return (trainer, jax.tree.map(np.asarray, cs.params),
             jax.tree.map(np.asarray, cs.batch_stats))
+
+
+def reference_perms(jeng, nmax: int, epochs: int, local_epochs: int = 1):
+    """A port engine's ``perms_for``: the epoch permutations the reference
+    engine ``jeng`` draws for client ``c`` in round ``r`` (its per-client
+    key of that round; FedAvg's fine-tune is round ``comm_round``), and on
+    Ditto's personal track those of the key folded with 1."""
+    from neuroimagedisttraining_tpu.core.trainer import epoch_perms_for
+
+    def perms_for(r, c, n, track="global"):
+        key = jeng.per_client_rngs(r, np.array([c]))[0]
+        e = epochs
+        if track == "personal":
+            key, e = jax.random.fold_in(key, 1), local_epochs
+        return torch.from_numpy(np.asarray(
+            epoch_perms_for(key, e, nmax, n)).copy())
+
+    return perms_for
+
+
+def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
+                    shape=(69, 69, 69), seed: int = 0):
+    """The reference's engine ``name`` and the port's on the same federation,
+    initial weights, epoch permutations and dropout keep-masks, each run
+    through ``train()``, both logging under ``tmp``. ``data`` is
+    ``(X, y, train_map, test_map)``. Returns ``(reference result, port
+    result, reference engine, port engine, port initial state)``."""
+    from neuroimagedisttraining_tpu.config import (
+        DataConfig as JData, ExperimentConfig as JExp, FedConfig as JFed,
+        OptimConfig as JOptim,
+    )
+    from neuroimagedisttraining_tpu.core.trainer import (
+        LocalTrainer as JTrainer,
+    )
+    from neuroimagedisttraining_tpu.data.federate import (
+        build_federated_data as jbuild,
+    )
+    from neuroimagedisttraining_tpu.engines import create_engine as jcreate
+    from neuroimagedisttraining_tpu.models import create_model as jmodel
+    from neuroimagedisttraining_tpu.utils.logging import ExperimentLogger
+    from neuroimagedisttraining_tpu_torch.config import (
+        DataConfig, ExperimentConfig, FedConfig, OptimConfig,
+    )
+    from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
+    from neuroimagedisttraining_tpu_torch.data.federate import (
+        build_federated_data,
+    )
+    from neuroimagedisttraining_tpu_torch.engines import create_engine
+    from neuroimagedisttraining_tpu_torch.models import create_model
+    from neuroimagedisttraining_tpu_torch.weights import params_from_flax
+
+    X, y, train_map, test_map = data
+    jcfg = JExp(model="3DCNN", num_classes=1, algorithm=name,
+                data=JData(dataset="synthetic", partition_method="site"),
+                optim=JOptim(**optim), fed=JFed(**fed),
+                log_dir=str(tmp / "ref"))
+    jfed = jbuild(X, y, train_map, test_map)
+    jtrainer = JTrainer(jmodel("3dcnn", num_classes=1, remat=False),
+                        jcfg.optim, num_classes=1)
+    jeng = jcreate(name, jcfg, jfed, jtrainer, mesh=None,
+                   logger=ExperimentLogger(str(tmp / "ref"), "synthetic",
+                                           jcfg.identity(), console=False))
+    gs = jeng.init_global_state()
+    nmax = int(jfed.X_train.shape[1])
+    flat = 128  # 69^3 leaves one position after the three pools
+    jmasks, pmasks = dropout_masks(optim["batch_size"], flat, seed=1)
+    with fixed_dropout(jmasks):
+        jres = jeng.train()
+
+    pcfg = ExperimentConfig(
+        model="3DCNN", num_classes=1, algorithm=name,
+        data=DataConfig(synthetic_shape=tuple(shape)),
+        optim=OptimConfig(**optim), fed=FedConfig(**fed),
+        log_dir=str(tmp / "port"))
+    cpu = torch.device("cpu")
+    pfed = build_federated_data(X, y, train_map, test_map, cpu)
+    trainer = LocalTrainer(create_model("3dcnn", tuple(shape)), pcfg.optim,
+                           cpu, torch.Generator().manual_seed(seed),
+                           dropout_masks=pmasks)
+    peng = create_engine(name, pcfg, pfed, trainer,
+                         perms_for=reference_perms(
+                             jeng, nmax, optim.get("epochs", 2),
+                             fed.get("local_epochs", 1)))
+    init = params_from_flax(jax.tree.map(np.asarray, gs.params),
+                            jax.tree.map(np.asarray, gs.batch_stats))
+    pres = peng.train(init_state=init)
+    return jres, pres, jeng, peng, init
+
+
+#: Tolerances for runs of several SGD steps held against the reference. A
+#: single step from the same weights agrees at the rounding level (each
+#: gradient leaf within 1e-3 of its largest entry, test_torch_modules), but
+#: where a ReLU input lies within float32 rounding of 0 the unit is active
+#: on one side only. At 69^3 the f2-f4 blocks hold 27 positions a channel,
+#: so one such unit moves a conv gradient by up to 30% of its largest
+#: entry: measured at batch 2 on the test cohort, where the port's float32
+#: gradient is within 1e-5 of a float64 one and the reference's is 0.3 from
+#: it; the reference itself, from weights perturbed by 1e-6, ends 4 steps
+#: 3.5e-2 of the largest weight change away from its own unperturbed run.
+#: Later steps carry the difference: weights within 5e-2 of the largest
+#: weight change, BN stats within 2e-2 of the leaf's largest entry, train
+#: losses rtol 1e-4 and evaluation losses rtol 2e-2 (the largest
+#: differences measured on the engine tests' runs: 1.4e-2, 3.3e-3, 1.4e-5
+#: and 4.5e-3).
+TRAJECTORY = dict(atol_moved=5e-2, bn_rtol=0.0, bn_atol_max=2e-2)
+LOSS_RTOL = 1e-4
+EVAL_LOSS_RTOL = 2e-2
+
+
+def assert_state_close(got_p, got_b, ref_p, ref_b, init_p,
+                       atol_moved: float = 2e-4, bn_rtol: float = 5e-4,
+                       bn_atol_max: float = 0.0):
+    """Port state against the reference's (flax trees): every weight within
+    ``atol_moved`` of the largest weight change from ``init_p`` (one step:
+    the gradients agree to ~1e-4 relative, so the weights agree to that
+    fraction of how far training moved them), BN stats within ``bn_rtol``
+    (one step: 5e-4, the stem's E[x^2] - E[x]^2) and ``bn_atol_max`` of
+    the leaf's largest entry (at least 1e-5). ``ref_b`` None checks the
+    weights alone."""
+    from neuroimagedisttraining_tpu_torch.weights import params_from_flax
+
+    ref_p, ref_b = params_from_flax(jax.tree.map(np.asarray, ref_p),
+                                    jax.tree.map(np.asarray, ref_b or {}))
+    moved = max(float((v - init_p[k]).abs().max()) for k, v in ref_p.items())
+    assert moved > 0
+    for k, v in ref_p.items():
+        np.testing.assert_allclose(got_p[k].numpy(), v.numpy(), rtol=0,
+                                   atol=atol_moved * moved, err_msg=k)
+    for k, v in ref_b.items():
+        atol = max(1e-5, bn_atol_max * float(v.abs().max()))
+        np.testing.assert_allclose(got_b[k].numpy(), v.numpy(), rtol=bn_rtol,
+                                   atol=atol, err_msg=k)
+
+
+def assert_metrics_close(got: dict, ref: dict,
+                         loss_rtol: float = EVAL_LOSS_RTOL) -> None:
+    """Evaluation summaries: accuracy and AUC equal (the test rows' logits
+    sit far from 0 against the runs' differences), loss within
+    ``loss_rtol``."""
+    for k in ("acc", "acc_pooled", "auc"):
+        assert abs(got[k] - ref[k]) <= 1e-9, (k, got[k], ref[k])
+    assert abs(got["loss"] - ref["loss"]) <= loss_rtol * abs(ref["loss"])
