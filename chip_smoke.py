@@ -45,16 +45,32 @@
    clients' rows, no top-k launch, and finite losses and metrics. One more
    FedAvg round runs under torch's sync debug mode; the port's lines that
    synchronized with the host are printed.
-5. Runs SalientGrads, FedProx and Ditto on a small input (69^3, 4 sites,
-   2 rounds) through the kernels and through the plain paths (SalientGrads
-   under one phase-1 mask), and holds the two runs' losses, weights
-   (global and personal) and evaluation losses against each other. cuDNN
-   runs its deterministic algorithms here, so each path repeats bit for
-   bit and the two differ by the kernels alone; a second FedProx and Ditto
-   run through the kernels must equal the first. Every ``stem_dw`` and
+5. Runs the sparse personalized engines on the same flagship slice, each
+   with the counters set to 0 just before and read just after:
+   Sub-FedAvg (``--epochs 2 --dist_thresh 0 --acc_thresh 0``, so its two
+   candidate masks differ; it fails unless a prune is accepted) and DisPFL
+   (``--frac 0.5``: two random neighbours a client). Each must show
+   ``fused_sgd`` = 2 launches a local step and ``stem_dw`` = 3 a local
+   step or DisPFL gradient probe, no top-k launch and finite losses and
+   metrics; DisPFL's fire and regrow must keep every client's per-layer
+   nonzero count and its masks' density within 0.01 of ``dense_ratio``.
+   Each prints its rounds, launches, steps and peak memory, the host time
+   ``fused_sgd`` spends on its leaf table a step (a new table for every
+   new mask; SalientGrads' beside it), the port's lines that synchronized
+   with the host in one more round (sync debug mode), and DisPFL the cost
+   of a gradient probe and of a mask evolution against a local step.
+6. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg and DisPFL on a small
+   input (69^3, 4 sites, 2 rounds) through the kernels and through the
+   plain paths (SalientGrads under one phase-1 mask), and holds the two
+   runs' losses, weights (global and personal; the sparse engines' on the
+   entries both masks keep, beside the share of mask entries that differ)
+   and evaluation losses against each other. cuDNN runs its deterministic
+   algorithms here, so each path repeats bit for bit and the two differ
+   by the kernels alone; a second run of each engine but SalientGrads
+   through the kernels must equal the first. Every ``stem_dw`` and
    ``fused_sgd`` call of the kernel runs is also held against its plain
    version on the call's own inputs (``PerCallCheck``).
-6. Prints one JSON line per kernel, the ``{"kernels": [...]}`` line (with
+7. Prints one JSON line per kernel, the ``{"kernels": [...]}`` line (with
    each kernel's launches on every engine's run), and last
    ``{"ok": true, "device": {...}}``.
 
@@ -98,12 +114,12 @@ def bound_ms(nbytes: float, ops: float,
 def local_steps(engine) -> int:
     """Local SGD steps of ``engine.train()``, counted on the host from the
     clients' row counts: the sampled clients' epochs each round (Ditto's
-    personal epochs too), and FedAvg's / FedProx's fine-tune of every
-    client."""
+    personal epochs too), FedAvg's / FedProx's fine-tune of every client,
+    and every client's epochs each round in Local-only and DisPFL."""
     cfg = engine.cfg
     B, E = cfg.optim.batch_size, cfg.optim.epochs
     per = [math.ceil(int(n) / B) for n in engine.data.n_train]
-    if cfg.algorithm == "local":
+    if cfg.algorithm in ("local", "dispfl"):
         return sum(per) * E * cfg.fed.comm_round
     if cfg.algorithm == "ditto":
         E += cfg.fed.local_epochs
@@ -112,6 +128,46 @@ def local_steps(engine) -> int:
     if cfg.algorithm in ("fedavg", "fedprox"):
         steps += sum(per) * cfg.optim.epochs
     return steps
+
+
+def probes(engine) -> int:
+    """DisPFL's gradient probes in ``engine.train()``: one a client a round
+    (every client, rows or not), none under ``--static``."""
+    cfg = engine.cfg
+    if cfg.algorithm != "dispfl" or cfg.sparsity.static:
+        return 0
+    return engine.num_clients * cfg.fed.comm_round
+
+
+class TableTimer:
+    """Inside ``with``, the host time ``fused_sgd`` spends finding or
+    building its leaf table (``ops/fused_update.py`` ``_table``), a step at
+    a time, and how many tables it built."""
+
+    def __init__(self):
+        from neuroimagedisttraining_tpu_torch.ops import fused_update as FU
+        self.FU, self.orig = FU, FU._table
+        self.calls, self.builds, self.seconds = 0, 0, 0.0
+
+    def _table(self, *a, **kw):
+        before = self.FU._last_table
+        t = time.perf_counter()
+        tab = self.orig(*a, **kw)
+        self.seconds += time.perf_counter() - t
+        self.calls += 1
+        self.builds += tab is not before
+        return tab
+
+    def __enter__(self):
+        self.FU._table = self._table
+        return self
+
+    def __exit__(self, *exc):
+        self.FU._table = self.orig
+
+    def summary(self) -> dict:
+        return {"steps": self.calls, "tables_built": self.builds,
+                "host_ms_per_step": 1e3 * self.seconds / max(self.calls, 1)}
 
 
 def hidden_syncs(fn) -> list[str]:
@@ -219,6 +275,89 @@ class PerCallCheck:
             fail(f"{what}: a kernel call disagrees with its plain version "
                  f"on the run's own inputs: {seen}")
         return seen
+
+
+#: the sparse engines' flags on the card: Sub-FedAvg with 2 epochs and no
+#: accept thresholds on distance or accuracy (with 1 epoch its candidate
+#: masks are equal and it never prunes), DisPFL with random neighbours
+SPARSE_ARGS = {"subavg": ("--epochs", "2", "--dist_thresh", "0",
+                          "--acc_thresh", "0"),
+               "dispfl": ("--frac", "0.5")}
+#: the share of mask entries kernels and plain paths may differ in on the
+#: small input: what two implementations that differ in rounding alone
+#: differ in after two rounds, measured between the reference package and
+#: the port on the CPU (tests/test_torch_subavg.py: 2.0e-4, limit 1e-3;
+#: tests/test_torch_dispfl.py: 4.0e-3, limit 1e-2). A weight within the
+#: runs' difference of a cut (a prune threshold, a fire or regrow rank)
+#: lands on either side of it. On an H100 under cuDNN's default
+#: algorithms two plain runs differed in up to 9.3e-4 of Sub-FedAvg's
+#: entries and two kernel runs in up to 6.5e-3 of DisPFL's; under
+#: cudnn.deterministic kernels against plain differed in 2.9e-7 and
+#: 7.8e-7 (scripts/torch_small_spread.py)
+SPARSE_MASK_SHARE = {"subavg": 1e-3, "dispfl": 1e-2}
+
+
+def sparse_gap(algorithm: str, a: dict, b: dict, init_p: dict) -> dict:
+    """Run ``a`` against run ``b`` of a sparse engine: the share of mask
+    entries that differ, and the largest weight difference over the
+    largest weight change of ``b`` from ``init_p``, on the entries where
+    no client's support (the masks its weights were trained under: the
+    personal masks in Sub-FedAvg, a nonzero weight in DisPFL) differs."""
+    import torch
+
+    if algorithm == "subavg":
+        ma, mb = a["mask_pers"], b["mask_pers"]
+        states = [(a["params"], b["params"])]
+        support = list(zip(ma, mb))
+    else:
+        ma, mb = a["masks"], b["masks"]
+        states = list(zip(a["personal_params"], b["personal_params"]))
+        support = [({k: (v != 0) for k, v in pa.items()},
+                    {k: (v != 0) for k, v in pb.items()})
+                   for pa, pb in states]
+    differ = sum(int((x[k] != y[k]).sum()) for x, y in zip(ma, mb)
+                 for k in x)
+    total = sum(v.numel() for m in mb for v in m.values())
+    keep = {k: torch.stack([sa[k] == sb[k] for sa, sb in support]).all(0)
+            for k in states[0][1]}
+    moved = max(float((v - init_p[k]).abs().max())
+                for _, pb in states for k, v in pb.items())
+    err = max(float(((pa[k] - v).abs() * keep[k]).max())
+              for pa, pb in states for k, v in pb.items())
+    return {"mask_diff_share": differ / total, "differ": differ,
+            "param_err_over_change": err / max(moved, 1e-30),
+            "largest_weight_change": moved,
+            "support_flipped": sum(int((~v).sum()) for v in keep.values())}
+
+
+def evolution_cost(engine, result) -> dict:
+    """DisPFL's mask evolution against a local step, on client 0's final
+    state: host-clock ms (synchronized) of a gradient probe alone, of a
+    whole evolution (probe, fire, regrow over every layer), and of one
+    local step (a 1-epoch ``client_train``), each the mean of 3 calls
+    after a warm-up."""
+    import torch
+
+    p, b = result["personal_params"][0], result["personal_batch_stats"][0]
+    m = result["masks"][0]
+    n = int(engine.data.n_train[0])
+    idx = engine.probe_rows(0, 0, n)
+    X, y = engine.data.X_train[0][idx], engine.data.y_train[0][idx]
+    lr = engine.round_lr(0)
+
+    def ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / 3 * 1e3
+
+    return {"probe_ms": ms(lambda: engine.trainer.eval_grad(p, b, X, y)),
+            "evolve_ms": ms(lambda: engine.evolve(1, 0, p, b, m)),
+            "local_step_ms": ms(lambda: engine.client_train(
+                1, 0, p, b, lr, 1, mask=m)), "client_rows": n}
 
 
 def torch_equal_bits(a, b) -> bool:
@@ -685,7 +824,8 @@ def main(argv: list[str]) -> int:
         setup_s = time.perf_counter() - t0
         _cuda.reset_counts()
         t0 = time.perf_counter()
-        result = engine.train()
+        with TableTimer() as sg_table:
+            result = engine.train()
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         launches = _cuda.counts()
@@ -703,6 +843,7 @@ def main(argv: list[str]) -> int:
             "final_global": result["final_global"],
             "final_personal": result["final_personal"],
             "launches": launches, "local_steps": steps,
+            "fused_sgd_table": sg_table.summary(),
             "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}))
         if not all(math.isfinite(v) for v in losses + metrics):
             fail(f"non-finite losses or metrics: {losses} {metrics}")
@@ -782,6 +923,94 @@ def main(argv: list[str]) -> int:
             del engine, result
             torch.cuda.empty_cache()
 
+        # ---- the sparse personalized engines at full width ----
+        from neuroimagedisttraining_tpu_torch.ops import masks as M
+
+        for algorithm, extra in (
+                ("subavg", SPARSE_ARGS["subavg"]),
+                ("dispfl", SPARSE_ARGS["dispfl"])):
+            ecfg = flagship(algorithm, *extra)
+            t0 = time.perf_counter()
+            engine, info = build_experiment(ecfg, "cuda")
+            setup_s = time.perf_counter() - t0
+            steps, n_probes = local_steps(engine), probes(engine)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _cuda.reset_counts()
+            t0 = time.perf_counter()
+            with TableTimer() as table:
+                result = engine.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            got = _cuda.counts()
+            by_path[algorithm] = got
+            losses = [h["train_loss"] for h in result["history"]]
+            metrics = [result["final_personal"][m]
+                       for m in ("acc", "loss", "auc")]
+            out = {"engine": algorithm, "card": card,
+                   "partition": info["train_counts"],
+                   "setup_seconds": setup_s, "train_seconds": train_s,
+                   "round_seconds": result["round_seconds"],
+                   "train_loss": losses, "history": result["history"],
+                   "final_personal": result["final_personal"],
+                   "launches": got, "local_steps": steps,
+                   "gradient_probes": n_probes,
+                   "kernel_calls_per_step": {
+                       "fused_sgd": got["fused_sgd"] / max(steps, 1),
+                       "stem_dw": got["stem_dw"] / max(steps + n_probes, 1)},
+                   "fused_sgd_table": table.summary(),
+                   "fused_sgd_table_salientgrads": sg_table.summary(),
+                   "peak_memory_gb":
+                       torch.cuda.max_memory_allocated(dev) / 1e9}
+            if not all(math.isfinite(v) for v in losses + metrics):
+                fail(f"{algorithm}: non-finite losses or metrics: {losses} "
+                     f"{metrics}")
+            if (got["fused_sgd"] != 2 * steps
+                    or got["stem_dw"] != 3 * (steps + n_probes)):
+                fail(f"{algorithm}: {got} in {steps} local steps and "
+                     f"{n_probes} gradient probes, not fused_sgd 2 a step "
+                     "and stem_dw 3 a step or probe")
+            if got["kth_select"] or got["count_ge"]:
+                fail(f"{algorithm} launched the top-k kernels: {got}")
+            # one more round under sync debug mode: the port's lines that
+            # synchronized with the host
+            if algorithm == "subavg":
+                out["sync_warnings"] = hidden_syncs(lambda: engine.run_round(
+                    2, result["params"], result["batch_stats"],
+                    result["mask_pers"], engine.client_sampling(2)))
+            else:
+                out["sync_warnings"] = hidden_syncs(lambda: engine.run_round(
+                    2, result["personal_params"],
+                    result["personal_batch_stats"], result["masks"],
+                    result["masks"], engine.adjacency(
+                        2, engine.active_draw(2))))
+            if algorithm == "subavg":
+                out["client_densities"] = result["client_densities"]
+                if not sum(h["prunes_accepted"] for h in result["history"]):
+                    fail("subavg: no prune was accepted, so the prune path "
+                         "did not run")
+            else:
+                init_p, _ = engine.init_global_state()
+                start, _ = engine.init_masks_all(init_p)
+                nnz_moved = [(c, k) for c, (a, b) in
+                             enumerate(zip(start, result["masks"]))
+                             for k in a if M.is_weight_kernel(k, a[k])
+                             and int(a[k].sum()) != int(b[k].sum())]
+                density = [float(M.mask_density(m))
+                           for m in result["masks"]]
+                out.update(mask_density=density,
+                           mask_dis_matrix=result["mask_dis_matrix"],
+                           evolution=evolution_cost(engine, result))
+                if nnz_moved:
+                    fail(f"dispfl: fire and regrow changed the nonzero "
+                         f"count of (client, layer) {nnz_moved}")
+                if any(abs(d - ecfg.sparsity.dense_ratio) > 0.01
+                       for d in density):
+                    fail(f"dispfl: mask densities {density} are not "
+                         f"within 0.01 of {ecfg.sparsity.dense_ratio}")
+            print(json.dumps(out))
+            del engine, result
+            torch.cuda.empty_cache()
+
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads"):
             os.environ["NIDT_FAST_STEM"] = "1" if kernels else "0"
@@ -789,7 +1018,8 @@ def main(argv: list[str]) -> int:
                     "--synthetic_shape", "69", "69", "69",
                     "--synthetic_num_subjects", "24",
                     "--client_num_in_total", "4", "--batch_size", "4",
-                    "--epochs", "1", "--comm_round", "2"]
+                    "--epochs", "1", "--comm_round", "2",
+                    *SPARSE_ARGS.get(algorithm, ())]
             if kernels:
                 argv.append("--fused_update")
             return build_experiment(config_from_args(
@@ -884,6 +1114,55 @@ def main(argv: list[str]) -> int:
             if not p_err <= 5e-2 * moved:
                 fail(f"{algorithm} small-input params differ by {p_err} "
                      f"(largest weight change {moved})")
+            if not abs(ek - ep) <= 2e-2 * abs(ep):
+                fail(f"{algorithm} small-input personal eval loss {ek} vs "
+                     f"plain {ep}")
+
+        # Sub-FedAvg and DisPFL on the small input: through the kernels and
+        # through the plain paths, each path twice bit for bit. A weight
+        # within the runs' difference of a prune threshold or a fire/regrow
+        # cut lands on either side, so the masks are compared entry by
+        # entry and the weights on the entries whose support agrees
+        for algorithm in ("subavg", "dispfl"):
+            plain_eng = small(False, algorithm)
+            init_p, _ = plain_eng.init_global_state()
+            plain = plain_eng.train()
+            per_call.reset()
+            with per_call:
+                kern = small(True, algorithm).train()
+            calls = per_call.check(f"{algorithm} small input")
+            again = small(True, algorithm).train()
+            gap = sparse_gap(algorithm, kern, plain, init_p)
+            key = "params" if algorithm == "subavg" else "personal_params"
+            states = [kern[key]] if algorithm == "subavg" else kern[key]
+            states2 = [again[key]] if algorithm == "subavg" else again[key]
+            if (sparse_gap(algorithm, again, kern, init_p)["differ"]
+                    or not all(torch_equal_bits(v, b[k])
+                               for a, b in zip(states, states2)
+                               for k, v in a.items())):
+                fail(f"{algorithm} small input: two runs through the "
+                     "kernels differ")
+            lp = [h["train_loss"] for h in plain["history"]]
+            lk = [h["train_loss"] for h in kern["history"]]
+            ep = plain["final_personal"]["loss"]
+            ek = kern["final_personal"]["loss"]
+            print(json.dumps({"small_input_check": {
+                "engine": algorithm, "shape": [69, 69, 69],
+                "train_loss_plain": lp, "train_loss_kernels": lk,
+                "personal_eval_loss_plain": ep,
+                "personal_eval_loss_kernels": ek, **gap,
+                "per_call": calls}}))
+            if not gap["mask_diff_share"] <= SPARSE_MASK_SHARE[algorithm]:
+                fail(f"{algorithm} small input: {gap['mask_diff_share']} of "
+                     f"the mask entries differ, over "
+                     f"{SPARSE_MASK_SHARE[algorithm]}")
+            if not gap["param_err_over_change"] <= 5e-2:
+                fail(f"{algorithm} small-input params differ by "
+                     f"{gap['param_err_over_change']} of the largest weight "
+                     "change where the masks agree, over 5e-2")
+            if not abs(lk[0] - lp[0]) <= 1e-4 * abs(lp[0]):
+                fail(f"{algorithm} small-input first-round train loss "
+                     f"{lk[0]} vs plain {lp[0]}")
             if not abs(ek - ep) <= 2e-2 * abs(ep):
                 fail(f"{algorithm} small-input personal eval loss {ek} vs "
                      f"plain {ep}")

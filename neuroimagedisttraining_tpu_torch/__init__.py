@@ -3,8 +3,10 @@ federated neuroimaging trainer, for NVIDIA Hopper (H100, ``sm_90a``).
 
 The JAX package ``neuroimagedisttraining_tpu`` is the reference; this
 package mirrors its module names so each counterpart is easy to find, and
-imports nothing from it. The slice ported so far is the flagship
-SalientGrads federation (``--algorithm salientgrads --model 3DCNN``):
+imports nothing from it. Ported so far: the flagship SalientGrads
+federation (``--algorithm salientgrads --model 3DCNN``), the dense engines
+(FedAvg, FedProx, Ditto, Local-only) and the sparse personalized ones
+(Sub-FedAvg, DisPFL):
 
 - ``data/``: synthetic ABCD cohort, site partition, padded uint8 client
   stacks kept on the device;
@@ -13,9 +15,10 @@ SalientGrads federation (``--algorithm salientgrads --model 3DCNN``):
 - ``core/``: BCE loss and AUC, the SGD chain, the local trainer;
 - ``ops/``: the three hand-written CUDA kernels (stem weight gradient,
   fused SGD tail, count-greater-or-equal for the global top-k) beside
-  their plain PyTorch versions, SNIP scoring and masks;
-- ``engines/``: the SalientGrads engine (phase-1 global mask, phase-2
-  masked FedAvg rounds, global and personal evaluation);
+  their plain PyTorch versions, SNIP scoring, masks (ERK, fire and
+  regrow), magnitude pruning, FLOPs accounting;
+- ``engines/``: the engines by the reference's algorithm names;
+- ``faults/``: DisPFL's seeded activity draw;
 - ``weights.py``: carries flax parameter/mask trees across.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

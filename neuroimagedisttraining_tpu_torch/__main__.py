@@ -1,7 +1,7 @@
 """CLI of the port:
 
     python -m neuroimagedisttraining_tpu_torch \\
-        --algorithm fedavg|fedprox|salientgrads|ditto|local \\
+        --algorithm fedavg|fedprox|salientgrads|ditto|local|subavg|dispfl \\
         --dataset synthetic --model 3DCNN --synthetic_shape 121 145 121 \\
         [--fused_update] [--device cuda|cpu] [--log_dir LOG] ...
 
@@ -48,7 +48,23 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--frequency_of_the_test", type=int, default=1)
     parser.add_argument("--seed", type=int, default=1024)
     parser.add_argument("--seed_split", type=int, default=42)
+    parser.add_argument("--cs", type=str, default="random",
+                        choices=["random", "ring", "full", "self"],
+                        help="DisPFL's neighbour choice")
+    parser.add_argument("--active", type=float, default=1.0,
+                        help="DisPFL: each client's activity probability")
     parser.add_argument("--dense_ratio", type=float, default=0.5)
+    parser.add_argument("--anneal_factor", type=float, default=0.5)
+    parser.add_argument("--erk_power_scale", type=float, default=1.0)
+    parser.add_argument("--uniform", action="store_true")
+    parser.add_argument("--static", action="store_true")
+    parser.add_argument("--dis_gradient_check", action="store_true")
+    parser.add_argument("--different_initial", action="store_true")
+    parser.add_argument("--diff_spa", action="store_true")
+    parser.add_argument("--save_masks", action="store_true")
+    parser.add_argument("--each_prune_ratio", type=float, default=0.1)
+    parser.add_argument("--dist_thresh", type=float, default=0.001)
+    parser.add_argument("--acc_thresh", type=float, default=0.5)
     parser.add_argument("--itersnip_iteration", type=int, default=1)
     parser.add_argument("--stratified_sampling", action="store_true")
     parser.add_argument("--lamda", type=float, default=0.5)
@@ -83,10 +99,18 @@ def config_from_args(args) -> ExperimentConfig:
         fed=FedConfig(client_num_in_total=args.client_num_in_total,
                       frac=args.frac, comm_round=args.comm_round,
                       frequency_of_the_test=args.frequency_of_the_test,
-                      lamda=args.lamda, local_epochs=args.local_epochs),
-        sparsity=SparsityConfig(dense_ratio=args.dense_ratio,
-                                itersnip_iterations=args.itersnip_iteration,
-                                stratified_sampling=args.stratified_sampling),
+                      lamda=args.lamda, local_epochs=args.local_epochs,
+                      cs=args.cs, active=args.active),
+        sparsity=SparsityConfig(
+            dense_ratio=args.dense_ratio, anneal_factor=args.anneal_factor,
+            erk_power_scale=args.erk_power_scale, uniform=args.uniform,
+            static=args.static, dis_gradient_check=args.dis_gradient_check,
+            different_initial=args.different_initial, diff_spa=args.diff_spa,
+            itersnip_iterations=args.itersnip_iteration,
+            stratified_sampling=args.stratified_sampling,
+            each_prune_ratio=args.each_prune_ratio,
+            dist_thresh=args.dist_thresh, acc_thresh=args.acc_thresh,
+            save_masks=args.save_masks),
     )
 
 

@@ -2,7 +2,9 @@
 ported engines read, with the reference's defaults (the canonical ABCD
 run: 3DCNN, 21 site-clients, batch 16, 200 rounds, SGD lr 0.01 decayed
 0.998 per round, weight decay 5e-4, momentum 0.9, global-norm clip 10,
-dense ratio 0.5; Ditto's lamda 0.5 and 1 personal epoch).
+dense ratio 0.5; Ditto's lamda 0.5 and 1 personal epoch; Sub-FedAvg's
+prune ratio 0.1 with its accept thresholds; DisPFL's ERK masks, cosine
+anneal 0.5 and random neighbours).
 """
 
 from __future__ import annotations
@@ -44,13 +46,33 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class SparsityConfig:
-    """SalientGrads: global SNIP mask keeping ``dense_ratio`` of the kernels."""
+    """The sparse engines: SalientGrads' global SNIP mask keeping
+    ``dense_ratio`` of the kernels, DisPFL's evolving per-client masks and
+    Sub-FedAvg's iterative magnitude pruning."""
 
     dense_ratio: float = 0.5
+    # DisPFL: cosine-annealed fire fraction, ERK exponent, uniform layer
+    # sparsity instead of ERK, no mask evolution, random regrow instead of
+    # by gradient, distinct initial masks per client, per-client densities
+    # cycling 0.2..1.0
+    anneal_factor: float = 0.5
+    erk_power_scale: float = 1.0
+    uniform: bool = False
+    static: bool = False
+    dis_gradient_check: bool = False
+    different_initial: bool = False
+    diff_spa: bool = False
     snip_mask: bool = True
     itersnip_iterations: int = 1
     # label-balanced IterSNIP batches instead of uniform ones
     stratified_sampling: bool = False
+    # Sub-FedAvg: the alive fraction pruned per candidate, and the accept
+    # test's thresholds on mask distance and training accuracy
+    each_prune_ratio: float = 0.1
+    dist_thresh: float = 0.001
+    acc_thresh: float = 0.5
+    # DisPFL: the final per-client masks in stat_info["final_masks"]
+    save_masks: bool = False
 
 
 @dataclass(frozen=True)
@@ -60,6 +82,10 @@ class FedConfig:
     client_num_in_total: int = 21
     frac: float = 1.0
     comm_round: int = 200
+    # DisPFL's neighbour choice (random | ring | full | self) and each
+    # client's Bernoulli activity a round
+    cs: str = "random"
+    active: float = 1.0
     frequency_of_the_test: int = 1
     # Ditto's proximal weight (also FedProx's mu) and personal epochs
     lamda: float = 0.5

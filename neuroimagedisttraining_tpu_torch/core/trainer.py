@@ -13,7 +13,10 @@ serves every client.
   epoch; the reference's further masked no-op steps are skipped. Under
   ``batch_order="replacement"`` each step draws its rows uniformly
   instead. FedProx and Ditto add a proximal pull toward a reference
-  model after every step.
+  model after every step. The momentum buffers start at zero, or carry on
+  from a caller's (Sub-FedAvg's epoch-1 and tail calls share one).
+- ``eval_grad``: the dense gradient of one batch in evaluation mode
+  (DisPFL's gradient probe).
 - ``evaluate``: chunked eval returning correct / loss sum / total and the
   raw logits for AUC.
 
@@ -99,6 +102,12 @@ class LocalTrainer:
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), dict(zip(leaves, grads)), new_b
 
+    def init_momentum(self, params: State) -> State | None:
+        """Zero momentum buffers for ``params`` (None without momentum), to
+        pass to :meth:`local_train` calls that share them."""
+        trace = self.opt.init(list(params.values()))
+        return None if trace is None else dict(zip(params, trace))
+
     def local_train(self, params: State, bstats: State, X: torch.Tensor,
                     y: torch.Tensor, n_valid: int, lr, epochs: int,
                     batch_size: int, max_samples: int,
@@ -106,10 +115,13 @@ class LocalTrainer:
                     prox_lamda: float | None = None,
                     prox_ref: State | None = None,
                     perms: torch.Tensor | None = None,
-                    batch_idx: torch.Tensor | None = None):
+                    batch_idx: torch.Tensor | None = None,
+                    momentum: State | None = None):
         """E epochs of local SGD from ``(params, bstats)`` (left unchanged).
         Returns ``(params, bstats, mean_loss)``; ``mask`` re-applies the
-        sparse mask after every step.
+        sparse mask after every step. ``momentum`` (from
+        :meth:`init_momentum`) is the optimizer state to carry on from,
+        updated in place; None starts from zero buffers.
 
         Under ``batch_order="replacement"`` each step draws ``batch_size``
         rows uniformly from ``[0, n_valid)`` with an unweighted loss;
@@ -136,7 +148,8 @@ class LocalTrainer:
         m_list = [mask[k] for k in names] if mask is not None else None
         ref_list = ([prox_ref[k] for k in names] if prox_lamda is not None
                     else None)
-        trace = self.opt.init(p_list)
+        trace = (self.opt.init(p_list) if momentum is None
+                 else [momentum[k] for k in names])
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         offsets = torch.arange(batch_size, device=self.device)
         for e in range(epochs):
@@ -159,6 +172,18 @@ class LocalTrainer:
                     prox_pull_(p_list, ref_list, lr, prox_lamda)
                 loss_sum = loss_sum + loss
         return p, b, loss_sum / max(epochs * my_steps, 1)
+
+    def eval_grad(self, params: State, bstats: State, x: torch.Tensor,
+                  y: torch.Tensor) -> State:
+        """The dense gradient of the mean loss on one batch in evaluation
+        mode: no dropout, BatchNorm from its running stats (``bstats`` is
+        left unchanged). The stem's weight gradient is a training step's
+        (``ops/stemconv.py`` under ``NIDT_FAST_STEM``)."""
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        logits = self.apply(leaves, bstats, self._prep(x), train=False)
+        grads = torch.autograd.grad(bce_with_logits(logits, y),
+                                    list(leaves.values()))
+        return dict(zip(leaves, grads))
 
     @torch.no_grad()
     def evaluate(self, params: State, bstats: State, X: torch.Tensor,

@@ -1,6 +1,7 @@
 """Federated engines, by the reference CLI's algorithm names."""
 
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.engines.dispfl import DisPFLEngine
 from neuroimagedisttraining_tpu_torch.engines.ditto import DittoEngine
 from neuroimagedisttraining_tpu_torch.engines.fedavg import FedAvgEngine
 from neuroimagedisttraining_tpu_torch.engines.fedprox import FedProxEngine
@@ -8,6 +9,7 @@ from neuroimagedisttraining_tpu_torch.engines.local import LocalEngine
 from neuroimagedisttraining_tpu_torch.engines.salientgrads import (
     SalientGradsEngine,
 )
+from neuroimagedisttraining_tpu_torch.engines.subavg import SubFedAvgEngine
 
 ENGINES = {
     "fedavg": FedAvgEngine,
@@ -16,6 +18,8 @@ ENGINES = {
     "sailentgrads": SalientGradsEngine,  # the reference's spelling
     "ditto": DittoEngine,
     "local": LocalEngine,
+    "subavg": SubFedAvgEngine,
+    "dispfl": DisPFLEngine,
 }
 
 

@@ -10,8 +10,9 @@ host needs a value (the round's loss and evaluation metrics).
 
 ``perms_for(round_idx, client, n_valid[, track])`` may supply a client's
 epoch permutations (the tests feed the reference's draws; ``track`` is
-``"personal"`` for Ditto's personal track and absent otherwise); by
-default they come from the trainer's generator.
+``"personal"`` for Ditto's personal track, ``"first"`` and ``"tail"`` for
+Sub-FedAvg's first epoch and the epochs after it, and absent otherwise);
+by default they come from the trainer's generator.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from neuroimagedisttraining_tpu_torch.core.losses import binary_auc
 from neuroimagedisttraining_tpu_torch.core.optim import round_lr
 from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
 from neuroimagedisttraining_tpu_torch.data.federate import FederatedData
+from neuroimagedisttraining_tpu_torch.ops.masks import mask_nnz
 from neuroimagedisttraining_tpu_torch.utils.logging import ExperimentLogger
 
 State = dict[str, torch.Tensor]
@@ -111,8 +113,9 @@ class FederatedEngine:
                      bstats: State, lr, epochs: int, track: str = "global",
                      **kw):
         """Local SGD of client ``c`` from ``(params, bstats)`` on its rows:
-        ``(params, bstats, mean_loss)``. ``kw`` goes to ``local_train``
-        (``mask``, ``prox_lamda``, ``prox_ref``)."""
+        ``(params, bstats, mean_loss)``. ``track`` names the run to
+        ``perms_for``; ``kw`` goes to ``local_train`` (``mask``,
+        ``prox_lamda``, ``prox_ref``, ``momentum``)."""
         n = int(self.data.n_train[c])
         perms = None
         if self.perms_for is not None:
@@ -164,6 +167,20 @@ class FederatedEngine:
             log.warning("round %d: %d non-finite uploads dropped", round_idx,
                         int(bad_h))
         return loss_h
+
+    def warn_if_masks_collapsed(self, masks: list[State], round_idx: int
+                                ) -> np.ndarray:
+        """Each real client's count of kept entries over the maskable
+        leaves (one device read); logs a warning naming every client whose
+        mask kept none (a NaN in the weights or gradients ranks every entry
+        out)."""
+        nnz = torch.stack([mask_nnz(m) for m in masks[:self.real_clients]]
+                          ).cpu().numpy()
+        if (nnz == 0).any():
+            log.warning("round %d: clients %s have an empty mask (0 kept "
+                        "weights); check their local losses for divergence",
+                        round_idx, np.flatnonzero(nnz == 0).tolist())
+        return nnz
 
     def metrics(self, round_idx: int, **values) -> None:
         """One metrics record in the experiment log, where there is one."""

@@ -1,14 +1,17 @@
 """Where the time goes in the port's flagship run, on one CUDA card.
 
-    python3 scripts/torch_port_profile.py [--algorithm salientgrads|fedavg]
-                                          [--out DIR]
+    python3 scripts/torch_port_profile.py
+        [--algorithm salientgrads|fedavg|subavg|dispfl] [--out DIR]
 
 Builds the flagship run as ``chip_smoke.py`` does (48 synthetic subjects
 over 4 sites at 121x145x121, ``3DCNN``, batch 16, ``--fused_update``,
-``NIDT_FAST_STEM=1``). SalientGrads (the default): runs phase 1 and one
-round to warm up, then traces phase 1 and one phase-2 round. FedAvg: runs
-one round to warm up, then traces one round and the final fine-tune of
-every client. Windows are traced with ``torch.profiler``. For each window it
+``NIDT_FAST_STEM=1``; Sub-FedAvg and DisPFL with ``chip_smoke.py``'s
+flags). SalientGrads (the default): runs phase 1 and one round to warm
+up, then traces phase 1 and one phase-2 round. FedAvg: runs one round to
+warm up, then traces one round and the final fine-tune of every client.
+Sub-FedAvg and DisPFL: run round 0 to warm up, then trace round 1 (DisPFL's
+with its gradient probes and mask evolution). Windows are traced with
+``torch.profiler``. For each window it
 prints the wall time, the device time summed over kernels (and its share
 of the wall time: the device's busy share, one stream), the time by kernel
 family, and the top kernels; with ``--out``, a Chrome trace of each
@@ -38,6 +41,7 @@ FAMILIES = (
     ("pool", ("pool",)),
     ("reduce", ("reduce",)),
     ("gemm", ("gemm", "gemv", "cutlass")),
+    ("sort", ("sort", "radix")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
 
@@ -76,7 +80,7 @@ def summarize(prof, wall_s: float, top: int = 12) -> dict:
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--algorithm", default="salientgrads",
-                    choices=["salientgrads", "fedavg"])
+                    choices=["salientgrads", "fedavg", "subavg", "dispfl"])
     ap.add_argument("--out", default=None,
                     help="directory for the Chrome traces (none if unset)")
     args = ap.parse_args(argv)
@@ -89,16 +93,38 @@ def main(argv: list[str]) -> int:
     )
     from neuroimagedisttraining_tpu_torch.ops import _cuda
 
+    from chip_smoke import SPARSE_ARGS
+    from neuroimagedisttraining_tpu_torch.ops.masks import ones_mask
+
     _cuda.build(["stem_dw", "fused_sgd", "count_ge"])
     cfg = config_from_args(add_args(argparse.ArgumentParser()).parse_args([
         "--algorithm", args.algorithm,
         "--synthetic_shape", "121", "145", "121",
         "--synthetic_num_subjects", "48", "--client_num_in_total", "4",
         "--batch_size", "16", "--itersnip_iteration", "1", "--epochs", "1",
-        "--comm_round", "2", "--fused_update"]))
+        "--comm_round", "2", "--fused_update",
+        *SPARSE_ARGS.get(args.algorithm, ())]))
     engine, info = build_experiment(cfg, "cuda")
     params, bstats = engine.init_global_state()
-    if args.algorithm == "fedavg":
+    C = engine.num_clients
+    if args.algorithm == "subavg":
+        masks = [ones_mask(params) for _ in range(C)]
+        state = engine.run_round(0, params, bstats, masks,
+                                 engine.client_sampling(0))
+        windows = {"round": lambda: engine.run_round(
+            1, *state[:3], engine.client_sampling(1))}
+    elif args.algorithm == "dispfl":
+        masks, _ = engine.init_masks_all(params)
+        per_p = [{k: v * m[k] for k, v in params.items()} for m in masks]
+        per_b = [dict(bstats) for _ in range(C)]
+
+        def graph(r):
+            return engine.adjacency(r, engine.active_draw(r))
+
+        state = engine.run_round(0, per_p, per_b, masks, masks, graph(0))
+        windows = {"round": lambda: engine.run_round(1, *state[:4],
+                                                     graph(1))}
+    elif args.algorithm == "fedavg":
         state = engine.run_round(0, params, bstats, engine.client_sampling(0))
         windows = {
             "round": lambda: engine.run_round(1, *state[:2],
@@ -106,7 +132,6 @@ def main(argv: list[str]) -> int:
             "finetune": lambda: engine.finetune(*state[:2]),
         }
     else:
-        C = engine.num_clients
         masks, _ = engine.generate_global_mask(params, bstats)  # warm-up
         state = engine.run_round(0, params, bstats, [params] * C,
                                  [bstats] * C, masks,

@@ -1,17 +1,20 @@
 """Run-to-run spread of the port's small-input engine runs on one CUDA card.
 
     python3 scripts/torch_small_spread.py [--repeats N]
-                                          [--engines fedprox,ditto]
+        [--engines fedprox,ditto,subavg,dispfl]
 
 Runs each engine at 69^3 (24 synthetic subjects over 4 sites, batch 4,
-1 epoch, 2 rounds; the small input of ``chip_smoke.py``) N times through
-the plain paths and N times through the kernels (``--fused_update``,
-``NIDT_FAST_STEM=1``), first with cuDNN free to pick any algorithm and
-then with ``torch.backends.cudnn.deterministic``. For every pair of runs
-it prints the largest weight difference over the global and personal
-states as a fraction of the largest weight change from the initial
-weights, with the leaf that holds it: plain against plain, kernels against
-kernels, kernels against plain. During the kernel runs every ``stem_dw``
+1 epoch, 2 rounds; the small input of ``chip_smoke.py``, Sub-FedAvg and
+DisPFL with its flags) N times through the plain paths and N times through
+the kernels (``--fused_update``, ``NIDT_FAST_STEM=1``), first with cuDNN
+free to pick any algorithm and then with
+``torch.backends.cudnn.deterministic``. For every pair of runs it prints
+the largest weight difference over the global and personal states as a
+fraction of the largest weight change from the initial weights, with the
+leaf that holds it (Sub-FedAvg and DisPFL: the share of mask entries that
+differ, and the weight difference where no client's support differs,
+``chip_smoke.sparse_gap``): plain against plain, kernels against kernels,
+kernels against plain. During the kernel runs every ``stem_dw``
 and ``fused_sgd`` call is also computed by its plain version on the same
 inputs (``chip_smoke.PerCallCheck``; not counted as a launch), and the
 largest per-call error over its tolerance is printed. The last line is one
@@ -59,7 +62,7 @@ def weight_gap(a: dict, b: dict) -> tuple[float, str]:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repeats", type=int, default=4)
-    ap.add_argument("--engines", default="fedprox,ditto")
+    ap.add_argument("--engines", default="fedprox,ditto,subavg,dispfl")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_small_spread: needs a CUDA card", file=sys.stderr)
@@ -69,7 +72,7 @@ def main() -> int:
     )
     from neuroimagedisttraining_tpu_torch.device import resolve_device
     from neuroimagedisttraining_tpu_torch.ops import _cuda
-    from chip_smoke import PerCallCheck
+    from chip_smoke import SPARSE_ARGS, PerCallCheck, sparse_gap
 
     resolve_device("cuda")
     card = subprocess.run(
@@ -84,7 +87,8 @@ def main() -> int:
         argv = ["--algorithm", algorithm, "--synthetic_shape", "69", "69",
                 "69", "--synthetic_num_subjects", "24",
                 "--client_num_in_total", "4", "--batch_size", "4",
-                "--epochs", "1", "--comm_round", "2"]
+                "--epochs", "1", "--comm_round", "2",
+                *SPARSE_ARGS.get(algorithm, ())]
         if kernels:
             argv.append("--fused_update")
         eng = build_experiment(config_from_args(
@@ -92,8 +96,9 @@ def main() -> int:
         init_p, _ = eng.init_global_state()
         init_p = {k: v.detach().clone() for k, v in init_p.items()}
         res = eng.train()
-        return (states(res, algorithm, eng.num_clients), init_p,
-                [h["train_loss"] for h in res["history"]],
+        kept = (res if algorithm in SPARSE_ARGS
+                else states(res, algorithm, eng.num_clients))
+        return (kept, init_p, [h["train_loss"] for h in res["history"]],
                 res["final_personal"]["loss"])
 
     per_call = PerCallCheck()
@@ -109,13 +114,22 @@ def main() -> int:
                 with per_call:
                     kern.append(run(algorithm, True))
             init_p = plain[0][1]
-            moved = max(float((v - init_p[k]).abs().max())
-                        for leaves in plain[0][0].values()
-                        for k, v in leaves.items())
+            sparse = algorithm in SPARSE_ARGS
+            moved = (sparse_gap(algorithm, plain[0][0], plain[0][0], init_p)
+                     ["largest_weight_change"] if sparse else
+                     max(float((v - init_p[k]).abs().max())
+                         for leaves in plain[0][0].values()
+                         for k, v in leaves.items()))
 
             def gaps(xs, ys):
                 out = []
                 for x, y in zip(xs, ys):
+                    if sparse:
+                        g = sparse_gap(algorithm, x[0], y[0], init_p)
+                        out.append({k: g[k] for k in (
+                            "mask_diff_share", "param_err_over_change",
+                            "support_flipped")})
+                        continue
                     e, where = weight_gap(x[0], y[0])
                     out.append({"ratio": e / moved, "at": where})
                 return out

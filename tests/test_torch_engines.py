@@ -15,7 +15,7 @@ import torch
 
 from neuroimagedisttraining_tpu_torch.__main__ import main
 from neuroimagedisttraining_tpu_torch.config import (
-    DataConfig, ExperimentConfig, FedConfig, OptimConfig,
+    DataConfig, ExperimentConfig, FedConfig, OptimConfig, SparsityConfig,
 )
 from neuroimagedisttraining_tpu_torch.core.optim import round_lr
 from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
@@ -42,17 +42,18 @@ class Recorder:
 
     def __call__(self, params, bstats, X, y, n_valid, lr, epochs,
                  batch_size, max_samples, mask=None, prox_lamda=None,
-                 prox_ref=None, perms=None, batch_idx=None):
+                 prox_ref=None, perms=None, batch_idx=None, momentum=None):
         self.calls.append(dict(params=params, bstats=bstats, n=int(n_valid),
                                lr=float(lr), epochs=epochs,
-                               lamda=prox_lamda, ref=prox_ref, perms=perms))
+                               lamda=prox_lamda, ref=prox_ref, perms=perms,
+                               mask=mask, momentum=momentum))
         shift = float(lr) * (epochs + n_valid / 8) + (prox_lamda or 0) * 1e-3
         return ({k: v + shift for k, v in params.items()},
                 {k: v + n_valid for k, v in bstats.items()},
                 torch.tensor(n_valid / 10, dtype=torch.float32))
 
 
-def _engine(name, **fed):
+def _engine(name, sparsity=None, epochs=2, **fed):
     rng = np.random.default_rng(0)
     X = rng.integers(0, 256, (12,) + SHAPE, dtype=np.uint8)
     y = rng.integers(0, 2, 12).astype(np.int8)
@@ -61,9 +62,10 @@ def _engine(name, **fed):
         {c: np.asarray(v, dtype=np.int64) for c, v in TEST.items()}, CPU)
     cfg = ExperimentConfig(
         algorithm=name, data=DataConfig(synthetic_shape=SHAPE),
-        optim=OptimConfig(batch_size=2, epochs=2),
+        optim=OptimConfig(batch_size=2, epochs=epochs),
         fed=FedConfig(**{"client_num_in_total": 4, "comm_round": 2,
-                         "lamda": 0.25, "local_epochs": 3, **fed}))
+                         "lamda": 0.25, "local_epochs": 3, **fed}),
+        sparsity=SparsityConfig(**(sparsity or {})))
     trainer = LocalTrainer(create_model("3dcnn", SHAPE), cfg.optim, CPU,
                            torch.Generator().manual_seed(0))
     tracks = []
@@ -204,6 +206,219 @@ def test_local_trains_every_client_with_rows():
                                        rtol=1e-6, atol=1e-7)
 
 
+# ---------- Sub-FedAvg ----------
+
+#: thresholds under which every prune is accepted
+ACCEPT_ALL = dict(dist_thresh=-1.0, dense_ratio=0.0, acc_thresh=-1.0)
+
+
+@pytest.mark.parametrize("blocker", [None, "dist_thresh", "dense_ratio",
+                                     "acc_thresh"])
+def test_subavg_each_accept_condition_blocks(blocker):
+    """With thresholds that accept everything, every sampled client with
+    rows prunes; raising any one of the three thresholds to 1 (the mask
+    distance, the density of the model entering the round, the pruned
+    model's training accuracy: none of them passes 1) alone blocks every
+    prune, and the personal masks stay all ones."""
+    sp = dict(ACCEPT_ALL)
+    if blocker:
+        sp[blocker] = 1.0
+    eng, rec, _ = _engine("subavg", sparsity=sp)
+    res = eng.train()
+    accepted = [h["prunes_accepted"] for h in res["history"]]
+    if blocker is None:
+        assert accepted == [2, 2]  # clients 0, 1 (client 2 has no rows)
+        assert any(int((m[k] == 0).sum()) for m in res["mask_pers"][:2]
+                   for k in m)
+    else:
+        assert accepted == [0, 0]
+        assert all(torch.all(v == 1) for m in res["mask_pers"]
+                   for v in m.values())
+
+
+def test_subavg_one_epoch_never_prunes():
+    """With one epoch the two candidate masks are the same one: the mask
+    distance is 0 and no prune is accepted, whatever the thresholds (the
+    reference's behavior); no tail call is made."""
+    eng, rec, tracks = _engine("subavg", sparsity=ACCEPT_ALL | {
+        "dist_thresh": 0.0}, epochs=1)
+    res = eng.train()
+    assert [h["prunes_accepted"] for h in res["history"]] == [0, 0]
+    assert [h["mean_mask_dist"] for h in res["history"]] == [0.0, 0.0]
+    assert all(call["epochs"] == 1 for call in rec.calls)
+    assert {t[2] for t in tracks} == {"first"}
+
+
+def test_subavg_round_tracks_and_overlap_average():
+    """One round from personal masks with zeros: each sampled client trains
+    ``w * mask`` for one epoch (``track="first"``) and the tail from that
+    result (``track="tail"``), both under its old mask with one shared
+    momentum dict. The new global weight is the sum of the uploads (the
+    trained weights times m2) over the count of sampled clients with rows
+    whose OLD mask keeps it, and the previous value where none does; BN
+    stats the plain mean; the masks of the sampled clients with rows
+    become their m2, client 2 (sampled, no rows) keeps its mask."""
+    from neuroimagedisttraining_tpu_torch.ops.prune import fake_prune
+
+    eng, rec, tracks = _engine("subavg", sparsity=ACCEPT_ALL)
+    params, bstats = eng.init_global_state()
+    gen = torch.Generator().manual_seed(1)
+    masks = []
+    for c in range(4):
+        m = {k: (torch.rand(v.shape, generator=gen) < 0.7).float()
+             if v.dim() >= 2 else torch.ones_like(v)
+             for k, v in params.items()}
+        m["f1.conv.weight"][0] = 0.0  # no client keeps these
+        masks.append(m)
+    sampled = np.array([0, 1, 2])
+    new_p, new_b, new_masks, outs = eng.run_round(0, params, bstats, masks,
+                                                  sampled)
+    assert tracks == [(0, c, t) for c in (0, 1, 2)
+                      for t in ("first", "tail")]
+    ups, bs, m2s = [], [], []
+    calls = iter(rec.calls)
+    for c in sampled:
+        first, tail = next(calls), next(calls)
+        w = {k: v * masks[c][k] for k, v in params.items()}
+        assert _equal(first["params"], w) and first["epochs"] == 1
+        assert first["mask"] is masks[c] and tail["mask"] is masks[c]
+        assert first["momentum"] is tail["momentum"] is not None
+        assert tail["epochs"] == 1 and _equal(tail["params"], {
+            k: v + first["lr"] * (1 + first["n"] / 8) for k, v in w.items()})
+        shift = first["lr"] * (1 + first["n"] / 8)
+        p2 = {k: v + 2 * shift for k, v in w.items()}
+        m2 = fake_prune(0.1, p2, masks[c])
+        if len(TRAIN[c]):
+            ups.append({k: v * m2[k] for k, v in p2.items()})
+            bs.append({k: v + 2 * len(TRAIN[c]) for k, v in bstats.items()})
+            m2s.append((c, m2))
+    assert next(calls, None) is None
+    for k, old in params.items():
+        count = sum(masks[c][k] for c in (0, 1))
+        want = torch.where(count > 0, sum(u[k] for u in ups)
+                           / torch.clamp(count, min=1.0), old)
+        torch.testing.assert_close(new_p[k], want, rtol=1e-6, atol=1e-7)
+    assert torch.equal(new_p["f1.conv.weight"][0], params["f1.conv.weight"][0])
+    for k in bstats:
+        torch.testing.assert_close(new_b[k], (bs[0][k] + bs[1][k]) / 2)
+    for c, m2 in m2s:
+        assert _equal(new_masks[c], m2)
+    for c in (2, 3):
+        assert new_masks[c] is masks[c]
+    assert float(outs[2]) == 2.0  # accepted, over the clients with rows
+    assert float(outs[3]) == sum(float(v.sum()) for _, m2 in m2s
+                                 for v in m2.values())
+
+
+# ---------- DisPFL ----------
+
+def test_dispfl_consensus_formula():
+    """The consensus against a loop over the graph's rows: per weight the
+    neighbours' sum over the count of neighbours whose shared mask keeps
+    it (0 where none does), times the client's own mask; BN stats the
+    neighbours' mean. An inactive client's row is itself alone, so it
+    keeps its own masked model and stats exactly."""
+    eng, _, _ = _engine("dispfl")
+    params, bstats = eng.init_global_state()
+    gen = torch.Generator().manual_seed(2)
+
+    def rand_masks():
+        return [{k: (torch.rand(v.shape, generator=gen) < 0.5).float()
+                 if v.dim() >= 2 else torch.ones_like(v)
+                 for k, v in params.items()} for _ in range(4)]
+
+    shared, local = rand_masks(), rand_masks()
+    per_p = [{k: torch.randn(v.shape, generator=gen) for k, v in
+              params.items()} for _ in range(4)]
+    per_b = [{k: torch.rand(v.shape, generator=gen) for k, v in
+              bstats.items()} for _ in range(4)]
+    A = np.array([[1, 1, 0, 1], [0, 1, 0, 0], [1, 1, 1, 0], [0, 0, 0, 1]],
+                 np.float32)
+    w, b = eng.consensus(per_p, per_b, local, shared, A)
+    for c in range(4):
+        nb = np.flatnonzero(A[c])
+        for k in params:
+            count = sum(shared[j][k] for j in nb)
+            total = sum(per_p[j][k] for j in nb)
+            want = torch.where(count > 0, total / torch.clamp(count, min=1),
+                               torch.zeros_like(total)) * local[c][k]
+            torch.testing.assert_close(w[c][k], want, rtol=1e-6, atol=1e-7)
+        for k in bstats:
+            torch.testing.assert_close(
+                b[c][k], sum(per_b[j][k] for j in nb) / len(nb))
+    for k in params:  # client 1: itself alone
+        assert torch.equal(w[1][k], per_p[1][k] * shared[1][k]
+                           * local[1][k])
+    for k in bstats:
+        assert torch.equal(b[1][k], per_b[1][k])
+
+
+def test_dispfl_inactive_client_trains_its_own_model():
+    """Under ``--active 0.5`` (round 1: clients 0 and 2 of the 3 with rows
+    inactive) every client trains every round, the padding one too; an
+    inactive client starts round 1 from its own round-0 result under its
+    round-0 and round-1 masks, and its own BN stats, exactly."""
+    eng, rec, _ = _engine("dispfl", frac=0.5, active=0.5)
+    eng.train()
+    assert eng.active_draw(1).tolist() == [False, True, False, False]
+    assert len(rec.calls) == 2 * 4
+    for c in (0, 2):
+        r0, r1 = rec.calls[c], rec.calls[4 + c]
+        shift = r0["lr"] * (r0["epochs"] + r0["n"] / 8)
+        for k, v in r0["params"].items():
+            assert torch.equal(r1["params"][k],
+                               (v + shift) * r0["mask"][k] * r1["mask"][k])
+        for k, v in r0["bstats"].items():
+            assert torch.equal(r1["bstats"][k], v + r0["n"])
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_dispfl_masks_shared_and_static(static, monkeypatch):
+    """A round returns the masks it trained under as the next round's
+    shared masks (before evolution) and the evolved ones as the local
+    masks: each layer keeps its nonzero count. Every client runs one
+    gradient probe a round on ``batch_size`` of its rows; ``--static``
+    runs none and keeps the masks."""
+    eng, rec, _ = _engine("dispfl", sparsity={"static": static})
+    probes = []
+    real = eng.trainer.eval_grad
+    monkeypatch.setattr(eng.trainer, "eval_grad", lambda p, b, x, y: (
+        probes.append(x.shape[0]), real(p, b, x, y))[1])
+    params, bstats = eng.init_global_state()
+    local, _ = eng.init_masks_all(params)
+    per_p = [{k: v * m[k] for k, v in params.items()} for m in local]
+    per_b = [dict(bstats) for _ in range(4)]
+    A = eng.adjacency(0, eng.active_draw(0))
+    _, _, new_local, new_shared, dist, _ = eng.run_round(
+        0, per_p, per_b, local, [dict(m) for m in local], A)
+    assert all(a is b for a, b in zip(new_shared, local))
+    assert float(dist.sum()) == 0.0
+    assert probes == ([] if static else [2] * 4)
+    for c in range(4):
+        for k, m in local[c].items():
+            assert int(new_local[c][k].sum()) == int(m.sum()), k
+        same = all(torch.equal(new_local[c][k], m)
+                   for k, m in local[c].items())
+        assert same == static
+
+
+def test_collapsed_mask_is_reported(caplog):
+    """``warn_if_masks_collapsed`` returns each real client's kept entries
+    over the maskable leaves and warns, naming the client, where a mask
+    kept none (its biases' ones do not count)."""
+    eng, _, _ = _engine("subavg")
+    params, _ = eng.init_global_state()
+    masks = [{k: torch.ones_like(v) for k, v in params.items()}
+             for _ in range(4)]
+    masks[1] = {k: torch.zeros_like(v) if v.dim() >= 2 else v
+                for k, v in masks[1].items()}
+    with caplog.at_level("WARNING"):
+        nnz = eng.warn_if_masks_collapsed(masks, 3)
+    full = sum(v.numel() for v in params.values() if v.dim() >= 2)
+    assert nnz.tolist() == [full, 0, full]  # real_clients: the first 3
+    assert "round 3: clients [1] have an empty mask" in caplog.text
+
+
 def test_personal_states_do_not_share_tensors():
     """``broadcast_states`` gives each client tensors of its own."""
     eng, _, _ = _engine("local")
@@ -217,9 +432,10 @@ def test_create_engine_names():
     """The reference's algorithm names that the port has, its spelling
     ``sailentgrads`` included; an unknown name raises ``ValueError``."""
     assert set(ENGINES) == {"fedavg", "fedprox", "salientgrads",
-                            "sailentgrads", "ditto", "local"}
+                            "sailentgrads", "ditto", "local", "subavg",
+                            "dispfl"}
     with pytest.raises(ValueError, match="unknown algorithm"):
-        create_engine("dispfl", None, None, None)
+        create_engine("fedfomo", None, None, None)
 
 
 ARGV = ["--device", "cpu", "--synthetic_shape", "69", "69", "69",
@@ -228,17 +444,19 @@ ARGV = ["--device", "cpu", "--synthetic_shape", "69", "69", "69",
         "--fused_update"]
 
 
-@pytest.mark.parametrize("algorithm", ["fedavg", "fedprox", "ditto", "local"])
+@pytest.mark.parametrize("algorithm", ["fedavg", "fedprox", "ditto", "local",
+                                       "subavg", "dispfl"])
 def test_cli_runs_each_engine(algorithm, capsys, monkeypatch):
     """The CLI on the CPU: its last line is one JSON object with the
-    engine's metrics and no model state; ``mask_density`` is
+    engine's metrics and no model state or mask; ``mask_density`` is
     SalientGrads' alone."""
     monkeypatch.setenv("NIDT_FAST_STEM", "1")
     assert main(["--algorithm", algorithm, *ARGV]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert "final_personal" in out and "history" in out
     assert "mask_density" not in out
-    assert not {"params", "personal", "personal_params"} & set(out)
+    assert not {"params", "personal", "personal_params", "masks",
+                "mask_pers"} & set(out)
 
 
 def test_cli_default_is_fedavg_and_cuda(monkeypatch):

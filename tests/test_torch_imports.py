@@ -58,9 +58,11 @@ def test_port_imports_without_jax_or_cuda():
 
 @pytest.mark.parametrize("module", [
     "engines/fedavg.py", "engines/fedprox.py", "engines/ditto.py",
-    "engines/local.py", "ops/flops.py", "utils/logging.py"])
+    "engines/local.py", "ops/flops.py", "utils/logging.py",
+    "engines/subavg.py", "engines/dispfl.py", "ops/prune.py",
+    "ops/masks.py", "faults/schedule.py"])
 def test_engine_slice_modules_are_checked(module):
-    """The dense engines' modules are among the sources checked above (none
+    """The engines' modules are among the sources checked above (none
     imports JAX or the reference package)."""
     path = PORT / module
     assert path in SOURCES

@@ -50,6 +50,22 @@ def dropout_masks(batch: int, flat: int, seed: int = 0):
             (torch.from_numpy(m0), torch.from_numpy(m1)))
 
 
+def four_client_federation():
+    """16 synthetic subjects at 69^3 over 4 clients of 2-3 training rows
+    and 1-2 test rows each: ``(X, y, train_map, test_map)``."""
+    from neuroimagedisttraining_tpu.data.synthetic import (
+        generate_synthetic_abcd,
+    )
+
+    c = generate_synthetic_abcd(num_subjects=16, shape=(69, 69, 69),
+                                num_sites=4, seed=0)
+    rows = [[0, 1, 2], [3, 4, 5], [6, 7], [8, 9, 10]]
+    tests = [[11], [12], [13], [14, 15]]
+    train_map = {i: np.asarray(r, np.int64) for i, r in enumerate(rows)}
+    test_map = {i: np.asarray(r, np.int64) for i, r in enumerate(tests)}
+    return c["X"], c["y"], train_map, test_map
+
+
 def jax_alexnet(shape, seed: int = 0, **optim_kw):
     """The reference's AlexNet3D trainer and its initial (params,
     batch_stats) as numpy trees, for volumes of ``shape``."""
@@ -65,11 +81,26 @@ def jax_alexnet(shape, seed: int = 0, **optim_kw):
             jax.tree.map(np.asarray, cs.batch_stats))
 
 
+def rng_after_local_train(jeng, key, epochs: int):
+    """The rng the reference's ``local_train`` leaves behind after
+    ``epochs`` epochs from ``key`` (its round program's replay of the
+    chain: one split at entry, one 3-way split a scan step over
+    ``epochs * ceil(max_samples / B)`` steps)."""
+    from types import SimpleNamespace
+
+    from neuroimagedisttraining_tpu.engines.program import RoundCtx
+
+    return RoundCtx.rng_after_local_train(SimpleNamespace(eng=jeng),
+                                          key[None], epochs)[0]
+
+
 def reference_perms(jeng, nmax: int, epochs: int, local_epochs: int = 1):
     """A port engine's ``perms_for``: the epoch permutations the reference
     engine ``jeng`` draws for client ``c`` in round ``r`` (its per-client
-    key of that round; FedAvg's fine-tune is round ``comm_round``), and on
-    Ditto's personal track those of the key folded with 1."""
+    key of that round; FedAvg's fine-tune is round ``comm_round``); on
+    Ditto's personal track those of the key folded with 1; for Sub-FedAvg's
+    first epoch those of one epoch, and for its tail epochs those of the
+    rng the first epoch's ``local_train`` leaves behind."""
     from neuroimagedisttraining_tpu.core.trainer import epoch_perms_for
 
     def perms_for(r, c, n, track="global"):
@@ -77,22 +108,53 @@ def reference_perms(jeng, nmax: int, epochs: int, local_epochs: int = 1):
         e = epochs
         if track == "personal":
             key, e = jax.random.fold_in(key, 1), local_epochs
+        elif track == "first":
+            e = 1
+        elif track == "tail":
+            key, e = rng_after_local_train(jeng, key, 1), epochs - 1
         return torch.from_numpy(np.asarray(
             epoch_perms_for(key, e, nmax, n)).copy())
 
     return perms_for
 
 
+def reference_probe_rows(jeng, epochs: int, batch_size: int):
+    """DisPFL's ``screen_idx_for``: the reference's gradient-probe rows of
+    client ``c`` in round ``r``, drawn from the rng its ``local_train``
+    leaves behind."""
+    def screen_idx_for(r, c, n):
+        key = jeng.per_client_rngs(r, np.array([c]))[0]
+        brng, _ = jax.random.split(rng_after_local_train(jeng, key, epochs))
+        idx = jax.random.randint(brng, (batch_size,), 0, max(int(n), 1))
+        return torch.from_numpy(np.asarray(idx).astype(np.int64))
+
+    return screen_idx_for
+
+
+def reference_initial_masks(jeng, jparams) -> list:
+    """The reference DisPFL engine's initial per-client masks, one port
+    mask dict a client."""
+    from neuroimagedisttraining_tpu_torch.weights import masks_from_flax
+
+    stacked, _ = jeng.init_masks_all(jparams)
+    stacked = jax.tree.map(np.asarray, stacked)
+    return [masks_from_flax(jax.tree.map(lambda m: m[c], stacked))
+            for c in range(jeng.num_clients)]
+
+
 def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
-                    shape=(69, 69, 69), seed: int = 0):
+                    shape=(69, 69, 69), seed: int = 0,
+                    sparsity: dict | None = None):
     """The reference's engine ``name`` and the port's on the same federation,
-    initial weights, epoch permutations and dropout keep-masks, each run
-    through ``train()``, both logging under ``tmp``. ``data`` is
-    ``(X, y, train_map, test_map)``. Returns ``(reference result, port
-    result, reference engine, port engine, port initial state)``."""
+    initial weights, epoch permutations and dropout keep-masks (DisPFL: its
+    initial masks and gradient-probe rows too), each run through
+    ``train()``, both logging under ``tmp``. ``data`` is ``(X, y,
+    train_map, test_map)``. Returns ``(reference result, port result,
+    reference engine, port engine, port initial state)``; the port engine's
+    ``rerun()`` runs it again with the same inputs."""
     from neuroimagedisttraining_tpu.config import (
         DataConfig as JData, ExperimentConfig as JExp, FedConfig as JFed,
-        OptimConfig as JOptim,
+        OptimConfig as JOptim, SparsityConfig as JSparsity,
     )
     from neuroimagedisttraining_tpu.core.trainer import (
         LocalTrainer as JTrainer,
@@ -104,7 +166,7 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
     from neuroimagedisttraining_tpu.models import create_model as jmodel
     from neuroimagedisttraining_tpu.utils.logging import ExperimentLogger
     from neuroimagedisttraining_tpu_torch.config import (
-        DataConfig, ExperimentConfig, FedConfig, OptimConfig,
+        DataConfig, ExperimentConfig, FedConfig, OptimConfig, SparsityConfig,
     )
     from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
     from neuroimagedisttraining_tpu_torch.data.federate import (
@@ -115,10 +177,11 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
     from neuroimagedisttraining_tpu_torch.weights import params_from_flax
 
     X, y, train_map, test_map = data
+    sparsity = sparsity or {}
     jcfg = JExp(model="3DCNN", num_classes=1, algorithm=name,
                 data=JData(dataset="synthetic", partition_method="site"),
                 optim=JOptim(**optim), fed=JFed(**fed),
-                log_dir=str(tmp / "ref"))
+                sparsity=JSparsity(**sparsity), log_dir=str(tmp / "ref"))
     jfed = jbuild(X, y, train_map, test_map)
     jtrainer = JTrainer(jmodel("3dcnn", num_classes=1, remat=False),
                         jcfg.optim, num_classes=1)
@@ -136,19 +199,32 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
         model="3DCNN", num_classes=1, algorithm=name,
         data=DataConfig(synthetic_shape=tuple(shape)),
         optim=OptimConfig(**optim), fed=FedConfig(**fed),
-        log_dir=str(tmp / "port"))
+        sparsity=SparsityConfig(**sparsity), log_dir=str(tmp / "port"))
     cpu = torch.device("cpu")
     pfed = build_federated_data(X, y, train_map, test_map, cpu)
-    trainer = LocalTrainer(create_model("3dcnn", tuple(shape)), pcfg.optim,
-                           cpu, torch.Generator().manual_seed(seed),
-                           dropout_masks=pmasks)
-    peng = create_engine(name, pcfg, pfed, trainer,
-                         perms_for=reference_perms(
-                             jeng, nmax, optim.get("epochs", 2),
-                             fed.get("local_epochs", 1)))
+    epochs = optim.get("epochs", 2)
     init = params_from_flax(jax.tree.map(np.asarray, gs.params),
                             jax.tree.map(np.asarray, gs.batch_stats))
-    pres = peng.train(init_state=init)
+    train_kw, engine_kw = {}, {}
+    if name == "dispfl":
+        engine_kw["screen_idx_for"] = reference_probe_rows(
+            jeng, epochs, optim["batch_size"])
+        train_kw["masks"] = reference_initial_masks(jeng, gs.params)
+
+    def port_engine():
+        trainer = LocalTrainer(create_model("3dcnn", tuple(shape)),
+                               pcfg.optim, cpu,
+                               torch.Generator().manual_seed(seed),
+                               dropout_masks=pmasks)
+        peng = create_engine(name, pcfg, pfed, trainer,
+                             perms_for=reference_perms(
+                                 jeng, nmax, epochs,
+                                 fed.get("local_epochs", 1)), **engine_kw)
+        peng.rerun = lambda: port_engine().train(init_state=init, **train_kw)
+        return peng
+
+    peng = port_engine()
+    pres = peng.train(init_state=init, **train_kw)
     return jres, pres, jeng, peng, init
 
 
