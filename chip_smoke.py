@@ -28,6 +28,10 @@
    host sync. ``ms`` is the whole step, ``apply_ms`` the pass alone,
    ``library_ms`` the nearest torch chain (``clip_grad_norm_``,
    ``torch._fused_sgd_``, a masking ``_foreach_mul_``) with its error.
+   Beyond one launch's table of 32 leaves: resnet18's 62 leaves (two
+   tables) and 140 ragged leaves (five), each bit-equal to the plain pass
+   under the kernel's scalars and its norm within rtol 2e-6, with two
+   launches a table; the 62-leaf step is timed against its bound.
 3. Runs the flagship SalientGrads slice through ``build_experiment`` and
    ``engine.train()``: a synthetic cohort of 48 subjects over 4 sites at
    121x145x121, ``3DCNN``, batch 16, IterSNIP 1, 1 epoch, 2 rounds,
@@ -59,18 +63,29 @@
    new mask; SalientGrads' beside it), the port's lines that synchronized
    with the host in one more round (sync debug mode), and DisPFL the cost
    of a gradient probe and of a mask evolution against a local step.
-6. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg and DisPFL on a small
-   input (69^3, 4 sites, 2 rounds) through the kernels and through the
-   plain paths (SalientGrads under one phase-1 mask), and holds the two
-   runs' losses, weights (global and personal; the sparse engines' on the
-   entries both masks keep, beside the share of mask entries that differ)
-   and evaluation losses against each other. cuDNN runs its deterministic
+6. Runs D-PSGD (``--frac 0.5``), FedFomo (``--frac 0.5 --val_fraction
+   0.2``) and TurboAggregate (``--frac 0.75``, the share stage on the
+   device) on the same flagship slice, each with the counters set to 0
+   just before and read just after: ``fused_sgd`` 2 and ``stem_dw`` 3 a
+   local step (FedFomo's validation evaluations are forward only), no
+   top-k launch, finite losses and metrics; FedFomo's one round under sync
+   debug mode must show its one read of ``p_choose`` (any other line is
+   printed), and TurboAggregate's share stage is timed against FedAvg's
+   plain weighted mean. Then one FedAvg run with ``--client_optimizer
+   adam`` (unfused: ``fused_sgd`` 0, ``stem_dw`` 3 a step), and
+   ``--client_optimizer adam --fused_update`` must be refused.
+7. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+   and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
+   the kernels and through the plain paths (SalientGrads under one phase-1
+   mask), and holds the two runs' losses, weights (global and personal;
+   the sparse engines' on the entries both masks keep, beside the share of
+   mask entries that differ) and evaluation losses against each other. cuDNN runs its deterministic
    algorithms here, so each path repeats bit for bit and the two differ
    by the kernels alone; a second run of each engine but SalientGrads
    through the kernels must equal the first. Every ``stem_dw`` and
    ``fused_sgd`` call of the kernel runs is also held against its plain
    version on the call's own inputs (``PerCallCheck``).
-7. Prints one JSON line per kernel, the ``{"kernels": [...]}`` line (with
+8. Prints one JSON line per kernel, the ``{"kernels": [...]}`` line (with
    each kernel's launches on every engine's run), and last
    ``{"ok": true, "device": {...}}``.
 
@@ -112,20 +127,24 @@ def bound_ms(nbytes: float, ops: float,
 
 
 def local_steps(engine) -> int:
-    """Local SGD steps of ``engine.train()``, counted on the host from the
+    """Local steps of ``engine.train()``, counted on the host from the
     clients' row counts: the sampled clients' epochs each round (Ditto's
-    personal epochs too), FedAvg's / FedProx's fine-tune of every client,
-    and every client's epochs each round in Local-only and DisPFL."""
+    personal epochs too), FedAvg's / FedProx's / TurboAggregate's fine-tune
+    of every client, and every client's epochs each round in Local-only,
+    DisPFL, D-PSGD (and its fine-tune every 100 rounds) and FedFomo."""
     cfg = engine.cfg
     B, E = cfg.optim.batch_size, cfg.optim.epochs
     per = [math.ceil(int(n) / B) for n in engine.data.n_train]
-    if cfg.algorithm in ("local", "dispfl"):
-        return sum(per) * E * cfg.fed.comm_round
+    if cfg.algorithm in ("local", "dispfl", "dpsgd", "fedfomo"):
+        steps = sum(per) * E * cfg.fed.comm_round
+        if cfg.algorithm == "dpsgd":  # the fine-tune after round 99, 199..
+            steps += sum(per) * E * (cfg.fed.comm_round // 100)
+        return steps
     if cfg.algorithm == "ditto":
         E += cfg.fed.local_epochs
     steps = sum(sum(per[c] for c in engine.client_sampling(r)) * E
                 for r in range(cfg.fed.comm_round))
-    if cfg.algorithm in ("fedavg", "fedprox"):
+    if cfg.algorithm in ("fedavg", "fedprox", "turboaggregate"):
         steps += sum(per) * cfg.optim.epochs
     return steps
 
@@ -295,6 +314,33 @@ SPARSE_ARGS = {"subavg": ("--epochs", "2", "--dist_thresh", "0",
 #: cudnn.deterministic kernels against plain differed in 2.9e-7 and
 #: 7.8e-7 (scripts/torch_small_spread.py)
 SPARSE_MASK_SHARE = {"subavg": 1e-3, "dispfl": 1e-2}
+#: every engine's flags on the card beyond the slice's: the sparse ones'
+#: and D-PSGD with 2 random neighbours, FedFomo with 2 models requested and
+#: a validation split of 0.2, TurboAggregate with 3 of 4 clients a round
+ENGINE_ARGS = {**SPARSE_ARGS, "dpsgd": ("--frac", "0.5"),
+               "fedfomo": ("--frac", "0.5", "--val_fraction", "0.2"),
+               "turboaggregate": ("--frac", "0.75")}
+#: resnet18's 62 parameter leaves (the reference's models/resnet2d.py at 10
+#: classes, 11,173,962 parameters): two of fused_sgd's 32-leaf tables
+RESNET18_SIZES = [
+    64, 64, 1728, 64, 64, 64, 64, 36864, 36864, 64, 64, 64, 64, 36864, 36864,
+    128, 128, 128, 128, 73728, 147456, 128, 128, 8192, 128, 128, 128, 128,
+    147456, 147456, 256, 256, 256, 256, 294912, 589824, 256, 256, 32768, 256,
+    256, 256, 256, 589824, 589824, 512, 512, 512, 512, 1179648, 2359296, 512,
+    512, 131072, 512, 512, 512, 512, 2359296, 2359296, 10, 5120]
+
+
+def sync_site(cls, needle: str) -> str:
+    """``file:line`` of the first source line of ``cls`` holding
+    ``needle`` (a host read an engine makes on purpose)."""
+    import inspect
+
+    lines, start = inspect.getsourcelines(cls)
+    path = Path(inspect.getsourcefile(cls)).name
+    for i, line in enumerate(lines):
+        if needle in line:
+            return f"{path}:{start + i}"
+    fail(f"{needle!r} not found in {cls.__name__}")
 
 
 def sparse_gap(algorithm: str, a: dict, b: dict, init_p: dict) -> dict:
@@ -367,6 +413,7 @@ def torch_equal_bits(a, b) -> bool:
 
 def main(argv: list[str]) -> int:
     quick = "--quick" in argv
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -673,6 +720,61 @@ def main(argv: list[str]) -> int:
             fl_ms, _ = time_ms(library_chain, 20)
         timed = {"apply_ms": a_ms, "apply_host_ms": a_host,
                  "plain_apply_ms": pa_ms}
+    # beyond one launch's table of 32 leaves: resnet18's 62 leaves (two
+    # tables) and 140 ragged leaves (five, empty leaves among them); the
+    # clip taken at gnorm / 3
+    wide = {}
+    ragged = [int(n) for n in np.random.default_rng(6).integers(0, 9000, 140)]
+    for tree, sizes in (("resnet18", RESNET18_SIZES), ("ragged140", ragged)):
+        pw = [torch.randn(n, generator=gen, device=dev) * 0.05 for n in sizes]
+        gw = [torch.randn(n, generator=gen, device=dev) * 0.01 for n in sizes]
+        tw = [torch.randn(n, generator=gen, device=dev) * 0.01 for n in sizes]
+        mw = [(torch.rand(n, generator=gen, device=dev) < 0.5).to(
+            torch.float32) for n in sizes]
+
+        def wstate():
+            return [p.clone() for p in pw], [t.clone() for t in tw]
+
+        gn_w = FU.global_norm(gw)
+        kw_w = dict(clip=float(gn_w) / 3, wd=wd, momentum=mom)
+        ntables = len(FU.plan_chunks(sizes).tables)
+        (pk_w, tk_w), (pp_w, tp_w) = wstate(), wstate()
+        before = FU.LAUNCHES.count
+        scal_w = FU.fused_sgd_step(pk_w, gw, tk_w, mw, lr=lr, **kw_w).clone()
+        step_launches = FU.LAUNCHES.count - before
+        FU.sgd_apply_plain(pp_w, gw, tp_w, mw, scal_w, **kw_w)
+        gn_err = abs(float(scal_w[1]) - float(gn_w)) / float(gn_w)
+        if step_launches != 2 * ntables:
+            fail(f"fused_sgd_step over {len(sizes)} leaves launched "
+                 f"{step_launches} kernels, not 2 for each of {ntables} "
+                 "tables")
+        if not gn_err <= 2e-6 or float(scal_w[0]) != 0.0:
+            fail(f"fused_sgd over {len(sizes)} leaves: norm {scal_w.tolist()}"
+                 f" against the plain {float(gn_w)} (rtol 2e-6, clip taken)")
+        if not bit_equal(pk_w + tk_w, pp_w + tp_w):
+            fail(f"fused_sgd_step over {len(sizes)} leaves is not bit-equal "
+                 "to the plain pass under its own scalars")
+        for ok in (0.0, 1.0):
+            scal = torch.stack([torch.full_like(gn_w, ok), gn_w, lr])
+            (pk_w, tk_w), (pp_w, tp_w) = wstate(), wstate()
+            FU.fused_sgd_apply(pk_w, gw, tk_w, mw, scal, **kw_w)
+            FU.sgd_apply_plain(pp_w, gw, tp_w, mw, scal, **kw_w)
+            if not bit_equal(pk_w + tk_w, pp_w + tp_w):
+                fail(f"fused_sgd_apply over {len(sizes)} leaves (ok = {ok}) "
+                     "is not bit-equal to the plain pass")
+        n_w = sum(sizes)
+        wide[tree] = {"leaves": len(sizes), "params": n_w,
+                      "tables": ntables, "launches_per_step": step_launches,
+                      "gnorm_rel_err": gn_err,
+                      "bound_ms": bound_ms(4.0 * 6 * n_w, 11.0 * n_w)[0]}
+        if not quick and tree == "resnet18":
+            (pk_w, tk_w) = wstate()
+            w_ms, w_host = time_ms(lambda: FU.fused_sgd_step(
+                pk_w, gw, tk_w, mw, lr=lr, **kw_w), 20)
+            wp_ms, _ = time_ms(lambda: FU.sgd_step_plain(
+                pp_w, gw, tp_w, mw, lr=lr, **kw_w), 5)
+            wide[tree].update(ms=w_ms, host_ms=w_host, plain_ms=wp_ms)
+        del pw, gw, tw, mw, pk_w, tk_w, pp_w, tp_w
     rows.append({"name": "fused_sgd", "route": "cuda",
                  "source": "neuroimagedisttraining_tpu_torch/csrc/fused_sgd.cu",
                  "replaces":
@@ -690,6 +792,7 @@ def main(argv: list[str]) -> int:
                  "gnorm_blocked_rel_err":
                      abs(gnorm_k - float(gnorm_b)) / float(gnorm_b),
                  "device_ops_per_step": len(step_ops) or None,
+                 "beyond_one_table": wide,
                  "bit_equal": ["apply (ok 0 and 1)", "step (clip 1e6)",
                                "step (clip 0)", "step (clip taken) vs the "
                                "plain pass under its scalars",
@@ -806,17 +909,26 @@ def main(argv: list[str]) -> int:
         from neuroimagedisttraining_tpu_torch.__main__ import (
             add_args, build_experiment, config_from_args,
         )
+        from neuroimagedisttraining_tpu_torch.data import synthetic
         import argparse
+        import contextlib
+        import functools
+        import io
 
-        def flagship(algorithm: str, *extra: str):
+        # every flagship run draws the same synthetic cohort (seed, shape,
+        # subjects and sites): drawn once, read by every build_experiment
+        synthetic.generate_synthetic_abcd = functools.lru_cache(maxsize=2)(
+            synthetic.generate_synthetic_abcd)
+
+        def flagship(algorithm: str, *extra: str, fused: bool = True):
             return config_from_args(add_args(argparse.ArgumentParser())
                                     .parse_args([
                 "--algorithm", algorithm, "--dataset", "synthetic",
                 "--model", "3DCNN", "--synthetic_shape", "121", "145", "121",
                 "--synthetic_num_subjects", "48", "--client_num_in_total",
                 "4", "--batch_size", "16", "--itersnip_iteration", "1",
-                "--epochs", "1", "--comm_round", "2", "--fused_update",
-                *extra]))
+                "--epochs", "1", "--comm_round", "2",
+                *(["--fused_update"] if fused else []), *extra]))
 
         cfg = flagship("salientgrads")
         t0 = time.perf_counter()
@@ -1011,6 +1123,124 @@ def main(argv: list[str]) -> int:
             del engine, result
             torch.cuda.empty_cache()
 
+        # ---- D-PSGD, FedFomo and TurboAggregate at full width ----
+        from neuroimagedisttraining_tpu_torch.__main__ import main as cli
+        from neuroimagedisttraining_tpu_torch.core.optim import LocalOptimizer
+        from neuroimagedisttraining_tpu_torch.engines.fedfomo import (
+            FedFomoEngine,
+        )
+
+        fomo_read = sync_site(FedFomoEngine, "p_choose.cpu()")
+        for algorithm in ("dpsgd", "fedfomo", "turboaggregate"):
+            ecfg = flagship(algorithm, *ENGINE_ARGS[algorithm])
+            t0 = time.perf_counter()
+            engine, info = build_experiment(ecfg, "cuda")
+            setup_s = time.perf_counter() - t0
+            steps = local_steps(engine)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _cuda.reset_counts()
+            t0 = time.perf_counter()
+            result = engine.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            got = _cuda.counts()
+            by_path[algorithm] = got
+            losses = [h["train_loss"] for h in result["history"]]
+            final = result.get("final_personal") or result["final_global"]
+            metrics = [final[m] for m in ("acc", "loss", "auc")]
+            out = {"engine": algorithm, "card": card,
+                   "partition": info["train_counts"],
+                   "setup_seconds": setup_s, "train_seconds": train_s,
+                   "round_seconds": result["round_seconds"],
+                   "finetune_seconds": result.get("finetune_seconds"),
+                   "train_loss": losses, "history": result["history"],
+                   "final": final, "launches": got, "local_steps": steps,
+                   "peak_memory_gb":
+                       torch.cuda.max_memory_allocated(dev) / 1e9}
+            if not all(math.isfinite(v) for v in losses + metrics):
+                fail(f"{algorithm}: non-finite losses or metrics: {losses} "
+                     f"{metrics}")
+            if got["fused_sgd"] != 2 * steps or got["stem_dw"] != 3 * steps:
+                fail(f"{algorithm}: {got} in {steps} local steps, not "
+                     "fused_sgd 2 and stem_dw 3 a step")
+            if got["kth_select"] or got["count_ge"]:
+                fail(f"{algorithm} launched the top-k kernels: {got}")
+            # one more round under sync debug mode: the port's lines that
+            # synchronized with the host (FedFomo reads p_choose once)
+            if algorithm == "dpsgd":
+                syncs = hidden_syncs(lambda: engine.run_round(
+                    2, result["personal_params"],
+                    result["personal_batch_stats"], engine.mixing_matrix(2)))
+            elif algorithm == "fedfomo":
+                syncs = hidden_syncs(lambda: engine.run_round(
+                    2, result["personal_params"],
+                    result["personal_batch_stats"], result["weights"],
+                    result["p_choose"]))
+                out["expected_sync"] = fomo_read
+                out["unexpected_syncs"] = [x for x in syncs
+                                           if x != fomo_read]
+            else:
+                syncs = hidden_syncs(lambda: engine.run_round(
+                    2, result["params"], result["batch_stats"],
+                    engine.client_sampling(2)))
+                # the share stage against FedAvg's plain weighted mean, on
+                # the aggregate model stacked for 3 clients
+                S = len(engine.client_sampling(0))
+                stacked = {k: torch.stack([v] * S) / S
+                           for k, v in result["params"].items()}
+                w = torch.ones(S, device=dev)
+                out["mpc_ms"], out["mpc_host_ms"] = time_ms(
+                    lambda: engine.secure_aggregate(stacked), 5)
+                out["plain_aggregate_ms"], _ = time_ms(
+                    lambda: engine.aggregate([result["params"]] * S, w), 5)
+                out["mpc_clients"] = S
+            out["sync_warnings"] = syncs
+            print(json.dumps(out))
+            del engine, result
+            torch.cuda.empty_cache()
+
+        # Adam: unfused (no fused_sgd launch), and refused with the flag
+        acfg = flagship("fedavg", "--frac", "0.75", "--client_optimizer",
+                        "adam", "--comm_round", "1", fused=False)
+        engine, _ = build_experiment(acfg, "cuda")
+        steps = local_steps(engine)
+        _cuda.reset_counts()
+        result = engine.train()
+        torch.cuda.synchronize()
+        got = _cuda.counts()
+        by_path["fedavg_adam"] = got
+        losses = [h["train_loss"] for h in result["history"]]
+        print(json.dumps({"engine": "fedavg", "client_optimizer": "adam",
+                          "card": card, "launches": got,
+                          "local_steps": steps, "train_loss": losses,
+                          "round_seconds": result["round_seconds"],
+                          "finetune_seconds": result["finetune_seconds"],
+                          "final_personal": result["final_personal"]}))
+        if got["fused_sgd"] or got["stem_dw"] != 3 * steps:
+            fail(f"fedavg with adam: {got} in {steps} local steps, not "
+                 "fused_sgd 0 and stem_dw 3 a step")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"fedavg with adam: non-finite losses {losses}")
+        del engine, result
+        torch.cuda.empty_cache()
+        refused = False
+        try:
+            LocalOptimizer(flagship("fedavg", "--client_optimizer",
+                                    "adam").optim)
+        except ValueError:
+            refused = True
+        if not refused:
+            fail("--client_optimizer adam --fused_update was not refused")
+        refused = False
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):  # its usage
+                cli(["--client_optimizer", "adam", "--fused_update"])
+        except SystemExit as e:
+            refused = e.code != 0
+        if not refused:
+            fail("the CLI did not refuse --client_optimizer adam "
+                 "--fused_update")
+
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads"):
             os.environ["NIDT_FAST_STEM"] = "1" if kernels else "0"
@@ -1019,7 +1249,7 @@ def main(argv: list[str]) -> int:
                     "--synthetic_num_subjects", "24",
                     "--client_num_in_total", "4", "--batch_size", "4",
                     "--epochs", "1", "--comm_round", "2",
-                    *SPARSE_ARGS.get(algorithm, ())]
+                    *ENGINE_ARGS.get(algorithm, ())]
             if kernels:
                 argv.append("--fused_update")
             return build_experiment(config_from_args(
@@ -1064,14 +1294,27 @@ def main(argv: list[str]) -> int:
         if not abs(ek - ep) <= 1e-3 * abs(ep):
             fail(f"small-input eval loss {ek} vs plain {ep}")
 
-        # FedProx (with its fine-tune) and Ditto (both tracks) on the small
+        def dense_states(res: dict) -> dict:
+            """A dense engine's result: its global model (where it has one)
+            and every client's personal model, by name."""
+            out = {}
+            if "params" in res or "global_params" in res:
+                out["global"] = res.get("params", res.get("global_params"))
+            per = (res["personal_params"] if "personal_params" in res
+                   else res["personal"]["params"])
+            out.update({f"personal {c}": st for c, st in enumerate(per)})
+            return out
+
+        # FedProx (with its fine-tune), Ditto (both tracks), D-PSGD,
+        # FedFomo and TurboAggregate (with its fine-tune) on the small
         # input: through the kernels and through the plain paths. Their runs
-        # chain three and four steps a client, and where a ReLU input lies
+        # chain several steps a client, and where a ReLU input lies
         # within fp32 rounding of 0 the kernels' rounding flips the unit:
         # held at the tolerances of tests/torch_port_support.py TRAJECTORY
         # (weights 5e-2 of the largest change, eval loss rtol 2e-2), train
         # losses rtol 1e-4
-        for algorithm in ("fedprox", "ditto"):
+        for algorithm in ("fedprox", "ditto", "dpsgd", "fedfomo",
+                          "turboaggregate"):
             plain_eng = small(False, algorithm)
             init_p, _ = plain_eng.init_global_state()
             plain = plain_eng.train()
@@ -1080,18 +1323,14 @@ def main(argv: list[str]) -> int:
                 kern = small(True, algorithm).train()
             calls = per_call.check(f"{algorithm} small input")
             # the kernels' run once more: bit for bit the same
-            again = small(True, algorithm).train()
-            if not all(torch_equal_bits(v, again["params"][k])
-                       for k, v in kern["params"].items()):
+            again = dense_states(small(True, algorithm).train())
+            if not all(torch_equal_bits(v, again[name][k])
+                       for name, st in dense_states(kern).items()
+                       for k, v in st.items()):
                 fail(f"{algorithm} small input: two runs through the kernels "
                      "differ")
-            pairs = {"global": (kern["params"], plain["params"])}
-            per = ("personal_params" if algorithm == "ditto" else "personal")
-            for c in range(plain_eng.num_clients):
-                pk, pp = kern[per], plain[per]
-                if algorithm != "ditto":
-                    pk, pp = pk["params"], pp["params"]
-                pairs[f"personal {c}"] = (pk[c], pp[c])
+            ks, ps = dense_states(kern), dense_states(plain)
+            pairs = {name: (ks[name], ps[name]) for name in ps}
             moved = max(float((v - init_p[k]).abs().max())
                         for st in (pr[1] for pr in pairs.values())
                         for k, v in st.items())
@@ -1099,13 +1338,14 @@ def main(argv: list[str]) -> int:
                         for a, b in pairs.values() for k, v in b.items())
             lp = [h["train_loss"] for h in plain["history"]]
             lk = [h["train_loss"] for h in kern["history"]]
-            ep = plain["final_personal"]["loss"]
-            ek = kern["final_personal"]["loss"]
+            which = ("final_personal" if "final_personal" in plain
+                     else "final_global")
+            ep, ek = plain[which]["loss"], kern[which]["loss"]
             print(json.dumps({"small_input_check": {
                 "engine": algorithm, "shape": [69, 69, 69],
                 "train_loss_plain": lp, "train_loss_kernels": lk,
-                "personal_eval_loss_plain": ep,
-                "personal_eval_loss_kernels": ek,
+                "eval": which, "eval_loss_plain": ep,
+                "eval_loss_kernels": ek,
                 "param_max_abs_err": p_err, "states": sorted(pairs),
                 "largest_weight_change": moved, "per_call": calls}}))
             if not all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lk, lp)):
@@ -1115,7 +1355,7 @@ def main(argv: list[str]) -> int:
                 fail(f"{algorithm} small-input params differ by {p_err} "
                      f"(largest weight change {moved})")
             if not abs(ek - ep) <= 2e-2 * abs(ep):
-                fail(f"{algorithm} small-input personal eval loss {ek} vs "
+                fail(f"{algorithm} small-input {which} eval loss {ek} vs "
                      f"plain {ep}")
 
         # Sub-FedAvg and DisPFL on the small input: through the kernels and

@@ -1,14 +1,17 @@
 """CLI of the port:
 
     python -m neuroimagedisttraining_tpu_torch \\
-        --algorithm fedavg|fedprox|salientgrads|ditto|local|subavg|dispfl \\
+        --algorithm fedavg|fedprox|salientgrads|ditto|local|subavg|dispfl|\\
+                    dpsgd|fedfomo|turboaggregate \\
         --dataset synthetic --model 3DCNN --synthetic_shape 121 145 121 \\
-        [--fused_update] [--device cuda|cpu] [--log_dir LOG] ...
+        [--fused_update] [--client_optimizer sgd|adam] [--val_fraction F] \\
+        [--device cuda|cpu] [--log_dir LOG] ...
 
 Flag names are the reference CLI's for the flags the port takes. It logs
 the rounds and prints, last, one JSON line with what the engine returns
 except its model states (``mask_density`` for SalientGrads only).
-``NIDT_FAST_STEM=1`` arms the stem weight-gradient kernel.
+``NIDT_FAST_STEM=1`` arms the stem weight-gradient kernel. FedFomo needs
+``--val_fraction > 0``; ``--fused_update`` is for the SGD optimizer only.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--dataset", type=str, default="synthetic",
                         choices=["synthetic"])
     parser.add_argument("--batch_size", type=int, default=16)
+    parser.add_argument("--client_optimizer", type=str, default="sgd",
+                        choices=["sgd", "adam"])
     parser.add_argument("--lr", type=float, default=0.01)
     parser.add_argument("--lr_decay", type=float, default=0.998)
     parser.add_argument("--wd", type=float, default=5e-4)
@@ -50,7 +55,7 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--seed_split", type=int, default=42)
     parser.add_argument("--cs", type=str, default="random",
                         choices=["random", "ring", "full", "self"],
-                        help="DisPFL's neighbour choice")
+                        help="DisPFL's and D-PSGD's neighbour choice")
     parser.add_argument("--active", type=float, default=1.0,
                         help="DisPFL: each client's activity probability")
     parser.add_argument("--dense_ratio", type=float, default=0.5)
@@ -69,6 +74,20 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--stratified_sampling", action="store_true")
     parser.add_argument("--lamda", type=float, default=0.5)
     parser.add_argument("--local_epochs", type=int, default=1)
+    parser.add_argument("--fomo_m", type=int, default=5)
+    parser.add_argument("--val_fraction", type=float, default=0.0,
+                        help="> 0 carves a validation split of each "
+                             "client's training rows (FedFomo needs it)")
+    parser.add_argument("--mpc_n_shares", type=int, default=3,
+                        help="TurboAggregate: additive shares per client "
+                             "update")
+    parser.add_argument("--mpc_frac_bits", type=int, default=16,
+                        help="TurboAggregate: fixed-point fraction bits "
+                             "for GF(p) quantization")
+    parser.add_argument("--mpc_backend", type=str, default="device",
+                        choices=["device", "host"],
+                        help="TurboAggregate's share stage: on the device "
+                             "(default) or in numpy on the host")
     parser.add_argument("--fused_update", action="store_true")
     parser.add_argument("--synthetic_num_subjects", type=int, default=256)
     parser.add_argument("--synthetic_shape", type=int, nargs=3,
@@ -90,8 +109,10 @@ def config_from_args(args) -> ExperimentConfig:
                         synthetic_num_subjects=args.synthetic_num_subjects,
                         synthetic_shape=tuple(args.synthetic_shape),
                         synthetic_signal=args.synthetic_signal,
-                        seed_split=args.seed_split),
-        optim=OptimConfig(lr=args.lr, lr_decay=args.lr_decay, wd=args.wd,
+                        seed_split=args.seed_split,
+                        val_fraction=args.val_fraction),
+        optim=OptimConfig(client_optimizer=args.client_optimizer,
+                          lr=args.lr, lr_decay=args.lr_decay, wd=args.wd,
                           momentum=args.momentum, batch_size=args.batch_size,
                           epochs=args.epochs, grad_clip=args.grad_clip,
                           batch_order=args.batch_order,
@@ -100,7 +121,10 @@ def config_from_args(args) -> ExperimentConfig:
                       frac=args.frac, comm_round=args.comm_round,
                       frequency_of_the_test=args.frequency_of_the_test,
                       lamda=args.lamda, local_epochs=args.local_epochs,
-                      cs=args.cs, active=args.active),
+                      cs=args.cs, active=args.active, fomo_m=args.fomo_m,
+                      mpc_n_shares=args.mpc_n_shares,
+                      mpc_frac_bits=args.mpc_frac_bits,
+                      mpc_backend=args.mpc_backend),
         sparsity=SparsityConfig(
             dense_ratio=args.dense_ratio, anneal_factor=args.anneal_factor,
             erk_power_scale=args.erk_power_scale, uniform=args.uniform,
@@ -115,8 +139,9 @@ def config_from_args(args) -> ExperimentConfig:
 
 
 def build_experiment(cfg: ExperimentConfig, device: str = "cuda"):
-    """Cohort -> site federation on the device -> model -> trainer ->
-    engine. Returns ``(engine, partition_info)``."""
+    """Cohort -> site federation on the device (with a validation split
+    where ``val_fraction > 0``) -> model -> trainer -> engine. Returns
+    ``(engine, partition_info)``."""
     from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
     from neuroimagedisttraining_tpu_torch.data.federate import federate_cohort
     from neuroimagedisttraining_tpu_torch.data.synthetic import (
@@ -131,7 +156,8 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda"):
         num_subjects=d.synthetic_num_subjects, shape=d.synthetic_shape,
         signal=d.synthetic_signal,
         num_sites=max(4, cfg.fed.client_num_in_total // 4), seed=cfg.seed)
-    fed, info = federate_cohort(cohort, dev, seed=d.seed_split)
+    fed, info = federate_cohort(cohort, dev, seed=d.seed_split,
+                                val_fraction=d.val_fraction)
     model = create_model(cfg.model, d.synthetic_shape, cfg.num_classes)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     trainer = LocalTrainer(model, cfg.optim, dev, gen)
@@ -139,8 +165,18 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda"):
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = add_args(argparse.ArgumentParser(
-        prog="neuroimagedisttraining_tpu_torch")).parse_args(argv)
+    parser = add_args(argparse.ArgumentParser(
+        prog="neuroimagedisttraining_tpu_torch"))
+    args = parser.parse_args(argv)
+    if args.fused_update and args.client_optimizer != "sgd":
+        parser.error(
+            "--fused_update fuses the SGD clip/momentum/update tail "
+            f"(ops/fused_update.py); --client_optimizer "
+            f"{args.client_optimizer} has no fused kernel and would "
+            "silently train un-fused")
+    if args.algorithm == "fedfomo" and args.val_fraction <= 0:
+        parser.error("--algorithm fedfomo needs a validation split: give "
+                     "--val_fraction > 0")
     logging.basicConfig(level=logging.INFO, format="%(message)s",
                         stream=sys.stdout)
     cfg = config_from_args(args)

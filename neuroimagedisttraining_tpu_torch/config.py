@@ -4,7 +4,8 @@ run: 3DCNN, 21 site-clients, batch 16, 200 rounds, SGD lr 0.01 decayed
 0.998 per round, weight decay 5e-4, momentum 0.9, global-norm clip 10,
 dense ratio 0.5; Ditto's lamda 0.5 and 1 personal epoch; Sub-FedAvg's
 prune ratio 0.1 with its accept thresholds; DisPFL's ERK masks, cosine
-anneal 0.5 and random neighbours).
+anneal 0.5 and random neighbours; FedFomo's 5 requested models;
+TurboAggregate's 3 additive shares at 16 fraction bits on the device).
 """
 
 from __future__ import annotations
@@ -14,9 +15,10 @@ from dataclasses import dataclass, field
 
 @dataclass(frozen=True)
 class OptimConfig:
-    """Local SGD: lr * lr_decay**round, clip -> wd -> momentum -> update."""
+    """The local optimizer at lr * lr_decay**round: SGD (clip -> wd ->
+    momentum -> update) or Adam (clip -> Adam -> wd -> update)."""
 
-    client_optimizer: str = "sgd"
+    client_optimizer: str = "sgd"  # "sgd" | "adam"
     lr: float = 0.01
     lr_decay: float = 0.998
     wd: float = 5e-4
@@ -42,6 +44,9 @@ class DataConfig:
     synthetic_shape: tuple[int, int, int] = (121, 145, 121)
     synthetic_signal: float = 12.0
     seed_split: int = 42
+    # > 0 carves a validation split of each client's training rows
+    # (FedFomo needs one)
+    val_fraction: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -90,6 +95,13 @@ class FedConfig:
     # Ditto's proximal weight (also FedProx's mu) and personal epochs
     lamda: float = 0.5
     local_epochs: int = 1
+    # FedFomo: models a client requests a round
+    fomo_m: int = 5
+    # TurboAggregate: additive shares a client update, fixed-point fraction
+    # bits in GF(p), and where the share stage runs ("device" | "host")
+    mpc_n_shares: int = 3
+    mpc_frac_bits: int = 16
+    mpc_backend: str = "device"
 
     @property
     def client_num_per_round(self) -> int:

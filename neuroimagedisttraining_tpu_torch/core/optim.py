@@ -1,14 +1,25 @@
-"""Local SGD with the reference's semantics: global-norm clip, then
-``g + wd * p``, then momentum ``t = g + m * t``, then ``p += -lr * t``
-(lr applied after momentum, as ``torch.optim.SGD`` does), then the sparse
-mask ``p *= mask``. The momentum buffers start at zero every round (the
-reference builds a fresh optimizer per round).
+"""The local optimizers with the reference's semantics.
 
+SGD: global-norm clip, then ``g + wd * p``, then momentum
+``t = g + m * t``, then ``p += -lr * t`` (lr applied after momentum, as
+``torch.optim.SGD`` does), then the sparse mask ``p *= mask``.
 ``fused_update=False`` runs the chain as plain PyTorch operations
 (``ops.fused_update.sgd_step_plain``); ``fused_update=True`` runs it as the
 fused CUDA step, the global norm and then one pass over every leaf
 (``ops.fused_update.fused_sgd_step``, which takes the same plain path for
-CPU tensors). Both update in place.
+CPU tensors).
+
+Adam (``client_optimizer="adam"``), the reference's optax chain: the
+global-norm clip, then ``scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-8,
+bias correction by the step count), then ``+ wd * p``, then
+``p += -lr * u``, then the mask. It is plain PyTorch operations, each
+rounded on its own, in the reference's order (``torch.optim.Adam`` rounds
+in another order). It has no fused kernel: ``fused_update`` with Adam is
+refused, as the reference refuses it.
+
+Both update in place. The optimizer state (momentum buffers, Adam's
+moments and count) starts at zero every round (the reference builds a
+fresh optimizer per round).
 """
 
 from __future__ import annotations
@@ -18,31 +29,95 @@ import torch
 
 from neuroimagedisttraining_tpu_torch.config import OptimConfig
 from neuroimagedisttraining_tpu_torch.ops.fused_update import (
-    fused_sgd_step, sgd_step_plain,
+    fused_sgd_step, sgd_scalars, sgd_step_plain,
 )
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+class AdamState:
+    """Adam's first and second moments (lists of leaves, or dicts by leaf
+    name) and the number of steps taken, which every step advances."""
+
+    def __init__(self, mu, nu, count: int = 0):
+        self.mu, self.nu, self.count = mu, nu, count
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """``1 - decay**count`` in float32 as the reference's jitted power
+    rounds it (the power of float32 ``decay`` rounded once)."""
+    power = np.float32(np.float64(np.float32(decay)) ** count)
+    return float(np.float32(np.float32(1.0) - power))
+
+
+def adam_step_plain(params, grads, state: AdamState, mask, *, clip: float,
+                    wd: float, lr) -> None:
+    """One Adam step over lists of leaves, in place on ``params`` and
+    ``state``: the clip under :func:`sgd_scalars`, ``mu = (1 - b1) * g +
+    b1 * mu``, ``nu = (1 - b2) * g^2 + b2 * nu``, ``u = (mu / bc1) /
+    (sqrt(nu / bc2) + eps)``, ``u + wd * p``, ``p + (-lr) * u``, ``p *
+    mask``, each operation rounded on its own."""
+    scal = sgd_scalars(grads, clip=clip, lr=lr)
+    ok, gnorm, lr_t = scal[0] > 0.5, scal[1], scal[2]
+    state.count += 1
+    c1 = float(np.float32(1 - ADAM_B1))
+    c2 = float(np.float32(1 - ADAM_B2))
+    bc1 = _bias_correction(ADAM_B1, state.count)
+    bc2 = _bias_correction(ADAM_B2, state.count)
+    for i, (p, g) in enumerate(zip(params, grads)):
+        if clip > 0:
+            g = torch.where(ok, g, (g / gnorm) * clip)
+        mu = c1 * g + ADAM_B1 * state.mu[i]
+        nu = c2 * (g * g) + ADAM_B2 * state.nu[i]
+        state.mu[i].copy_(mu)
+        state.nu[i].copy_(nu)
+        u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+        if wd > 0:
+            u = u + wd * p
+        p_new = p + (-lr_t) * u
+        if mask is not None:
+            p_new = p_new * mask[i]
+        p.copy_(p_new)
 
 
 class LocalOptimizer:
-    """The SGD chain of one config, over lists of parameter leaves."""
+    """The SGD or Adam chain of one config, over lists of parameter
+    leaves."""
 
     def __init__(self, cfg: OptimConfig):
-        if cfg.client_optimizer != "sgd":
-            raise ValueError(f"the port has the sgd client optimizer only, "
-                             f"not {cfg.client_optimizer!r}")
+        if cfg.client_optimizer not in ("sgd", "adam"):
+            raise ValueError(f"unknown client_optimizer "
+                             f"{cfg.client_optimizer!r}")
+        if cfg.fused_update and cfg.client_optimizer != "sgd":
+            raise ValueError(
+                "--fused_update fuses the SGD clip/momentum/update tail "
+                f"(ops/fused_update.py); client_optimizer="
+                f"{cfg.client_optimizer!r} has no fused kernel and would "
+                "silently train un-fused")
         self.cfg = cfg
+        self.adam = cfg.client_optimizer == "adam"
 
-    def init(self, params: list[torch.Tensor]) -> list[torch.Tensor] | None:
-        """Zero momentum buffers (None when momentum is 0)."""
+    def init(self, params: list[torch.Tensor]):
+        """The zero state: Adam's :class:`AdamState`, else SGD's momentum
+        buffers (None when momentum is 0)."""
+        if self.adam:
+            return AdamState([torch.zeros_like(p) for p in params],
+                             [torch.zeros_like(p) for p in params])
         if self.cfg.momentum <= 0:
             return None
         return [torch.zeros_like(p) for p in params]
 
-    def step(self, params, grads, trace, lr, mask=None) -> None:
-        """One in-place step: the fused kernel (the reference's
-        ``fused_apply``) under ``fused_update``, else the plain chain."""
+    def step(self, params, grads, state, lr, mask=None) -> None:
+        """One in-place step: Adam's plain chain; for SGD the fused kernel
+        (the reference's ``fused_apply``) under ``fused_update``, else the
+        plain chain."""
         c = self.cfg
+        if self.adam:
+            adam_step_plain(params, grads, state, mask, clip=c.grad_clip,
+                            wd=c.wd, lr=lr)
+            return
         fn = fused_sgd_step if c.fused_update else sgd_step_plain
-        fn(params, grads, trace, mask, clip=c.grad_clip, wd=c.wd,
+        fn(params, grads, state, mask, clip=c.grad_clip, wd=c.wd,
            momentum=c.momentum, lr=lr)
 
 

@@ -13,8 +13,9 @@ serves every client.
   epoch; the reference's further masked no-op steps are skipped. Under
   ``batch_order="replacement"`` each step draws its rows uniformly
   instead. FedProx and Ditto add a proximal pull toward a reference
-  model after every step. The momentum buffers start at zero, or carry on
-  from a caller's (Sub-FedAvg's epoch-1 and tail calls share one).
+  model after every step. The optimizer state (SGD's momentum buffers,
+  Adam's moments and step count) starts at zero, or carries on from a
+  caller's (Sub-FedAvg's epoch-1 and tail calls share one).
 - ``eval_grad``: the dense gradient of one batch in evaluation mode
   (DisPFL's gradient probe).
 - ``evaluate``: chunked eval returning correct / loss sum / total and the
@@ -37,7 +38,9 @@ from neuroimagedisttraining_tpu_torch.config import OptimConfig
 from neuroimagedisttraining_tpu_torch.core.losses import (
     bce_with_logits, predictions,
 )
-from neuroimagedisttraining_tpu_torch.core.optim import LocalOptimizer
+from neuroimagedisttraining_tpu_torch.core.optim import (
+    AdamState, LocalOptimizer,
+)
 
 State = dict[str, torch.Tensor]
 
@@ -102,11 +105,15 @@ class LocalTrainer:
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), dict(zip(leaves, grads)), new_b
 
-    def init_momentum(self, params: State) -> State | None:
-        """Zero momentum buffers for ``params`` (None without momentum), to
-        pass to :meth:`local_train` calls that share them."""
-        trace = self.opt.init(list(params.values()))
-        return None if trace is None else dict(zip(params, trace))
+    def init_momentum(self, params: State):
+        """The zero optimizer state for ``params`` by leaf name, to pass to
+        :meth:`local_train` calls that share it: SGD's momentum buffers
+        (None without momentum), or an :class:`AdamState` of dicts."""
+        state = self.opt.init(list(params.values()))
+        if isinstance(state, AdamState):
+            return AdamState(dict(zip(params, state.mu)),
+                             dict(zip(params, state.nu)))
+        return None if state is None else dict(zip(params, state))
 
     def local_train(self, params: State, bstats: State, X: torch.Tensor,
                     y: torch.Tensor, n_valid: int, lr, epochs: int,
@@ -116,12 +123,13 @@ class LocalTrainer:
                     prox_ref: State | None = None,
                     perms: torch.Tensor | None = None,
                     batch_idx: torch.Tensor | None = None,
-                    momentum: State | None = None):
+                    momentum=None):
         """E epochs of local SGD from ``(params, bstats)`` (left unchanged).
         Returns ``(params, bstats, mean_loss)``; ``mask`` re-applies the
         sparse mask after every step. ``momentum`` (from
         :meth:`init_momentum`) is the optimizer state to carry on from,
-        updated in place; None starts from zero buffers.
+        updated in place (Adam's step count included); None starts from
+        zero.
 
         Under ``batch_order="replacement"`` each step draws ``batch_size``
         rows uniformly from ``[0, n_valid)`` with an unweighted loss;
@@ -148,8 +156,13 @@ class LocalTrainer:
         m_list = [mask[k] for k in names] if mask is not None else None
         ref_list = ([prox_ref[k] for k in names] if prox_lamda is not None
                     else None)
-        trace = (self.opt.init(p_list) if momentum is None
-                 else [momentum[k] for k in names])
+        if momentum is None:
+            trace = self.opt.init(p_list)
+        elif isinstance(momentum, AdamState):
+            trace = AdamState([momentum.mu[k] for k in names],
+                              [momentum.nu[k] for k in names], momentum.count)
+        else:
+            trace = [momentum[k] for k in names]
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         offsets = torch.arange(batch_size, device=self.device)
         for e in range(epochs):
@@ -171,6 +184,8 @@ class LocalTrainer:
                 if prox_lamda is not None:
                     prox_pull_(p_list, ref_list, lr, prox_lamda)
                 loss_sum = loss_sum + loss
+        if isinstance(momentum, AdamState):
+            momentum.count = trace.count
         return p, b, loss_sum / max(epochs * my_steps, 1)
 
     def eval_grad(self, params: State, bstats: State, x: torch.Tensor,

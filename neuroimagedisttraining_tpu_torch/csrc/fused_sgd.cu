@@ -22,9 +22,12 @@
 // 1. One multi-tensor pass. A launch takes a table of up to MAX_LEAVES
 //    leaf descriptors {p, g, t, m, n, first chunk} by value in its kernel
 //    parameters (__grid_constant__: 1,544 bytes, under the classic 4 KB
-//    kernel-parameter limit); the wrapper refuses a longer leaf list (the
-//    flagship has 24 leaves). The work is cut into CHUNK-float chunks that
-//    never straddle two leaves (2.57 M parameters make 645); a block finds
+//    kernel-parameter limit). A longer leaf list (resnet18 has 62 leaves,
+//    vgg11 34; the flagship 24) is cut into consecutive tables of
+//    MAX_LEAVES leaves, each stepped by launches of its own: the step
+//    takes two launches a table, and the flagship's stays at two. The
+//    work is cut into CHUNK-float chunks that never straddle two leaves
+//    (2.57 M parameters make 645); a block finds
 //    a chunk's leaf by binary search over the first-chunk column and walks
 //    its chunks in a grid-stride loop over about one resident wave of
 //    blocks, so the small leaves share blocks with the large ones. Loads
@@ -37,10 +40,13 @@
 // 2. The global norm on the device. fused_sgd_norm_kernel squares and sums
 //    its chunks of g in fp64 (each square of a float is exact in fp64) in a
 //    fixed order and writes one partial per block (a wave of its own: one
-//    chunk a block at the flagship); the last block to finish (a
-//    __threadfence and an atomic ticket, which it resets for the next step)
-//    sums the partials in a fixed order (thread t takes partials t,
-//    t + 256, ... in index order, then a fixed shuffle and warp tree),
+//    chunk a block at the flagship) into one buffer shared by every
+//    table's launch, each at its own offset; in the last table's launch
+//    the last block to finish (a __threadfence and an atomic ticket, which
+//    it resets for the next step; the earlier launches ended before it
+//    started) sums all the partials in a fixed order (thread t takes
+//    partials t, t + 256, ... in index order, then a fixed shuffle and
+//    warp tree),
 //    rounds sqrt(sum) to float once, and writes [ok, gnorm, lr] into the
 //    step's scalar buffer. The apply launch reads them. No torch op
 //    computes scalars, the host never syncs, and two calls are bit-equal:
@@ -62,6 +68,8 @@
 #include "common.cuh"
 
 #include <string.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -113,8 +121,8 @@ __device__ __forceinline__ bool aligned16(uintptr_t bits) {
 
 __global__ void __launch_bounds__(THREADS)
 fused_sgd_norm_kernel(const __grid_constant__ Table tab, double* partials,
-                      unsigned* ticket, float* scal, const Hyper h,
-                      const float* __restrict__ lr) {
+                      int part0, bool finish, unsigned* ticket, float* scal,
+                      const Hyper h, const float* __restrict__ lr) {
   __shared__ double wsum[THREADS / 32];
   __shared__ int last;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -152,8 +160,9 @@ fused_sgd_norm_kernel(const __grid_constant__ Table tab, double* partials,
   if (t == 0) {
     double s = 0.0;
     for (int w = 0; w < THREADS / 32; ++w) s += wsum[w];
-    partials[blockIdx.x] = s;
+    partials[part0 + blockIdx.x] = s;
   }
+  if (!finish) return;  // a later table's launch finishes the norm
 
   // the last block to finish: every partial is written
   __threadfence();
@@ -163,7 +172,8 @@ fused_sgd_norm_kernel(const __grid_constant__ Table tab, double* partials,
   if (!last) return;
   __threadfence();
   double s = 0.0;
-  for (int i = t; i < (int)gridDim.x; i += THREADS) s += __ldcg(&partials[i]);
+  const int nparts = part0 + (int)gridDim.x;
+  for (int i = t; i < nparts; i += THREADS) s += __ldcg(&partials[i]);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(FULL, s, o);
   if (lane == 0) wsum[warp] = s;
@@ -299,13 +309,28 @@ constexpr ApplyLaunch APPLY[16] = {
     launch_apply<8>,  launch_apply<9>,  launch_apply<10>, launch_apply<11>,
     launch_apply<12>, launch_apply<13>, launch_apply<14>, launch_apply<15>};
 
-// the table of nleaves rows of the host table (as the planner of
-// ops/fused_update.py made it); false when it does not fit
-bool fill(Table& tab, const long long* table, int nleaves, int nchunks) {
-  if (nleaves < 1 || nleaves > MAX_LEAVES || nchunks < 0) return false;
-  memcpy(tab.leaf, table, sizeof(Leaf) * nleaves);
-  tab.nleaves = nleaves;
-  tab.nchunks = nchunks;
+int tables_of(int nleaves) { return (nleaves + MAX_LEAVES - 1) / MAX_LEAVES; }
+
+// Table k of the nleaves rows of the host table (as the planner of
+// ops/fused_update.py made it, first chunks counted over every leaf):
+// leaves [k * MAX_LEAVES, (k + 1) * MAX_LEAVES), first chunks counted from
+// the table's own first chunk, as ops/fused_update.py's Plan.tables cuts
+// them; false when the rows are not a valid plan.
+bool fill(Table& tab, const long long* table, int nleaves, int nchunks,
+          int k) {
+  if (nleaves < 1 || nchunks < 0 || k < 0 || k >= tables_of(nleaves))
+    return false;
+  const int l0 = k * MAX_LEAVES;
+  const int n = std::min(MAX_LEAVES, nleaves - l0);
+  memcpy(tab.leaf, table + (size_t)l0 * LEAF_WORDS, sizeof(Leaf) * n);
+  const long long c0 = tab.leaf[0].first;
+  const long long c1 = l0 + n < nleaves
+                           ? table[(size_t)(l0 + n) * LEAF_WORDS + 5]
+                           : (long long)nchunks;
+  if (c0 < 0 || c1 < c0 || c1 > nchunks) return false;
+  for (int i = 0; i < n; ++i) tab.leaf[i].first -= c0;
+  tab.nleaves = n;
+  tab.nchunks = (int)(c1 - c0);
   return true;
 }
 
@@ -346,24 +371,30 @@ NIDT_EXPORT int fused_sgd_num_blocks(int* apply_blocks, int* norm_blocks) {
 }
 
 // The apply alone under given scalars scal = [ok, gnorm, lr] on the device:
-// one launch. table: the host table (LEAF_WORDS int64 words a leaf).
+// one launch a table. table: the host table (LEAF_WORDS int64 words a leaf).
 NIDT_EXPORT int fused_sgd_apply_launch(const long long* table, int nleaves,
                                        int nchunks, float clip, float wd,
                                        float momentum, int flags,
                                        const float* scal, int max_blocks,
                                        void* stream) {
-  Table tab;
-  if (!fill(tab, table, nleaves, nchunks)) return (int)cudaErrorInvalidValue;
   const Hyper h{clip, wd, momentum, 0.f};
-  return apply(tab, h, flags, scal, scal + 2, max_blocks,
-               static_cast<cudaStream_t>(stream));
+  for (int k = 0; k < std::max(tables_of(nleaves), 1); ++k) {
+    Table tab;
+    if (!fill(tab, table, nleaves, nchunks, k))
+      return (int)cudaErrorInvalidValue;
+    const int err = apply(tab, h, flags, scal, scal + 2, max_blocks,
+                          static_cast<cudaStream_t>(stream));
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
-// One whole step: with a clip (flags & 1), the norm launch (its last block
-// finishes [ok, gnorm, lr] into scal), then the apply reading scal;
-// without, the apply alone. lr is the lr on the device, or null for
-// lr_value. work: a zeroed buffer of 8 + 8 * norm_blocks bytes (the
-// ticket, then the partials), left with its ticket zero.
+// One whole step: with a clip (flags & 1), every table's norm launch (the
+// last one's last block finishes [ok, gnorm, lr] into scal), then every
+// table's apply reading scal; without, the applies alone. lr is the lr on
+// the device, or null for lr_value. work: a zeroed buffer of
+// 8 + 8 * norm_blocks * tables bytes (the ticket, then the partials), left
+// with its ticket zero.
 NIDT_EXPORT int fused_sgd_step_launch(const long long* table, int nleaves,
                                       int nchunks, float clip, float wd,
                                       float momentum, int flags,
@@ -372,15 +403,34 @@ NIDT_EXPORT int fused_sgd_step_launch(const long long* table, int nleaves,
                                       int apply_blocks, int norm_blocks,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Table tab;
-  if (!fill(tab, table, nleaves, nchunks)) return (int)cudaErrorInvalidValue;
   const Hyper h{clip, wd, momentum, lr_value};
-  if (!(flags & 1)) return apply(tab, h, flags, nullptr, lr, apply_blocks, s);
-  unsigned* ticket = static_cast<unsigned*>(work);
-  double* partials = static_cast<double*>(work) + 1;
-  fused_sgd_norm_kernel<<<blocks_for(nchunks, norm_blocks), THREADS, 0, s>>>(
-      tab, partials, ticket, scal, h, lr);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return apply(tab, h, flags, scal, scal + 2, apply_blocks, s);
+  const int ntables = std::max(tables_of(nleaves), 1);
+  const float* scal_in = nullptr;
+  const float* lr_in = lr;
+  if (flags & 1) {
+    unsigned* ticket = static_cast<unsigned*>(work);
+    double* partials = static_cast<double*>(work) + 1;
+    int part0 = 0;
+    for (int k = 0; k < ntables; ++k) {
+      Table tab;
+      if (!fill(tab, table, nleaves, nchunks, k))
+        return (int)cudaErrorInvalidValue;
+      const int blocks = blocks_for(tab.nchunks, norm_blocks);
+      fused_sgd_norm_kernel<<<blocks, THREADS, 0, s>>>(
+          tab, partials, part0, k == ntables - 1, ticket, scal, h, lr);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      part0 += blocks;
+    }
+    scal_in = scal;
+    lr_in = scal + 2;
+  }
+  for (int k = 0; k < ntables; ++k) {
+    Table tab;
+    if (!fill(tab, table, nleaves, nchunks, k))
+      return (int)cudaErrorInvalidValue;
+    const int err = apply(tab, h, flags, scal_in, lr_in, apply_blocks, s);
+    if (err != 0) return err;
+  }
+  return 0;
 }

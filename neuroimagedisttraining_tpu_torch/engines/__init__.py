@@ -3,13 +3,18 @@
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
 from neuroimagedisttraining_tpu_torch.engines.dispfl import DisPFLEngine
 from neuroimagedisttraining_tpu_torch.engines.ditto import DittoEngine
+from neuroimagedisttraining_tpu_torch.engines.dpsgd import DPSGDEngine
 from neuroimagedisttraining_tpu_torch.engines.fedavg import FedAvgEngine
+from neuroimagedisttraining_tpu_torch.engines.fedfomo import FedFomoEngine
 from neuroimagedisttraining_tpu_torch.engines.fedprox import FedProxEngine
 from neuroimagedisttraining_tpu_torch.engines.local import LocalEngine
 from neuroimagedisttraining_tpu_torch.engines.salientgrads import (
     SalientGradsEngine,
 )
 from neuroimagedisttraining_tpu_torch.engines.subavg import SubFedAvgEngine
+from neuroimagedisttraining_tpu_torch.engines.turboaggregate import (
+    TurboAggregateEngine,
+)
 
 ENGINES = {
     "fedavg": FedAvgEngine,
@@ -19,7 +24,11 @@ ENGINES = {
     "ditto": DittoEngine,
     "local": LocalEngine,
     "subavg": SubFedAvgEngine,
+    "sub-fedavg": SubFedAvgEngine,
     "dispfl": DisPFLEngine,
+    "dpsgd": DPSGDEngine,
+    "fedfomo": FedFomoEngine,
+    "turboaggregate": TurboAggregateEngine,
 }
 
 

@@ -126,11 +126,11 @@ class FederatedEngine:
             lr, epochs, self.cfg.optim.batch_size, self.max_samples,
             perms=perms, **kw)
 
-    def train_and_aggregate(self, round_idx: int, params: State,
-                            bstats: State, sampled, lr, **kw):
-        """The sampled clients train from the global model for ``epochs``;
-        FedAvg of their uploads. Returns ``(params, bstats, loss, n_bad,
-        uploads)``, ``uploads`` the clients' ``(params, bstats)`` lists."""
+    def train_sampled(self, round_idx: int, params: State, bstats: State,
+                      sampled, lr, **kw):
+        """The sampled clients train from the global model for ``epochs``.
+        Returns their ``(params, bstats)`` lists and their losses
+        ``[S]``."""
         ups_p, ups_b, losses = [], [], []
         for c in sampled:
             p, b, loss = self.client_train(round_idx, int(c), params, bstats,
@@ -138,9 +138,18 @@ class FederatedEngine:
             ups_p.append(p)
             ups_b.append(b)
             losses.append(loss)
+        return ups_p, ups_b, torch.stack(losses)
+
+    def train_and_aggregate(self, round_idx: int, params: State,
+                            bstats: State, sampled, lr, **kw):
+        """The sampled clients train from the global model for ``epochs``;
+        FedAvg of their uploads. Returns ``(params, bstats, loss, n_bad,
+        uploads)``, ``uploads`` the clients' ``(params, bstats)`` lists."""
+        ups_p, ups_b, losses = self.train_sampled(round_idx, params, bstats,
+                                                  sampled, lr, **kw)
         ns = self.to_device(self.data.n_train[sampled])
         new_p, new_b, loss, n_bad = self.sanitize_aggregate(
-            ups_p, ups_b, params, bstats, ns, torch.stack(losses))
+            ups_p, ups_b, params, bstats, ns, losses)
         return new_p, new_b, loss, n_bad, (ups_p, ups_b)
 
     # ---------- host boundaries ----------
@@ -213,14 +222,15 @@ class FederatedEngine:
                                dim=0)
         return out
 
-    def sanitize_aggregate(self, params_up: list[State],
-                           bstats_up: list[State], ref_params: State,
-                           ref_bstats: State, ns: torch.Tensor,
-                           losses: torch.Tensor):
-        """The round's tail: a client whose upload holds a NaN/Inf is
-        swapped for the broadcast reference and weighs 0 (without a
-        defense, one bad client would poison the mean). Returns
-        ``(params, bstats, mean_loss, n_bad)``, all on the device."""
+    def guard_uploads(self, params_up: list[State], bstats_up: list[State],
+                      ref_params: State, ref_bstats: State, ns: torch.Tensor,
+                      losses: torch.Tensor):
+        """A client whose upload holds a NaN/Inf is swapped for the
+        broadcast reference and weighs 0 (without a defense, one bad client
+        would poison the mean). Returns ``(params_up, bstats_up, w,
+        mean_loss, n_bad)``: the guarded uploads, the weights ``ns`` with
+        the bad clients' zeroed, the weighted mean of the finite losses and
+        the count of bad clients, all on the device."""
         finite = self.finite_per_client(
             [{**p, **b} for p, b in zip(params_up, bstats_up)])
 
@@ -229,12 +239,23 @@ class FederatedEngine:
                      for k, v in up.items()} for s, up in enumerate(ups)]
 
         w = ns.to(torch.float32) * finite.to(torch.float32)
-        new_params = self.aggregate(guard(params_up, ref_params), w)
-        new_bstats = self.aggregate(guard(bstats_up, ref_bstats), w)
         safe = torch.where(torch.isfinite(losses), losses,
                            torch.zeros_like(losses))
         mean_loss = torch.sum(safe * w) / torch.clamp(torch.sum(w), min=1e-9)
-        return new_params, new_bstats, mean_loss, torch.sum(~finite)
+        return (guard(params_up, ref_params), guard(bstats_up, ref_bstats),
+                w, mean_loss, torch.sum(~finite))
+
+    def sanitize_aggregate(self, params_up: list[State],
+                           bstats_up: list[State], ref_params: State,
+                           ref_bstats: State, ns: torch.Tensor,
+                           losses: torch.Tensor):
+        """The round's tail: the uploads guarded (:meth:`guard_uploads`),
+        then their FedAvg. Returns ``(params, bstats, mean_loss, n_bad)``,
+        all on the device."""
+        params_up, bstats_up, w, mean_loss, n_bad = self.guard_uploads(
+            params_up, bstats_up, ref_params, ref_bstats, ns, losses)
+        return (self.aggregate(params_up, w), self.aggregate(bstats_up, w),
+                mean_loss, n_bad)
 
     @staticmethod
     def scatter_sampled_rows(all_states: list, new_states: list,

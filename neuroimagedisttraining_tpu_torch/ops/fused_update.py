@@ -3,7 +3,7 @@ one pass over every parameter leaf, updating params and momentum in place.
 
 The stage-by-stage SGD chain reads and writes a params-sized intermediate
 per stage. On CUDA tensors :func:`fused_sgd_step` makes one host call that
-queues two kernels of ``csrc/fused_sgd.cu`` (which replaces the TPU kernel
+queues two kernels of ``csrc/fused_sgd.cu`` a table of leaves (which replaces the TPU kernel
 of the reference package, ``ops/fused_update.py`` ``_leaf_pallas`` ->
 ``_make_kernel``): the global norm of the grads, finished on the device
 into a 3-float buffer ``[ok, gnorm, lr]``, then one multi-tensor pass over
@@ -14,9 +14,14 @@ momentum are Python floats passed by value; the per-round lr stays on the
 device.
 
 The pass works on a table of leaf descriptors cut into fixed chunks
-(:func:`plan_chunks`). The host table is kept between calls: within one
-``local_train`` the params, momentum and mask of a client stay the same
-tensors from step to step, and only the grad pointers are written anew.
+(:func:`plan_chunks`). A launch takes at most ``MAX_LEAVES`` descriptors,
+so a longer leaf list (resnet18's 62 leaves) is stepped as consecutive
+tables of ``MAX_LEAVES`` leaves, one norm and one pass launch each, whose
+norm partials share one buffer; the last norm launch finishes the scalars.
+The flagship's 24 leaves are one table. The host table is kept between
+calls: within one ``local_train`` the params, momentum and mask of a
+client stay the same tensors from step to step, and only the grad
+pointers are written anew.
 
 :func:`sgd_apply_plain` is the same arithmetic in plain PyTorch, in the
 reference's operation order (``where(ok, g, (g / gnorm) * clip)``,
@@ -42,7 +47,7 @@ from neuroimagedisttraining_tpu_torch.ops import _cuda
 
 LAUNCHES = _cuda.counter("fused_sgd")
 CHUNK = 4096        # floats a chunk: a block's unit of work
-MAX_LEAVES = 32     # leaf descriptors in the kernels' table
+MAX_LEAVES = 32     # leaf descriptors in one launch's table
 LEAF_WORDS = 6      # a descriptor: p, g, t, m, n, first chunk (int64 each)
 # the kernels' table parameter (descriptors, leaf and chunk counts) must
 # fit, beside under 128 bytes of other parameters, in the classic 4 KB
@@ -113,19 +118,20 @@ def sgd_step_plain(params, grads, trace, mask, *, clip: float, wd: float,
 # ---------------------------------------------------------------------------
 
 class Plan(NamedTuple):
-    """The chunks of one table: ``first[i]`` is leaf ``i``'s first chunk."""
+    """The chunks of a leaf list: ``first[i]`` is leaf ``i``'s first chunk;
+    ``tables`` the launches' tables, each ``(leaf_start, leaf_end,
+    chunk_start, chunk_end)``: ``MAX_LEAVES`` consecutive leaves a table
+    (the last one ragged), as ``csrc/fused_sgd.cu`` cuts them."""
     nchunks: int
     first: tuple[int, ...]
+    tables: tuple[tuple[int, int, int, int], ...]
 
 
 def plan_chunks(sizes) -> Plan:
     """Cut leaves of ``sizes`` elements into ``CHUNK``-element chunks, a
-    leaf's last chunk ragged and no chunk straddling two leaves. Raises
-    where the leaves do not fit one table (more than ``MAX_LEAVES``)."""
+    leaf's last chunk ragged and no chunk straddling two leaves, and the
+    leaves into tables of at most ``MAX_LEAVES``."""
     sizes = [int(n) for n in sizes]
-    if len(sizes) > MAX_LEAVES:
-        raise ValueError(f"fused_sgd: {len(sizes)} leaves; one table holds "
-                         f"at most {MAX_LEAVES}")
     if any(n < 0 for n in sizes):
         raise ValueError(f"negative leaf size in {sizes}")
     first, c = [], 0
@@ -134,7 +140,10 @@ def plan_chunks(sizes) -> Plan:
         c += -(-n // CHUNK)
     if c >= 2 ** 31:
         raise ValueError(f"{c} chunks: too many for a launch")
-    return Plan(c, tuple(first))
+    bounds = list(range(0, len(sizes), MAX_LEAVES)) + [len(sizes)]
+    tables = tuple((a, b, first[a], first[b] if b < len(sizes) else c)
+                   for a, b in zip(bounds[:-1], bounds[1:]))
+    return Plan(c, tuple(first), tables)
 
 
 def chunk_leaf(first, c: int) -> int:
@@ -151,11 +160,12 @@ def chunk_leaf(first, c: int) -> int:
 
 
 def global_norm_blocked(grads, nblocks: int) -> torch.Tensor:
-    """The kernel's global norm in plain PyTorch: block ``b`` of
-    ``min(nblocks, chunks)`` sums the squares of chunks ``b``,
-    ``b + nblocks``, ... in fp64 into one partial; the partials are summed
-    in fp64 and ``sqrt`` is rounded to float32 once. Sums inside a chunk
-    run in another fp64 order than the kernel's."""
+    """The kernel's global norm in plain PyTorch: in each table's launch,
+    block ``b`` of ``min(nblocks, the table's chunks)`` sums the squares of
+    the table's chunks ``b``, ``b + nblocks``, ... in fp64 into one
+    partial; the partials of every launch are summed in fp64 and ``sqrt``
+    is rounded to float32 once. Sums inside a chunk run in another fp64
+    order than the kernel's."""
     zero = torch.zeros((), dtype=torch.float64, device=grads[0].device)
     plan = plan_chunks([g.numel() for g in grads])
     leaves = [g.reshape(-1).double() for g in grads]
@@ -164,8 +174,10 @@ def global_norm_blocked(grads, nblocks: int) -> torch.Tensor:
         i = chunk_leaf(plan.first, c)
         x = leaves[i][(c - plan.first[i]) * CHUNK:][:CHUNK]
         sums.append(torch.sum(x * x))
-    blocks = max(min(nblocks, plan.nchunks), 1)
-    partials = [sum(sums[b::blocks], zero) for b in range(blocks)]
+    partials = []
+    for _, _, c0, c1 in plan.tables:
+        blocks = max(min(nblocks, c1 - c0), 1)
+        partials += [sum(sums[c0:c1][b::blocks], zero) for b in range(blocks)]
     return torch.sqrt(torch.stack(partials).sum()).to(torch.float32)
 
 
@@ -246,6 +258,7 @@ class _Table:
         rows[:, 5] = plan.first
         self.rows = rows
         self.nchunks = plan.nchunks
+        self.ntables = len(plan.tables)
         self.dev = dev
         self.rows_ptr = rows.ctypes.data
 
@@ -299,8 +312,8 @@ _workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 def _workspace(dev: torch.device, stream: int, npartials: int):
     """The step's device buffers on one stream: ``scal`` ``[ok, gnorm, lr]``
-    and ``work`` (the norm's ticket, then one fp64 partial a block), zeroed
-    once and left so by every step."""
+    and ``work`` (the norm's ticket, then one fp64 partial a block of every
+    table's launch), zeroed once and left so by every step."""
     ws = _workspaces.get((dev.index, stream))
     if ws is None or ws[1].numel() < 1 + npartials:
         ws = _workspaces[(dev.index, stream)] = (
@@ -313,8 +326,8 @@ def fused_sgd_apply(params, grads, trace, mask, scal: torch.Tensor, *,
                     clip: float, wd: float, momentum: float) -> None:
     """The fused pass over every leaf with the scalars ``scal`` of
     :func:`sgd_scalars`, in place on ``params`` and ``trace`` (None when
-    momentum is 0); ``mask`` is None for dense runs. One kernel launch on
-    CUDA tensors; the plain chain on CPU tensors."""
+    momentum is 0); ``mask`` is None for dense runs. One kernel launch a
+    table on CUDA tensors; the plain chain on CPU tensors."""
     dev = params[0].device
     if dev.type == "cpu":
         sgd_apply_plain(params, grads, trace, mask, scal, clip=clip, wd=wd,
@@ -332,15 +345,15 @@ def fused_sgd_apply(params, grads, trace, mask, scal: torch.Tensor, *,
             _flags(clip, wd, momentum, mask), scal.data_ptr(), apply_blocks,
             _cuda.stream_ptr(dev))
     _cuda.check_launch(lib, err, "fused_sgd_apply_launch")
-    LAUNCHES.add(1)
+    LAUNCHES.add(tab.ntables)
 
 
 def fused_sgd_step(params, grads, trace, mask, *, clip: float, wd: float,
                    momentum: float, lr) -> torch.Tensor | None:
     """One fused SGD step over lists of leaves, in place on ``params`` and
     ``trace``; ``lr`` may be a 0-d device tensor (the per-round lr). On
-    CUDA tensors one host call queues the norm and the pass (the pass alone
-    without a clip). Returns the step's scalars ``[ok, gnorm, lr]`` where
+    CUDA tensors one host call queues the norm and the pass of each table
+    (the passes alone without a clip). Returns the step's scalars ``[ok, gnorm, lr]`` where
     there is a clip (on the card, a buffer the next step on this device
     and stream overwrites), else None."""
     dev = params[0].device
@@ -361,7 +374,7 @@ def fused_sgd_step(params, grads, trace, mask, *, clip: float, wd: float,
         lr_ptr, lr_value = None, float(lr)
     lib, apply_blocks, norm_blocks = _library(dev.index)
     stream = _cuda.stream_ptr(dev)
-    scal, work = _workspace(dev, stream, norm_blocks)
+    scal, work = _workspace(dev, stream, norm_blocks * tab.ntables)
     with torch.cuda.device(dev):
         err = lib.fused_sgd_step_launch(
             tab.rows_ptr, len(tab.shapes), tab.nchunks, clip, wd, momentum,
@@ -369,5 +382,5 @@ def fused_sgd_step(params, grads, trace, mask, *, clip: float, wd: float,
             scal.data_ptr(), work.data_ptr(), apply_blocks, norm_blocks,
             stream)
     _cuda.check_launch(lib, err, "fused_sgd_step_launch")
-    LAUNCHES.add(2 if clip > 0 else 1)
+    LAUNCHES.add((2 if clip > 0 else 1) * tab.ntables)
     return scal if clip > 0 else None

@@ -1,16 +1,20 @@
 """Where the time goes in the port's flagship run, on one CUDA card.
 
     python3 scripts/torch_port_profile.py
-        [--algorithm salientgrads|fedavg|subavg|dispfl] [--out DIR]
+        [--algorithm salientgrads|fedavg|subavg|dispfl|dpsgd|fedfomo|
+                     turboaggregate] [--out DIR]
 
 Builds the flagship run as ``chip_smoke.py`` does (48 synthetic subjects
 over 4 sites at 121x145x121, ``3DCNN``, batch 16, ``--fused_update``,
-``NIDT_FAST_STEM=1``; Sub-FedAvg and DisPFL with ``chip_smoke.py``'s
-flags). SalientGrads (the default): runs phase 1 and one round to warm
-up, then traces phase 1 and one phase-2 round. FedAvg: runs one round to
-warm up, then traces one round and the final fine-tune of every client.
-Sub-FedAvg and DisPFL: run round 0 to warm up, then trace round 1 (DisPFL's
-with its gradient probes and mask evolution). Windows are traced with
+``NIDT_FAST_STEM=1``; every engine but SalientGrads and FedAvg with
+``chip_smoke.py``'s flags). SalientGrads (the default): runs phase 1 and
+one round to warm up, then traces phase 1 and one phase-2 round. FedAvg
+and TurboAggregate: run one round to warm up, then trace one round (with
+TurboAggregate's share stage) and the final fine-tune of every client.
+Sub-FedAvg, DisPFL, D-PSGD and FedFomo: run round 0 to warm up, then trace
+round 1 (DisPFL's with its gradient probes and mask evolution, D-PSGD's
+with its consensus, FedFomo's with its validation evaluations and
+aggregation). Windows are traced with
 ``torch.profiler``. For each window it
 prints the wall time, the device time summed over kernels (and its share
 of the wall time: the device's busy share, one stream), the time by kernel
@@ -80,7 +84,8 @@ def summarize(prof, wall_s: float, top: int = 12) -> dict:
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--algorithm", default="salientgrads",
-                    choices=["salientgrads", "fedavg", "subavg", "dispfl"])
+                    choices=["salientgrads", "fedavg", "subavg", "dispfl",
+                             "dpsgd", "fedfomo", "turboaggregate"])
     ap.add_argument("--out", default=None,
                     help="directory for the Chrome traces (none if unset)")
     args = ap.parse_args(argv)
@@ -93,7 +98,7 @@ def main(argv: list[str]) -> int:
     )
     from neuroimagedisttraining_tpu_torch.ops import _cuda
 
-    from chip_smoke import SPARSE_ARGS
+    from chip_smoke import ENGINE_ARGS
     from neuroimagedisttraining_tpu_torch.ops.masks import ones_mask
 
     _cuda.build(["stem_dw", "fused_sgd", "count_ge"])
@@ -103,7 +108,7 @@ def main(argv: list[str]) -> int:
         "--synthetic_num_subjects", "48", "--client_num_in_total", "4",
         "--batch_size", "16", "--itersnip_iteration", "1", "--epochs", "1",
         "--comm_round", "2", "--fused_update",
-        *SPARSE_ARGS.get(args.algorithm, ())]))
+        *ENGINE_ARGS.get(args.algorithm, ())]))
     engine, info = build_experiment(cfg, "cuda")
     params, bstats = engine.init_global_state()
     C = engine.num_clients
@@ -124,7 +129,18 @@ def main(argv: list[str]) -> int:
         state = engine.run_round(0, per_p, per_b, masks, masks, graph(0))
         windows = {"round": lambda: engine.run_round(1, *state[:4],
                                                      graph(1))}
-    elif args.algorithm == "fedavg":
+    elif args.algorithm == "dpsgd":
+        per_p, per_b = engine.broadcast_states(params, bstats, C)
+        state = engine.run_round(0, per_p, per_b, engine.mixing_matrix(0))
+        windows = {"round": lambda: engine.run_round(
+            1, *state[:2], engine.mixing_matrix(1))}
+    elif args.algorithm == "fedfomo":
+        per_p, per_b = engine.broadcast_states(params, bstats, C)
+        weights = torch.full((C, C), 1.0 / C, device=engine.device)
+        p_choose = torch.ones((C, C), device=engine.device)
+        state = engine.run_round(0, per_p, per_b, weights, p_choose)
+        windows = {"round": lambda: engine.run_round(1, *state[:4])}
+    elif args.algorithm in ("fedavg", "turboaggregate"):
         state = engine.run_round(0, params, bstats, engine.client_sampling(0))
         windows = {
             "round": lambda: engine.run_round(1, *state[:2],

@@ -429,13 +429,16 @@ def test_personal_states_do_not_share_tensors():
 
 
 def test_create_engine_names():
-    """The reference's algorithm names that the port has, its spelling
-    ``sailentgrads`` included; an unknown name raises ``ValueError``."""
+    """Exactly the reference's twelve algorithm names, its spellings
+    ``sailentgrads`` and ``sub-fedavg`` included; a name neither package
+    has raises ``ValueError``."""
     assert set(ENGINES) == {"fedavg", "fedprox", "salientgrads",
                             "sailentgrads", "ditto", "local", "subavg",
-                            "dispfl"}
+                            "sub-fedavg", "dispfl", "dpsgd", "fedfomo",
+                            "turboaggregate"}
+    assert ENGINES["sub-fedavg"] is ENGINES["subavg"]
     with pytest.raises(ValueError, match="unknown algorithm"):
-        create_engine("fedfomo", None, None, None)
+        create_engine("fedbuff", None, None, None)
 
 
 ARGV = ["--device", "cpu", "--synthetic_shape", "69", "69", "69",

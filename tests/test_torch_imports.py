@@ -60,7 +60,9 @@ def test_port_imports_without_jax_or_cuda():
     "engines/fedavg.py", "engines/fedprox.py", "engines/ditto.py",
     "engines/local.py", "ops/flops.py", "utils/logging.py",
     "engines/subavg.py", "engines/dispfl.py", "ops/prune.py",
-    "ops/masks.py", "faults/schedule.py"])
+    "ops/masks.py", "faults/schedule.py", "engines/dpsgd.py",
+    "engines/fedfomo.py", "engines/turboaggregate.py", "ops/mpc.py",
+    "ops/mpc_device.py", "core/optim.py", "data/federate.py"])
 def test_engine_slice_modules_are_checked(module):
     """The engines' modules are among the sources checked above (none
     imports JAX or the reference package)."""

@@ -28,6 +28,10 @@ from neuroimagedisttraining_tpu_torch.ops import snip as PSNIP
 from neuroimagedisttraining_tpu_torch.ops import stemconv as PSC
 from neuroimagedisttraining_tpu_torch.ops import topk as PTK
 
+#: the reference's resnet18 (``models/resnet2d.py``, 10 classes): 62
+#: parameter leaves, 11,173,962 parameters, in its tree order
+from chip_smoke import RESNET18_SIZES
+
 
 @pytest.fixture(autouse=True)
 def _torch_threads():
@@ -294,42 +298,60 @@ _PLAN_CASES = {
     # the most leaves one table holds
     "many_leaves": lambda: [int(n) for n in np.random.default_rng(5)
                             .integers(0, 20_000, 32)],
+    # two tables, the second ragged
+    "resnet18": lambda: RESNET18_SIZES,
+    # five tables, empty leaves at a table's start and end
+    "many_tables": lambda: [0] + [int(n) for n in np.random.default_rng(6)
+                                  .integers(0, 9_000, 140)] + [0],
 }
 
 
 @pytest.mark.parametrize("case", sorted(_PLAN_CASES))
 def test_plan_chunks_covers_every_element(case):
-    """The planner's chunks, looked up as the kernels look them up (the
-    last leaf whose first chunk <= c), cover every element of every leaf
-    exactly once; no chunk straddles two leaves; the table fits the
-    kernel-parameter budget."""
+    """The planner's chunks, looked up as the kernels look them up (within
+    a table, the last leaf whose first chunk <= c), cover every element of
+    every leaf exactly once; no chunk straddles two leaves; the tables
+    are ``MAX_LEAVES`` consecutive leaves each (the last ragged), cover
+    the chunks in order, and each fits the kernel-parameter budget."""
     sizes = _PLAN_CASES[case]()
     plan = PFU.plan_chunks(sizes)
-    assert len(plan.first) == len(sizes) <= PFU.MAX_LEAVES
+    assert len(plan.first) == len(sizes)
+    assert len(plan.tables) == -(-len(sizes) // PFU.MAX_LEAVES)
     if case == "flagship":
         assert len(sizes) == 24 and sum(sizes) == 2_570_241
-        assert plan.nchunks == 645
+        assert plan.nchunks == 645 and len(plan.tables) == 1
+    if case == "resnet18":
+        assert len(sizes) == 62 and sum(sizes) == 11_173_962
+        assert [t[:2] for t in plan.tables] == [(0, 32), (32, 62)]
     cover = [np.zeros(n, np.int32) for n in sizes]
-    for c in range(plan.nchunks):
-        i = PFU.chunk_leaf(plan.first, c)
-        off = (c - plan.first[i]) * PFU.CHUNK
-        assert 0 <= off < sizes[i]  # the chunk lies inside one leaf
-        cover[i][off:off + PFU.CHUNK] += 1
+    end = 0
+    for l0, l1, c0, c1 in plan.tables:
+        assert (l0, c0) == (end if l0 else 0, plan.first[l0] if l0 else 0)
+        assert 0 < l1 - l0 <= PFU.MAX_LEAVES and c0 <= c1
+        end = l1
+        first = [f - c0 for f in plan.first[l0:l1]]
+        for c in range(c1 - c0):
+            i = l0 + PFU.chunk_leaf(first, c)
+            off = (c - first[i - l0]) * PFU.CHUNK
+            assert 0 <= off < sizes[i]  # the chunk lies inside one leaf
+            cover[i][off:off + PFU.CHUNK] += 1
+    assert end == len(sizes) and plan.tables[-1][3] == plan.nchunks
     for i, cv in enumerate(cover):
         assert (cv == 1).all(), (i, sizes[i])
     assert PFU.TABLE_BYTES <= PFU.TABLE_BUDGET
 
 
 def test_plan_chunks_refuses_what_no_table_holds():
-    """More leaves than one table holds, or a negative leaf size, is
-    refused: the planner never hands the kernels a table they cannot take
-    (and nothing falls back to the plain chain)."""
+    """A negative leaf size is refused; any number of leaves is cut into
+    tables of at most 32, each within the kernel-parameter budget (the
+    planner never hands the kernels a table they cannot take, and nothing
+    falls back to the plain chain)."""
     assert PFU.TABLE_BYTES == 32 * 48 + 8
-    with pytest.raises(ValueError, match="at most 32"):
-        PFU.plan_chunks([5] * 33)
     with pytest.raises(ValueError):
         PFU.plan_chunks([5, -1])
-    assert PFU.plan_chunks([5] * 32).nchunks == 32
+    assert PFU.plan_chunks([5] * 32).tables == ((0, 32, 0, 32),)
+    assert PFU.plan_chunks([5] * 33).tables == ((0, 32, 0, 32),
+                                                (32, 33, 32, 33))
 
 
 @pytest.mark.parametrize("nblocks", [1, 7, 1056])
@@ -345,6 +367,21 @@ def test_global_norm_blocked_matches_optax(nblocks):
     port = PFU.global_norm_blocked([_t(a) for a in leaves], nblocks)
     assert port.dtype == torch.float32
     assert float(port) == pytest.approx(ref, rel=2e-6)
+
+
+@pytest.mark.parametrize("nblocks", [1, 7, 1056])
+def test_global_norm_blocked_over_tables_matches_optax(nblocks):
+    """The same over resnet18's 62 leaves (two tables, each launch's blocks
+    writing their partials into one buffer) and over 140 ragged leaves
+    (five tables): within rtol 2e-6 of ``optax.global_norm``."""
+    rng = np.random.default_rng(100 + nblocks)
+    for sizes in (RESNET18_SIZES, [int(n) for n in rng.integers(0, 9_000,
+                                                                140)]):
+        leaves = [(rng.standard_normal(n) * rng.choice([1e-3, 1.0, 30.0])
+                   ).astype(np.float32) for n in sizes]
+        ref = float(optax.global_norm([jnp.asarray(a) for a in leaves]))
+        port = PFU.global_norm_blocked([_t(a) for a in leaves], nblocks)
+        assert float(port) == pytest.approx(ref, rel=2e-6)
 
 
 @pytest.mark.parametrize("entry", ["step", "apply"])

@@ -144,12 +144,13 @@ def reference_initial_masks(jeng, jparams) -> list:
 
 def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
                     shape=(69, 69, 69), seed: int = 0,
-                    sparsity: dict | None = None):
+                    sparsity: dict | None = None, val_map: dict | None = None):
     """The reference's engine ``name`` and the port's on the same federation,
     initial weights, epoch permutations and dropout keep-masks (DisPFL: its
     initial masks and gradient-probe rows too), each run through
     ``train()``, both logging under ``tmp``. ``data`` is ``(X, y,
-    train_map, test_map)``. Returns ``(reference result, port result,
+    train_map, test_map)``; ``val_map`` a validation split of the same rows
+    (FedFomo's), where given. Returns ``(reference result, port result,
     reference engine, port engine, port initial state)``; the port engine's
     ``rerun()`` runs it again with the same inputs."""
     from neuroimagedisttraining_tpu.config import (
@@ -182,7 +183,7 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
                 data=JData(dataset="synthetic", partition_method="site"),
                 optim=JOptim(**optim), fed=JFed(**fed),
                 sparsity=JSparsity(**sparsity), log_dir=str(tmp / "ref"))
-    jfed = jbuild(X, y, train_map, test_map)
+    jfed = jbuild(X, y, train_map, test_map, val_map=val_map)
     jtrainer = JTrainer(jmodel("3dcnn", num_classes=1, remat=False),
                         jcfg.optim, num_classes=1)
     jeng = jcreate(name, jcfg, jfed, jtrainer, mesh=None,
@@ -201,7 +202,8 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
         optim=OptimConfig(**optim), fed=FedConfig(**fed),
         sparsity=SparsityConfig(**sparsity), log_dir=str(tmp / "port"))
     cpu = torch.device("cpu")
-    pfed = build_federated_data(X, y, train_map, test_map, cpu)
+    pfed = build_federated_data(X, y, train_map, test_map, cpu,
+                                val_map=val_map)
     epochs = optim.get("epochs", 2)
     init = params_from_flax(jax.tree.map(np.asarray, gs.params),
                             jax.tree.map(np.asarray, gs.batch_stats))
