@@ -5,7 +5,8 @@
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    three CUDA kernels of ``neuroimagedisttraining_tpu_torch/csrc`` with one
-   ``nvcc`` per source, all started together.
+   ``nvcc`` per source, all started together, and beside them the host's
+   row gather (``csrc/gather.cpp``, ``g++``).
 2. Holds each kernel against its plain PyTorch version on the card at the
    flagship shapes, with the tolerance stated beside it, and times kernel,
    plain version and (where one exists) the one PyTorch call computing the
@@ -74,6 +75,17 @@
    plain weighted mean. Then one FedAvg run with ``--client_optimizer
    adam`` (unfused: ``fused_sgd`` 0, ``stem_dw`` 3 a step), and
    ``--client_optimizer adam --fused_update`` must be refused.
+   Then the streamed feed (``--streaming``, 2 clients a chunk): the
+   flagship cohort, drawn once, written to a ``.npy`` file and read back as
+   a memmap (the card's machine has no ``h5py``, so the HDF5 reader is held
+   by the CPU tests). SalientGrads, FedAvg, DisPFL and FedFomo run streamed
+   with the counters set to 0 just before and read just after: their
+   launches must equal their resident runs'; each prints its seconds beside
+   the resident run's, the feed's transfer stats, H2D and gather rates,
+   the host's wait on it (and the part with the card idle) and both peaks
+   of device memory. FedFomo's streamed chunks of every split must equal
+   the resident stacks byte for byte, and one streamed FedAvg round under
+   sync debug mode must sync nowhere the resident round does not.
 7. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
@@ -84,7 +96,9 @@
    by the kernels alone; a second run of each engine but SalientGrads
    through the kernels must equal the first. Every ``stem_dw`` and
    ``fused_sgd`` call of the kernel runs is also held against its plain
-   version on the call's own inputs (``PerCallCheck``).
+   version on the call's own inputs (``PerCallCheck``). SalientGrads and
+   DisPFL also run streamed (2 clients a chunk) and must equal their
+   resident runs bit for bit.
 8. Prints one JSON line per kernel, the ``{"kernels": [...]}`` line (with
    each kernel's launches on every engine's run), and last
    ``{"ok": true, "device": {...}}``.
@@ -134,7 +148,7 @@ def local_steps(engine) -> int:
     DisPFL, D-PSGD (and its fine-tune every 100 rounds) and FedFomo."""
     cfg = engine.cfg
     B, E = cfg.optim.batch_size, cfg.optim.epochs
-    per = [math.ceil(int(n) / B) for n in engine.data.n_train]
+    per = [math.ceil(int(n) / B) for n in engine.n_train]
     if cfg.algorithm in ("local", "dispfl", "dpsgd", "fedfomo"):
         steps = sum(per) * E * cfg.fed.comm_round
         if cfg.algorithm == "dpsgd":  # the fine-tune after round 99, 199..
@@ -386,9 +400,10 @@ def evolution_cost(engine, result) -> dict:
 
     p, b = result["personal_params"][0], result["personal_batch_stats"][0]
     m = result["masks"][0]
-    n = int(engine.data.n_train[0])
+    _, rows = next(engine.client_rows([0]))
+    n = rows.n
     idx = engine.probe_rows(0, 0, n)
-    X, y = engine.data.X_train[0][idx], engine.data.y_train[0][idx]
+    X, y = rows.X[idx], rows.y[idx]
     lr = engine.round_lr(0)
 
     def ms(fn) -> float:
@@ -401,14 +416,182 @@ def evolution_cost(engine, result) -> dict:
         return (time.perf_counter() - t) / 3 * 1e3
 
     return {"probe_ms": ms(lambda: engine.trainer.eval_grad(p, b, X, y)),
-            "evolve_ms": ms(lambda: engine.evolve(1, 0, p, b, m)),
+            "evolve_ms": ms(lambda: engine.evolve(1, 0, rows, p, b, m)),
             "local_step_ms": ms(lambda: engine.client_train(
-                1, 0, p, b, lr, 1, mask=m)), "client_rows": n}
+                1, 0, rows, p, b, lr, 1, mask=m)), "client_rows": n}
+
+
+#: clients a streamed chunk holds on the card: with 4 clients a walk
+#: crosses a chunk boundary, and a round's sampled 3 take two chunks
+STREAM_CHUNK = 2
+#: the engines run streamed at full width, each beside its resident run
+STREAMED = {"salientgrads": (), "fedavg": ("--frac", "0.75"),
+            "dispfl": ("--frac", "0.5"),
+            "fedfomo": ("--frac", "0.5", "--val_fraction", "0.2")}
+
+
+def stream_phase(card, dev, flagship, build_experiment, synthetic,
+                 resident: dict, by_path: dict) -> None:
+    """The streamed feed at full width. The flagship cohort, drawn once,
+    is written to a ``.npy`` file and read back as a memmap: a lazy,
+    row-sliceable source of 102 MB, as an HDF5 file's dataset is (the
+    card's machine has no ``h5py``, so the HDF5 reader is held by the CPU
+    tests). SalientGrads, FedAvg, DisPFL and FedFomo run streamed at
+    ``STREAM_CHUNK`` clients a chunk with the counters set to 0 just
+    before and read just after: their kernel launches must equal their
+    resident runs'. Each prints its round (phase-1, fine-tune) seconds
+    beside the resident run's, ``transfer_stats``, the H2D and gather
+    rates, the main thread's wait on the feed against the feed's own time,
+    and both peaks of device memory. FedFomo's chunks of every split must
+    equal the resident stacks on the card byte for byte, read after the
+    consumer's ``wait_event``; one streamed FedAvg round under sync debug
+    mode must sync nowhere the resident round does not."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+
+    cached = synthetic.generate_synthetic_abcd
+    tmp = Path(tempfile.mkdtemp(prefix="nidt_stream_"))
+    memmaps = {}
+
+    def memmap_cohort(**kw):
+        key = tuple(sorted(kw.items()))
+        if key not in memmaps:
+            c = cached(**kw)
+            path = tmp / f"cohort{len(memmaps)}.npy"
+            mm = np.lib.format.open_memmap(path, mode="w+",
+                                           dtype=c["X"].dtype,
+                                           shape=c["X"].shape)
+            mm[:] = c["X"]
+            mm.flush()
+            del mm
+            memmaps[key] = {**c, "X": np.load(path, mmap_mode="r")}
+        return memmaps[key]
+
+    synthetic.generate_synthetic_abcd = memmap_cohort
+    try:
+        for algorithm, extra in STREAMED.items():
+            ecfg = flagship(algorithm, *extra, "--stream_chunk_clients",
+                            str(STREAM_CHUNK))
+            engine, info = build_experiment(ecfg, "cuda", streaming=True)
+            stream = engine.stream
+            if not isinstance(stream.X, np.memmap):
+                fail(f"{algorithm}: the streamed source is not the memmap")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _cuda.reset_counts()
+            t0 = time.perf_counter()
+            result = engine.train()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            got = _cuda.counts()
+            by_path[f"{algorithm}_streamed"] = got
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+            stream.sync()
+            ts = dict(stream.transfer_stats)
+            feed_ms = ts["host_gather_ms"] + ts["device_put_ms"]
+            res = resident[algorithm]
+            losses = [h["train_loss"] for h in result["history"]]
+            final = result.get("final_personal") or result["final_global"]
+            out = {"streamed": algorithm, "card": card,
+                   "chunk_clients": STREAM_CHUNK,
+                   "source": "memmap .npy",
+                   "round_seconds": result.get("round_seconds") or [
+                       h["round_seconds"] for h in result["history"]],
+                   "round_seconds_resident": res["round_seconds"],
+                   "train_seconds": train_s,
+                   "train_seconds_resident": res["train_seconds"],
+                   "phase1_seconds": result.get("phase1_seconds"),
+                   "phase1_seconds_resident": res.get("phase1_seconds"),
+                   "finetune_seconds": result.get("finetune_seconds"),
+                   "finetune_seconds_resident":
+                       res.get("finetune_seconds"),
+                   "launches": got, "launches_resident": res["launches"],
+                   "transfer_stats": ts,
+                   "h2d_gb_per_s": ts["bytes"] / ts["device_put_ms"] / 1e6,
+                   "gather_gb_per_s":
+                       ts["bytes"] / ts["host_gather_ms"] / 1e6,
+                   "feed_ms": feed_ms, "main_thread_wait_ms": stream.wait_ms,
+                   "wait_with_card_idle_ms": stream.idle_wait_ms,
+                   "feed_hidden_share": 1.0 - stream.idle_wait_ms / feed_ms,
+                   "feed_device_bytes": sum(
+                       slot.dev_X.nbytes + slot.dev_i.nbytes
+                       for slot in stream._slots if slot.rows),
+                   "peak_memory_gb": peak_gb,
+                   "peak_memory_gb_resident": res["peak_memory_gb"],
+                   "train_loss": losses, "final": final}
+            if got != res["launches"]:
+                fail(f"{algorithm} streamed launched {got}, resident "
+                     f"{res['launches']}")
+            if not all(math.isfinite(v) for v in losses + [
+                    final[m] for m in ("acc", "loss", "auc")]):
+                fail(f"{algorithm} streamed: non-finite losses or metrics")
+            if algorithm == "fedavg":
+                syncs = hidden_syncs(lambda: engine.run_round(
+                    2, result["params"], result["batch_stats"],
+                    engine.client_sampling(2)))
+                added = sorted(set(syncs) - set(res["sync_warnings"]))
+                out.update(sync_warnings=syncs, syncs_added=added)
+                if added:
+                    fail(f"the streamed FedAvg round synced at {added}")
+            if algorithm == "fedfomo":
+                ref, _ = build_experiment(flagship(algorithm, *extra), "cuda")
+                checked = 0
+                for split in ("train", "test", "val"):
+                    X, y, n = ref._resident(split)
+                    for ch in stream.eval_chunks(STREAM_CHUNK, split):
+                        for j, c in enumerate(ch.ids):
+                            if not (torch.equal(ch.X[j], X[c])
+                                    and torch.equal(ch.y[j], y[c])
+                                    and int(ch.n[j]) == int(n[c])):
+                                fail(f"streamed {split} rows of client {c} "
+                                     "differ from the resident stack")
+                            checked += 1
+                        for j in range(len(ch.ids), STREAM_CHUNK):
+                            if ch.X[j].any() or int(ch.n[j]):
+                                fail(f"a pad client of a {split} chunk is "
+                                     "not zero")
+                out["byte_equal_client_splits"] = checked
+                del ref
+            print(json.dumps(out))
+            stream.close()
+            del engine, result, stream
+            torch.cuda.empty_cache()
+    finally:
+        synthetic.generate_synthetic_abcd = cached
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def torch_equal_bits(a, b) -> bool:
     import torch
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def streamed_bit_equal(a: dict, b: dict) -> bool:
+    """Two runs' results hold the same models (global and personal), masks
+    and final metrics, bit for bit."""
+    import torch
+
+    def states(res):
+        out = []
+        for k in ("params", "batch_stats", "masks", "per_params",
+                  "per_bstats", "personal_params", "personal_batch_stats"):
+            v = res.get(k)
+            if v is not None:
+                out += v if isinstance(v, list) else [v]
+        return out
+
+    sa, sb = states(a), states(b)
+    return (len(sa) == len(sb) and all(
+        x.keys() == y.keys() and all(
+            torch_equal_bits(x[k], y[k]) if x[k].dtype == torch.float32
+            else torch.equal(x[k], y[k]) for k in x)
+        for x, y in zip(sa, sb))
+        and a["final_personal"] == b["final_personal"])
 
 
 def main(argv: list[str]) -> int:
@@ -441,7 +624,15 @@ def main(argv: list[str]) -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    built = _cuda.build(["stem_dw", "fused_sgd", "count_ge"])
+    # the host's row gather (g++) builds beside the kernels (nvcc)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from neuroimagedisttraining_tpu_torch.utils import native
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        gather = pool.submit(lambda: (native.load(),
+                                      time.perf_counter() - t0)[1])
+        built = _cuda.build(["stem_dw", "fused_sgd", "count_ge"])
+        built["gather.cpp"] = gather.result()
     print(json.dumps({"build_seconds": round(time.perf_counter() - t0, 3),
                       "per_source": {k: round(v, 3)
                                      for k, v in built.items()}}))
@@ -934,6 +1125,7 @@ def main(argv: list[str]) -> int:
         t0 = time.perf_counter()
         engine, info = build_experiment(cfg, "cuda")
         setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
         _cuda.reset_counts()
         t0 = time.perf_counter()
         with TableTimer() as sg_table:
@@ -941,7 +1133,7 @@ def main(argv: list[str]) -> int:
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         launches = _cuda.counts()
-        n = [int(v) for v in engine.data.n_train]
+        n = [int(v) for v in engine.n_train]
         steps = sum(math.ceil(v / cfg.optim.batch_size) for v in n) \
             * cfg.optim.epochs * cfg.fed.comm_round
         losses = [h["train_loss"] for h in result["history"]]
@@ -986,6 +1178,12 @@ def main(argv: list[str]) -> int:
                               "card": card}))
 
         by_path["salientgrads"] = launches
+        # each resident run the streamed phase holds its streamed run against
+        resident = {"salientgrads": {
+            "round_seconds": [h["round_seconds"] for h in result["history"]],
+            "phase1_seconds": result["phase1_seconds"],
+            "train_seconds": train_s, "launches": launches,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}}
 
         # ---- the dense engines at full width, each its own main path ----
         for algorithm, extra in (("fedavg", ("--frac", "0.75")),
@@ -996,6 +1194,7 @@ def main(argv: list[str]) -> int:
             engine, info = build_experiment(ecfg, "cuda")
             setup_s = time.perf_counter() - t0
             steps = local_steps(engine)
+            torch.cuda.reset_peak_memory_stats(dev)
             _cuda.reset_counts()
             t0 = time.perf_counter()
             result = engine.train()
@@ -1003,6 +1202,7 @@ def main(argv: list[str]) -> int:
             train_s = time.perf_counter() - t0
             got = _cuda.counts()
             by_path[algorithm] = got
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
             losses = [h["train_loss"] for h in result["history"]]
             metrics = [result["final_personal"][m]
                        for m in ("acc", "loss", "auc")]
@@ -1022,8 +1222,13 @@ def main(argv: list[str]) -> int:
                 "final_personal": result["final_personal"],
                 "final_global": result.get("final_global"),
                 "launches": got, "local_steps": steps,
-                "sync_warnings": syncs,
-                "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}))
+                "sync_warnings": syncs, "peak_memory_gb": peak_gb}))
+            if algorithm == "fedavg":
+                resident["fedavg"] = {
+                    "round_seconds": result["round_seconds"],
+                    "finetune_seconds": result["finetune_seconds"],
+                    "train_seconds": train_s, "launches": got,
+                    "peak_memory_gb": peak_gb, "sync_warnings": syncs}
             if not all(math.isfinite(v) for v in losses + metrics):
                 fail(f"{algorithm}: non-finite losses or metrics: {losses} "
                      f"{metrics}")
@@ -1055,6 +1260,10 @@ def main(argv: list[str]) -> int:
             train_s = time.perf_counter() - t0
             got = _cuda.counts()
             by_path[algorithm] = got
+            resident[algorithm] = {
+                "round_seconds": result["round_seconds"],
+                "train_seconds": train_s, "launches": got,
+                "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
             losses = [h["train_loss"] for h in result["history"]]
             metrics = [result["final_personal"][m]
                        for m in ("acc", "loss", "auc")]
@@ -1145,6 +1354,10 @@ def main(argv: list[str]) -> int:
             train_s = time.perf_counter() - t0
             got = _cuda.counts()
             by_path[algorithm] = got
+            resident[algorithm] = {
+                "round_seconds": result["round_seconds"],
+                "train_seconds": train_s, "launches": got,
+                "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
             losses = [h["train_loss"] for h in result["history"]]
             final = result.get("final_personal") or result["final_global"]
             metrics = [final[m] for m in ("acc", "loss", "auc")]
@@ -1241,10 +1454,15 @@ def main(argv: list[str]) -> int:
             fail("the CLI did not refuse --client_optimizer adam "
                  "--fused_update")
 
+        # ---- the streamed feed at full width (--streaming) ----
+        stream_phase(card, dev, flagship, build_experiment, synthetic,
+                     resident, by_path)
+
         # ---- the slice on a small input: kernels against plain paths ----
-        def small(kernels: bool, algorithm: str = "salientgrads"):
+        def small(kernels: bool, algorithm: str = "salientgrads",
+                  streaming: bool = False):
             os.environ["NIDT_FAST_STEM"] = "1" if kernels else "0"
-            argv = ["--algorithm", algorithm,
+            argv = ["--algorithm", algorithm, "--dataset", "synthetic",
                     "--synthetic_shape", "69", "69", "69",
                     "--synthetic_num_subjects", "24",
                     "--client_num_in_total", "4", "--batch_size", "4",
@@ -1252,9 +1470,11 @@ def main(argv: list[str]) -> int:
                     *ENGINE_ARGS.get(algorithm, ())]
             if kernels:
                 argv.append("--fused_update")
+            if streaming:
+                argv += ["--stream_chunk_clients", str(STREAM_CHUNK)]
             return build_experiment(config_from_args(
                 add_args(argparse.ArgumentParser()).parse_args(argv)),
-                "cuda")[0]
+                "cuda", streaming=streaming)[0]
 
         # cuDNN's default algorithms are not reproducible from run to run:
         # two plain FedProx or Ditto runs here differed by up to 1.6e-2 of
@@ -1274,6 +1494,11 @@ def main(argv: list[str]) -> int:
         with per_call:
             kern = small(True).train(masks=masks)
         calls = per_call.check("salientgrads small input")
+        # the same run streamed a chunk of STREAM_CHUNK clients at a time
+        streamed = small(True, streaming=True).train(masks=masks)
+        if not streamed_bit_equal(streamed, kern):
+            fail("small-input streamed SalientGrads differs from its "
+                 "resident run")
         moved = max(float((v - init_p[k]).abs().max())
                     for k, v in plain["params"].items())
         p_err = max(float((kern["params"][k] - v).abs().max())
@@ -1372,6 +1597,11 @@ def main(argv: list[str]) -> int:
                 kern = small(True, algorithm).train()
             calls = per_call.check(f"{algorithm} small input")
             again = small(True, algorithm).train()
+            if algorithm == "dispfl":
+                streamed = small(True, algorithm, streaming=True).train()
+                if not streamed_bit_equal(streamed, again):
+                    fail("small-input streamed DisPFL differs from its "
+                         "resident run")
             gap = sparse_gap(algorithm, kern, plain, init_p)
             key = "params" if algorithm == "subavg" else "personal_params"
             states = [kern[key]] if algorithm == "subavg" else kern[key]

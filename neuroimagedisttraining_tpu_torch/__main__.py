@@ -3,11 +3,17 @@
     python -m neuroimagedisttraining_tpu_torch \\
         --algorithm fedavg|fedprox|salientgrads|ditto|local|subavg|dispfl|\\
                     dpsgd|fedfomo|turboaggregate \\
-        --dataset synthetic --model 3DCNN --synthetic_shape 121 145 121 \\
-        [--fused_update] [--client_optimizer sgd|adam] [--val_fraction F] \\
-        [--device cuda|cpu] [--log_dir LOG] ...
+        --dataset abcd_h5 --data_dir cohort.h5 [--streaming \\
+        --stream_chunk_clients N] | --dataset synthetic \\
+        --synthetic_shape 121 145 121 \\
+        --model 3DCNN [--fused_update] [--client_optimizer sgd|adam] \\
+        [--val_fraction F] [--device cuda|cpu] [--log_dir LOG] ...
 
-Flag names are the reference CLI's for the flags the port takes. It logs
+Flag names are the reference CLI's for the flags the port takes.
+``--dataset ABCD`` / ``abcd_h5`` (the default) reads the X/y/site HDF5 file
+at ``--data_dir``, ``synthetic`` draws the synthetic cohort, and any other
+name raises. ``--streaming`` keeps the voxels on the host and feeds the
+card a chunk of clients at a time (``data/stream.py``). It logs
 the rounds and prints, last, one JSON line with what the engine returns
 except its model states (``mask_density`` for SalientGrads only).
 ``NIDT_FAST_STEM=1`` arms the stem weight-gradient kernel. FedFomo needs
@@ -33,8 +39,10 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--algorithm", type=str, default="fedavg",
                         choices=sorted(ENGINES))
     parser.add_argument("--model", type=str, default="3DCNN")
-    parser.add_argument("--dataset", type=str, default="synthetic",
-                        choices=["synthetic"])
+    parser.add_argument("--dataset", type=str, default="ABCD",
+                        help="ABCD | abcd_h5 | synthetic")
+    parser.add_argument("--data_dir", type=str, default="./data",
+                        help="for ABCD/abcd_h5: path to the X/y/site HDF5")
     parser.add_argument("--batch_size", type=int, default=16)
     parser.add_argument("--client_optimizer", type=str, default="sgd",
                         choices=["sgd", "adam"])
@@ -96,6 +104,16 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--log_dir", type=str, default=None,
                         help="write <log_dir>/<dataset>/<identity>.log and "
                              ".metrics.jsonl (none if unset)")
+    parser.add_argument("--streaming", action="store_true",
+                        help="host-stream the cohort per round instead of "
+                             "keeping it device-resident (cohorts > device "
+                             "memory); supported by all ten algorithms "
+                             "(fedfomo additionally needs --val_fraction "
+                             "> 0: its small val shards stay resident)")
+    parser.add_argument("--stream_chunk_clients", type=int, default=0,
+                        help="clients per host-fetched chunk in streaming "
+                             "rounds, evaluation and SNIP scoring (0 = "
+                             "auto)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     return parser
@@ -105,7 +123,8 @@ def config_from_args(args) -> ExperimentConfig:
     return ExperimentConfig(
         model=args.model, num_classes=1, algorithm=args.algorithm,
         seed=args.seed, log_dir=args.log_dir,
-        data=DataConfig(dataset=args.dataset,
+        stream_chunk_clients=args.stream_chunk_clients,
+        data=DataConfig(dataset=args.dataset.lower(), data_dir=args.data_dir,
                         synthetic_num_subjects=args.synthetic_num_subjects,
                         synthetic_shape=tuple(args.synthetic_shape),
                         synthetic_signal=args.synthetic_signal,
@@ -138,12 +157,26 @@ def config_from_args(args) -> ExperimentConfig:
     )
 
 
-def build_experiment(cfg: ExperimentConfig, device: str = "cuda"):
-    """Cohort -> site federation on the device (with a validation split
-    where ``val_fraction > 0``) -> model -> trainer -> engine. Returns
-    ``(engine, partition_info)``."""
+DATASETS = ("abcd", "abcd_h5", "synthetic")
+
+
+def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
+                     streaming: bool = False):
+    """Cohort (``cfg.data.dataset``: the HDF5 file at ``data_dir``, or the
+    synthetic cohort) -> site federation (with a validation split where
+    ``val_fraction > 0``), resident on the device or, under
+    ``streaming``, a ``StreamingFederation`` over the host's copy -> model
+    -> trainer -> engine. Returns ``(engine, partition_info)``;
+    ``partition_info["file"]`` is the HDF5 file a streamed run reads,
+    for the caller to close (None otherwise)."""
     from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
-    from neuroimagedisttraining_tpu_torch.data.federate import federate_cohort
+    from neuroimagedisttraining_tpu_torch.data.federate import (
+        build_federated_data, federation_maps,
+    )
+    from neuroimagedisttraining_tpu_torch.data.hdf5 import load_abcd_hdf5
+    from neuroimagedisttraining_tpu_torch.data.stream import (
+        StreamingFederation,
+    )
     from neuroimagedisttraining_tpu_torch.data.synthetic import (
         generate_synthetic_abcd,
     )
@@ -152,16 +185,37 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda"):
 
     dev = resolve_device(device)
     d = cfg.data
-    cohort = generate_synthetic_abcd(
-        num_subjects=d.synthetic_num_subjects, shape=d.synthetic_shape,
-        signal=d.synthetic_signal,
-        num_sites=max(4, cfg.fed.client_num_in_total // 4), seed=cfg.seed)
-    fed, info = federate_cohort(cohort, dev, seed=d.seed_split,
-                                val_fraction=d.val_fraction)
-    model = create_model(cfg.model, d.synthetic_shape, cfg.num_classes)
+    dataset = d.dataset.lower()
+    if dataset not in DATASETS:
+        raise ValueError(f"dataset {dataset!r} has no loader in the port "
+                         f"(have: {'/'.join(DATASETS)})")
+    if streaming and d.partition_method != "site":
+        raise ValueError("streaming mode currently partitions by site")
+    if dataset == "synthetic":
+        cohort = generate_synthetic_abcd(
+            num_subjects=d.synthetic_num_subjects, shape=d.synthetic_shape,
+            signal=d.synthetic_signal,
+            num_sites=max(4, cfg.fed.client_num_in_total // 4),
+            seed=cfg.seed)
+    else:
+        cohort = load_abcd_hdf5(d.data_dir, lazy=streaming)
+    train_map, test_map, val_map, info = federation_maps(
+        cohort["site"], d.seed_split, d.val_fraction)
+    info["file"] = cohort.get("file")
+    if streaming:
+        fed, stream = None, StreamingFederation(
+            cohort["X"], cohort["y"], train_map, test_map, val_map=val_map,
+            device=dev)
+    else:
+        fed, stream = build_federated_data(
+            cohort["X"], cohort["y"], train_map, test_map, dev,
+            val_map=val_map), None
+    shape = tuple(cohort["X"].shape[1:])
+    model = create_model(cfg.model, shape, cfg.num_classes)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     trainer = LocalTrainer(model, cfg.optim, dev, gen)
-    return create_engine(cfg.algorithm, cfg, fed, trainer), info
+    return create_engine(cfg.algorithm, cfg, fed, trainer,
+                         stream=stream), info
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -180,9 +234,16 @@ def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s",
                         stream=sys.stdout)
     cfg = config_from_args(args)
-    engine, info = build_experiment(cfg, args.device)
+    engine, info = build_experiment(cfg, args.device,
+                                    streaming=args.streaming)
     logging.info("partition: %s", json.dumps(info["train_counts"]))
-    result = engine.train()
+    try:
+        result = engine.train()
+    finally:
+        if engine.stream is not None:
+            engine.stream.close()
+        if info["file"] is not None:
+            info["file"].close()
     print(json.dumps({k: v for k, v in result.items()
                       if not _holds_tensor(v)}))
     return 0

@@ -36,9 +36,12 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """Dataset + partitioning (the synthetic ABCD cohort, site clients)."""
+    """Dataset + partitioning: the ABCD cohort in the reference's
+    ``X``/``y``/``site`` HDF5 file at ``data_dir`` (``abcd`` /
+    ``abcd_h5``) or the synthetic cohort (``synthetic``); site clients."""
 
-    dataset: str = "synthetic"
+    dataset: str = "abcd"
+    data_dir: str = "./data"
     partition_method: str = "site"
     synthetic_num_subjects: int = 256
     synthetic_shape: tuple[int, int, int] = (121, 145, 121)
@@ -119,6 +122,8 @@ class ExperimentConfig:
     # LOG/<dataset>/<identity>.log and .metrics.jsonl go here; None writes
     # no experiment log
     log_dir: str | None = None
+    # clients a streamed chunk holds (--streaming); 0 picks 4
+    stream_chunk_clients: int = 0
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     fed: FedConfig = field(default_factory=FedConfig)

@@ -85,18 +85,30 @@ def carve_val_split(train_map: dict[int, np.ndarray], val_fraction: float,
     return val_map, new_train
 
 
-def federate_cohort(data: dict[str, np.ndarray], device: torch.device,
-                    seed: int = 42, val_fraction: float = 0.0
-                    ) -> tuple[FederatedData, dict]:
-    """Partition a cohort ``{X, y, site}`` into site clients, carving a
-    validation split where ``val_fraction > 0``."""
-    train_map, test_map, sites = site_partition(data["site"], seed=seed)
+def federation_maps(site: np.ndarray, seed: int = 42,
+                    val_fraction: float = 0.0):
+    """``(train_map, test_map, val_map, info)``: the site clients' rows,
+    with a validation split carved where ``val_fraction > 0`` (``val_map``
+    None otherwise). The resident and the streamed federation both take
+    their rows from here, so the two see the same train, test and
+    validation rows (the reference package's ``__main__.py:607-636``)."""
+    train_map, test_map, sites = site_partition(site, seed=seed)
     val_map = None
     if val_fraction > 0:
         val_map, train_map = carve_val_split(train_map, val_fraction, seed)
     info = {"partition_method": "site", "sites": sites.tolist(),
             "client_num": len(train_map),
             "train_counts": [int(len(train_map[c])) for c in sorted(train_map)]}
+    return train_map, test_map, val_map, info
+
+
+def federate_cohort(data: dict[str, np.ndarray], device: torch.device,
+                    seed: int = 42, val_fraction: float = 0.0
+                    ) -> tuple[FederatedData, dict]:
+    """Partition a cohort ``{X, y, site}`` into site clients on
+    ``device``, carving a validation split where ``val_fraction > 0``."""
+    train_map, test_map, val_map, info = federation_maps(
+        data["site"], seed, val_fraction)
     fed = build_federated_data(data["X"], data["y"], train_map, test_map,
                                device, val_map=val_map)
     return fed, info

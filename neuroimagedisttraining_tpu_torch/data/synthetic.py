@@ -41,3 +41,18 @@ def generate_synthetic_abcd(
         base += rng.normal(0, 8.0, size=shape)
         X[i] = np.clip(base, 0, 255).astype(np.uint8)
     return {"X": X, "y": y, "site": site}
+
+
+def write_synthetic_hdf5(path: str, **kwargs) -> dict[str, np.ndarray]:
+    """Write the synthetic cohort in the reference's HDF5 schema (datasets
+    ``X``, ``y``, ``site``; ``X`` chunked a subject at a time), as the
+    reference package's ``data/synthetic.py:53-64`` does. Returns the
+    cohort."""
+    import h5py
+
+    data = generate_synthetic_abcd(**kwargs)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("X", data=data["X"], chunks=(1,) + data["X"].shape[1:])
+        f.create_dataset("y", data=data["y"])
+        f.create_dataset("site", data=data["site"])
+    return data

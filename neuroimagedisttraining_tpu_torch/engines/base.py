@@ -8,6 +8,19 @@ reference's ``vmap`` over a client axis); their states are dicts of
 tensors on the device, and a round syncs with the host only where the
 host needs a value (the round's loss and evaluation metrics).
 
+An engine reads its clients' rows from the resident federation
+(``data/federate.py``) or from a streamed one (``data/stream.py``), the
+reference package's ``engines/base.py:104-147``. Every read goes through
+:meth:`FederatedEngine.client_rows`, a walk over a list of clients: on the
+resident path it slices the stacks; on the streamed path it serves each
+client from the current chunk of ``_eval_chunk_size()`` clients while the
+next chunk is on its way. A client's result does not depend on the chunk
+it came in, so a streamed run equals the resident one. :meth:`plan_walks`
+tells the feed the walks a round makes (training, then the evaluations,
+then the next round's training), so the last chunk of each walk
+prefetches the first of the next. The port has no mesh: the reference's
+``stream_sampling`` pads nothing here.
+
 ``perms_for(round_idx, client, n_valid[, track])`` may supply a client's
 epoch permutations (the tests feed the reference's draws; ``track`` is
 ``"personal"`` for Ditto's personal track, ``"first"`` and ``"tail"`` for
@@ -18,6 +31,7 @@ by default they come from the trainer's generator.
 from __future__ import annotations
 
 import logging
+from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -35,18 +49,49 @@ State = dict[str, torch.Tensor]
 log = logging.getLogger(__name__)
 
 
+class ClientRows(NamedTuple):
+    """One client's rows of a split: ``X[Nmax, D, H, W]`` uint8,
+    ``y[Nmax]`` int32 (zero past ``n``) and the true count ``n``."""
+
+    X: torch.Tensor
+    y: torch.Tensor
+    n: int
+
+
 class FederatedEngine:
     """Shared state and helpers of a federated run."""
 
-    def __init__(self, cfg: ExperimentConfig, data: FederatedData,
-                 trainer: LocalTrainer, perms_for=None):
+    #: the round's training walk covers the sampled clients (else every
+    #: client)
+    trains_sampled = True
+    #: the test walks an evaluation round makes, and the walks after the
+    #: last round (``"train"`` a fine-tune of every client)
+    eval_walks = 1
+    final_walks: tuple[str, ...] = ("test",)
+
+    def __init__(self, cfg: ExperimentConfig, data: FederatedData | None,
+                 trainer: LocalTrainer, perms_for=None, stream=None):
+        """``data``: the resident federation, or None with ``stream``, a
+        ``StreamingFederation``."""
+        if (data is None) == (stream is None):
+            raise ValueError("an engine takes its data or a stream (one "
+                             "of the two)")
         self.cfg = cfg
         self.data = data
+        self.stream = stream
         self.trainer = trainer
         self.device = trainer.device
-        self.num_clients = data.num_clients
-        self.real_clients = int(np.sum(data.n_train > 0))
-        self.max_samples = int(data.X_train.shape[1])
+        src = data if data is not None else stream
+        self.num_clients = int(src.num_clients)
+        #: the clients' training row counts, on the host
+        self.n_train = np.asarray(src.n_train, np.int64)
+        self.real_clients = int(np.sum(self.n_train > 0))
+        self.max_samples = (int(data.X_train.shape[1]) if data is not None
+                            else int(stream.nmax_train))
+        #: one subject's volume shape (D, H, W)
+        self.sample_shape = (tuple(data.X_train.shape[2:]) if data is not None
+                             else tuple(stream.sample_shape))
+        self._walks: list[tuple[str, tuple]] = []
         self.perms_for = perms_for
         self.log = (ExperimentLogger(cfg.log_dir, cfg.data.dataset,
                                      cfg.identity())
@@ -107,24 +152,82 @@ class FederatedEngine:
     def round_lr(self, round_idx: int) -> torch.Tensor:
         return round_lr(self.cfg.optim, round_idx, self.device)
 
+    # ---------- client rows ----------
+
+    def _eval_chunk_size(self) -> int:
+        """Clients a streamed chunk holds: ``stream_chunk_clients``, or 4."""
+        return self.cfg.stream_chunk_clients or 4
+
+    def _resident(self, split: str):
+        d = self.data
+        return {"train": (d.X_train, d.y_train, d.n_train),
+                "test": (d.X_test, d.y_test, d.n_test),
+                "val": (d.X_val, d.y_val, d.n_val)}[split]
+
+    def client_rows(self, ids, split: str = "train"
+                    ) -> Iterator[tuple[int, ClientRows]]:
+        """Each client of ``ids``, in order, with its rows of ``split``:
+        slices of the resident stacks, or the client's rows in the current
+        streamed chunk (valid until the walk moves on to the next chunk)."""
+        if self.stream is None:
+            X, y, n = self._resident(split)
+            for c in ids:
+                c = int(c)
+                yield c, ClientRows(X[c], y[c], int(n[c]))
+            return
+        walk = (split, tuple(int(c) for c in ids))
+        if self._walks and self._walks[0] == walk:
+            self._walks.pop(0)
+        else:
+            self._walks = []
+        then = ((np.asarray(self._walks[0][1]), self._walks[0][0])
+                if self._walks else None)
+        n = getattr(self.stream, f"n_{split}")
+        for ch in self.stream.eval_chunks(self._eval_chunk_size(), split,
+                                          ids=walk[1], then=then):
+            for j, c in enumerate(ch.ids):
+                yield int(c), ClientRows(ch.X[j], ch.y[j], int(n[c]))
+
+    def plan_walks(self, round_idx: int, before=()) -> None:
+        """Streamed runs: the walks from round ``round_idx`` on that the
+        feed may prefetch for (``before`` first): the round's training
+        walk, its evaluations, then the next round's training walk, or
+        after the last round the ``final_walks``. A walk the plan did not
+        foresee is read without a prefetch, and as right."""
+        if self.stream is None:
+            return
+        everyone = tuple(range(self.num_clients))
+
+        def train_walk(r):
+            ids = self.client_sampling(r) if self.trains_sampled else everyone
+            return ("train", tuple(int(c) for c in ids))
+
+        walks = [*before, train_walk(round_idx)]
+        if self.is_eval_round(round_idx):
+            walks += [("test", everyone)] * self.eval_walks
+        if round_idx + 1 < self.cfg.fed.comm_round:
+            walks.append(train_walk(round_idx + 1))
+        else:
+            walks += [(split, everyone) for split in self.final_walks]
+        self._walks = walks
+
     # ---------- local training ----------
 
-    def client_train(self, round_idx: int, c: int, params: State,
-                     bstats: State, lr, epochs: int, track: str = "global",
-                     **kw):
-        """Local SGD of client ``c`` from ``(params, bstats)`` on its rows:
-        ``(params, bstats, mean_loss)``. ``track`` names the run to
-        ``perms_for``; ``kw`` goes to ``local_train`` (``mask``,
-        ``prox_lamda``, ``prox_ref``, ``momentum``)."""
-        n = int(self.data.n_train[c])
+    def client_train(self, round_idx: int, c: int, rows: ClientRows,
+                     params: State, bstats: State, lr, epochs: int,
+                     track: str = "global", **kw):
+        """Local SGD of client ``c`` from ``(params, bstats)`` on its
+        training ``rows``: ``(params, bstats, mean_loss)``. ``track`` names
+        the run to ``perms_for``; ``kw`` goes to ``local_train``
+        (``mask``, ``prox_lamda``, ``prox_ref``, ``momentum``)."""
+        n = rows.n
         perms = None
         if self.perms_for is not None:
             perms = (self.perms_for(round_idx, c, n) if track == "global"
                      else self.perms_for(round_idx, c, n, track))
         return self.trainer.local_train(
-            params, bstats, self.data.X_train[c], self.data.y_train[c], n,
-            lr, epochs, self.cfg.optim.batch_size, self.max_samples,
-            perms=perms, **kw)
+            params, bstats, rows.X, rows.y, n, lr, epochs,
+            self.cfg.optim.batch_size, self.max_samples, perms=perms, **kw)
 
     def train_sampled(self, round_idx: int, params: State, bstats: State,
                       sampled, lr, **kw):
@@ -132,9 +235,10 @@ class FederatedEngine:
         Returns their ``(params, bstats)`` lists and their losses
         ``[S]``."""
         ups_p, ups_b, losses = [], [], []
-        for c in sampled:
-            p, b, loss = self.client_train(round_idx, int(c), params, bstats,
-                                           lr, self.cfg.optim.epochs, **kw)
+        for c, rows in self.client_rows(sampled):
+            p, b, loss = self.client_train(round_idx, c, rows, params,
+                                           bstats, lr, self.cfg.optim.epochs,
+                                           **kw)
             ups_p.append(p)
             ups_b.append(b)
             losses.append(loss)
@@ -147,7 +251,7 @@ class FederatedEngine:
         uploads)``, ``uploads`` the clients' ``(params, bstats)`` lists."""
         ups_p, ups_b, losses = self.train_sampled(round_idx, params, bstats,
                                                   sampled, lr, **kw)
-        ns = self.to_device(self.data.n_train[sampled])
+        ns = self.to_device(self.n_train[sampled])
         new_p, new_b, loss, n_bad = self.sanitize_aggregate(
             ups_p, ups_b, params, bstats, ns, losses)
         return new_p, new_b, loss, n_bad, (ups_p, ups_b)
@@ -272,18 +376,21 @@ class FederatedEngine:
 
     def _eval_clients(self, states: list[tuple[State, State]]
                       ) -> dict[str, float]:
-        """Each client's state on its own test rows, summarized."""
-        X, y, n = self.data.X_test, self.data.y_test, self.data.n_test
-        rows = []
-        for c in range(X.shape[0]):
+        """Each client's state on its own test rows, summarized (the
+        reference package's ``eval_global_stream`` and
+        ``eval_personalized_stream`` too: the walk serves both paths)."""
+        out, n = [], []
+        for c, rows in self.client_rows(range(self.num_clients), "test"):
             params, bstats = states[c]
-            valid = torch.arange(X.shape[1], device=self.device) < int(n[c])
-            m = self.trainer.evaluate(params, bstats, X[c], y[c], valid)
-            auc = binary_auc(m["scores"], y[c], valid)
-            rows.append(torch.stack([m["test_correct"], m["test_loss"],
-                                     m["test_total"], auc]))
-        host = torch.stack(rows).cpu().numpy()   # one device read
-        return self._summarize(*host.T, n=n)
+            valid = torch.arange(rows.X.shape[0],
+                                 device=self.device) < rows.n
+            m = self.trainer.evaluate(params, bstats, rows.X, rows.y, valid)
+            auc = binary_auc(m["scores"], rows.y, valid)
+            out.append(torch.stack([m["test_correct"], m["test_loss"],
+                                    m["test_total"], auc]))
+            n.append(rows.n)
+        host = torch.stack(out).cpu().numpy()   # one device read
+        return self._summarize(*host.T, n=np.asarray(n))
 
     @staticmethod
     def _summarize(correct, loss, total, auc, n) -> dict[str, float]:

@@ -23,6 +23,10 @@ evolve every round.
 - The masks the neighbours mix against next round are this round's masks
   before evolution.
 
+Streamed, a round walks every client's training rows in chunks, and the
+gradient probe takes its rows from the client's chunk (the reference
+package's ``engines/dispfl.py:349-447``).
+
 ``perms_for`` (engines/base.py) and ``screen_idx_for(round, client,
 n_valid)`` may supply the epoch permutations and the gradient probe's rows
 (the tests feed the reference's draws); by default both come from the
@@ -52,9 +56,11 @@ DIFF_SPA_CYCLE = (0.2, 0.4, 0.6, 0.8, 1.0)
 
 
 class DisPFLEngine(FederatedEngine):
+    trains_sampled = False
+
     def __init__(self, cfg, data, trainer, perms_for=None,
-                 screen_idx_for=None):
-        super().__init__(cfg, data, trainer, perms_for)
+                 screen_idx_for=None, stream=None):
+        super().__init__(cfg, data, trainer, perms_for, stream=stream)
         self.screen_idx_for = screen_idx_for
 
     # ---------- start ----------
@@ -172,16 +178,16 @@ class DisPFLEngine(FederatedEngine):
                              generator=self.trainer.generator,
                              device=self.device)
 
-    def evolve(self, round_idx: int, c: int, params, bstats, mask):
+    def evolve(self, round_idx: int, c: int, rows, params, bstats, mask):
         """Fire and regrow ``mask`` from client ``c``'s trained model and a
-        one-batch dense gradient in evaluation mode."""
+        one-batch dense gradient in evaluation mode on its training
+        ``rows``."""
         s = self.cfg.sparsity
         grad = None
         if not s.dis_gradient_check:
-            idx = self.probe_rows(round_idx, c, int(self.data.n_train[c]))
-            grad = self.trainer.eval_grad(params, bstats,
-                                          self.data.X_train[c][idx],
-                                          self.data.y_train[c][idx])
+            idx = self.probe_rows(round_idx, c, rows.n)
+            grad = self.trainer.eval_grad(params, bstats, rows.X[idx],
+                                          rows.y[idx])
         fired, num_remove = M.fire_mask(mask, params, round_idx,
                                         self.cfg.fed.comm_round,
                                         anneal_factor=s.anneal_factor)
@@ -198,8 +204,8 @@ class DisPFLEngine(FederatedEngine):
                                           masks_local, masks_shared, A)
         lr = self.round_lr(round_idx)
         new_p, new_b, new_m, losses = [], [], [], []
-        for c in range(self.num_clients):
-            p, b, loss = self.client_train(round_idx, c, w_local[c],
+        for c, rows in self.client_rows(range(self.num_clients)):
+            p, b, loss = self.client_train(round_idx, c, rows, w_local[c],
                                            b_mixed[c], lr,
                                            self.cfg.optim.epochs,
                                            mask=masks_local[c])
@@ -207,10 +213,11 @@ class DisPFLEngine(FederatedEngine):
             new_b.append(b)
             losses.append(loss)
             new_m.append(masks_local[c] if self.cfg.sparsity.static else
-                         self.evolve(round_idx, c, p, b, masks_local[c]))
+                         self.evolve(round_idx, c, rows, p, b,
+                                     masks_local[c]))
         dist_self = torch.stack([M.mask_hamming_distance(a, b) for a, b in
                                  zip(masks_shared, masks_local)])
-        real = self.to_device((self.data.n_train > 0).astype(np.float32))
+        real = self.to_device((self.n_train > 0).astype(np.float32))
         loss = (torch.sum(torch.stack(losses) * real)
                 / torch.clamp(real.sum(), min=1.0))
         return new_p, new_b, new_m, masks_local, dist_self, loss
@@ -221,14 +228,14 @@ class DisPFLEngine(FederatedEngine):
         """The sparse local epochs at each real client's ERK densities plus
         its dense one-batch probe."""
         cfg = self.cfg
-        shape = cfg.data.synthetic_shape
+        shape = self.sample_shape
         model = self.trainer.model
         full = flops_ops.count_training_flops_per_sample(model, shape)
         by_dr = {dr: flops_ops.count_training_flops_per_sample(
             model, shape, {k: 1.0 - v for k, v in
                            self.sparsities(params, dr).items()})
             for dr in sorted(set(w_spa))}
-        n = self.data.n_train
+        n = self.n_train
         return sum(cfg.optim.epochs * float(n[c]) * by_dr[w_spa[c]]
                    + cfg.optim.batch_size * full
                    for c in range(self.real_clients))
@@ -259,6 +266,7 @@ class DisPFLEngine(FederatedEngine):
         flops_per_round = self.flops_per_round(params, w_spa)
         history, round_seconds = [], []
         for r in range(cfg.fed.comm_round):
+            self.plan_walks(r)
             active = self.active_draw(r)
             A = self.adjacency(r, active)
             log.info("round %d: active %s", r,

@@ -10,6 +10,8 @@ Each round has two tracks over the sampled clients:
   ``w -= (lr * lamda) * (w - w_global)``; the results replace the clients'
   personal models (clients with no rows keep theirs).
 
+Each sampled client runs its global track and then its personal track
+on the same rows, so a streamed round reads each client's chunk once.
 Evaluation covers the personal and the global models. ``perms_for`` is
 asked for the personal track's permutations with ``track="personal"``.
 """
@@ -19,12 +21,15 @@ from __future__ import annotations
 import logging
 import time
 
+import torch
+
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
 
 log = logging.getLogger(__name__)
 
 
 class DittoEngine(FederatedEngine):
+    eval_walks = 2
 
     def run_round(self, round_idx, params, bstats, per_params, per_bstats,
                   sampled):
@@ -32,17 +37,23 @@ class DittoEngine(FederatedEngine):
         loss, n_bad)``; ``loss`` is the global track's."""
         f = self.cfg.fed
         lr = self.round_lr(round_idx)
-        new_p, new_b, loss, n_bad, _ = self.train_and_aggregate(
-            round_idx, params, bstats, sampled, lr)
-        pp, pb = [], []
-        for c in sampled:
+        ups_p, ups_b, losses, pp, pb = [], [], [], [], []
+        for c, rows in self.client_rows(sampled):
+            p, b, loss = self.client_train(round_idx, c, rows, params,
+                                           bstats, lr, self.cfg.optim.epochs)
+            ups_p.append(p)
+            ups_b.append(b)
+            losses.append(loss)
             p, b, _ = self.client_train(
-                round_idx, int(c), per_params[c], per_bstats[c], lr,
+                round_idx, c, rows, per_params[c], per_bstats[c], lr,
                 f.local_epochs, track="personal", prox_lamda=float(f.lamda),
                 prox_ref=params)
             pp.append(p)
             pb.append(b)
-        real = self.data.n_train[sampled] > 0
+        new_p, new_b, loss, n_bad = self.sanitize_aggregate(
+            ups_p, ups_b, params, bstats,
+            self.to_device(self.n_train[sampled]), torch.stack(losses))
+        real = self.n_train[sampled] > 0
         per_params = self.scatter_sampled_rows(per_params, pp, sampled, real)
         per_bstats = self.scatter_sampled_rows(per_bstats, pb, sampled, real)
         return new_p, new_b, per_params, per_bstats, loss, n_bad
@@ -56,6 +67,7 @@ class DittoEngine(FederatedEngine):
                                                        self.num_clients)
         history, round_seconds = [], []
         for r in range(cfg.fed.comm_round):
+            self.plan_walks(r)
             sampled = self.client_sampling(r)
             log.info("round %d: clients %s", r, sampled.tolist())
             t0 = time.perf_counter()

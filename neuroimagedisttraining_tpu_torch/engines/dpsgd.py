@@ -16,6 +16,11 @@
   ``w_global`` for ``epochs`` at ``round_lr(-1)``; those models are
   evaluated, logged and dropped (the personal models do not change).
 
+Streamed, a round walks every client's training rows in chunks, and the
+every-100-rounds fine-tune is skipped, with a log line once: its models
+are evaluated and dropped, and no training state depends on them (the
+reference package's ``engines/dpsgd.py:462-470``).
+
 ``perms_for`` (engines/base.py) may supply the epoch permutations (the
 fine-tune's under round -1); by default they come from the trainer's
 generator. ``stat_info`` records the global accuracy at each evaluation.
@@ -60,6 +65,8 @@ def benefit_choose(round_idx: int, cur_clnt: int, total: int,
 
 
 class DPSGDEngine(FederatedEngine):
+    trains_sampled = False
+    eval_walks = 2
 
     def mixing_matrix(self, round_idx: int) -> np.ndarray:
         """Row ``c``: uniform weights over {neighbours(c) ∪ c} among the
@@ -97,7 +104,7 @@ class DPSGDEngine(FederatedEngine):
     def global_mean(self, per_params, per_bstats):
         """``w_global``: the plain mean over the real clients of the
         personal ``(params, bstats)``."""
-        real = (self.data.n_train > 0).astype(np.float32)
+        real = (self.n_train > 0).astype(np.float32)
         w = self.to_device(real / max(np.float32(real.sum()), 1.0))
 
         def mean(states):
@@ -115,14 +122,14 @@ class DPSGDEngine(FederatedEngine):
         mixed_p, mixed_b = self.consensus(per_params, per_bstats, M)
         lr = self.round_lr(round_idx)
         new_p, new_b, losses = [], [], []
-        for c in range(self.num_clients):
-            p, b, loss = self.client_train(round_idx, c, mixed_p[c],
+        for c, rows in self.client_rows(range(self.num_clients)):
+            p, b, loss = self.client_train(round_idx, c, rows, mixed_p[c],
                                            mixed_b[c], lr,
                                            self.cfg.optim.epochs)
             new_p.append(p)
             new_b.append(b)
             losses.append(loss)
-        real = self.to_device((self.data.n_train > 0).astype(np.float32))
+        real = self.to_device((self.n_train > 0).astype(np.float32))
         loss = (torch.sum(torch.stack(losses) * real)
                 / torch.clamp(real.sum(), min=1.0))
         return new_p, new_b, loss
@@ -133,8 +140,8 @@ class DPSGDEngine(FederatedEngine):
         ``(params, bstats)`` lists."""
         lr = self.round_lr(-1)
         ft_p, ft_b = [], []
-        for c in range(self.num_clients):
-            p, b, _ = self.client_train(-1, c, g_params, g_bstats, lr,
+        for c, rows in self.client_rows(range(self.num_clients)):
+            p, b, _ = self.client_train(-1, c, rows, g_params, g_bstats, lr,
                                         self.cfg.optim.epochs)
             ft_p.append(p)
             ft_b.append(b)
@@ -148,7 +155,9 @@ class DPSGDEngine(FederatedEngine):
         per_params, per_bstats = self.broadcast_states(g_params, g_bstats,
                                                        self.num_clients)
         history, round_seconds = [], []
+        warned_skip = False
         for r in range(cfg.fed.comm_round):
+            self.plan_walks(r)
             M = self.mixing_matrix(r)
             log.info("round %d: decentralized cohort", r)
             t0 = time.perf_counter()
@@ -167,7 +176,15 @@ class DPSGDEngine(FederatedEngine):
                                 "global_acc": mg["acc"],
                                 "personal_acc": mp["acc"]})
                 log.info("round %d: %s", r, history[-1])
-            if r % FINETUNE_EVERY == FINETUNE_EVERY - 1:
+            if (r % FINETUNE_EVERY == FINETUNE_EVERY - 1
+                    and self.stream is not None and not warned_skip):
+                warned_skip = True
+                log.info("streaming run: skipping the every-100-rounds "
+                         "fine-tune DIAGNOSTIC pass (its models are "
+                         "evaluated then discarded; no training state "
+                         "depends on it)")
+            if (r % FINETUNE_EVERY == FINETUNE_EVERY - 1
+                    and self.stream is None):
                 ft_p, ft_b = self.finetune(g_params, g_bstats)
                 mft = self.eval_personalized(ft_p, ft_b)
                 self.metrics(-1, finetune_after_round=r,

@@ -10,6 +10,12 @@ the aggregated model on its own rows at ``round_lr(-1)``, i.e.
 ``lr / lr_decay`` (the reference passes round -1 there), which gives the
 personal models; then the global and personal models are evaluated.
 
+Streamed, each round walks its sampled clients in chunks and the
+fine-tune walks every client's training rows; the personal models are
+kept (a model is 10 MB on the card), so the evaluations walk the test rows
+after the fine-tune (the reference package's ``engines/fedavg.py:398-490``
+walks the two side by side and drops each personal model).
+
 ``_prox_kwargs`` ties the local objective to the round's incoming global
 model; FedAvg adds nothing, FedProx (engines/fedprox.py) its proximal pull.
 """
@@ -25,6 +31,7 @@ log = logging.getLogger(__name__)
 
 
 class FedAvgEngine(FederatedEngine):
+    final_walks = ("train", "test", "test")
 
     def _prox_kwargs(self, global_params) -> dict:
         """Extra ``local_train`` arguments for the round's local training."""
@@ -43,9 +50,10 @@ class FedAvgEngine(FederatedEngine):
         ``round_lr(-1)``: the personal ``(params, bstats)`` lists."""
         lr = self.round_lr(-1)
         per_params, per_bstats = [], []
-        for c in range(self.num_clients):
-            p, b, _ = self.client_train(self.cfg.fed.comm_round, c, params,
-                                        bstats, lr, self.cfg.optim.epochs)
+        for c, rows in self.client_rows(range(self.num_clients)):
+            p, b, _ = self.client_train(self.cfg.fed.comm_round, c, rows,
+                                        params, bstats, lr,
+                                        self.cfg.optim.epochs)
             per_params.append(p)
             per_bstats.append(b)
         return per_params, per_bstats
@@ -57,6 +65,7 @@ class FedAvgEngine(FederatedEngine):
         params, bstats = self.start_state(init_state)
         history, round_seconds = [], []
         for r in range(cfg.fed.comm_round):
+            self.plan_walks(r)
             sampled = self.client_sampling(r)
             log.info("round %d: clients %s", r, sampled.tolist())
             t0 = time.perf_counter()

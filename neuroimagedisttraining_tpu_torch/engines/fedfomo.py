@@ -21,6 +21,11 @@
   and BatchNorm stats alike; with no positive weight a client keeps its
   last model.
 
+Streamed, a round walks every client's training rows in chunks; the
+validation rows, ``val_fraction``-small, are fetched to the device once
+(``get_val_resident``) and stay, as the pairs read any client's (the
+reference package's ``engines/fedfomo.py:60-75``).
+
 The host reads ``p_choose`` once a round, in one device read at the top
 of :meth:`run_round`, to choose the neighbours. ``stat_info`` counts the
 training FLOPs of every client's epochs and the parameters of every model
@@ -42,13 +47,23 @@ log = logging.getLogger(__name__)
 
 
 class FedFomoEngine(FederatedEngine):
+    trains_sampled = False
 
-    def __init__(self, cfg, data, trainer, perms_for=None):
-        super().__init__(cfg, data, trainer, perms_for)
-        if data.X_val is None:
+    def __init__(self, cfg, data, trainer, perms_for=None, stream=None):
+        super().__init__(cfg, data, trainer, perms_for, stream=stream)
+        if stream is not None:
+            if stream.val_map is None:
+                raise ValueError(
+                    "FedFomo streaming requires a val split: build the "
+                    "StreamingFederation with val_map (val_fraction > 0)")
+            X, y, _ = stream.get_val_resident()
+            self._val = (X, y, stream.n_val)
+        elif data.X_val is None:
             raise ValueError(
                 "FedFomo requires a validation split: build the federation "
                 "with val_fraction > 0 (--val_fraction)")
+        else:
+            self._val = (data.X_val, data.y_val, data.n_val)
 
     # ---------- the round's graph (host) ----------
 
@@ -108,11 +123,9 @@ class FedFomoEngine(FederatedEngine):
     def val_loss(self, c: int, params, bstats) -> torch.Tensor:
         """The mean loss of ``(params, bstats)`` on client ``c``'s
         validation rows (0 rows: 0)."""
-        X = self.data.X_val[c]
-        valid = torch.arange(X.shape[0], device=self.device) < int(
-            self.data.n_val[c])
-        m = self.trainer.evaluate(params, bstats, X, self.data.y_val[c],
-                                  valid)
+        X, y, n = self._val
+        valid = torch.arange(X.shape[1], device=self.device) < int(n[c])
+        m = self.trainer.evaluate(params, bstats, X[c], y[c], valid)
         return m["test_loss"] / torch.clamp(m["test_total"], min=1.0)
 
     @staticmethod
@@ -170,7 +183,7 @@ class FedFomoEngine(FederatedEngine):
                     out[c][k] = x[c]
             return out
 
-        real = self.to_device((self.data.n_train > 0).astype(np.float32))
+        real = self.to_device((self.n_train > 0).astype(np.float32))
         loss = (torch.sum(losses * real)
                 / torch.clamp(torch.sum(real), min=1.0))
         return (aggregate(last_p, new_p), aggregate(last_b, new_b), weights,
@@ -187,8 +200,8 @@ class FedFomoEngine(FederatedEngine):
         pair_c, pair_n, n_pairs = self.pairs_from_adjacency(A)
         lr = self.round_lr(round_idx)
         new_p, new_b, losses = [], [], []
-        for c in range(self.num_clients):
-            p, b, loss = self.client_train(round_idx, c, per_params[c],
+        for c, rows in self.client_rows(range(self.num_clients)):
+            p, b, loss = self.client_train(round_idx, c, rows, per_params[c],
                                            per_bstats[c], lr,
                                            self.cfg.optim.epochs)
             new_p.append(p)
@@ -212,11 +225,12 @@ class FedFomoEngine(FederatedEngine):
                              dtype=torch.float32, device=self.device)
         p_choose = torch.ones((C, C), dtype=torch.float32, device=self.device)
         flops_per_sample = flops_ops.count_training_flops_per_sample(
-            self.trainer.model, cfg.data.synthetic_shape)
+            self.trainer.model, self.sample_shape)
         n_params = sum(v.numel() for v in params.values())
-        n_samples = float(np.sum(self.data.n_train[:self.real_clients]))
+        n_samples = float(np.sum(self.n_train[:self.real_clients]))
         history, round_seconds = [], []
         for r in range(cfg.fed.comm_round):
+            self.plan_walks(r)
             t0 = time.perf_counter()
             (per_params, per_bstats, weights, p_choose, loss, transfers,
              n_pairs) = self.run_round(r, per_params, per_bstats, weights,

@@ -4,7 +4,9 @@ nothing is communicated.
 Each round every client with rows trains its persistent model for
 ``epochs`` with a fresh optimizer (clients with no rows take no step); the
 round's scalar is the sample-weighted mean of the clients' losses.
-Evaluation is of the personal models only.
+Evaluation is of the personal models only. Streamed, each round walks
+every client's training rows in chunks (the reference package's
+``engines/local.py:138-176``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ log = logging.getLogger(__name__)
 
 
 class LocalEngine(FederatedEngine):
+    trains_sampled = False
 
     def run_round(self, round_idx, per_params, per_bstats):
         """Every client's local training. Returns ``(per_params,
@@ -28,15 +31,15 @@ class LocalEngine(FederatedEngine):
         per_params, per_bstats = list(per_params), list(per_bstats)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         losses = []
-        for c in range(self.num_clients):
-            if self.data.n_train[c] == 0:
+        for c, rows in self.client_rows(range(self.num_clients)):
+            if rows.n == 0:
                 losses.append(zero)
                 continue
             per_params[c], per_bstats[c], loss = self.client_train(
-                round_idx, c, per_params[c], per_bstats[c], lr,
+                round_idx, c, rows, per_params[c], per_bstats[c], lr,
                 self.cfg.optim.epochs)
             losses.append(loss)
-        w = self.to_device(self.data.n_train).to(torch.float32)
+        w = self.to_device(self.n_train).to(torch.float32)
         loss = (torch.sum(torch.stack(losses) * w)
                 / torch.clamp(torch.sum(w), min=1e-9))
         return per_params, per_bstats, loss
@@ -50,6 +53,7 @@ class LocalEngine(FederatedEngine):
                                                        self.num_clients)
         history, round_seconds = [], []
         for r in range(cfg.fed.comm_round):
+            self.plan_walks(r)
             t0 = time.perf_counter()
             per_params, per_bstats, loss = self.run_round(r, per_params,
                                                           per_bstats)

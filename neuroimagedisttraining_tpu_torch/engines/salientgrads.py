@@ -14,6 +14,12 @@
 supply the epoch permutations and the IterSNIP batch rows (the tests feed
 the reference's draws); by default both come from the trainer's generator.
 
+Streamed (``stream``): phase 1 walks every client's training rows in
+chunks, keeping only the score sum on the device; phase 2 walks each
+round's sampled clients, the next round's first chunk prefetched behind
+the round's evaluations (the reference package's
+``engines/salientgrads.py:136-158,383-420``).
+
 ``stat_info`` holds the reference's accounting: the training FLOPs per
 sample under the mask's densities times the round's samples and epochs,
 and the mask's nonzero count per sampled client as communicated
@@ -38,8 +44,12 @@ log = logging.getLogger(__name__)
 
 
 class SalientGradsEngine(FederatedEngine):
-    def __init__(self, cfg, data, trainer, perms_for=None, snip_idx_for=None):
-        super().__init__(cfg, data, trainer, perms_for)
+    eval_walks = 2
+    final_walks = ("test", "test")
+
+    def __init__(self, cfg, data, trainer, perms_for=None, snip_idx_for=None,
+                 stream=None):
+        super().__init__(cfg, data, trainer, perms_for, stream=stream)
         self.snip_idx_for = snip_idx_for
 
     # ---------- phase 1: the global mask ----------
@@ -57,14 +67,14 @@ class SalientGradsEngine(FederatedEngine):
         """IterSNIP scores averaged over the clients that hold data."""
         s, o = self.cfg.sparsity, self.cfg.optim
         total, wsum = None, 0
-        for c in range(self.num_clients):
-            n = int(self.data.n_train[c])
+        for c, rows in self.client_rows(range(self.num_clients)):
+            n = rows.n
             if n == 0:  # no rows: weighs 0 in the mean
                 continue
             idx = self.snip_idx_for(c, n) if self.snip_idx_for else None
-            sc = iter_snip_scores(self.trainer, params, bstats,
-                                  self.data.X_train[c], self.data.y_train[c],
-                                  n, s.itersnip_iterations, o.batch_size,
+            sc = iter_snip_scores(self.trainer, params, bstats, rows.X,
+                                  rows.y, n, s.itersnip_iterations,
+                                  o.batch_size,
                                   stratified=s.stratified_sampling,
                                   idx_stack=idx)
             total = sc if total is None else {k: total[k] + sc[k]
@@ -81,7 +91,7 @@ class SalientGradsEngine(FederatedEngine):
         new_p, new_b, loss, n_bad, (ups_p, ups_b) = self.train_and_aggregate(
             round_idx, params, bstats, sampled, self.round_lr(round_idx),
             mask=masks)
-        real = self.data.n_train[sampled] > 0
+        real = self.n_train[sampled] > 0
         per_params = self.scatter_sampled_rows(per_params, ups_p, sampled, real)
         per_bstats = self.scatter_sampled_rows(per_bstats, ups_b, sampled, real)
         return new_p, new_b, per_params, per_bstats, loss, n_bad
@@ -93,6 +103,8 @@ class SalientGradsEngine(FederatedEngine):
         cfg = self.cfg
         params, bstats = self.start_state(init_state)
         t0 = time.perf_counter()
+        self.plan_walks(0, before=[("train", tuple(range(self.num_clients)))]
+                        if masks is None else [])
         if masks is None:
             masks, thr = self.generate_global_mask(params, bstats)
         else:
@@ -104,7 +116,7 @@ class SalientGradsEngine(FederatedEngine):
                  cfg.sparsity.dense_ratio)
         self.stat_info["mask_density"] = density
         flops_per_sample = flops_ops.count_training_flops_per_sample(
-            self.trainer.model, cfg.data.synthetic_shape,
+            self.trainer.model, self.sample_shape,
             flops_ops.densities_from_masks(masks))
         # communicated parameters per client per round: the mask's nonzero
         # count (ones on the leaves that are not masked)
@@ -113,6 +125,7 @@ class SalientGradsEngine(FederatedEngine):
                                                        self.num_clients)
         history = []
         for r in range(cfg.fed.comm_round):
+            self.plan_walks(r)
             sampled = self.client_sampling(r)
             t0 = time.perf_counter()
             params, bstats, per_params, per_bstats, loss, n_bad = \
@@ -122,7 +135,7 @@ class SalientGradsEngine(FederatedEngine):
             self._sync()
             entry = {"round": r, "train_loss": loss_h,
                      "round_seconds": time.perf_counter() - t0}
-            n_samples = float(np.sum(self.data.n_train[sampled]))
+            n_samples = float(np.sum(self.n_train[sampled]))
             self.stat_info["sum_training_flops"] += (
                 flops_per_sample * cfg.optim.epochs * n_samples)
             self.stat_info["sum_comm_params"] += comm_per_client * len(sampled)

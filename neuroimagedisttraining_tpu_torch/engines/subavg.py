@@ -18,6 +18,10 @@ and an average over the clients that keep each weight.
 - Client ``c``'s personal model is ``w_global * mask_c`` with the global
   BatchNorm stats.
 
+Streamed, a round walks its sampled clients in chunks; the accept test's
+accuracy is taken on the same chunk's training rows (the reference
+package's ``engines/subavg.py:267-290``).
+
 ``perms_for`` is asked for the first epoch with ``track="first"`` and for
 the epochs after it with ``track="tail"``. ``stat_info`` counts the dense
 model down to every sampled client and the new masks' nonzero entries up,
@@ -53,31 +57,30 @@ def _f32(x: float) -> torch.Tensor:
 
 class SubFedAvgEngine(FederatedEngine):
 
-    def client_round(self, round_idx: int, c: int, params, bstats, mask, lr):
-        """One sampled client: train, the two candidate masks, the accept
-        test. Returns ``(params, bstats, mask, loss, dist, accept)``, the
-        last three as device scalars."""
+    def client_round(self, round_idx: int, c: int, rows, params, bstats,
+                     mask, lr):
+        """One sampled client on its training ``rows``: train, the two
+        candidate masks, the accept test. Returns ``(params, bstats, mask,
+        loss, dist, accept)``, the last three as device scalars."""
         o, s = self.cfg.optim, self.cfg.sparsity
         w_per = _times(params, mask)
         dense = density_all_leaves(w_per)
         momentum = self.trainer.init_momentum(w_per)
-        p, b, loss = self.client_train(round_idx, c, w_per, bstats, lr, 1,
-                                       track="first", mask=mask,
+        p, b, loss = self.client_train(round_idx, c, rows, w_per, bstats, lr,
+                                       1, track="first", mask=mask,
                                        momentum=momentum)
         m1 = fake_prune(s.each_prune_ratio, p, mask)
         tail = max(o.epochs - 1, 0)
         if tail:
-            p, b, loss2 = self.client_train(round_idx, c, p, b, lr, tail,
-                                            track="tail", mask=mask,
+            p, b, loss2 = self.client_train(round_idx, c, rows, p, b, lr,
+                                            tail, track="tail", mask=mask,
                                             momentum=momentum)
             loss = (loss + tail * loss2) / o.epochs
         m2 = fake_prune(s.each_prune_ratio, p, mask)
         dist = mask_distance_mean(m1, m2)
         pruned = _times(p, m2)
-        n = int(self.data.n_train[c])
-        X, y = self.data.X_train[c], self.data.y_train[c]
-        valid = torch.arange(X.shape[0], device=self.device) < n
-        m = self.trainer.evaluate(pruned, b, X, y, valid)
+        valid = torch.arange(rows.X.shape[0], device=self.device) < rows.n
+        m = self.trainer.evaluate(pruned, b, rows.X, rows.y, valid)
         acc = m["test_correct"] / torch.clamp(m["test_total"], min=1.0)
         accept = ((dist > _f32(s.dist_thresh))
                   & (dense > _f32(s.dense_ratio))
@@ -112,9 +115,10 @@ class SubFedAvgEngine(FederatedEngine):
         up_nnz]``."""
         lr = self.round_lr(round_idx)
         ups_p, ups_b, new_m, losses, dists, accepts = map(list, zip(*(
-            self.client_round(round_idx, int(c), params, bstats,
-                              mask_pers[c], lr) for c in sampled)))
-        real = self.data.n_train[sampled] > 0
+            self.client_round(round_idx, c, rows, params, bstats,
+                              mask_pers[c], lr)
+            for c, rows in self.client_rows(sampled))))
+        real = self.n_train[sampled] > 0
         r = self.to_device(real.astype(np.float32))
         n_real = torch.clamp(r.sum(), min=1.0)
         new_params, new_bstats = self.aggregate_overlap(
@@ -143,10 +147,11 @@ class SubFedAvgEngine(FederatedEngine):
         params, bstats = self.start_state(init_state)
         mask_pers = [ones_mask(params) for _ in range(self.num_clients)]
         flops_per_sample = flops_ops.count_training_flops_per_sample(
-            self.trainer.model, cfg.data.synthetic_shape)
+            self.trainer.model, self.sample_shape)
         n_params = sum(v.numel() for v in params.values())
         history, round_seconds = [], []
         for r in range(cfg.fed.comm_round):
+            self.plan_walks(r)
             sampled = self.client_sampling(r)
             log.info("round %d: clients %s", r, sampled.tolist())
             t0 = time.perf_counter()
@@ -155,7 +160,7 @@ class SubFedAvgEngine(FederatedEngine):
             loss, mean_dist, n_accept, up_nnz = outs.tolist()  # one read
             self._sync()
             round_seconds.append(time.perf_counter() - t0)
-            n_samples = float(np.sum(self.data.n_train[sampled]))
+            n_samples = float(np.sum(self.n_train[sampled]))
             self.stat_info["sum_training_flops"] += (
                 flops_per_sample * cfg.optim.epochs * n_samples)
             self.stat_info["sum_comm_params"] += (n_params * len(sampled)

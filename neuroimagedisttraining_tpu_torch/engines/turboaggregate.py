@@ -36,8 +36,8 @@ MPC_BACKENDS = ("device", "host")
 
 class TurboAggregateEngine(FedAvgEngine):
 
-    def __init__(self, cfg, data, trainer, perms_for=None):
-        super().__init__(cfg, data, trainer, perms_for)
+    def __init__(self, cfg, data, trainer, perms_for=None, stream=None):
+        super().__init__(cfg, data, trainer, perms_for, stream=stream)
         if cfg.fed.mpc_backend not in MPC_BACKENDS:
             raise ValueError(f"unknown mpc_backend {cfg.fed.mpc_backend!r} "
                              f"(have {MPC_BACKENDS})")
@@ -75,7 +75,7 @@ class TurboAggregateEngine(FedAvgEngine):
         BatchNorm stats. Returns ``(params, bstats, loss, n_bad)``."""
         ups_p, ups_b, losses = self.train_sampled(
             round_idx, params, bstats, sampled, self.round_lr(round_idx))
-        ns = self.to_device(self.data.n_train[sampled])
+        ns = self.to_device(self.n_train[sampled])
         ups_p, ups_b, w, loss, n_bad = self.guard_uploads(
             ups_p, ups_b, params, bstats, ns, losses)
         wn = w / torch.clamp(torch.sum(w), min=1e-12)

@@ -103,7 +103,7 @@ def main(argv: list[str]) -> int:
 
     _cuda.build(["stem_dw", "fused_sgd", "count_ge"])
     cfg = config_from_args(add_args(argparse.ArgumentParser()).parse_args([
-        "--algorithm", args.algorithm,
+        "--algorithm", args.algorithm, "--dataset", "synthetic",
         "--synthetic_shape", "121", "145", "121",
         "--synthetic_num_subjects", "48", "--client_num_in_total", "4",
         "--batch_size", "16", "--itersnip_iteration", "1", "--epochs", "1",

@@ -84,8 +84,9 @@ def main() -> int:
 
     def run(algorithm: str, kernels: bool):
         os.environ["NIDT_FAST_STEM"] = "1" if kernels else "0"
-        argv = ["--algorithm", algorithm, "--synthetic_shape", "69", "69",
-                "69", "--synthetic_num_subjects", "24",
+        argv = ["--algorithm", algorithm, "--dataset", "synthetic",
+                "--synthetic_shape", "69", "69", "69",
+                "--synthetic_num_subjects", "24",
                 "--client_num_in_total", "4", "--batch_size", "4",
                 "--epochs", "1", "--comm_round", "2",
                 *SPARSE_ARGS.get(algorithm, ())]

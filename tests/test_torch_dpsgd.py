@@ -193,7 +193,8 @@ def _recorded_engine(rounds: int):
         X, y, {c: np.asarray(v, np.int64) for c, v in TRAIN.items()},
         {c: np.asarray(v, np.int64) for c, v in TEST.items()}, CPU)
     cfg = ExperimentConfig(
-        algorithm="dpsgd", data=DataConfig(synthetic_shape=SHAPE),
+        algorithm="dpsgd",
+        data=DataConfig(dataset="synthetic", synthetic_shape=SHAPE),
         optim=OptimConfig(batch_size=2, epochs=2),
         fed=FedConfig(client_num_in_total=4, frac=0.5, comm_round=rounds,
                       frequency_of_the_test=rounds))
@@ -298,7 +299,8 @@ def test_engine_names_are_the_references():
     assert set(ENGINES) == set(J_ENGINES)
 
 
-CLI_BASE = ["--device", "cpu", "--synthetic_shape", "69", "69", "69",
+CLI_BASE = ["--device", "cpu", "--dataset", "synthetic",
+            "--synthetic_shape", "69", "69", "69",
             "--synthetic_num_subjects", "8", "--client_num_in_total", "4",
             "--comm_round", "1", "--batch_size", "4"]
 

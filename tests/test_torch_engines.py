@@ -61,7 +61,8 @@ def _engine(name, sparsity=None, epochs=2, **fed):
         X, y, {c: np.asarray(v, dtype=np.int64) for c, v in TRAIN.items()},
         {c: np.asarray(v, dtype=np.int64) for c, v in TEST.items()}, CPU)
     cfg = ExperimentConfig(
-        algorithm=name, data=DataConfig(synthetic_shape=SHAPE),
+        algorithm=name,
+        data=DataConfig(dataset="synthetic", synthetic_shape=SHAPE),
         optim=OptimConfig(batch_size=2, epochs=epochs),
         fed=FedConfig(**{"client_num_in_total": 4, "comm_round": 2,
                          "lamda": 0.25, "local_epochs": 3, **fed}),
@@ -143,9 +144,9 @@ def test_fedavg_rounds_and_finetune(name):
 
 def test_ditto_tracks():
     """Per sampled client, the global track from the round's global model
-    for ``epochs`` and the personal track from the client's own model for
-    ``local_epochs`` with a fresh pull toward the round's incoming global
-    model (``perms_for`` asked with ``track="personal"``). The personal
+    for ``epochs`` and then the personal track from the client's own model
+    for ``local_epochs`` with a fresh pull toward the round's incoming
+    global model (``perms_for`` asked with ``track="personal"``). The personal
     results replace the sampled clients' models, the others keep theirs.
     The reference samples among the first ``real_clients`` indices, so
     client 2 (no rows) is sampled: it weighs 0 and keeps its model."""
@@ -158,8 +159,8 @@ def test_ditto_tracks():
     for r in range(cfg.fed.comm_round):
         sampled = eng.client_sampling(r)
         assert list(sampled) == [0, 1, 2]  # range(real_clients)
-        glob = [next(calls) for _ in sampled]
-        pers = [next(calls) for _ in sampled]
+        pairs = [(next(calls), next(calls)) for _ in sampled]
+        glob, pers = [g for g, _ in pairs], [p for _, p in pairs]
         for c, g, p in zip(sampled, glob, pers):
             assert _equal(g["params"], params) and g["epochs"] == \
                 cfg.optim.epochs and g["lamda"] is None
@@ -441,7 +442,8 @@ def test_create_engine_names():
         create_engine("fedbuff", None, None, None)
 
 
-ARGV = ["--device", "cpu", "--synthetic_shape", "69", "69", "69",
+ARGV = ["--device", "cpu", "--dataset", "synthetic",
+        "--synthetic_shape", "69", "69", "69",
         "--synthetic_num_subjects", "8", "--client_num_in_total", "4",
         "--comm_round", "1", "--batch_size", "4", "--epochs", "1",
         "--fused_update"]
@@ -473,4 +475,4 @@ def test_cli_default_is_fedavg_and_cuda(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        main(ARGV[2:])
+        main(ARGV[4:])

@@ -318,7 +318,8 @@ def test_cli_runs(capsys, monkeypatch):
 
     monkeypatch.setenv("NIDT_FAST_STEM", "1")
     with torch_threads(2):
-        assert main(["--algorithm", "fedfomo", "--val_fraction", "0.2",
+        assert main(["--algorithm", "fedfomo", "--dataset", "synthetic",
+                     "--val_fraction", "0.2",
                      "--frac", "0.5", "--device", "cpu", "--synthetic_shape",
                      "69", "69", "69", "--synthetic_num_subjects", "16",
                      "--client_num_in_total", "4", "--comm_round", "1",

@@ -48,7 +48,10 @@ def test_port_imports_without_jax_or_cuda():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "from neuroimagedisttraining_tpu_torch.ops import _cuda\n"
+        "from neuroimagedisttraining_tpu_torch.utils import native\n"
         "assert not _cuda._libs, _cuda._libs\n"
+        "assert native._lib is None\n"
+        "assert 'h5py' not in sys.modules\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -62,10 +65,12 @@ def test_port_imports_without_jax_or_cuda():
     "engines/subavg.py", "engines/dispfl.py", "ops/prune.py",
     "ops/masks.py", "faults/schedule.py", "engines/dpsgd.py",
     "engines/fedfomo.py", "engines/turboaggregate.py", "ops/mpc.py",
-    "ops/mpc_device.py", "core/optim.py", "data/federate.py"])
+    "ops/mpc_device.py", "core/optim.py", "data/federate.py",
+    "data/hdf5.py", "data/stream.py", "data/synthetic.py",
+    "utils/native.py", "preprocess.py", "__main__.py"])
 def test_engine_slice_modules_are_checked(module):
-    """The engines' modules are among the sources checked above (none
-    imports JAX or the reference package)."""
+    """The engines' and the data planes' modules are among the sources
+    checked above (none imports JAX or the reference package)."""
     path = PORT / module
     assert path in SOURCES
     assert not [m for m in _imported_modules(path)

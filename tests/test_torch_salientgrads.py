@@ -100,7 +100,8 @@ def _run_both(tmp):
 
     pcfg = ExperimentConfig(
         model="3DCNN", num_classes=1, algorithm="salientgrads",
-        data=DataConfig(synthetic_shape=SHAPE), optim=OptimConfig(**OPTIM),
+        data=DataConfig(dataset="synthetic", synthetic_shape=SHAPE),
+        optim=OptimConfig(**OPTIM),
         fed=FedConfig(**FED), sparsity=SparsityConfig(**SPARSITY))
     pfed, _ = federate_cohort(cohort, CPU)
     trainer = LocalTrainer(create_model("3dcnn", SHAPE), pcfg.optim, CPU,

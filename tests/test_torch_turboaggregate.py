@@ -209,7 +209,8 @@ def _port_engine(name: str, backend: str = "device"):
     X, y, train, test = four_client_federation()
     data = build_federated_data(X, y, train, test, torch.device("cpu"))
     cfg = ExperimentConfig(
-        algorithm=name, data=DataConfig(synthetic_shape=(69, 69, 69)),
+        algorithm=name,
+        data=DataConfig(dataset="synthetic", synthetic_shape=(69, 69, 69)),
         optim=OptimConfig(batch_size=3, epochs=1),
         fed=FedConfig(**dict(FED, mpc_backend=backend)))
     trainer = LocalTrainer(create_model("3dcnn", (69, 69, 69)), cfg.optim,
@@ -259,6 +260,7 @@ def test_cli_runs(capsys, monkeypatch):
     with torch_threads(2):
         assert main(["--algorithm", "turboaggregate", "--mpc_backend",
                      "host", "--frac", "0.75", "--device", "cpu",
+                     "--dataset", "synthetic",
                      "--synthetic_shape", "69", "69", "69",
                      "--synthetic_num_subjects", "8", "--client_num_in_total",
                      "4", "--comm_round", "1", "--batch_size", "4",

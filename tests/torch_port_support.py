@@ -198,7 +198,7 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
 
     pcfg = ExperimentConfig(
         model="3DCNN", num_classes=1, algorithm=name,
-        data=DataConfig(synthetic_shape=tuple(shape)),
+        data=DataConfig(dataset="synthetic", synthetic_shape=tuple(shape)),
         optim=OptimConfig(**optim), fed=FedConfig(**fed),
         sparsity=SparsityConfig(**sparsity), log_dir=str(tmp / "port"))
     cpu = torch.device("cpu")
