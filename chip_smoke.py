@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py            # full run: kernels, then the engines
     python3 chip_smoke.py --quick    # build + check the kernels only
+    python3 chip_smoke.py --zoo-precision  # kernels, then step 7 alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
-   three CUDA kernels of ``neuroimagedisttraining_tpu_torch/csrc`` with one
-   ``nvcc`` per source, all started together, and beside them the host's
-   row gather (``csrc/gather.cpp``, ``g++``).
+   four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
+   with one ``nvcc`` per source, all started together, and beside them the
+   host's row gather (``csrc/gather.cpp``, ``g++``).
 2. Holds each kernel against its plain PyTorch version on the card at the
    flagship shapes, with the tolerance stated beside it, and times kernel,
    plain version and (where one exists) the one PyTorch call computing the
@@ -17,7 +18,12 @@
    x and on a Gaussian x (a TF32 low part in every element), and two calls
    must be bit-equal; its bound is at the split-TF32 tensor-core rate,
    two products where x holds TF32 values only and three otherwise
-   (``bound_fp32_cores_ms`` beside it). ``kth_largest`` (row
+   (``bound_fp32_cores_ms`` beside it). Its bf16 kernel (``stem_dw_bf16``,
+   the ``bf16_mixed`` path) is held on bf16 integral and Gaussian x: its
+   f32 sum within 1e-4 of the plain f32 sum's largest entry, at least
+   99.9% of the entries bit-equal after both are rounded to bf16, two calls
+   bit-equal, bound by its bf16 bytes, beside cuDNN's bf16
+   ``conv3d_weight``. ``kth_largest`` (row
    ``kth_select``) must equal the host's plain loop bit for bit on four
    kinds of scores, run with no host sync, in at most 6 device operations
    (``torch.profiler``), and is timed against ``torch.topk``. The fused
@@ -86,7 +92,19 @@
    of device memory. FedFomo's streamed chunks of every split must equal
    the resident stacks byte for byte, and one streamed FedAvg round under
    sync debug mode must sync nowhere the resident round does not.
-7. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+7. The model zoo, mixed precision, memory and cuDNN's determinism
+   (``zoo_precision_phase``): a flagship FedAvg run under cuDNN's default
+   and deterministic algorithms in turns, fp32 and bf16 (the cost; the
+   deterministic runs must repeat bit for bit); SalientGrads and FedAvg
+   under ``--precision bf16_mixed`` (the bf16 ``stem_dw`` 2 launches a
+   step or SNIP pass, never the f32 one, float32 state, seconds beside the
+   fp32 runs'); ``--loss_scale 1024`` bit-equal to 1 with every bf16 dW
+   call held against a float64 sum; one FedAvg round of each other 3D
+   model (``stem_dw`` on the AlexNet family only); the training step's
+   peak memory a sample, fp32 and bf16, without and with stem remat (the
+   ``--remat auto`` cutoff); remat bit-equal to none; ``NIDT_FAST_POOL``
+   against the default pool.
+8. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -99,9 +117,10 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-8. Prints one JSON line per kernel, the ``{"kernels": [...]}`` line (with
-   each kernel's launches on every engine's run), and last
-   ``{"ok": true, "device": {...}}``.
+9. Prints the run's seconds, one JSON line per kernel, the
+   ``{"kernels": [...]}`` line (each kernel's launches on its main path,
+   SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
+   run), and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it fails before
 printing any result. It imports nothing of JAX.
@@ -123,6 +142,7 @@ HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12      # CUDA cores
 TF32_OPS_PER_S = 495e12     # tensor cores, dense
+BF16_OPS_PER_S = 989e12     # tensor cores, dense
 # spin-kernel cycles per second of the host's queueing time to cover; above
 # the H100's 1.98 GHz boost clock, so a spin lasts at least that long
 SPIN_CYCLES_PER_S = 2.0e9
@@ -237,10 +257,18 @@ class PerCallCheck:
     """Inside ``with``, every ``stem_dw`` and ``fused_sgd`` call that an
     engine makes is also computed by its plain version on the same inputs
     (no launch, so no count): ``stem_dw`` within 1e-4 of the plain dW's
-    largest entry, as at the flagship shape; ``fused_sgd`` bit-equal to the
-    plain pass under the kernel's own scalars, and within 1e-5 of the
-    largest entry of the plain step's params and momentum (the kernel's
-    fp64 global norm against the plain fp32 one where the clip is taken).
+    largest entry, as at the flagship shape. In bf16 (``stem_dw_bf16``) a
+    training step's g sums to about 0 over the positions (the BatchNorm
+    backward), so dW is a small difference of large sums and an f32 sum
+    in any order is off by much more than 1e-4 of its largest entry: the
+    kernel's f32 sum (one more launch, of a run whose launches are not
+    counted) is held against the float64 sum of the same bf16 values
+    within ``BF16_SUM_RTOL`` of each entry's sum of magnitudes
+    ``sum |x| |g|``, the plain f32 sum beside it, and the returned dW must
+    be that f32 sum rounded to bf16. ``fused_sgd`` bit-equal to the plain
+    pass under the kernel's own scalars, and within 1e-5 of the largest
+    entry of the plain step's params and momentum (the kernel's fp64
+    global norm against the plain fp32 one where the clip is taken).
     ``worst`` holds each kernel's largest error over its tolerance,
     ``inexact`` the steps that were not bit-equal."""
 
@@ -253,8 +281,13 @@ class PerCallCheck:
         self.reset()
 
     def reset(self) -> None:
-        self.calls = {"stem_dw": 0, "fused_sgd": 0}
-        self.worst = {"stem_dw": 0.0, "fused_sgd": 0.0}
+        self.calls = {"stem_dw": 0, "stem_dw_bf16": 0, "fused_sgd": 0}
+        self.worst = {"stem_dw": 0.0, "stem_dw_bf16": 0.0, "fused_sgd": 0.0}
+        # bf16 calls: the least share of rounded entries equal to the
+        # plain f32 sum rounded; the plain sum's own worst error over the
+        # tolerance; whether every dW was the kernel's f32 sum rounded
+        self.bf16_share, self.worst_plain_bf16 = 1.0, 0.0
+        self.rounded_ok = True
         self.inexact = self.clip_taken = 0
 
     def _err(self, name: str, got, ref, tol_of) -> None:
@@ -263,9 +296,30 @@ class PerCallCheck:
         self.worst[name] = max(self.worst[name], err / max(tol, 1e-30))
         self.calls[name] += 1
 
-    def dw(self, x, g):
-        out = self.orig_dw(x, g)
-        self._err("stem_dw", [out], [self.SC.stem_dw_plain(x, g)], 1e-4)
+    def dw(self, x, g, out_dtype=None):
+        import torch
+
+        out = self.orig_dw(x, g, out_dtype)
+        if out.dtype != torch.bfloat16:
+            self._err("stem_dw", [out], [self.SC.stem_dw_plain(
+                x, g, out_dtype)], 1e-4)
+            return out
+        k32 = self.orig_dw(x, g, torch.float32)
+        p32 = self.SC.stem_dw_plain(x, g, torch.float32)
+        x64, g64 = x.double(), g.double()
+        exact = self.SC.stem_dw_plain(x64, g64)
+        scale = self.SC.stem_dw_plain(x64.abs(), g64.abs())
+        tol = (BF16_SUM_RTOL * scale).clamp_min(
+            torch.finfo(torch.float64).tiny)
+        err_k = float(((k32.double() - exact).abs() / tol).max())
+        err_p = float(((p32.double() - exact).abs() / tol).max())
+        self.worst["stem_dw_bf16"] = max(self.worst["stem_dw_bf16"], err_k)
+        self.worst_plain_bf16 = max(self.worst_plain_bf16, err_p)
+        self.bf16_share = min(self.bf16_share, float(
+            (out.view(torch.int16) == p32.to(torch.bfloat16).view(
+                torch.int16)).float().mean()))
+        self.rounded_ok &= torch.equal(out, k32.to(torch.bfloat16))
+        self.calls["stem_dw_bf16"] += 1
         return out
 
     def step(self, params, grads, trace, mask, **kw):
@@ -301,10 +355,17 @@ class PerCallCheck:
         tolerance; returns what was seen."""
         seen = {"calls": dict(self.calls), "worst_err_over_tol":
                 dict(self.worst), "fused_sgd_not_bit_equal": self.inexact,
-                "fused_sgd_clip_taken": self.clip_taken}
-        if not all(self.calls.values()):
+                "fused_sgd_clip_taken": self.clip_taken,
+                "stem_dw_bf16_plain_worst_err_over_tol":
+                    self.worst_plain_bf16,
+                "stem_dw_bf16_least_share_equal_to_plain_rounded":
+                    self.bf16_share,
+                "stem_dw_bf16_is_its_f32_sum_rounded": self.rounded_ok}
+        c = self.calls
+        if not c["fused_sgd"] or not (c["stem_dw"] or c["stem_dw_bf16"]):
             fail(f"{what}: a kernel was not called: {self.calls}")
-        if not all(v <= 1.0 for v in self.worst.values()) or self.inexact:
+        if (not all(v <= 1.0 for v in self.worst.values()) or self.inexact
+                or not self.rounded_ok):
             fail(f"{what}: a kernel call disagrees with its plain version "
                  f"on the run's own inputs: {seen}")
         return seen
@@ -566,6 +627,455 @@ def stream_phase(card, dev, flagship, build_experiment, synthetic,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: bf16 dW against its plain version: the kernel's f32 sum within 1e-4 of
+#: the plain f32 sum's largest entry (f32 sums of 3.95 M exact bf16
+#: products in other orders), and after both are rounded to bf16 at least
+#: this share of the entries bit-equal (a sum within its difference of a
+#: rounding boundary rounds to the neighbouring bf16 value)
+BF16_EQUAL_SHARE = 0.999
+#: a bf16 dW entry's f32 sum against its float64 sum, over the entry's sum
+#: of magnitudes sum |x| |g| (about 8 f32 units of it: the summation error
+#: an f32 sum of 3.95 M exact products may carry in any order)
+BF16_SUM_RTOL = 2.0 ** -20
+
+
+def bf16_stem_dw_row(dev, gen, quick: bool, time_ms) -> dict:
+    """The bf16 stem weight gradient (``csrc/stem_dw_bf16.cu``) at the
+    flagship shape: x the slice's integral voxels in bf16 (and a Gaussian
+    x), g bf16 in the conv backward's NCDHW memory. The kernel's f32 sum is
+    held against the plain f32 sum of the same bf16 values within 1e-4 of
+    its largest entry, the rounded dW bit-equal in ``BF16_EQUAL_SHARE`` of
+    the entries; two calls bit-equal; rows wider than one item (OW = 69)
+    too. Bound: x and g read once in bf16, dW written once, against the
+    data sheet's dense bf16 tensor-core rate."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.ops import stemconv as SC
+
+    bf = torch.bfloat16
+    B, D, H, W = 16, 121, 145, 121
+    od, oh, ow = (D - 5) // 2 + 1, (H - 5) // 2 + 1, (W - 5) // 2 + 1
+    g_ncdhw = torch.randn((B, 64, od, oh, ow), generator=gen, device=dev,
+                          dtype=bf)
+    g = g_ncdhw.permute(0, 2, 3, 4, 1)
+    out = {}
+    for kind in ("gaussian", "integral"):
+        if kind == "gaussian":
+            x = torch.randn((B, D, H, W, 1), generator=gen, device=dev,
+                            dtype=bf)
+        else:
+            x = torch.randint(0, 256, (B, D, H, W, 1), generator=gen,
+                              device=dev).to(bf)
+        k32 = SC.stem_dw(x, g, torch.float32)
+        kb, kb2 = SC.stem_dw(x, g), SC.stem_dw(x, g)
+        p32 = SC.stem_dw_plain(x, g, torch.float32)
+        pb = SC.stem_dw_plain(x, g)
+        torch.cuda.synchronize()
+        e = float((k32 - p32).abs().max())
+        t = 1e-4 * float(p32.abs().max())
+        share = float((kb.view(torch.int16) == pb.view(torch.int16)
+                       ).float().mean())
+        if kb.dtype != bf or not torch.equal(kb, k32.to(bf)):
+            fail(f"stem_dw bf16 ({kind} x): the dW is not the f32 sum "
+                 "rounded to bf16")
+        if not e <= t:
+            fail(f"stem_dw bf16 ({kind} x) disagrees with its plain "
+                 f"version: {e} > {t}")
+        if not share >= BF16_EQUAL_SHARE:
+            fail(f"stem_dw bf16 ({kind} x): {share} of the rounded entries "
+                 f"equal the plain version's, under {BF16_EQUAL_SHARE}")
+        if not torch.equal(kb.view(torch.int16), kb2.view(torch.int16)):
+            fail(f"stem_dw bf16 ({kind} x): two calls on the same inputs "
+                 "differ")
+        out[kind] = (e, t, share)
+        if kind == "gaussian":
+            del x
+    xw = torch.randn((2, 21, 25, 141, 1), generator=gen, device=dev,
+                     dtype=bf)
+    gw = torch.randn((2, 64, 9, 11, 69), generator=gen, device=dev,
+                     dtype=bf).permute(0, 2, 3, 4, 1)
+    pw = SC.stem_dw_plain(xw, gw, torch.float32)
+    ew = float((SC.stem_dw(xw, gw, torch.float32) - pw).abs().max())
+    if not ew <= 1e-4 * float(pw.abs().max()):
+        fail(f"stem_dw bf16 at OW = 69 disagrees with its plain version: "
+             f"{ew}")
+    del xw, gw, pw
+    R = B * od * oh * ow
+    flops = 2.0 * R * 125 * 64
+    nbytes = 2.0 * (x.numel() + g.numel() + 125 * 64)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
+    k_ms = k_host = p_ms = l_ms = None
+    extra = {}
+    if not quick:
+        x_ncdhw = x.reshape(B, 1, D, H, W)
+        k_ms, k_host = time_ms(lambda: SC.stem_dw(x, g), 10)
+        p_ms, _ = time_ms(lambda: SC.stem_dw_plain(x, g), 3)
+        l_ms, _ = time_ms(lambda: torch.nn.grad.conv3d_weight(
+            x_ncdhw, (64, 1, 5, 5, 5), g_ncdhw, stride=2), 10)
+        lib = torch.nn.grad.conv3d_weight(x_ncdhw, (64, 1, 5, 5, 5),
+                                          g_ncdhw, stride=2)
+        extra["library_vs_plain_max_abs_err"] = float(
+            (lib.permute(2, 3, 4, 1, 0).float() - p32).abs().max())
+        del x_ncdhw, lib
+    e, t, share = out["integral"]
+    return {"name": "stem_dw_bf16", "route": "cuda",
+            "source": "neuroimagedisttraining_tpu_torch/csrc/stem_dw_bf16.cu",
+            "replaces": "neuroimagedisttraining_tpu/ops/stemconv.py:112",
+            "max_abs_err": e, "tolerance": t, "bf16_equal_share": share,
+            "ms": k_ms, "host_ms": k_host, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+            "library": "torch.nn.grad.conv3d_weight (bf16)",
+            "bound_bf16_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "gaussian_max_abs_err": out["gaussian"][0],
+            "gaussian_tolerance": out["gaussian"][1],
+            "gaussian_bf16_equal_share": out["gaussian"][2],
+            "wide_rows_max_abs_err": ew, **extra}
+
+
+def drive(build_experiment, cfg, dev, deterministic=None) -> dict:
+    """Build ``cfg``'s engine and run ``engine.train()`` with the launch
+    counters set to 0 just before and read just after; ``deterministic``
+    (where given) sets cuDNN's mode after the build. Returns the engine, its
+    result, launches, local steps, seconds and peak device memory."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    engine, info = build_experiment(cfg, "cuda")
+    setup_s = time.perf_counter() - t0
+    if deterministic is not None:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = False
+    steps = local_steps(engine)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    result = engine.train()
+    torch.cuda.synchronize()
+    return {"engine": engine, "result": result, "launches": _cuda.counts(),
+            "steps": steps, "setup_seconds": setup_s,
+            "train_seconds": time.perf_counter() - t0,
+            "partition": info["train_counts"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def float_dtypes(tree) -> set:
+    """The dtypes of every floating tensor in a result (dicts, lists)."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return {tree.dtype} if tree.is_floating_point() else set()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return set().union(*(float_dtypes(v) for v in tree)) if tree \
+            else set()
+    return set()
+
+
+def model_states(res: dict) -> list:
+    """A run's models: global and personal parameters and stats."""
+    out = []
+    for k in ("params", "batch_stats", "personal_params",
+              "personal_batch_stats"):
+        v = res.get(k)
+        if v is not None:
+            out += v if isinstance(v, list) else [v]
+    per = res.get("personal")
+    if isinstance(per, dict):
+        out += per["params"] + per["batch_stats"]
+    return out
+
+
+def states_bit_equal(a: dict, b: dict) -> bool:
+    sa, sb = model_states(a), model_states(b)
+    return len(sa) == len(sb) and all(
+        x.keys() == y.keys() and all(torch_equal_bits(x[k], y[k]) for k in x)
+        for x, y in zip(sa, sb))
+
+
+def mean(xs) -> float:
+    return sum(xs) / len(xs)
+
+
+#: the 3D models beside the flagship, each one FedAvg round at full width:
+#: whether its stem is the 5^3 stride-2 ConvBNReLU3D that reaches stem_dw
+ZOO = {"3dcnn_deeper": True, "3dcnn_regression": True, "3dcnn_gn": True,
+       "resnet3d": False, "3dcnn_tiny": False}
+
+
+def zoo_precision_phase(card, dev, flagship, build_experiment,
+                        resident: dict, by_path: dict) -> None:
+    """The model zoo, mixed precision and the memory side at full width
+    (121x145x121, the flagship slice's cohort), each run with the launch
+    counters set to 0 just before and read just after:
+
+    - cuDNN's determinism: a FedAvg run (``--frac 0.75``, 4 rounds) under
+      the default algorithms and under ``cudnn.deterministic`` (benchmark
+      off), in turns (default, deterministic, deterministic, default), in
+      fp32 and in bf16_mixed; the cost is the mean round's seconds (rounds
+      1-3) deterministic over default. The two deterministic runs must be
+      bit-equal; whether the default ones are is printed.
+    - bf16_mixed: SalientGrads and FedAvg with ``--fused_update`` and the
+      fast stem must launch the bf16 ``stem_dw`` (2 a step or SNIP pass),
+      never the f32 one, ``fused_sgd`` 2 a step (and SalientGrads
+      ``kth_select``), and leave every model leaf and stat float32; their
+      seconds print beside the fp32 runs'. Two bf16 FedAvg runs at
+      ``--loss_scale`` 1 and 1024 under deterministic cuDNN must be
+      bit-equal, every bf16 ``stem_dw`` call of both, and of one more
+      bf16 SalientGrads run, held against its plain version
+      (``PerCallCheck``).
+    - The zoo: one FedAvg round of each model of ``ZOO``: ``fused_sgd`` 2 a
+      step; ``stem_dw`` 3 a step for the ConvBNReLU3D stems, none for
+      ResNet3D and Tiny3DCNN; finite losses.
+    - Memory: the flagship's training step at batch 8 and 16, fp32 and
+      bf16, without and with stem remat: peak device memory above what was
+      allocated before the step, its growth a sample, the step's time; the
+      largest batch whose step without remat stays within 90% of the card
+      (``--remat auto``'s cutoff, printed beside ``REMAT_AUTO_SAMPLES``).
+      FedAvg under ``--remat none`` and ``stem`` must be bit-equal under
+      deterministic cuDNN. ``NIDT_FAST_POOL=1`` against the default pool
+      (one FedAvg round): the round's loss bit-equal (the forward is the
+      same), the global weights within 5e-2 of the largest weight change
+      (where a window's maxima tie the gradient goes to other inputs)."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.core.optim import (
+        REMAT_AUTO_SAMPLES,
+    )
+
+    det0 = torch.backends.cudnn.deterministic
+    fedavg = ("fedavg", "--frac", "0.75")
+
+    # ---- cuDNN determinism: its cost on a flagship FedAvg round ----
+    det_out = {"card": card}
+    for prec in ("fp32", "bf16_mixed"):
+        secs = {False: [], True: []}
+        runs = {False: [], True: []}
+        for det in (False, True, True, False):
+            r = drive(build_experiment, flagship(
+                *fedavg, "--comm_round", "4", "--precision", prec), dev,
+                deterministic=det)
+            secs[det].append(mean(r["result"]["round_seconds"][1:]))
+            runs[det].append(r["result"])
+            del r
+        det_out[prec] = {
+            "round_seconds_default": secs[False],
+            "round_seconds_deterministic": secs[True],
+            "deterministic_cost": mean(secs[True]) / mean(secs[False]) - 1,
+            "deterministic_repeats": states_bit_equal(*runs[True]),
+            "default_repeats": states_bit_equal(*runs[False])}
+        if not det_out[prec]["deterministic_repeats"]:
+            fail(f"{prec}: two flagship FedAvg runs under deterministic "
+                 "cuDNN differ")
+        del runs
+        torch.cuda.empty_cache()
+    print(json.dumps({"determinism": det_out}))
+    torch.backends.cudnn.deterministic = det0
+
+    # ---- bf16_mixed on the flagship path ----
+    bf16 = ("--precision", "bf16_mixed")
+    for algorithm, extra in (("salientgrads", ()), ("fedavg", fedavg[1:])):
+        r = drive(build_experiment, flagship(algorithm, *extra, *bf16), dev)
+        got, res, steps = r["launches"], r["result"], r["steps"]
+        passes = steps + (len(r["engine"].n_train)
+                          if algorithm == "salientgrads" else 0)
+        by_path[f"{algorithm}_bf16"] = got
+        f32 = resident.get(algorithm, {})
+        losses = [h["train_loss"] for h in res["history"]]
+        dtypes = sorted(str(d) for d in float_dtypes(res))
+        out = {"engine": algorithm, "precision": "bf16_mixed", "card": card,
+               "launches": got, "local_steps": steps,
+               "round_seconds": res.get("round_seconds") or [
+                   h["round_seconds"] for h in res["history"]],
+               "round_seconds_fp32": f32.get("round_seconds"),
+               "phase1_seconds": res.get("phase1_seconds"),
+               "phase1_seconds_fp32": f32.get("phase1_seconds"),
+               "finetune_seconds": res.get("finetune_seconds"),
+               "finetune_seconds_fp32": f32.get("finetune_seconds"),
+               "train_seconds": r["train_seconds"],
+               "train_seconds_fp32": f32.get("train_seconds"),
+               "peak_memory_gb": r["peak_memory_gb"],
+               "peak_memory_gb_fp32": f32.get("peak_memory_gb"),
+               "train_loss": losses, "result_float_dtypes": dtypes,
+               "final": res.get("final_personal") or res["final_global"]}
+        print(json.dumps(out))
+        if got["stem_dw_bf16"] != 2 * passes or got["stem_dw"]:
+            fail(f"{algorithm} bf16: {got} in {passes} steps and SNIP "
+                 "passes, not stem_dw_bf16 2 each and no f32 stem_dw")
+        if got["fused_sgd"] != 2 * steps:
+            fail(f"{algorithm} bf16: fused_sgd {got['fused_sgd']} in "
+                 f"{steps} local steps, not 2 a step")
+        if (got["kth_select"] > 0) != (algorithm == "salientgrads"):
+            fail(f"{algorithm} bf16: kth_select launches {got}")
+        if dtypes != ["torch.float32"]:
+            fail(f"{algorithm} bf16: the run's state holds {dtypes}, not "
+                 "float32 alone")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"{algorithm} bf16: non-finite losses {losses}")
+        del r, res
+        torch.cuda.empty_cache()
+    scaled = {}
+    per_call = PerCallCheck()
+    with per_call:
+        for scale in ("1", "1024"):
+            scaled[scale] = drive(build_experiment, flagship(
+                *fedavg, "--comm_round", "1", *bf16, "--loss_scale", scale),
+                dev, deterministic=True)["result"]
+    calls = per_call.check("bf16 loss-scale runs")
+    same = (states_bit_equal(scaled["1"], scaled["1024"])
+            and scaled["1"]["history"][0]["train_loss"]
+            == scaled["1024"]["history"][0]["train_loss"])
+    print(json.dumps({"loss_scale_1024_bit_equal_to_1": same,
+                      "per_call": calls, "card": card}))
+    if not same:
+        fail("bf16 FedAvg at --loss_scale 1024 differs from scale 1")
+    if not calls["calls"]["stem_dw_bf16"]:
+        fail("the loss-scale runs made no bf16 stem_dw call")
+    del scaled
+    # SalientGrads in bf16 once more (its phase 1 and rounds), every bf16
+    # stem_dw call held too
+    per_call.reset()
+    with per_call:
+        drive(build_experiment, flagship("salientgrads", *bf16), dev)
+    calls = per_call.check("bf16 SalientGrads run")
+    print(json.dumps({"salientgrads_bf16_per_call": calls, "card": card}))
+    if not calls["calls"]["stem_dw_bf16"]:
+        fail("the bf16 SalientGrads run made no bf16 stem_dw call")
+    torch.backends.cudnn.deterministic = det0
+    torch.cuda.empty_cache()
+
+    # ---- the zoo: one FedAvg round each at full width ----
+    for name, stem in ZOO.items():
+        r = drive(build_experiment, flagship(
+            *fedavg, "--model", name, "--comm_round", "1"), dev)
+        got, res, steps = r["launches"], r["result"], r["steps"]
+        by_path[f"fedavg_{name}"] = got
+        losses = [h["train_loss"] for h in res["history"]]
+        n_params = sum(v.numel() for v in res["params"].values())
+        print(json.dumps({
+            "zoo": name, "card": card, "launches": got,
+            "local_steps": steps, "params": n_params,
+            "leaves": len(res["params"]),
+            "stats": len(res["batch_stats"]),
+            "round_seconds": res["round_seconds"],
+            "finetune_seconds": res["finetune_seconds"],
+            "peak_memory_gb": r["peak_memory_gb"], "train_loss": losses,
+            "final_personal": res["final_personal"]}))
+        if got["fused_sgd"] != 2 * steps:
+            fail(f"{name}: fused_sgd {got['fused_sgd']} in {steps} steps")
+        if got["stem_dw"] != (3 * steps if stem else 0):
+            fail(f"{name}: stem_dw launched {got['stem_dw']} times in "
+                 f"{steps} steps (its stem {'does' if stem else 'does not'}"
+                 " reach the kernel)")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"{name}: non-finite losses {losses}")
+        del r, res
+        torch.cuda.empty_cache()
+
+    # ---- memory: a sample's peak and the remat policies ----
+    total = torch.cuda.get_device_properties(dev).total_memory
+    gen = torch.Generator(device=dev).manual_seed(3)
+    mem = {"card": card, "total_memory_gb": total / 1e9}
+    X = y = None
+    for prec in ("fp32", "bf16_mixed"):
+        for remat in ("none", "stem"):
+            engine, _ = build_experiment(flagship(
+                "fedavg", "--precision", prec, "--remat", remat), "cuda")
+            if X is None:  # 16 volumes of the slice's shape
+                X = torch.randint(0, 256, (16, *engine.sample_shape),
+                                  generator=gen, device=dev,
+                                  dtype=torch.uint8)
+                y = (torch.arange(16, device=dev) % 2).to(torch.int32)
+            params, bstats = engine.init_global_state()
+            tr = engine.trainer
+            peak = {}
+            for b in (8, 16):
+                tr.loss_and_grad(params, bstats, X[:b], y[:b])  # warm-up
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                out = tr.loss_and_grad(params, bstats, X[:b], y[:b])
+                torch.cuda.synchronize()
+                peak[b] = torch.cuda.max_memory_allocated(dev) - before
+                del out
+            t0 = time.perf_counter()
+            for _ in range(3):
+                out = tr.loss_and_grad(params, bstats, X, y)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / 3 * 1e3
+            del out
+            slope = (peak[16] - peak[8]) / 8
+            fixed = peak[16] - 16 * slope
+            row = {"peak_gb_b16": peak[16] / 1e9, "peak_gb_b8": peak[8] / 1e9,
+                   "gb_per_sample": slope / 1e9, "fixed_gb": fixed / 1e9,
+                   "allocated_before_gb": before / 1e9,
+                   "step_ms_b16": step_ms}
+            if remat == "none":
+                row["batch_cutoff_90pct"] = int(
+                    (0.9 * total - before - fixed) // slope)
+                row["committed_cutoff"] = REMAT_AUTO_SAMPLES[prec]
+            mem[f"{prec}_{remat}"] = row
+            del engine, params, bstats, tr
+            torch.cuda.empty_cache()
+    del X, y
+    runs = {}
+    for remat in ("none", "stem"):
+        r = drive(build_experiment, flagship(
+            *fedavg, "--comm_round", "1", "--remat", remat), dev,
+            deterministic=True)
+        runs[remat] = r["result"]
+        mem[f"fedavg_remat_{remat}"] = {
+            "peak_memory_gb": r["peak_memory_gb"],
+            "round_seconds": r["result"]["round_seconds"],
+            "finetune_seconds": r["result"]["finetune_seconds"],
+            "launches": r["launches"]}
+        del r
+    mem["remat_bit_equal"] = states_bit_equal(runs["none"], runs["stem"])
+    if not mem["remat_bit_equal"]:
+        fail("flagship FedAvg under --remat stem differs from --remat none "
+             "under deterministic cuDNN")
+    del runs
+    torch.cuda.empty_cache()
+    pools = {}
+    try:
+        for env in ("0", "1"):
+            os.environ["NIDT_FAST_POOL"] = env
+            r = drive(build_experiment, flagship(*fedavg, "--comm_round",
+                                                 "1"), dev,
+                      deterministic=True)
+            pools[env] = r
+    finally:
+        os.environ.pop("NIDT_FAST_POOL", None)
+    init_p, _ = pools["0"]["engine"].init_global_state()
+    a, b = pools["1"]["result"], pools["0"]["result"]
+    moved = max(float((v - init_p[k]).abs().max())
+                for k, v in b["params"].items())
+    p_err = max(float((a["params"][k] - v).abs().max())
+                for k, v in b["params"].items())
+    la, lb = a["history"][0]["train_loss"], b["history"][0]["train_loss"]
+    mem["fast_pool"] = {"train_loss": la, "train_loss_default": lb,
+                        "param_max_abs_err": p_err,
+                        "largest_weight_change": moved,
+                        "round_seconds": a["round_seconds"],
+                        "round_seconds_default": b["round_seconds"],
+                        "peak_memory_gb": pools["1"]["peak_memory_gb"],
+                        "peak_memory_gb_default":
+                            pools["0"]["peak_memory_gb"]}
+    print(json.dumps({"memory": mem}))
+    if la != lb:
+        fail(f"NIDT_FAST_POOL=1: the round's loss {la} differs from the "
+             f"default pool's {lb} (the forward is the same)")
+    if not p_err <= 5e-2 * moved:
+        fail(f"NIDT_FAST_POOL=1: weights {p_err} from the default pool's, "
+             f"over 5e-2 of the largest change {moved}")
+    del pools, a, b
+    torch.backends.cudnn.deterministic = det0
+    torch.cuda.empty_cache()
+
+
 def torch_equal_bits(a, b) -> bool:
     import torch
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -594,8 +1104,35 @@ def streamed_bit_equal(a: dict, b: dict) -> bool:
         and a["final_personal"] == b["final_personal"])
 
 
+#: the run whose launches a kernel's row reports: its main path
+MAIN_PATH = {"stem_dw_bf16": "salientgrads_bf16"}
+
+
+def finish(rows: list, by_path: dict, started: float) -> int:
+    """The run's seconds since ``started``, the ``kernels`` line (each
+    row's launches on its main path and on every path) and the contract's
+    last line."""
+    import torch
+
+    print(json.dumps({"smoke_seconds": time.perf_counter() - started}))
+
+    for r in rows:
+        main_path = by_path.get(MAIN_PATH.get(r["name"], "salientgrads"))
+        r["launches"] = None if main_path is None else main_path.get(
+            r["name"], 0)
+        r["launches_by_path"] = {k: v.get(r["name"], 0)
+                                 for k, v in by_path.items()}
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv: list[str]) -> int:
+    started = time.perf_counter()
     quick = "--quick" in argv
+    only_new = "--zoo-precision" in argv
     import numpy as np
     import torch
 
@@ -631,12 +1168,13 @@ def main(argv: list[str]) -> int:
     with ThreadPoolExecutor(max_workers=1) as pool:
         gather = pool.submit(lambda: (native.load(),
                                       time.perf_counter() - t0)[1])
-        built = _cuda.build(["stem_dw", "fused_sgd", "count_ge"])
+        built = _cuda.build(["stem_dw", "stem_dw_bf16", "fused_sgd",
+                             "count_ge"])
         built["gather.cpp"] = gather.result()
     print(json.dumps({"build_seconds": round(time.perf_counter() - t0, 3),
                       "per_source": {k: round(v, 3)
                                      for k, v in built.items()}}))
-    for name in ("stem_dw", "fused_sgd", "count_ge"):
+    for name in ("stem_dw", "stem_dw_bf16", "fused_sgd", "count_ge"):
         log = (_cuda.BUILD / f"{name}.ptxas.txt")
         if log.exists():
             lines = [ln.strip() for ln in log.read_text().splitlines()
@@ -767,6 +1305,10 @@ def main(argv: list[str]) -> int:
                  "bound_by": b_by, "library_ms": l_ms,
                  "library": "torch.nn.grad.conv3d_weight", **stem_extra})
     del x, g, g_ncdhw, dw_k, dw_k2, dw_p
+    torch.cuda.empty_cache()
+
+    # ---- kernel 1b: the stem weight gradient in bf16 (bf16_mixed) ----
+    rows.append(bf16_stem_dw_row(dev, gen, quick, time_ms))
     torch.cuda.empty_cache()
 
     # ---- kernel 2: fused SGD tail over the flagship AlexNet3D leaves ----
@@ -1121,6 +1663,11 @@ def main(argv: list[str]) -> int:
                 "--epochs", "1", "--comm_round", "2",
                 *(["--fused_update"] if fused else []), *extra]))
 
+        if only_new:
+            zoo_precision_phase(card, dev, flagship, build_experiment, {},
+                                by_path)
+            return finish(rows, by_path, started)
+
         cfg = flagship("salientgrads")
         t0 = time.perf_counter()
         engine, info = build_experiment(cfg, "cuda")
@@ -1174,7 +1721,7 @@ def main(argv: list[str]) -> int:
                               "library_ms": r["library_ms"],
                               "bound_ms": r["bound_ms"],
                               "launches_per_step_or_phase1":
-                                  per_call[r["name"]],
+                                  per_call.get(r["name"]),
                               "card": card}))
 
         by_path["salientgrads"] = launches
@@ -1458,6 +2005,10 @@ def main(argv: list[str]) -> int:
         stream_phase(card, dev, flagship, build_experiment, synthetic,
                      resident, by_path)
 
+        # ---- the model zoo, bf16_mixed, memory, cuDNN's determinism ----
+        zoo_precision_phase(card, dev, flagship, build_experiment, resident,
+                            by_path)
+
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",
                   streaming: bool = False):
@@ -1479,8 +2030,10 @@ def main(argv: list[str]) -> int:
         # cuDNN's default algorithms are not reproducible from run to run:
         # two plain FedProx or Ditto runs here differed by up to 1.6e-2 of
         # the largest weight change (scripts/torch_small_spread.py). With
-        # its deterministic algorithms each path repeats bit for bit, so
+        # its deterministic algorithms (the port's default since they cost
+        # nothing measurable: device.py) each path repeats bit for bit, so
         # the runs below differ by the kernels alone.
+        det0 = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         per_call = PerCallCheck()
         probe = small(True)
@@ -1636,16 +2189,8 @@ def main(argv: list[str]) -> int:
             if not abs(ek - ep) <= 2e-2 * abs(ep):
                 fail(f"{algorithm} small-input personal eval loss {ek} vs "
                      f"plain {ep}")
-        torch.backends.cudnn.deterministic = False
-    for r in rows:
-        r["launches"] = launches[r["name"]]
-        r["launches_by_path"] = {k: v.get(r["name"], 0)
-                                 for k, v in by_path.items()}
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+        torch.backends.cudnn.deterministic = det0
+    return finish(rows, by_path, started)
 
 
 if __name__ == "__main__":

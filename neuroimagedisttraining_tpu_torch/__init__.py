@@ -3,20 +3,23 @@ federated neuroimaging trainer, for NVIDIA Hopper (H100, ``sm_90a``).
 
 The JAX package ``neuroimagedisttraining_tpu`` is the reference; this
 package mirrors its module names so each counterpart is easy to find, and
-imports nothing from it. Ported so far: the flagship SalientGrads
-federation (``--algorithm salientgrads --model 3DCNN``), the dense engines
-(FedAvg, FedProx, Ditto, Local-only) and the sparse personalized ones
-(Sub-FedAvg, DisPFL):
+imports nothing from it. Ported so far: every algorithm the reference
+names (the flagship SalientGrads federation, ``--algorithm salientgrads
+--model 3DCNN``, the dense, sparse personalized, decentralized and secure
+engines) on every 3D model of its zoo, in fp32 or ``bf16_mixed``:
 
-- ``data/``: synthetic ABCD cohort, site partition, padded uint8 client
-  stacks kept on the device;
-- ``models/``: ``AlexNet3D_Dropout`` (NCDHW inside, channels-last flatten
-  so ``fc1`` sees the reference's feature order);
-- ``core/``: BCE loss and AUC, the SGD chain, the local trainer;
-- ``ops/``: the three hand-written CUDA kernels (stem weight gradient,
-  fused SGD tail, count-greater-or-equal for the global top-k) beside
-  their plain PyTorch versions, SNIP scoring, masks (ERK, fire and
-  regrow), magnitude pruning, FLOPs accounting;
+- ``data/``: the HDF5 and synthetic ABCD cohorts, site partition, padded
+  uint8 client stacks kept on the device or streamed to it;
+- ``models/``: the 3D zoo (NCDHW inside, channels-last flatten so a dense
+  layer sees the reference's feature order; flax's compute-dtype and
+  normalisation semantics; remat blocks);
+- ``core/``: BCE and softmax CE, AUC, the SGD and Adam chains, the
+  precision contract, the local trainer;
+- ``ops/``: the hand-written CUDA kernels (stem weight gradient in f32 and
+  bf16, fused SGD tail, count-greater-or-equal for the global top-k)
+  beside their plain PyTorch versions, the tie-splitting max pool, SNIP
+  scoring, masks (ERK, fire and regrow), magnitude pruning, FLOPs
+  accounting;
 - ``engines/``: the engines by the reference's algorithm names;
 - ``faults/``: DisPFL's seeded activity draw;
 - ``weights.py``: carries flax parameter/mask trees across.

@@ -6,7 +6,10 @@
         --dataset abcd_h5 --data_dir cohort.h5 [--streaming \\
         --stream_chunk_clients N] | --dataset synthetic \\
         --synthetic_shape 121 145 121 \\
-        --model 3DCNN [--fused_update] [--client_optimizer sgd|adam] \\
+        --model 3DCNN|3DCNN_gn|3DCNN_deeper|3DCNN_regression|3DCNN_tiny|\\
+                resnet3d [--num_classes K] [--fused_update] \\
+        [--client_optimizer sgd|adam] [--precision fp32|bf16_mixed \\
+        [--loss_scale S]] [--remat auto|none|stem|all] \\
         [--val_fraction F] [--device cuda|cpu] [--log_dir LOG] ...
 
 Flag names are the reference CLI's for the flags the port takes.
@@ -16,8 +19,11 @@ name raises. ``--streaming`` keeps the voxels on the host and feeds the
 card a chunk of clients at a time (``data/stream.py``). It logs
 the rounds and prints, last, one JSON line with what the engine returns
 except its model states (``mask_density`` for SalientGrads only).
-``NIDT_FAST_STEM=1`` arms the stem weight-gradient kernel. FedFomo needs
-``--val_fraction > 0``; ``--fused_update`` is for the SGD optimizer only.
+``NIDT_FAST_STEM=1`` arms the stem weight-gradient kernel (float32 or
+bfloat16, by ``--precision``), ``NIDT_FAST_POOL=1`` the tie-splitting max
+pool. FedFomo needs ``--val_fraction > 0``; ``--fused_update`` is for the
+SGD optimizer only; ``--loss_scale`` other than 1 needs ``--precision
+bf16_mixed``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 from neuroimagedisttraining_tpu_torch.config import (
     DataConfig, ExperimentConfig, FedConfig, OptimConfig, SparsityConfig,
 )
+from neuroimagedisttraining_tpu_torch.core.optim import validate_precision
 from neuroimagedisttraining_tpu_torch.engines import ENGINES, create_engine
 
 
@@ -39,6 +46,8 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--algorithm", type=str, default="fedavg",
                         choices=sorted(ENGINES))
     parser.add_argument("--model", type=str, default="3DCNN")
+    parser.add_argument("--num_classes", type=int, default=1,
+                        help="1: one logit and BCE; more: softmax CE")
     parser.add_argument("--dataset", type=str, default="ABCD",
                         help="ABCD | abcd_h5 | synthetic")
     parser.add_argument("--data_dir", type=str, default="./data",
@@ -97,6 +106,23 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         help="TurboAggregate's share stage: on the device "
                              "(default) or in numpy on the host")
     parser.add_argument("--fused_update", action="store_true")
+    parser.add_argument("--precision", type=str, default="fp32",
+                        choices=("fp32", "bf16_mixed"),
+                        help="the training step's compute dtype: fp32, or "
+                             "bf16_mixed (bfloat16 convolutions, dense "
+                             "layers and activations; float32 master "
+                             "weights, optimizer state, loss and every "
+                             "engine plane)")
+    parser.add_argument("--loss_scale", type=float, default=1.0,
+                        help="fixed loss scale under bf16_mixed (the loss "
+                             "times S before the gradient, the float32 "
+                             "gradients over S after); 1 = none")
+    parser.add_argument("--remat", type=str, default="auto",
+                        choices=("auto", "none", "stem", "all"),
+                        help="the AlexNet family's rematerialisation: "
+                             "blocks f0-f1 (stem) or all recompute their "
+                             "activations in the backward pass; auto arms "
+                             "stem past the card's measured batch cutoff")
     parser.add_argument("--synthetic_num_subjects", type=int, default=256)
     parser.add_argument("--synthetic_shape", type=int, nargs=3,
                         default=[121, 145, 121])
@@ -121,9 +147,9 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 def config_from_args(args) -> ExperimentConfig:
     return ExperimentConfig(
-        model=args.model, num_classes=1, algorithm=args.algorithm,
-        seed=args.seed, log_dir=args.log_dir,
-        stream_chunk_clients=args.stream_chunk_clients,
+        model=args.model, num_classes=args.num_classes,
+        algorithm=args.algorithm, seed=args.seed, log_dir=args.log_dir,
+        stream_chunk_clients=args.stream_chunk_clients, remat=args.remat,
         data=DataConfig(dataset=args.dataset.lower(), data_dir=args.data_dir,
                         synthetic_num_subjects=args.synthetic_num_subjects,
                         synthetic_shape=tuple(args.synthetic_shape),
@@ -135,7 +161,9 @@ def config_from_args(args) -> ExperimentConfig:
                           momentum=args.momentum, batch_size=args.batch_size,
                           epochs=args.epochs, grad_clip=args.grad_clip,
                           batch_order=args.batch_order,
-                          fused_update=args.fused_update),
+                          fused_update=args.fused_update,
+                          precision=args.precision,
+                          loss_scale=args.loss_scale),
         fed=FedConfig(client_num_in_total=args.client_num_in_total,
                       frac=args.frac, comm_round=args.comm_round,
                       frequency_of_the_test=args.frequency_of_the_test,
@@ -166,9 +194,13 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
     synthetic cohort) -> site federation (with a validation split where
     ``val_fraction > 0``), resident on the device or, under
     ``streaming``, a ``StreamingFederation`` over the host's copy -> model
+    (in the precision's compute dtype, with the resolved remat policy)
     -> trainer -> engine. Returns ``(engine, partition_info)``;
     ``partition_info["file"]`` is the HDF5 file a streamed run reads,
     for the caller to close (None otherwise)."""
+    from neuroimagedisttraining_tpu_torch.core.optim import (
+        compute_dtype, resolve_remat,
+    )
     from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
     from neuroimagedisttraining_tpu_torch.data.federate import (
         build_federated_data, federation_maps,
@@ -211,9 +243,13 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
             cohort["X"], cohort["y"], train_map, test_map, dev,
             val_map=val_map), None
     shape = tuple(cohort["X"].shape[1:])
-    model = create_model(cfg.model, shape, cfg.num_classes)
+    o = cfg.optim
+    model = create_model(cfg.model, shape, cfg.num_classes,
+                         dtype=compute_dtype(o.precision),
+                         remat=resolve_remat(cfg.remat, o.precision,
+                                             o.batch_size))
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    trainer = LocalTrainer(model, cfg.optim, dev, gen)
+    trainer = LocalTrainer(model, o, dev, gen, num_classes=cfg.num_classes)
     return create_engine(cfg.algorithm, cfg, fed, trainer,
                          stream=stream), info
 
@@ -222,18 +258,16 @@ def main(argv: list[str] | None = None) -> int:
     parser = add_args(argparse.ArgumentParser(
         prog="neuroimagedisttraining_tpu_torch"))
     args = parser.parse_args(argv)
-    if args.fused_update and args.client_optimizer != "sgd":
-        parser.error(
-            "--fused_update fuses the SGD clip/momentum/update tail "
-            f"(ops/fused_update.py); --client_optimizer "
-            f"{args.client_optimizer} has no fused kernel and would "
-            "silently train un-fused")
+    cfg = config_from_args(args)
+    try:  # the precision contract (--loss_scale, Adam's --fused_update)
+        validate_precision(cfg.optim)
+    except ValueError as e:
+        parser.error(str(e))
     if args.algorithm == "fedfomo" and args.val_fraction <= 0:
         parser.error("--algorithm fedfomo needs a validation split: give "
                      "--val_fraction > 0")
     logging.basicConfig(level=logging.INFO, format="%(message)s",
                         stream=sys.stdout)
-    cfg = config_from_args(args)
     engine, info = build_experiment(cfg, args.device,
                                     streaming=args.streaming)
     logging.info("partition: %s", json.dumps(info["train_counts"]))

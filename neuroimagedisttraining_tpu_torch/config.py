@@ -32,6 +32,12 @@ class OptimConfig:
     # the fused CUDA step (ops/fused_update.py: the global norm, then one
     # pass over every leaf) instead of the stage-by-stage chain
     fused_update: bool = False
+    # the training step's compute dtype: "fp32" or "bf16_mixed" (bfloat16
+    # convolutions, dense layers and activations; float32 master weights,
+    # optimizer state, loss and everything outside the step), and the fixed
+    # loss scale (1 = none; another value only under bf16_mixed)
+    precision: str = "fp32"
+    loss_scale: float = 1.0
 
 
 @dataclass(frozen=True)
@@ -116,6 +122,7 @@ class ExperimentConfig:
     """Top-level experiment config."""
 
     model: str = "3DCNN"
+    # 1: one logit and BCE (ABCD); more: softmax cross-entropy
     num_classes: int = 1
     algorithm: str = "fedavg"
     seed: int = 1024
@@ -124,6 +131,9 @@ class ExperimentConfig:
     log_dir: str | None = None
     # clients a streamed chunk holds (--streaming); 0 picks 4
     stream_chunk_clients: int = 0
+    # the AlexNet family's rematerialisation: auto | none | stem | all
+    # (core/optim.py resolve_remat)
+    remat: str = "auto"
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     fed: FedConfig = field(default_factory=FedConfig)

@@ -1,6 +1,7 @@
-"""Loss and evaluation metrics of the ABCD binary task: BCE-with-logits
-(weighted mean over valid rows), hard predictions at logit 0, and the
-exact pairwise ROC-AUC."""
+"""Losses and evaluation metrics: BCE-with-logits for the ABCD binary task
+(one logit) and integer-label softmax cross-entropy for ``num_classes > 1``
+(each a weighted mean over valid rows), hard predictions (logit > 0, or the
+argmax), and the exact pairwise ROC-AUC."""
 
 from __future__ import annotations
 
@@ -21,9 +22,30 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1e-9)
 
 
-def predictions(logits: torch.Tensor) -> torch.Tensor:
-    """Hard binary predictions: sigmoid > 0.5, i.e. logit > 0."""
-    return (logits.reshape(-1) > 0.0).to(torch.int32)
+def softmax_ce(logits: torch.Tensor, labels: torch.Tensor,
+               weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean integer-label cross-entropy of ``[B, K]`` logits
+    (``-log_softmax(logits)[label]``); with ``weights`` the weighted mean
+    as :func:`bce_with_logits` takes it."""
+    per = -torch.gather(F.log_softmax(logits, dim=-1), -1,
+                        labels.reshape(-1, 1).to(torch.int64))[:, 0]
+    if weights is None:
+        return per.mean()
+    w = weights.reshape(-1).to(torch.float32)
+    return torch.sum(per * w) / torch.clamp(torch.sum(w), min=1e-9)
+
+
+def make_loss(num_classes: int):
+    """One logit: BCE-with-logits (ABCD); more: softmax cross-entropy."""
+    return bce_with_logits if num_classes == 1 else softmax_ce
+
+
+def predictions(logits: torch.Tensor, num_classes: int = 1) -> torch.Tensor:
+    """Hard predictions: sigmoid > 0.5 (logit > 0) for one logit, else the
+    argmax (the first of tied maxima)."""
+    if num_classes == 1:
+        return (logits.reshape(-1) > 0.0).to(torch.int32)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def binary_auc(scores: torch.Tensor, labels: torch.Tensor,

@@ -20,9 +20,21 @@ refused, as the reference refuses it.
 Both update in place. The optimizer state (momentum buffers, Adam's
 moments and count) starts at zero every round (the reference builds a
 fresh optimizer per round).
+
+The precision contract, as the reference's: ``OptimConfig.precision``
+picks the compute dtype of a training step only. Under ``bf16_mixed`` the
+model's convolutions, dense layers and activations run in bfloat16, while
+the parameters (master weights), the optimizer state, the loss, the
+gradients the optimizer sees, the BatchNorm running stats and everything
+outside the step (FedAvg, every engine's planes) stay float32. A fixed
+``loss_scale`` multiplies the float32 loss before the gradient and
+divides the float32 gradients after it; it is pinned to 1 (no operation
+at all) under fp32, so the fp32 path is unchanged.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -33,6 +45,72 @@ from neuroimagedisttraining_tpu_torch.ops.fused_update import (
 )
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+#: legal ``OptimConfig.precision`` values
+PRECISIONS = ("fp32", "bf16_mixed")
+
+#: ``--remat auto``: the samples in flight above which stem remat arms, by
+#: precision. Clients train one after another, so the samples in flight
+#: are one client's batch. The card's own cutoff (``chip_smoke.py``'s
+#: memory phase on an H100 80GB HBM3 at 700 W, PERF.md): the flagship's
+#: training step peaks at 0.325 GB a sample in fp32 and 0.321 GB in
+#: bf16_mixed above 0.63 GB allocated, so a batch of up to 233 (236) stays
+#: within 90% of the card's 85.0 GB without remat. Stem remat does not
+#: lower that peak (the stem block's own backward sets it) and costs a
+#: third more time a step, so below the cutoff it is never armed.
+REMAT_AUTO_SAMPLES = {"fp32": 233, "bf16_mixed": 236}
+
+
+def validate_precision_name(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"unknown precision {precision!r}; choose one of {PRECISIONS}")
+
+
+def compute_dtype(precision: str) -> torch.dtype:
+    """The models' compute dtype under a precision policy (the parameters
+    stay float32 either way)."""
+    validate_precision_name(precision)
+    return torch.bfloat16 if precision == "bf16_mixed" else torch.float32
+
+
+def resolve_remat(remat: str, precision: str, batch_size: int):
+    """A ``--remat`` choice as the models take it: ``none`` False, ``stem``
+    ``"stem"``, ``all`` True; ``auto`` stem remat once a batch passes
+    :data:`REMAT_AUTO_SAMPLES` of its precision, else none."""
+    validate_precision_name(precision)
+    if remat == "auto":
+        return (False if batch_size <= REMAT_AUTO_SAMPLES[precision]
+                else "stem")
+    choices = {"none": False, "stem": "stem", "all": True}
+    if remat not in choices:
+        raise ValueError(f"unknown remat {remat!r}; choose auto, "
+                         f"{', '.join(choices)}")
+    return choices[remat]
+
+
+def validate_precision(cfg: OptimConfig) -> None:
+    """The precision contract, checked where a trainer is built: a known
+    ``precision``; ``loss_scale`` positive and finite (it divides the
+    gradients); a scale other than 1 only under ``bf16_mixed`` (under fp32
+    the pair would only perturb rounding); ``fused_update`` only for the
+    SGD chain."""
+    validate_precision_name(cfg.precision)
+    scale = float(cfg.loss_scale)
+    if not (scale > 0 and math.isfinite(scale)):
+        raise ValueError(f"loss_scale must be a positive finite constant "
+                         f"(got {cfg.loss_scale!r})")
+    if scale != 1.0 and cfg.precision != "bf16_mixed":
+        raise ValueError(
+            f"loss_scale={cfg.loss_scale} needs precision=bf16_mixed: "
+            "under fp32 the scale/unscale pair would only perturb "
+            "rounding and break the bitwise-f32 contract")
+    if cfg.fused_update and cfg.client_optimizer != "sgd":
+        raise ValueError(
+            "--fused_update fuses the SGD clip/momentum/update tail "
+            f"(ops/fused_update.py); client_optimizer="
+            f"{cfg.client_optimizer!r} has no fused kernel and would "
+            "silently train un-fused")
 
 
 class AdamState:
@@ -88,12 +166,7 @@ class LocalOptimizer:
         if cfg.client_optimizer not in ("sgd", "adam"):
             raise ValueError(f"unknown client_optimizer "
                              f"{cfg.client_optimizer!r}")
-        if cfg.fused_update and cfg.client_optimizer != "sgd":
-            raise ValueError(
-                "--fused_update fuses the SGD clip/momentum/update tail "
-                f"(ops/fused_update.py); client_optimizer="
-                f"{cfg.client_optimizer!r} has no fused kernel and would "
-                "silently train un-fused")
+        validate_precision(cfg)  # refuses fused_update with Adam
         self.cfg = cfg
         self.adam = cfg.client_optimizer == "adam"
 

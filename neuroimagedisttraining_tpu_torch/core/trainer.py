@@ -19,7 +19,15 @@ serves every client.
 - ``eval_grad``: the dense gradient of one batch in evaluation mode
   (DisPFL's gradient probe).
 - ``evaluate``: chunked eval returning correct / loss sum / total and the
-  raw logits for AUC.
+  scores for AUC (the logit; with several classes the last class's
+  log-probability).
+
+The loss is BCE-with-logits for one logit and softmax cross-entropy for
+``num_classes > 1``, on the model's primary logits (``primary_logits``).
+Under ``precision="bf16_mixed"`` the model computes in bfloat16 and the
+loss, the gradients and the state stay float32; a ``loss_scale`` other
+than 1 multiplies the loss before the gradient and divides the gradients
+(and the returned loss) after it.
 
 Randomness (epoch permutations, replacement batch rows, dropout keep-masks)
 comes from an explicit ``torch.Generator`` on the trainer's device;
@@ -36,11 +44,12 @@ from torch.func import functional_call
 
 from neuroimagedisttraining_tpu_torch.config import OptimConfig
 from neuroimagedisttraining_tpu_torch.core.losses import (
-    bce_with_logits, predictions,
+    make_loss, predictions,
 )
 from neuroimagedisttraining_tpu_torch.core.optim import (
-    AdamState, LocalOptimizer,
+    AdamState, LocalOptimizer, validate_precision,
 )
+from neuroimagedisttraining_tpu_torch.models import primary_logits
 
 State = dict[str, torch.Tensor]
 
@@ -69,9 +78,14 @@ class LocalTrainer:
 
     def __init__(self, model: torch.nn.Module, optim: OptimConfig,
                  device: torch.device, generator: torch.Generator,
-                 dropout_masks: tuple[torch.Tensor, torch.Tensor] | None = None):
+                 dropout_masks: tuple[torch.Tensor, ...] | None = None,
+                 num_classes: int = 1):
+        validate_precision(optim)
         self.model = model.to(device)
         self.optim_cfg = optim
+        self.num_classes = num_classes
+        self.loss = make_loss(num_classes)
+        self._loss_scale = float(optim.loss_scale)
         self.device = device
         self.generator = generator
         #: fixed dropout keep-masks for every training forward (tests);
@@ -86,13 +100,25 @@ class LocalTrainer:
 
     def apply(self, params: State, bstats: State, x: torch.Tensor,
               train: bool) -> torch.Tensor:
-        """Logits of prepared input ``x``; in training mode the BatchNorm
-        running stats in ``bstats`` are updated in place."""
+        """The primary logits of prepared input ``x``; in training mode the
+        BatchNorm running stats in ``bstats`` are updated in place."""
         kw = {"train": train}
         if train:
             kw["dropout_masks"] = self.dropout_masks
             kw["generator"] = self.generator
-        return functional_call(self.model, (params, bstats), (x,), kw)
+        return primary_logits(
+            functional_call(self.model, (params, bstats), (x,), kw))
+
+    def _grads(self, loss: torch.Tensor, leaves: State):
+        """``(loss, grads)`` of a float32 loss, through the loss scale
+        (nothing runs at scale 1)."""
+        s = self._loss_scale
+        if s == 1.0:
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            return loss.detach(), dict(zip(leaves, grads))
+        grads = torch.autograd.grad(loss * s, list(leaves.values()))
+        return ((loss * s).detach() / s,
+                {k: g / s for k, g in zip(leaves, grads)})
 
     def loss_and_grad(self, params: State, bstats: State, x, y,
                       weights: torch.Tensor | None = None):
@@ -101,9 +127,8 @@ class LocalTrainer:
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         new_b = {k: v.clone() for k, v in bstats.items()}
         logits = self.apply(leaves, new_b, self._prep(x), train=True)
-        loss = bce_with_logits(logits, y, weights)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves, grads)), new_b
+        loss, grads = self._grads(self.loss(logits, y, weights), leaves)
+        return loss, grads, new_b
 
     def init_momentum(self, params: State):
         """The zero optimizer state for ``params`` by leaf name, to pass to
@@ -196,15 +221,14 @@ class LocalTrainer:
         (``ops/stemconv.py`` under ``NIDT_FAST_STEM``)."""
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         logits = self.apply(leaves, bstats, self._prep(x), train=False)
-        grads = torch.autograd.grad(bce_with_logits(logits, y),
-                                    list(leaves.values()))
-        return dict(zip(leaves, grads))
+        return self._grads(self.loss(logits, y), leaves)[1]
 
     @torch.no_grad()
     def evaluate(self, params: State, bstats: State, X: torch.Tensor,
                  y: torch.Tensor, valid: torch.Tensor, batch_size: int = 32):
         """Chunked eval: ``test_correct``, ``test_loss`` (sum),
-        ``test_total`` and the raw ``scores`` (logits) for AUC."""
+        ``test_total`` and the ``scores`` for AUC (the logit; with several
+        classes the last class's log-probability)."""
         correct = torch.zeros((), device=self.device)
         loss = torch.zeros((), device=self.device)
         scores = []
@@ -214,8 +238,11 @@ class LocalTrainer:
                           v_all[i:i + batch_size])
             logits = self.apply(params, bstats, self._prep(xb), train=False)
             correct = correct + torch.sum(
-                (predictions(logits) == yb.to(torch.int32)) * vb)
-            loss = loss + bce_with_logits(logits, yb, vb) * torch.sum(vb)
-            scores.append(logits.reshape(-1))
+                (predictions(logits, self.num_classes)
+                 == yb.to(torch.int32)) * vb)
+            loss = loss + self.loss(logits, yb, vb) * torch.sum(vb)
+            scores.append(logits.reshape(xb.shape[0], -1)[:, 0]
+                          if self.num_classes == 1
+                          else torch.log_softmax(logits, -1)[:, -1])
         return {"test_correct": correct, "test_loss": loss,
                 "test_total": torch.sum(v_all), "scores": torch.cat(scores)}

@@ -12,6 +12,15 @@ while the port runs with TF32 off; dx is the
 transposed convolution, computed only when the input needs a gradient
 (training data never does).
 
+Under ``bf16_mixed`` x, g and the weight are bfloat16. dW then runs in
+``csrc/stem_dw_bf16.cu``: one bf16 product on the tensor cores accumulated
+in float32 (a bf16 x bf16 product is exact in f32), rounded to the bf16
+weight by the wrapper, as the reference's ``_bwd`` casts its f32-accumulated
+dW; autograd carries it to the float32 master weight through the forward's
+cast. The plain version takes the same product in float32 and rounds it
+the same way. On a CUDA tensor a bf16 call launches the bf16 kernel or
+raises: it never falls back to the plain version or to float32.
+
 Shapes at the public function :func:`stem_dw` are the reference's:
 x ``[B, D, H, W, 1]`` (for one channel, NDHWC and NCDHW are the same
 memory), g ``[B, OD, OH, OW, C]``, dW ``[5, 5, 5, 1, C]`` (DHWIO). The
@@ -36,20 +45,28 @@ S = 2       # stride
 C_OUT = 64  # the kernel's output-channel width
 
 LAUNCHES = _cuda.counter("stem_dw")
+LAUNCHES_BF16 = _cuda.counter("stem_dw_bf16")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _SIG = {"stem_dw_num_parts": [ctypes.POINTER(ctypes.c_int)],
-        "stem_dw_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P]}
+        "stem_dw_launch": _ARGS}
+_SIG_BF16 = {"stem_dw_bf16_num_parts": [ctypes.POINTER(ctypes.c_int)],
+             "stem_dw_bf16_launch": _ARGS}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def stem_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def stem_dw_plain(x: torch.Tensor, g: torch.Tensor,
+                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain version: one [R] x [R, C] product per tap over the stride-2
-    view of x that the tap reads."""
+    view of x that the tap reads, in float32 or wider (bf16 inputs are
+    exact in float32), returned in ``out_dtype`` (default: x's dtype)."""
+    out_dtype = out_dtype or x.dtype
+    acc = torch.promote_types(x.dtype, torch.float32)
     b, d, h, w = x.shape[:4]
     od, oh, ow, c = g.shape[1:]
-    xb = x.reshape(b, d, h, w)
-    g2 = g.reshape(-1, c)
+    xb = x.reshape(b, d, h, w).to(acc)
+    g2 = g.reshape(-1, c).to(acc)
     rows = []
     for kd in range(K):
         for kh in range(K):
@@ -58,28 +75,32 @@ def stem_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                         kh:kh + S * (oh - 1) + 1:S,
                         kw:kw + S * (ow - 1) + 1:S]
                 rows.append(sl.reshape(1, -1) @ g2)
-    return torch.cat(rows).reshape(K, K, K, 1, c)
+    return torch.cat(rows).reshape(K, K, K, 1, c).to(out_dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def _num_parts(device_index: int) -> int:
-    lib = _cuda.load("stem_dw", _SIG)
+def _num_parts(name: str, device_index: int) -> int:
+    lib = _cuda.load(name, _SIG if name == "stem_dw" else _SIG_BF16)
     n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        _cuda.check_launch(lib, lib.stem_dw_num_parts(ctypes.byref(n)),
-                           "stem_dw_num_parts")
+        fn = getattr(lib, f"{name}_num_parts")
+        _cuda.check_launch(lib, fn(ctypes.byref(n)), f"{name}_num_parts")
     return n.value
 
 
-def stem_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def stem_dw(x: torch.Tensor, g: torch.Tensor,
+            out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """dW ``[5, 5, 5, 1, C]`` of ``conv3d(x, W, stride 2, VALID)`` for the
-    output gradient ``g``."""
+    output gradient ``g``, both float32 or both bfloat16, in ``out_dtype``
+    (default: x's dtype; bf16 dW is the f32 sum rounded once)."""
+    out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu" and g.device.type == "cpu":
-        return stem_dw_plain(x, g)
+        return stem_dw_plain(x, g, out_dtype)
     if x.device.type != "cuda" or g.device.type != "cuda":
         raise ValueError(f"stem_dw: tensors on {x.device} and {g.device}")
-    if x.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError("stem_dw kernel takes float32 x and g")
+    if x.dtype != g.dtype or x.dtype not in _DTYPES:
+        raise TypeError(f"stem_dw kernels take float32 or bfloat16 x and g "
+                        f"of one dtype, got {x.dtype} and {g.dtype}")
     if x.dim() != 5 or x.shape[-1] != 1 or not x.is_contiguous():
         raise ValueError(f"stem_dw: x must be contiguous [B,D,H,W,1], got "
                          f"{tuple(x.shape)} strides {x.stride()}")
@@ -95,21 +116,27 @@ def stem_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError("stem_dw: x and g must be 16-byte aligned (the "
                          "kernel copies 16-byte chunks)")
     _cuda.check_device(x, g)
-    lib = _cuda.load("stem_dw", _SIG)
+    bf16 = x.dtype == torch.bfloat16
+    name = "stem_dw_bf16" if bf16 else "stem_dw"
+    lib = _cuda.load(name, _SIG_BF16 if bf16 else _SIG)
     dev = x.device
-    nparts = _num_parts(dev.index if dev.index is not None
+    nparts = _num_parts(name, dev.index if dev.index is not None
                         else torch.cuda.current_device())
-    # nparts partials [125, 64], then one int flag per part
-    part = torch.empty(nparts * (K ** 3 * C_OUT + 1), dtype=torch.float32,
-                       device=dev)
+    # nparts partials [125, 64] (f32: then one int flag per part)
+    part = torch.empty(nparts * (K ** 3 * C_OUT + (0 if bf16 else 1)),
+                       dtype=torch.float32, device=dev)
     dw = torch.empty((K ** 3, C_OUT), dtype=torch.float32, device=dev)
+    launch = getattr(lib, f"{name}_launch")
     with torch.cuda.device(dev):
-        err = lib.stem_dw_launch(x.data_ptr(), g.data_ptr(), part.data_ptr(),
-                                 dw.data_ptr(), nparts, b, d, h, w, od, oh,
-                                 ow, _cuda.stream_ptr(dev))
-    _cuda.check_launch(lib, err, "stem_dw_launch")
-    LAUNCHES.add(3)  # the x low-part pass, the partial products, the reduce
-    return dw.reshape(K, K, K, 1, C_OUT)
+        err = launch(x.data_ptr(), g.data_ptr(), part.data_ptr(),
+                     dw.data_ptr(), nparts, b, d, h, w, od, oh, ow,
+                     _cuda.stream_ptr(dev))
+    _cuda.check_launch(lib, err, f"{name}_launch")
+    if bf16:
+        LAUNCHES_BF16.add(2)  # the partial products, the reduce
+    else:  # the x low-part pass, the partial products, the reduce
+        LAUNCHES.add(3)
+    return dw.reshape(K, K, K, 1, C_OUT).to(out_dtype)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -119,7 +146,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 class _StemConv3d(torch.autograd.Function):
-    """``conv3d(x, w, stride 2)``; backward dW through :func:`stem_dw`."""
+    """``conv3d(x, w, stride 2)``; backward dW through :func:`stem_dw`, in
+    the dtype of x and w (float32, or bf16 under ``bf16_mixed``)."""
 
     @staticmethod
     def forward(ctx, x, w):

@@ -7,12 +7,15 @@ flax ``params`` / ``batch_stats`` are nested dicts of numpy arrays (e.g.
 
 - conv ``kernel`` DHWIO -> ``weight`` OIDHW (``permute(4, 3, 0, 1, 2)``);
 - dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]``;
-- BatchNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
+- BatchNorm and GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
 - ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
 
-A mask tree is congruent with ``params`` and converts the same way. The
-port flattens channels-last before ``fc1``, so the dense kernels need no
-row permutation.
+Every model of the zoo carries over leaf by leaf, both ways: the port's
+module names are flax's (ResNet3D's nested ``layer2_0/ds_conv``), a
+bias-free conv has no ``bias`` leaf on either side, and the GroupNorm
+model's empty ``batch_stats`` is an empty dict. A mask tree is congruent
+with ``params`` and converts the same way. The port flattens channels-last
+before a dense layer, so the dense kernels need no row permutation.
 """
 
 from __future__ import annotations

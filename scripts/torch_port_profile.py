@@ -2,10 +2,12 @@
 
     python3 scripts/torch_port_profile.py
         [--algorithm salientgrads|fedavg|subavg|dispfl|dpsgd|fedfomo|
-                     turboaggregate] [--out DIR]
+                     turboaggregate] [--precision fp32|bf16_mixed]
+        [--model 3DCNN|3dcnn_gn|3dcnn_deeper|...] [--out DIR]
 
 Builds the flagship run as ``chip_smoke.py`` does (48 synthetic subjects
-over 4 sites at 121x145x121, ``3DCNN``, batch 16, ``--fused_update``,
+over 4 sites at 121x145x121, ``3DCNN`` or ``--model``, batch 16, in
+``--precision`` (fp32 by default), ``--fused_update``,
 ``NIDT_FAST_STEM=1``; every engine but SalientGrads and FedAvg with
 ``chip_smoke.py``'s flags). SalientGrads (the default): runs phase 1 and
 one round to warm up, then traces phase 1 and one phase-2 round. FedAvg
@@ -37,6 +39,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 FAMILIES = (
+    ("port:stem_dw_bf16", ("stem_dw_bf16",)),
     ("port:stem_dw", ("stem_dw",)),
     ("port:fused_sgd", ("fused_sgd",)),
     ("port:count_ge", ("count_ge",)),
@@ -86,6 +89,9 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--algorithm", default="salientgrads",
                     choices=["salientgrads", "fedavg", "subavg", "dispfl",
                              "dpsgd", "fedfomo", "turboaggregate"])
+    ap.add_argument("--precision", default="fp32",
+                    choices=["fp32", "bf16_mixed"])
+    ap.add_argument("--model", default="3DCNN")
     ap.add_argument("--out", default=None,
                     help="directory for the Chrome traces (none if unset)")
     args = ap.parse_args(argv)
@@ -101,9 +107,10 @@ def main(argv: list[str]) -> int:
     from chip_smoke import ENGINE_ARGS
     from neuroimagedisttraining_tpu_torch.ops.masks import ones_mask
 
-    _cuda.build(["stem_dw", "fused_sgd", "count_ge"])
+    _cuda.build(["stem_dw", "stem_dw_bf16", "fused_sgd", "count_ge"])
     cfg = config_from_args(add_args(argparse.ArgumentParser()).parse_args([
         "--algorithm", args.algorithm, "--dataset", "synthetic",
+        "--model", args.model, "--precision", args.precision,
         "--synthetic_shape", "121", "145", "121",
         "--synthetic_num_subjects", "48", "--client_num_in_total", "4",
         "--batch_size", "16", "--itersnip_iteration", "1", "--epochs", "1",
@@ -169,6 +176,7 @@ def main(argv: list[str]) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(card)
     result = {"card": card, "algorithm": args.algorithm,
+              "model": args.model, "precision": args.precision,
               "partition": info["train_counts"]}
     for name, fn in windows.items():
         with torch.profiler.profile(activities=acts) as prof:

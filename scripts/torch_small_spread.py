@@ -94,6 +94,8 @@ def main() -> int:
             argv.append("--fused_update")
         eng = build_experiment(config_from_args(
             add_args(argparse.ArgumentParser()).parse_args(argv)), "cuda")[0]
+        # the mode under test (building an engine sets the port's default)
+        torch.backends.cudnn.deterministic = mode == "deterministic"
         init_p, _ = eng.init_global_state()
         init_p = {k: v.detach().clone() for k, v in init_p.items()}
         res = eng.train()
@@ -106,7 +108,6 @@ def main() -> int:
     report = {"card": card, "repeats": args.repeats, "engines": {}}
     for algorithm in args.engines.split(","):
         for mode in ("default", "deterministic"):
-            torch.backends.cudnn.deterministic = mode == "deterministic"
             t0 = time.perf_counter()
             plain, kern = [], []
             per_call.reset()
@@ -153,7 +154,7 @@ def main() -> int:
                 k: v for k, v in entry.items()
                 if k.endswith("_vs_plain") or k.endswith("vs_kernels")
                 or k in ("per_call", "seconds")}}))
-    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.deterministic = True
     print(json.dumps(report))
     return 0
 

@@ -67,10 +67,13 @@ def test_port_imports_without_jax_or_cuda():
     "engines/fedfomo.py", "engines/turboaggregate.py", "ops/mpc.py",
     "ops/mpc_device.py", "core/optim.py", "data/federate.py",
     "data/hdf5.py", "data/stream.py", "data/synthetic.py",
-    "utils/native.py", "preprocess.py", "__main__.py"])
+    "utils/native.py", "preprocess.py", "__main__.py", "models/neuro3d.py",
+    "models/__init__.py", "ops/pooling.py", "ops/stemconv.py",
+    "core/losses.py", "core/trainer.py", "device.py", "weights.py"])
 def test_engine_slice_modules_are_checked(module):
-    """The engines' and the data planes' modules are among the sources
-    checked above (none imports JAX or the reference package)."""
+    """The engines', the data planes' and the model zoo's and precision
+    contract's modules are among the sources checked above (none imports
+    JAX or the reference package)."""
     path = PORT / module
     assert path in SOURCES
     assert not [m for m in _imported_modules(path)

@@ -50,6 +50,27 @@ def dropout_masks(batch: int, flat: int, seed: int = 0):
             (torch.from_numpy(m0), torch.from_numpy(m1)))
 
 
+def model_dropout_masks(model: str, shape, batch: int, seed: int = 0):
+    """Keep-masks for the dropouts of a model of the zoo at ``batch`` rows,
+    as :func:`dropout_masks` gives them: the AlexNet family's two (its
+    flatten and 64 units), Tiny3DCNN's one (its flatten), ResNet3D's
+    none."""
+    from neuroimagedisttraining_tpu_torch.models import (
+        flat_features, tiny_flat_features,
+    )
+
+    model = model.lower()
+    if model in ("resnet3d", "resnet_l3", "resnet3d_l3"):
+        return {}, ()
+    if model in ("3dcnn_tiny", "tiny3dcnn"):
+        rng = np.random.default_rng(seed)
+        m0 = rng.random((batch, tiny_flat_features(tuple(shape)))) < 0.5
+        return {"Dropout_0": m0}, (torch.from_numpy(m0),)
+    width = 256 if model in ("3dcnn_deeper",
+                             "alexnet3d_deeper_dropout") else 128
+    return dropout_masks(batch, flat_features(tuple(shape), width), seed)
+
+
 def four_client_federation():
     """16 synthetic subjects at 69^3 over 4 clients of 2-3 training rows
     and 1-2 test rows each: ``(X, y, train_map, test_map)``."""
@@ -144,18 +165,23 @@ def reference_initial_masks(jeng, jparams) -> list:
 
 def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
                     shape=(69, 69, 69), seed: int = 0,
-                    sparsity: dict | None = None, val_map: dict | None = None):
+                    sparsity: dict | None = None, val_map: dict | None = None,
+                    model: str = "3DCNN"):
     """The reference's engine ``name`` and the port's on the same federation,
-    initial weights, epoch permutations and dropout keep-masks (DisPFL: its
-    initial masks and gradient-probe rows too), each run through
-    ``train()``, both logging under ``tmp``. ``data`` is ``(X, y,
-    train_map, test_map)``; ``val_map`` a validation split of the same rows
-    (FedFomo's), where given. Returns ``(reference result, port result,
-    reference engine, port engine, port initial state)``; the port engine's
-    ``rerun()`` runs it again with the same inputs."""
+    model (``model``, in ``optim``'s precision), initial weights, epoch
+    permutations and dropout keep-masks (DisPFL: its initial masks and
+    gradient-probe rows too), each run through ``train()``, both logging
+    under ``tmp``. ``data`` is ``(X, y, train_map, test_map)``; ``val_map``
+    a validation split of the same rows (FedFomo's), where given. Returns
+    ``(reference result, port result, reference engine, port engine, port
+    initial state)``; the port engine's ``rerun()`` runs it again with the
+    same inputs."""
     from neuroimagedisttraining_tpu.config import (
         DataConfig as JData, ExperimentConfig as JExp, FedConfig as JFed,
         OptimConfig as JOptim, SparsityConfig as JSparsity,
+    )
+    from neuroimagedisttraining_tpu.core.optim import (
+        compute_dtype as jcompute_dtype,
     )
     from neuroimagedisttraining_tpu.core.trainer import (
         LocalTrainer as JTrainer,
@@ -169,6 +195,7 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
     from neuroimagedisttraining_tpu_torch.config import (
         DataConfig, ExperimentConfig, FedConfig, OptimConfig, SparsityConfig,
     )
+    from neuroimagedisttraining_tpu_torch.core.optim import compute_dtype
     from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
     from neuroimagedisttraining_tpu_torch.data.federate import (
         build_federated_data,
@@ -179,25 +206,27 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
 
     X, y, train_map, test_map = data
     sparsity = sparsity or {}
-    jcfg = JExp(model="3DCNN", num_classes=1, algorithm=name,
+    precision = optim.get("precision", "fp32")
+    jcfg = JExp(model=model, num_classes=1, algorithm=name,
                 data=JData(dataset="synthetic", partition_method="site"),
                 optim=JOptim(**optim), fed=JFed(**fed),
                 sparsity=JSparsity(**sparsity), log_dir=str(tmp / "ref"))
     jfed = jbuild(X, y, train_map, test_map, val_map=val_map)
-    jtrainer = JTrainer(jmodel("3dcnn", num_classes=1, remat=False),
+    jtrainer = JTrainer(jmodel(model, num_classes=1, remat=False,
+                               dtype=jcompute_dtype(precision)),
                         jcfg.optim, num_classes=1)
     jeng = jcreate(name, jcfg, jfed, jtrainer, mesh=None,
                    logger=ExperimentLogger(str(tmp / "ref"), "synthetic",
                                            jcfg.identity(), console=False))
     gs = jeng.init_global_state()
     nmax = int(jfed.X_train.shape[1])
-    flat = 128  # 69^3 leaves one position after the three pools
-    jmasks, pmasks = dropout_masks(optim["batch_size"], flat, seed=1)
+    jmasks, pmasks = model_dropout_masks(model, shape, optim["batch_size"],
+                                         seed=1)
     with fixed_dropout(jmasks):
         jres = jeng.train()
 
     pcfg = ExperimentConfig(
-        model="3DCNN", num_classes=1, algorithm=name,
+        model=model, num_classes=1, algorithm=name,
         data=DataConfig(dataset="synthetic", synthetic_shape=tuple(shape)),
         optim=OptimConfig(**optim), fed=FedConfig(**fed),
         sparsity=SparsityConfig(**sparsity), log_dir=str(tmp / "port"))
@@ -214,7 +243,8 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
         train_kw["masks"] = reference_initial_masks(jeng, gs.params)
 
     def port_engine():
-        trainer = LocalTrainer(create_model("3dcnn", tuple(shape)),
+        trainer = LocalTrainer(create_model(model, tuple(shape),
+                                            dtype=compute_dtype(precision)),
                                pcfg.optim, cpu,
                                torch.Generator().manual_seed(seed),
                                dropout_masks=pmasks)
