@@ -19,11 +19,13 @@
    must be bit-equal; its bound is at the split-TF32 tensor-core rate,
    two products where x holds TF32 values only and three otherwise
    (``bound_fp32_cores_ms`` beside it). Its bf16 kernel (``stem_dw_bf16``,
-   the ``bf16_mixed`` path) is held on bf16 integral and Gaussian x: its
-   f32 sum within 1e-4 of the plain f32 sum's largest entry, at least
-   99.9% of the entries bit-equal after both are rounded to bf16, two calls
-   bit-equal, bound by its bf16 bytes, beside cuDNN's bf16
-   ``conv3d_weight``. ``kth_largest`` (row
+   the ``bf16_mixed`` path: ``wgmma`` fed by a warp-specialised TMA ring)
+   is held on bf16 integral and Gaussian x: its f32 sum within 1e-4 of the
+   plain f32 sum's largest entry, at least 99.9% of the entries bit-equal
+   after both are rounded to bf16, two calls bit-equal, rows of two boxes
+   (OW = 69) and the ragged edge shapes ``EDGE_SHAPES`` within the same
+   1e-4 and repeatable; bound by its bf16 bytes, beside cuDNN's bf16
+   ``conv3d_weight``, with its device operations a call. ``kth_largest`` (row
    ``kth_select``) must equal the host's plain loop bit for bit on four
    kinds of scores, run with no host sync, in at most 6 device operations
    (``torch.profiler``), and is timed against ``torch.topk``. The fused
@@ -151,6 +153,18 @@ SPIN_CYCLES_PER_S = 2.0e9
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def device_ops(fn) -> list[str]:
+    """Names of the device operations ``fn`` runs (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -637,6 +651,13 @@ BF16_EQUAL_SHARE = 0.999
 #: of magnitudes sum |x| |g| (about 8 f32 units of it: the summation error
 #: an f32 sum of 3.95 M exact products may carry in any order)
 BF16_SUM_RTOL = 2.0 ** -20
+#: x shapes [B, D, H, W] at which the bf16 kernel's work items are ragged:
+#: B = 1 at the flagship volume; 54 items, fewer than the persistent grid;
+#: OW 32 (half of each row's box padded), where the last run ends at g's
+#: end and is read through the map of 16-byte rows; OW 63, one column short
+#: of a box; both x of odd size (the producer copies its last elements)
+EDGE_SHAPES = ((1, 121, 145, 121), (2, 21, 25, 23), (1, 7, 23, 67),
+               (1, 7, 13, 129))
 
 
 def bf16_stem_dw_row(dev, gen, quick: bool, time_ms) -> dict:
@@ -645,9 +666,10 @@ def bf16_stem_dw_row(dev, gen, quick: bool, time_ms) -> dict:
     x), g bf16 in the conv backward's NCDHW memory. The kernel's f32 sum is
     held against the plain f32 sum of the same bf16 values within 1e-4 of
     its largest entry, the rounded dW bit-equal in ``BF16_EQUAL_SHARE`` of
-    the entries; two calls bit-equal; rows wider than one item (OW = 69)
-    too. Bound: x and g read once in bf16, dW written once, against the
-    data sheet's dense bf16 tensor-core rate."""
+    the entries; two calls bit-equal; rows of two boxes (OW = 69) and the
+    edge shapes too; the device operations of one call listed. Bound: x
+    and g read once in bf16, dW written once, against the data sheet's
+    dense bf16 tensor-core rate."""
     import torch
 
     from neuroimagedisttraining_tpu_torch.ops import stemconv as SC
@@ -700,6 +722,26 @@ def bf16_stem_dw_row(dev, gen, quick: bool, time_ms) -> dict:
         fail(f"stem_dw bf16 at OW = 69 disagrees with its plain version: "
              f"{ew}")
     del xw, gw, pw
+    # where a work decomposition breaks (EDGE_SHAPES): each within 1e-4 of
+    # the plain sum's largest entry and two calls bit-equal
+    edges = {}
+    for shape in EDGE_SHAPES:
+        xe = torch.randn(shape + (1,), generator=gen, device=dev, dtype=bf)
+        oe = [(n - 5) // 2 + 1 for n in shape[1:]]
+        ge = torch.randn((shape[0], 64, *oe), generator=gen, device=dev,
+                         dtype=bf).permute(0, 2, 3, 4, 1)
+        pe = SC.stem_dw_plain(xe, ge, torch.float32)
+        ke, ke2 = SC.stem_dw(xe, ge, torch.float32), SC.stem_dw(xe, ge,
+                                                                 torch.float32)
+        ee, te = float((ke - pe).abs().max()), 1e-4 * float(pe.abs().max())
+        if not ee <= te:
+            fail(f"stem_dw bf16 at x {shape} disagrees with its plain "
+                 f"version: {ee} > {te}")
+        if not torch.equal(ke.view(torch.int32), ke2.view(torch.int32)):
+            fail(f"stem_dw bf16 at x {shape}: two calls differ")
+        edges["x".join(map(str, shape))] = ee / te
+        del xe, ge, pe, ke, ke2
+    ops = device_ops(lambda: SC.stem_dw(x, g))
     R = B * od * oh * ow
     flops = 2.0 * R * 125 * 64
     nbytes = 2.0 * (x.numel() + g.numel() + 125 * 64)
@@ -729,7 +771,8 @@ def bf16_stem_dw_row(dev, gen, quick: bool, time_ms) -> dict:
             "gaussian_max_abs_err": out["gaussian"][0],
             "gaussian_tolerance": out["gaussian"][1],
             "gaussian_bf16_equal_share": out["gaussian"][2],
-            "wide_rows_max_abs_err": ew, **extra}
+            "wide_rows_max_abs_err": ew, "edge_err_over_tol": edges,
+            "device_ops": len(ops) or None, "device_op_names": ops, **extra}
 
 
 def drive(build_experiment, cfg, dev, deterministic=None) -> dict:
@@ -1312,8 +1355,6 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
 
     # ---- kernel 2: fused SGD tail over the flagship AlexNet3D leaves ----
-    from torch.profiler import ProfilerActivity, profile
-
     from neuroimagedisttraining_tpu_torch.models import create_model
 
     shapes = [tuple(p.shape) for p in
@@ -1327,13 +1368,6 @@ def main(argv: list[str]) -> int:
     def bit_equal(xs, ys) -> bool:
         return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                    for a, b in zip(xs, ys))
-
-    def device_ops(fn) -> list[str]:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return [e.name for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
 
     p0, g0, t0_ = leaves(0.05, gen), leaves(0.01, gen), leaves(0.01, gen)
     m0 = [(torch.rand(s, generator=gen, device=dev) < 0.5).to(torch.float32)

@@ -13,13 +13,16 @@ transposed convolution, computed only when the input needs a gradient
 (training data never does).
 
 Under ``bf16_mixed`` x, g and the weight are bfloat16. dW then runs in
-``csrc/stem_dw_bf16.cu``: one bf16 product on the tensor cores accumulated
-in float32 (a bf16 x bf16 product is exact in f32), rounded to the bf16
-weight by the wrapper, as the reference's ``_bwd`` casts its f32-accumulated
-dW; autograd carries it to the float32 master weight through the forward's
-cast. The plain version takes the same product in float32 and rounds it
-the same way. On a CUDA tensor a bf16 call launches the bf16 kernel or
-raises: it never falls back to the plain version or to float32.
+``csrc/stem_dw_bf16.cu``: one bf16 product on the tensor cores
+(``wgmma``, fed by a warp-specialised TMA ring) accumulated in float32 (a
+bf16 x bf16 product is exact in f32), rounded to the bf16 weight by the
+wrapper, as the reference's ``_bwd`` casts its f32-accumulated dW; autograd
+carries it to the float32 master weight through the forward's cast. The
+plain version takes the same product in float32 and rounds it the same
+way. On a CUDA tensor a bf16 call launches the bf16 kernel or raises: it
+never falls back to the plain version or to float32. :func:`bf16_plan`
+cuts the call into the kernel's work items and refuses the shapes the
+kernel does not take.
 
 Shapes at the public function :func:`stem_dw` are the reference's:
 x ``[B, D, H, W, 1]`` (for one channel, NDHWC and NCDHW are the same
@@ -33,6 +36,7 @@ NCDHW tensor and no copy is made. On CPU tensors (any strides) it runs
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -51,9 +55,68 @@ _I = ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _SIG = {"stem_dw_num_parts": [ctypes.POINTER(ctypes.c_int)],
         "stem_dw_launch": _ARGS}
+# the bf16 launch also takes the plan's rows an item
 _SIG_BF16 = {"stem_dw_bf16_num_parts": [ctypes.POINTER(ctypes.c_int)],
-             "stem_dw_bf16_launch": _ARGS}
+             "stem_dw_bf16_launch": _ARGS[:-1] + [_I, _P]}
 _DTYPES = (torch.float32, torch.bfloat16)
+
+#: the bf16 kernel's work items (``csrc/stem_dw_bf16.cu``): positions an
+#: item at most (4 boxes of 64, each one accumulator chain), elements of
+#: one x plane slot, and the rows of 8 elements g's tensor map may address
+#: (its coordinate is a signed 32-bit int)
+BF16_KCAP = 256
+BF16_BOX = 64
+BF16_XPL = 1728
+BF16_MAX_ROWS = 2 ** 31
+#: the kernel's error code for a tensor map the driver refused (+ CUresult)
+_TMAP_ERR = 100000
+
+
+@dataclasses.dataclass(frozen=True)
+class Bf16Plan:
+    """How the bf16 kernel cuts one call: items of ``nr`` output rows of one
+    (b, od), ``items`` of them; each output row takes ``bpr`` boxes of 64
+    positions (its columns past OW zero), each box one chain."""
+
+    nr: int
+    bpr: int
+    items: int
+    od: int
+    oh: int
+    ow: int
+
+
+def bf16_x_reach(nr: int, bpr: int, w: int) -> int:
+    """Elements of an x plane slot the kernel's A loads reach for an item of
+    ``nr`` rows of ``bpr`` boxes (its ``x_reach``): padded columns too."""
+    return 2 * (nr + 1) * w + 32 * (4 * bpr - 1) + 42
+
+
+def bf16_plan(b: int, d: int, h: int, w: int) -> Bf16Plan:
+    """The bf16 kernel's plan for x ``[b, d, h, w]``: rows of ``ceil(OW /
+    64)`` boxes, and the most output rows an item (4 boxes at most) whose x
+    rows fit a plane slot. Raises ``ValueError`` for rows too wide for one
+    item, or for a g too large for its tensor map."""
+    od, oh, ow = (d - K) // S + 1, (h - K) // S + 1, (w - K) // S + 1
+    if min(od, oh, ow) < 1:
+        raise ValueError(f"stem_dw bf16: x {(b, d, h, w)} is smaller than "
+                         f"the {K}^3 kernel")
+    if (b * C_OUT - 56) * od * oh * ow // 8 >= BF16_MAX_ROWS:
+        raise ValueError(
+            f"stem_dw bf16: g of {b * C_OUT * od * oh * ow} elements is "
+            f"past the kernel's tensor map (2^31 rows of 8 elements)")
+    bpr = -(-ow // BF16_BOX)
+    nr = min(oh, BF16_KCAP // BF16_BOX // bpr)
+    while nr >= 1 and max((2 * nr + 3) * w + 7,
+                          bf16_x_reach(nr, bpr, w)) > BF16_XPL:
+        nr -= 1
+    if nr < 1:
+        raise ValueError(
+            f"stem_dw bf16: rows of {w} x values ({ow} outputs) do not fit "
+            f"one work item (at most {BF16_KCAP} outputs and an x plane "
+            f"slot of {BF16_XPL} values)")
+    return Bf16Plan(nr=nr, bpr=bpr, items=b * od * -(-oh // nr), od=od,
+                    oh=oh, ow=ow)
 
 
 def stem_dw_plain(x: torch.Tensor, g: torch.Tensor,
@@ -115,8 +178,9 @@ def stem_dw(x: torch.Tensor, g: torch.Tensor,
     if x.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError("stem_dw: x and g must be 16-byte aligned (the "
                          "kernel copies 16-byte chunks)")
-    _cuda.check_device(x, g)
     bf16 = x.dtype == torch.bfloat16
+    plan = bf16_plan(b, d, h, w) if bf16 else None
+    _cuda.check_device(x, g)
     name = "stem_dw_bf16" if bf16 else "stem_dw"
     lib = _cuda.load(name, _SIG_BF16 if bf16 else _SIG)
     dev = x.device
@@ -127,10 +191,13 @@ def stem_dw(x: torch.Tensor, g: torch.Tensor,
                        dtype=torch.float32, device=dev)
     dw = torch.empty((K ** 3, C_OUT), dtype=torch.float32, device=dev)
     launch = getattr(lib, f"{name}_launch")
+    args = [x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
+            nparts, b, d, h, w, od, oh, ow] + ([plan.nr] if bf16 else [])
     with torch.cuda.device(dev):
-        err = launch(x.data_ptr(), g.data_ptr(), part.data_ptr(),
-                     dw.data_ptr(), nparts, b, d, h, w, od, oh, ow,
-                     _cuda.stream_ptr(dev))
+        err = launch(*args, _cuda.stream_ptr(dev))
+    if bf16 and err >= _TMAP_ERR:
+        raise RuntimeError(f"stem_dw_bf16_launch: cuTensorMapEncodeTiled "
+                           f"refused g's map (CUresult {err - _TMAP_ERR})")
     _cuda.check_launch(lib, err, f"{name}_launch")
     if bf16:
         LAUNCHES_BF16.add(2)  # the partial products, the reduce
