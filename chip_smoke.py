@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # full run: kernels, then the engines
     python3 chip_smoke.py --quick    # build + check the kernels only
     python3 chip_smoke.py --zoo-precision  # kernels, then step 7 alone
+    python3 chip_smoke.py --vision   # kernels, then step 8 (2D) alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
@@ -106,7 +107,22 @@
    peak memory a sample, fp32 and bf16, without and with stem remat (the
    ``--remat auto`` cutoff); remat bit-equal to none; ``NIDT_FAST_POOL``
    against the default pool.
-8. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+8. The 2D vision path (``vision_phase``): the reference package's CIFAR
+   sweep (``CIFAR_SWEEP``: ResNet-18, SalientGrads, 100 clients at
+   Dirichlet 0.3, frac 0.1, batch 16, 2 epochs, dense ratio 0.5) for 2
+   rounds on the synthetic vision cohort at CIFAR-10's size, through
+   ``federate_vision``, ``create_model``, ``LocalTrainer`` and
+   ``create_engine`` (``fused_sgd`` 2 launches a table a step, its 62
+   leaves two tables; ``kth_select`` launched; no ``stem_dw``; mask
+   density within 0.01); one FedAvg round of every other 2D model on the
+   CLI's synthetic vision cohort (``fused_sgd`` 2 a table a step); and
+   SalientGrads and FedAvg on ``cnn_cifar10`` and ``resnet18`` through the
+   kernels and the plain paths, held as the small 3D input is below. With
+   the kernel checks, ``kth_largest`` runs at resnet18's and vgg11's score
+   counts (``VISION_SCORES``): bit-equal to the host's plain loop on the
+   four kinds of scores, no host sync, at most 6 device operations, timed
+   against ``torch.topk``.
+9. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -119,7 +135,7 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-9. Prints the run's seconds, one JSON line per kernel, the
+10. Prints the run's seconds, one JSON line per kernel, the
    ``{"kernels": [...]}`` line (each kernel's launches on its main path,
    SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
    run), and last ``{"ok": true, "device": {...}}``.
@@ -364,9 +380,10 @@ class PerCallCheck:
         self.SC.stem_dw = self.orig_dw
         self.optim.fused_sgd_step = self.orig_step
 
-    def check(self, what: str) -> dict:
-        """Fails unless both kernels ran and every call was within its
-        tolerance; returns what was seen."""
+    def check(self, what: str, stem: bool = True) -> dict:
+        """Fails unless both kernels ran (``fused_sgd`` alone where
+        ``stem`` is False: the 2D models have no stem kernel) and every
+        call was within its tolerance; returns what was seen."""
         seen = {"calls": dict(self.calls), "worst_err_over_tol":
                 dict(self.worst), "fused_sgd_not_bit_equal": self.inexact,
                 "fused_sgd_clip_taken": self.clip_taken,
@@ -376,7 +393,8 @@ class PerCallCheck:
                     self.bf16_share,
                 "stem_dw_bf16_is_its_f32_sum_rounded": self.rounded_ok}
         c = self.calls
-        if not c["fused_sgd"] or not (c["stem_dw"] or c["stem_dw_bf16"]):
+        if not c["fused_sgd"] or (stem and not (c["stem_dw"]
+                                                or c["stem_dw_bf16"])):
             fail(f"{what}: a kernel was not called: {self.calls}")
         if (not all(v <= 1.0 for v in self.worst.values()) or self.inexact
                 or not self.rounded_ok):
@@ -1119,6 +1137,296 @@ def zoo_precision_phase(card, dev, flagship, build_experiment,
     torch.cuda.empty_cache()
 
 
+#: the reference package's CIFAR sweep (scripts/run_cifar_salientgrads.sh),
+#: cut to 2 rounds; its data is the synthetic vision cohort at CIFAR-10's
+#: size (CIFAR_SIZE), since neither machine holds the CIFAR files
+CIFAR_SWEEP = ("--algorithm", "salientgrads", "--dataset", "cifar10",
+               "--model", "resnet18", "--partition_method", "dir",
+               "--partition_alpha", "0.3", "--client_num_in_total", "100",
+               "--frac", "0.1", "--comm_round", "2", "--batch_size", "16",
+               "--epochs", "2", "--lr", "0.01", "--dense_ratio", "0.5",
+               "--itersnip_iteration", "1", "--fused_update")
+CIFAR_SIZE = (50000, 10000)
+#: maskable scores (conv and dense kernels) at 10 classes: the global
+#: top-k select's sizes on the 2D path
+VISION_SCORES = {"resnet18": 11_164_352, "vgg11": 9_222_848}
+
+
+def parse_cfg(argv):
+    import argparse
+
+    from neuroimagedisttraining_tpu_torch.__main__ import (
+        add_args, config_from_args,
+    )
+    return config_from_args(add_args(argparse.ArgumentParser())
+                            .parse_args(list(argv)))
+
+
+def cifar_sweep_engine(dev, argv=CIFAR_SWEEP):
+    """The CIFAR sweep's engine on ``dev`` through the entry points a user
+    calls: ``federate_vision`` (100 clients, Dirichlet 0.3, the synthetic
+    cohort at ``CIFAR_SIZE``), ``create_model``, ``LocalTrainer``,
+    ``create_engine``. Returns ``(engine, partition info)``."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
+    from neuroimagedisttraining_tpu_torch.data.vision import federate_vision
+    from neuroimagedisttraining_tpu_torch.device import resolve_device
+    from neuroimagedisttraining_tpu_torch.engines import create_engine
+    from neuroimagedisttraining_tpu_torch.models import create_model
+
+    dev = resolve_device(dev)  # the fp32 contract and deterministic cuDNN
+    cfg = parse_cfg(argv)
+    d = cfg.data
+    fed, info = federate_vision(
+        d.dataset, d.data_dir, d.partition_method, d.partition_alpha,
+        cfg.fed.client_num_in_total, dev, seed=cfg.seed, synthetic=True,
+        num_classes=cfg.num_classes, synthetic_num=CIFAR_SIZE)
+    model = create_model(cfg.model, tuple(fed.X_train.shape[2:]),
+                         cfg.num_classes)
+    trainer = LocalTrainer(model, cfg.optim, dev,
+                           torch.Generator(device=dev).manual_seed(cfg.seed),
+                           num_classes=cfg.num_classes)
+    return create_engine(cfg.algorithm, cfg, fed, trainer), info
+
+
+def tables_of(engine) -> int:
+    """fused_sgd's 32-leaf tables for the engine's model."""
+    from neuroimagedisttraining_tpu_torch.ops.fused_update import MAX_LEAVES
+
+    leaves = len(list(engine.trainer.model.parameters()))
+    return -(-leaves // MAX_LEAVES)
+
+
+def kth_select_at(n: int, gen, dev, time_ms, quick: bool) -> dict:
+    """``kth_largest`` (row ``kth_select``) over ``n`` scores at dense ratio
+    0.5: on the card bit-equal to the host's plain loop on the four kinds
+    of scores, with no host sync, in at most 6 device operations; its time
+    beside ``torch.topk``'s and its byte bound."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.ops import topk as TK
+
+    k = n // 2
+    u = torch.rand(n, generator=gen, device=dev) ** 3
+    kinds = {
+        "uniform3": (u / u.sum(), k),
+        "normal": (torch.randn(n, generator=gen, device=dev), k),
+        "ties": (torch.randint(0, 50, (n,), generator=gen,
+                               device=dev).to(torch.float32), k),
+        "tail": (torch.exp(4.0 * torch.randn(n, generator=gen, device=dev)),
+                 int(0.95 * n)),
+    }
+    for kind, (v, kk) in kinds.items():
+        got = TK.kth_largest(v, kk).cpu()
+        want = TK.kth_largest(v.cpu(), kk)
+        if got.view(torch.int32) != want.view(torch.int32):
+            fail(f"kth_largest at {n} scores ({kind}) on the card "
+                 f"{got.item()} != plain {want.item()}")
+    xs = kinds["uniform3"][0]
+    del kinds, v
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    TK.kth_largest(xs, k)
+    torch.cuda.set_sync_debug_mode("default")
+    ops = device_ops(lambda: TK.kth_largest(xs, k))
+    if len(ops) > 6:
+        fail(f"kth_largest at {n} scores ran {len(ops)} device operations")
+    search = math.ceil(math.log2(512 + 1))
+    b_ms, b_by = bound_ms(4.0 * (n + 1), n * (2 + 4 * search))
+    out = {"n": n, "k": k, "kinds_bit_equal": ["normal", "tail", "ties",
+                                               "uniform3"],
+           "device_ops": len(ops) or None, "bound_ms": b_ms,
+           "bound_by": b_by, "equals_topk": bool(
+               TK.kth_largest(xs, k) == torch.topk(xs, k).values[-1])}
+    if not quick:
+        out["ms"], out["host_ms"] = time_ms(lambda: TK.kth_largest(xs, k),
+                                            20)
+        out["plain_ms"], _ = time_ms(lambda: TK.kth_largest_plain(xs, k), 5)
+        out["library_ms"], _ = time_ms(
+            lambda: torch.topk(xs, k).values[-1], 20)
+    del xs, u
+    torch.cuda.empty_cache()
+    return out
+
+
+def vision_cfg(algorithm: str, model: str, kernels: bool = True,
+               rounds: int = 1):
+    """A run on the CLI's synthetic vision cohort (256 training and 96 test
+    32x32x3 images, 10 classes) over 4 clients, batch 16, 1 epoch."""
+    return parse_cfg([
+        "--algorithm", algorithm, "--dataset", "synthetic_vision",
+        "--model", model, "--client_num_in_total", "4", "--batch_size", "16",
+        "--epochs", "1", "--comm_round", str(rounds),
+        *(["--fused_update"] if kernels else [])])
+
+
+def vision_phase(card, dev, build_experiment, by_path: dict) -> None:
+    """The 2D vision path on the card, each run with the launch counters set
+    to 0 just before and read just after:
+
+    - the main path, the CIFAR sweep (``CIFAR_SWEEP``: ResNet-18 with
+      GroupNorm, SalientGrads, 100 clients at Dirichlet 0.3, frac 0.1,
+      batch 16, 2 epochs, dense ratio 0.5, ``--fused_update``) for 2 rounds
+      on the synthetic cohort at CIFAR-10's size: ``fused_sgd`` 2 launches
+      a table a local step (two tables: 4), ``kth_select`` launched for the
+      one global mask, no ``stem_dw``, the mask's density within 0.01 of
+      0.5, finite losses and metrics; its phase-1 and round seconds, peak
+      memory and ``fused_sgd``'s host table time a step;
+    - one FedAvg round of every other 2D model on the CLI's synthetic vision
+      cohort: ``fused_sgd`` 2 a table a local step, no other kernel, finite
+      losses, its round seconds;
+    - SalientGrads and FedAvg on ``cnn_cifar10`` and ``resnet18`` on that
+      cohort (2 rounds) through the kernels and the plain paths under
+      deterministic cuDNN, held as the 3D engines' small input is: every
+      ``fused_sgd`` call against its plain version (``PerCallCheck``), two
+      kernel runs bit-equal, the first round's train loss rtol 1e-4, the
+      weights within 1e-3 (SalientGrads, one mask) or 5e-2 (FedAvg) of the
+      largest weight change, the evaluation loss rtol 1e-3 / 2e-2. Where
+      the clip is taken the kernel's norm (float64) and the plain one
+      (float32) round apart, and a max pool's tied window or a ReLU input
+      at the rounding level carries that into the next round: FedAvg's
+      second round starts from weights held at 5e-2 of the change, so its
+      loss is held at the evaluation loss's rtol 2e-2 (on an H100 80GB
+      HBM3 at 700 W, ``cnn_cifar10``'s differed by 1.7e-4). All four runs
+      print before any check fails."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.models import MODELS_2D
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+
+    # ---- the main path: the CIFAR sweep on ResNet-18 ----
+    t0 = time.perf_counter()
+    engine, info = cifar_sweep_engine(dev)
+    setup_s = time.perf_counter() - t0
+    cfg, tables = engine.cfg, tables_of(engine)
+    steps = local_steps(engine)
+    data_gb = sum(t.numel() * t.element_size() for t in (
+        engine.data.X_train, engine.data.X_test)) / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    with TableTimer() as table:
+        result = engine.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    got = _cuda.counts()
+    by_path["salientgrads_resnet18"] = got
+    losses = [h["train_loss"] for h in result["history"]]
+    metrics = [result[w][m] for w in ("final_global", "final_personal")
+               for m in ("acc", "loss", "auc")]
+    print(json.dumps({
+        "vision_main_path": "salientgrads resnet18 cifar10-size", "card": card,
+        "clients": engine.num_clients, "images_a_client":
+            sorted(set(info["train_counts"])), "data_gb": data_gb,
+        "setup_seconds": setup_s, "train_seconds": train_s,
+        "phase1_seconds": result["phase1_seconds"],
+        "round_seconds": [h["round_seconds"] for h in result["history"]],
+        "train_loss": losses, "mask_density": result["mask_density"],
+        "final_global": result["final_global"],
+        "final_personal": result["final_personal"], "launches": got,
+        "local_steps": steps, "fused_sgd_tables": tables,
+        "fused_sgd_table": table.summary(),
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}))
+    if got.get("fused_sgd", 0) != 2 * tables * steps:
+        fail(f"resnet18: fused_sgd launched {got.get('fused_sgd')} kernels "
+             f"in {steps} local steps, not {2 * tables} a step")
+    if not got.get("kth_select", 0) > 0:
+        fail("the CIFAR sweep never launched the kth_select kernel")
+    if got.get("stem_dw", 0) or got.get("stem_dw_bf16", 0):
+        fail(f"the 2D path launched a stem_dw kernel: {got}")
+    if abs(result["mask_density"] - cfg.sparsity.dense_ratio) > 0.01:
+        fail(f"resnet18 mask density {result['mask_density']}")
+    if not all(math.isfinite(v) for v in losses + metrics):
+        fail(f"resnet18: non-finite losses or metrics {losses} {metrics}")
+    del engine, result
+    torch.cuda.empty_cache()
+
+    # ---- every other 2D model: one FedAvg round ----
+    for name in MODELS_2D:
+        if name == "resnet18":
+            continue
+        r = drive(build_experiment, vision_cfg("fedavg", name), dev)
+        got, res, steps = r["launches"], r["result"], r["steps"]
+        tables = tables_of(r["engine"])
+        by_path[f"fedavg_{name}"] = got
+        losses = [h["train_loss"] for h in res["history"]]
+        print(json.dumps({
+            "vision_zoo": name, "card": card, "launches": got,
+            "local_steps": steps, "leaves": len(res["params"]),
+            "fused_sgd_tables": tables,
+            "round_seconds": res["round_seconds"],
+            "finetune_seconds": res["finetune_seconds"],
+            "peak_memory_gb": r["peak_memory_gb"], "train_loss": losses}))
+        if got.get("fused_sgd", 0) != 2 * tables * steps:
+            fail(f"{name}: fused_sgd {got.get('fused_sgd')} in {steps} "
+                 f"steps of {tables} tables")
+        if any(v for k, v in got.items() if k != "fused_sgd"):
+            fail(f"{name}: a kernel other than fused_sgd launched: {got}")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"{name}: non-finite losses {losses}")
+        del r, res
+        torch.cuda.empty_cache()
+
+    # ---- SalientGrads and FedAvg: kernels against plain paths ----
+    det0 = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    per_call = PerCallCheck()
+    faults = []
+    for model in ("cnn_cifar10", "resnet18"):
+        for algorithm in ("salientgrads", "fedavg"):
+            def small(kernels):
+                return build_experiment(vision_cfg(algorithm, model, kernels,
+                                                   rounds=2), "cuda")[0]
+            probe = small(True)
+            init_p, init_b = probe.init_global_state()
+            kw = {}
+            if algorithm == "salientgrads":
+                kw["masks"], _ = probe.generate_global_mask(init_p, init_b)
+            plain = small(False).train(**kw)
+            per_call.reset()
+            with per_call:
+                kern = small(True).train(**kw)
+            calls = per_call.check(f"{algorithm} {model} small input",
+                                   stem=False)
+            again = small(True).train(**kw)
+            if not states_bit_equal(kern, again):
+                fail(f"{algorithm} {model}: two runs through the kernels "
+                     "differ")
+            moved = max(float((v - init_p[k]).abs().max())
+                        for k, v in plain["params"].items())
+            p_err = max(float((kern["params"][k] - v).abs().max())
+                        for k, v in plain["params"].items())
+            lp = [h["train_loss"] for h in plain["history"]]
+            lk = [h["train_loss"] for h in kern["history"]]
+            ep = plain["final_global"]["loss"]
+            ek = kern["final_global"]["loss"]
+            sg = algorithm == "salientgrads"
+            print(json.dumps({"vision_small_input_check": {
+                "engine": algorithm, "model": model, "card": card,
+                "train_loss_plain": lp, "train_loss_kernels": lk,
+                "eval_loss_plain": ep, "eval_loss_kernels": ek,
+                "param_max_abs_err": p_err, "largest_weight_change": moved,
+                "per_call": calls}}))
+            rtol = [1e-4] + [1e-4 if sg else 2e-2] * (len(lp) - 1)
+            if not all(abs(a - b) <= r * abs(b)
+                       for a, b, r in zip(lk, lp, rtol)):
+                faults.append(f"{algorithm} {model} small-input train "
+                              f"losses {lk} vs plain {lp}")
+            if not p_err <= (1e-3 if sg else 5e-2) * moved:
+                faults.append(f"{algorithm} {model} small-input params "
+                              f"differ by {p_err} (largest weight change "
+                              f"{moved})")
+            if not abs(ek - ep) <= (1e-3 if sg else 2e-2) * abs(ep):
+                faults.append(f"{algorithm} {model} small-input eval loss "
+                              f"{ek} vs plain {ep}")
+    if faults:
+        fail("; ".join(faults))
+    torch.backends.cudnn.deterministic = det0
+    torch.cuda.empty_cache()
+
+
 def torch_equal_bits(a, b) -> bool:
     import torch
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -1176,6 +1484,7 @@ def main(argv: list[str]) -> int:
     started = time.perf_counter()
     quick = "--quick" in argv
     only_new = "--zoo-precision" in argv
+    only_vision = "--vision" in argv
     import numpy as np
     import torch
 
@@ -1667,6 +1976,12 @@ def main(argv: list[str]) -> int:
                  "device_ops": len(kth_ops) or None})
     del xs, thr, c_k, c_p
     torch.cuda.empty_cache()
+    # the select at the 2D path's score counts (resnet18, vgg11)
+    rows[-1]["vision_scores"] = {}
+    for name, n in VISION_SCORES.items():
+        at = kth_select_at(n, gen, dev, time_ms, quick)
+        rows[-1]["vision_scores"][name] = at
+        print(json.dumps({"kth_select_at": name, "card": card, **at}))
 
     # ---- the slice: flagship SalientGrads through the user entry points ----
     launches = {r["name"]: None for r in rows}
@@ -1700,6 +2015,9 @@ def main(argv: list[str]) -> int:
         if only_new:
             zoo_precision_phase(card, dev, flagship, build_experiment, {},
                                 by_path)
+            return finish(rows, by_path, started)
+        if only_vision:
+            vision_phase(card, dev, build_experiment, by_path)
             return finish(rows, by_path, started)
 
         cfg = flagship("salientgrads")
@@ -2042,6 +2360,9 @@ def main(argv: list[str]) -> int:
         # ---- the model zoo, bf16_mixed, memory, cuDNN's determinism ----
         zoo_precision_phase(card, dev, flagship, build_experiment, resident,
                             by_path)
+
+        # ---- the 2D vision path: the CIFAR sweep and the 2D zoo ----
+        vision_phase(card, dev, build_experiment, by_path)
 
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",

@@ -5,18 +5,29 @@
                     dpsgd|fedfomo|turboaggregate \\
         --dataset abcd_h5 --data_dir cohort.h5 [--streaming \\
         --stream_chunk_clients N] | --dataset synthetic \\
-        --synthetic_shape 121 145 121 \\
+        --synthetic_shape 121 145 121 | --dataset cifar10|cifar100|tiny \\
+        --data_dir DIR | --dataset synthetic_vision \\
+        [--partition_method site|dir|n_cls|my_part|homo|hetero|rescale \\
+        --partition_alpha A] \\
         --model 3DCNN|3DCNN_gn|3DCNN_deeper|3DCNN_regression|3DCNN_tiny|\\
-                resnet3d [--num_classes K] [--fused_update] \\
+                resnet3d|resnet18|vgg11|cnn_cifar10|resnet_meta|... \\
+        [--num_classes K] [--fused_update] \\
         [--client_optimizer sgd|adam] [--precision fp32|bf16_mixed \\
         [--loss_scale S]] [--remat auto|none|stem|all] \\
         [--val_fraction F] [--device cuda|cpu] [--log_dir LOG] ...
 
 Flag names are the reference CLI's for the flags the port takes.
 ``--dataset ABCD`` / ``abcd_h5`` (the default) reads the X/y/site HDF5 file
-at ``--data_dir``, ``synthetic`` draws the synthetic cohort, and any other
+at ``--data_dir``, ``synthetic`` draws the synthetic cohort (both
+partitioned by site, or by ``rescale`` / ``dir`` / ``hetero`` / ``homo``
+into ``--client_num_in_total`` clients), ``cifar10`` / ``cifar100`` /
+``tiny`` read the vision files at ``--data_dir`` and ``synthetic_vision``
+draws a small image cohort (``data/vision.py``; ``n_cls`` / ``dir`` /
+``my_part`` / ``homo`` / ``hetero``, ``site`` meaning ``dir``; 10, 100
+or 200 classes unless ``--num_classes`` says otherwise), and any other
 name raises. ``--streaming`` keeps the voxels on the host and feeds the
-card a chunk of clients at a time (``data/stream.py``). It logs
+card a chunk of site clients at a time (``data/stream.py``; not for the
+vision datasets). It logs
 the rounds and prints, last, one JSON line with what the engine returns
 except its model states (``mask_density`` for SalientGrads only).
 ``NIDT_FAST_STEM=1`` arms the stem weight-gradient kernel (float32 or
@@ -49,9 +60,14 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--num_classes", type=int, default=1,
                         help="1: one logit and BCE; more: softmax CE")
     parser.add_argument("--dataset", type=str, default="ABCD",
-                        help="ABCD | abcd_h5 | synthetic")
+                        help="ABCD | abcd_h5 | synthetic | cifar10 | "
+                             "cifar100 | tiny | synthetic_vision")
     parser.add_argument("--data_dir", type=str, default="./data",
                         help="for ABCD/abcd_h5: path to the X/y/site HDF5")
+    parser.add_argument("--partition_method", type=str, default="site",
+                        help="site | dir | n_cls | my_part | homo | hetero "
+                             "| rescale")
+    parser.add_argument("--partition_alpha", type=float, default=0.3)
     parser.add_argument("--batch_size", type=int, default=16)
     parser.add_argument("--client_optimizer", type=str, default="sgd",
                         choices=["sgd", "adam"])
@@ -145,12 +161,24 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return parser
 
 
+#: the vision datasets and the class counts they imply
+VISION_CLASSES = {"cifar10": 10, "synthetic_vision": 10, "cifar100": 100,
+                  "tiny": 200}
+
+
 def config_from_args(args) -> ExperimentConfig:
+    """The experiment of parsed ``args``; ``--num_classes 1`` (the default)
+    with a vision dataset means the dataset's class count."""
+    num_classes = args.num_classes
+    if num_classes == 1:
+        num_classes = VISION_CLASSES.get(args.dataset.lower(), 1)
     return ExperimentConfig(
-        model=args.model, num_classes=args.num_classes,
+        model=args.model, num_classes=num_classes,
         algorithm=args.algorithm, seed=args.seed, log_dir=args.log_dir,
         stream_chunk_clients=args.stream_chunk_clients, remat=args.remat,
         data=DataConfig(dataset=args.dataset.lower(), data_dir=args.data_dir,
+                        partition_method=args.partition_method,
+                        partition_alpha=args.partition_alpha,
                         synthetic_num_subjects=args.synthetic_num_subjects,
                         synthetic_shape=tuple(args.synthetic_shape),
                         synthetic_signal=args.synthetic_signal,
@@ -185,25 +213,26 @@ def config_from_args(args) -> ExperimentConfig:
     )
 
 
-DATASETS = ("abcd", "abcd_h5", "synthetic")
+DATASETS = ("abcd", "abcd_h5", "synthetic", *VISION_CLASSES)
 
 
 def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
                      streaming: bool = False):
-    """Cohort (``cfg.data.dataset``: the HDF5 file at ``data_dir``, or the
-    synthetic cohort) -> site federation (with a validation split where
-    ``val_fraction > 0``), resident on the device or, under
-    ``streaming``, a ``StreamingFederation`` over the host's copy -> model
-    (in the precision's compute dtype, with the resolved remat policy)
-    -> trainer -> engine. Returns ``(engine, partition_info)``;
-    ``partition_info["file"]`` is the HDF5 file a streamed run reads,
-    for the caller to close (None otherwise)."""
+    """Data (``cfg.data.dataset``: the HDF5 file at ``data_dir``, the
+    synthetic cohort, or a vision dataset) -> federation (by
+    ``partition_method``, with a validation split where ``val_fraction >
+    0``), resident on the device or, under ``streaming`` (site clients of a
+    cohort only), a ``StreamingFederation`` over the host's copy -> model
+    (for the data's sample shape, in the precision's compute dtype, with
+    the resolved remat policy) -> trainer -> engine. Returns ``(engine,
+    partition_info)``; ``partition_info["file"]`` is the HDF5 file a
+    streamed run reads, for the caller to close (None otherwise)."""
     from neuroimagedisttraining_tpu_torch.core.optim import (
         compute_dtype, resolve_remat,
     )
     from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
     from neuroimagedisttraining_tpu_torch.data.federate import (
-        build_federated_data, federation_maps,
+        federate_cohort, federation_maps,
     )
     from neuroimagedisttraining_tpu_torch.data.hdf5 import load_abcd_hdf5
     from neuroimagedisttraining_tpu_torch.data.stream import (
@@ -212,6 +241,7 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
     from neuroimagedisttraining_tpu_torch.data.synthetic import (
         generate_synthetic_abcd,
     )
+    from neuroimagedisttraining_tpu_torch.data.vision import federate_vision
     from neuroimagedisttraining_tpu_torch.device import resolve_device
     from neuroimagedisttraining_tpu_torch.models import create_model
 
@@ -221,28 +251,45 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
     if dataset not in DATASETS:
         raise ValueError(f"dataset {dataset!r} has no loader in the port "
                          f"(have: {'/'.join(DATASETS)})")
-    if streaming and d.partition_method != "site":
-        raise ValueError("streaming mode currently partitions by site")
-    if dataset == "synthetic":
-        cohort = generate_synthetic_abcd(
-            num_subjects=d.synthetic_num_subjects, shape=d.synthetic_shape,
-            signal=d.synthetic_signal,
-            num_sites=max(4, cfg.fed.client_num_in_total // 4),
-            seed=cfg.seed)
+    fed = stream = None
+    if dataset in VISION_CLASSES:
+        if streaming:
+            raise ValueError("streaming mode is for ABCD-scale cohorts")
+        fed, info = federate_vision(
+            "cifar10" if dataset == "synthetic_vision" else dataset,
+            d.data_dir,
+            "dir" if d.partition_method == "site" else d.partition_method,
+            d.partition_alpha, cfg.fed.client_num_in_total, dev,
+            val_fraction=d.val_fraction, seed=cfg.seed,
+            synthetic=dataset == "synthetic_vision",
+            num_classes=cfg.num_classes if cfg.num_classes > 1 else None)
+        info["file"] = None
+        shape = tuple(fed.X_train.shape[2:])
     else:
-        cohort = load_abcd_hdf5(d.data_dir, lazy=streaming)
-    train_map, test_map, val_map, info = federation_maps(
-        cohort["site"], d.seed_split, d.val_fraction)
-    info["file"] = cohort.get("file")
-    if streaming:
-        fed, stream = None, StreamingFederation(
-            cohort["X"], cohort["y"], train_map, test_map, val_map=val_map,
-            device=dev)
-    else:
-        fed, stream = build_federated_data(
-            cohort["X"], cohort["y"], train_map, test_map, dev,
-            val_map=val_map), None
-    shape = tuple(cohort["X"].shape[1:])
+        if streaming and d.partition_method != "site":
+            raise ValueError("streaming mode currently partitions by site")
+        if dataset == "synthetic":
+            cohort = generate_synthetic_abcd(
+                num_subjects=d.synthetic_num_subjects,
+                shape=d.synthetic_shape, signal=d.synthetic_signal,
+                num_sites=max(4, cfg.fed.client_num_in_total // 4),
+                seed=cfg.seed)
+        else:
+            cohort = load_abcd_hdf5(d.data_dir, lazy=streaming)
+        if streaming:
+            train_map, test_map, val_map, info = federation_maps(
+                cohort["site"], d.seed_split, d.val_fraction)
+            stream = StreamingFederation(
+                cohort["X"], cohort["y"], train_map, test_map,
+                val_map=val_map, device=dev)
+        else:
+            fed, info = federate_cohort(
+                cohort, dev, d.seed_split, d.val_fraction,
+                partition_method=d.partition_method,
+                client_number=cfg.fed.client_num_in_total,
+                alpha=d.partition_alpha)
+        info["file"] = cohort.get("file")
+        shape = tuple(cohort["X"].shape[1:])
     o = cfg.optim
     model = create_model(cfg.model, shape, cfg.num_classes,
                          dtype=compute_dtype(o.precision),

@@ -44,11 +44,19 @@ class OptimConfig:
 class DataConfig:
     """Dataset + partitioning: the ABCD cohort in the reference's
     ``X``/``y``/``site`` HDF5 file at ``data_dir`` (``abcd`` /
-    ``abcd_h5``) or the synthetic cohort (``synthetic``); site clients."""
+    ``abcd_h5``) or the synthetic cohort (``synthetic``), site clients or
+    ``rescale`` / ``dir`` / ``hetero`` / ``homo``; the vision datasets
+    (``cifar10``, ``cifar100``, ``tiny`` at ``data_dir``, the
+    ``synthetic_vision`` cohort), partitioned ``n_cls`` / ``dir`` /
+    ``my_part`` / ``homo`` / ``hetero`` (``site`` means ``dir`` there).
+    ``partition_alpha``: the Dirichlet concentration (``dir``,
+    ``hetero``), the classes a client (``n_cls``) or the shard groups
+    (``my_part``)."""
 
     dataset: str = "abcd"
     data_dir: str = "./data"
     partition_method: str = "site"
+    partition_alpha: float = 0.3
     synthetic_num_subjects: int = 256
     synthetic_shape: tuple[int, int, int] = (121, 145, 121)
     synthetic_signal: float = 12.0
@@ -141,14 +149,13 @@ class ExperimentConfig:
 
     def identity(self) -> str:
         """The experiment's identity string (the reference's log file name,
-        with its default Dirichlet alpha 0.3 and tag ``exp``: the port
-        partitions by site and takes no tag)."""
+        with its tag ``exp``: the port takes no tag)."""
         d, o, f, s = self.data, self.optim, self.fed, self.sparsity
         parts = [
             self.algorithm, d.dataset, self.model,
             f"c{f.client_num_in_total}", f"frac{f.frac}", f"r{f.comm_round}",
             f"e{o.epochs}", f"b{o.batch_size}", f"lr{o.lr}", f"dec{o.lr_decay}",
-            f"wd{o.wd}", f"part-{d.partition_method}0.3",
+            f"wd{o.wd}", f"part-{d.partition_method}{d.partition_alpha}",
             f"dr{s.dense_ratio}", f"seed{self.seed}", "exp",
         ]
         return "_".join(str(p) for p in parts)

@@ -92,11 +92,19 @@ class LocalTrainer:
         #: None draws fresh ones from ``generator``
         self.dropout_masks = dropout_masks
         self.opt = LocalOptimizer(optim)
+        #: the rank of the model's input (batch and channel included)
+        self.input_rank = getattr(model, "input_rank", 5)
 
     @staticmethod
-    def _prep(x: torch.Tensor) -> torch.Tensor:
-        """uint8 [B, D, H, W] -> float32 [B, 1, D, H, W], raw cast."""
-        return x.to(torch.float32).unsqueeze(1)
+    def _prep(x: torch.Tensor, input_rank: int = 5) -> torch.Tensor:
+        """A batch of the data, as the model of ``input_rank`` takes it, in
+        float32 (a raw cast): uint8 volumes [B, D, H, W] -> [B, 1, D, H,
+        W]; images [B, H, W, C] -> NCHW; single-channel images [B, H, W]
+        -> [B, 1, H, W]."""
+        x = x.to(torch.float32)
+        if input_rank == 4 and x.dim() == 4:
+            return x.permute(0, 3, 1, 2).contiguous()
+        return x.unsqueeze(1) if x.dim() == input_rank - 1 else x
 
     def apply(self, params: State, bstats: State, x: torch.Tensor,
               train: bool) -> torch.Tensor:
@@ -126,7 +134,8 @@ class LocalTrainer:
         inputs are left unchanged."""
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         new_b = {k: v.clone() for k, v in bstats.items()}
-        logits = self.apply(leaves, new_b, self._prep(x), train=True)
+        logits = self.apply(leaves, new_b, self._prep(x, self.input_rank),
+                            train=True)
         loss, grads = self._grads(self.loss(logits, y, weights), leaves)
         return loss, grads, new_b
 
@@ -220,7 +229,8 @@ class LocalTrainer:
         left unchanged). The stem's weight gradient is a training step's
         (``ops/stemconv.py`` under ``NIDT_FAST_STEM``)."""
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        logits = self.apply(leaves, bstats, self._prep(x), train=False)
+        logits = self.apply(leaves, bstats, self._prep(x, self.input_rank),
+                            train=False)
         return self._grads(self.loss(logits, y), leaves)[1]
 
     @torch.no_grad()
@@ -236,7 +246,8 @@ class LocalTrainer:
         for i in range(0, X.shape[0], batch_size):
             xb, yb, vb = (X[i:i + batch_size], y[i:i + batch_size],
                           v_all[i:i + batch_size])
-            logits = self.apply(params, bstats, self._prep(xb), train=False)
+            logits = self.apply(params, bstats,
+                                self._prep(xb, self.input_rank), train=False)
             correct = correct + torch.sum(
                 (predictions(logits, self.num_classes)
                  == yb.to(torch.int32)) * vb)

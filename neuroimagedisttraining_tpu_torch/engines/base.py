@@ -50,8 +50,9 @@ log = logging.getLogger(__name__)
 
 
 class ClientRows(NamedTuple):
-    """One client's rows of a split: ``X[Nmax, D, H, W]`` uint8,
-    ``y[Nmax]`` int32 (zero past ``n``) and the true count ``n``."""
+    """One client's rows of a split: ``X[Nmax, ...]`` (uint8 volumes or
+    float32 images), ``y[Nmax]`` int32 (zero past ``n``) and the true count
+    ``n``."""
 
     X: torch.Tensor
     y: torch.Tensor
@@ -88,7 +89,7 @@ class FederatedEngine:
         self.real_clients = int(np.sum(self.n_train > 0))
         self.max_samples = (int(data.X_train.shape[1]) if data is not None
                             else int(stream.nmax_train))
-        #: one subject's volume shape (D, H, W)
+        #: one sample's shape: a volume's (D, H, W), an image's (H, W, C)
         self.sample_shape = (tuple(data.X_train.shape[2:]) if data is not None
                              else tuple(stream.sample_shape))
         self._walks: list[tuple[str, tuple]] = []

@@ -1,5 +1,8 @@
-"""Model registry: the reference's 3D model names (``--model 3DCNN`` ->
-``AlexNet3D_Dropout(num_classes=1)``, the reference harness's choice)."""
+"""Model registry: the reference's model names (``--model 3DCNN`` ->
+``AlexNet3D_Dropout(num_classes=1)``, the reference harness's choice), the
+3D zoo and the 2D one, with the reference package's aliases. The DARTS
+family (``darts``, ``darts_v2``, ``fednas_v1``, ``darts_search``) is not
+ported: those names raise."""
 
 from __future__ import annotations
 
@@ -19,6 +22,32 @@ from neuroimagedisttraining_tpu_torch.models.neuro3d import (  # noqa: F401
     resnet_flat_features,
     tiny_flat_features,
 )
+from neuroimagedisttraining_tpu_torch.models.meta import (  # noqa: F401
+    CHANNEL_SCALE,
+    CNNCifarMeta,
+    MetaNet,
+    ResNetMeta,
+    SlimBottleneckMeta,
+)
+from neuroimagedisttraining_tpu_torch.models.resnet2d import (  # noqa: F401
+    ResNet18,
+    customized_resnet18,
+    original_resnet18,
+    resnet18_ip,
+    tiny_resnet18,
+)
+from neuroimagedisttraining_tpu_torch.models.vision2d import (  # noqa: F401
+    VGG,
+    CNN_DropOut,
+    CNN_OriginalFedAvg,
+    CNNCifar,
+    CNNCifarBN,
+    LeNet5,
+    LeNet5_cifar,
+    cnn_dropout_flat,
+    vgg11,
+    vgg16,
+)
 
 #: the 3D models the port has, by CLI name and its aliases
 MODELS_3D = {
@@ -29,24 +58,65 @@ MODELS_3D = {
     "3dcnn_tiny": ("tiny3dcnn",),
     "resnet3d": ("resnet_l3", "resnet3d_l3"),
 }
-_CANONICAL = {a: k for k, al in MODELS_3D.items() for a in (k, *al)}
+#: the 2D models the port has, by CLI name and its aliases
+MODELS_2D = {
+    "resnet18": ("customized_resnet18",),
+    "original_resnet18": (),
+    "tiny_resnet18": (),
+    "resnet18_ip": ("resnet_ip",),
+    "vgg11": (),
+    "vgg16": (),
+    "cnn_cifar10": ("cnn_cifar100", "simple-cnn"),
+    "cnn_cifar10_bn": ("cnn_cifar100_bn",),
+    "cnn": ("cnn_originalfedavg",),
+    "cnn_dropout": ("femnist-cnn",),
+    "lenet5": (),
+    "lenet5_cifar": (),
+    "cnn_meta": ("cnn_cifar10_meta",),
+    "resnet_meta": ("resnet20_meta",),
+}
+_CANONICAL = {a: k for k, al in (*MODELS_3D.items(), *MODELS_2D.items())
+              for a in (k, *al)}
 
 
-def create_model(name: str, input_shape: tuple[int, int, int],
+def _create_2d(key: str, shape: tuple, num_classes: int, dtype):
+    """A 2D model for ``[H, W, C]`` (or ``[H, W]``) images."""
+    kw = dict(shape=shape, dtype=dtype)
+    digits = num_classes <= 10  # the MNIST family: 10 outputs, else 62
+    build = {
+        "resnet18": customized_resnet18, "original_resnet18":
+        original_resnet18, "tiny_resnet18": tiny_resnet18,
+        "resnet18_ip": resnet18_ip, "vgg11": vgg11, "vgg16": vgg16,
+        "cnn_cifar10": CNNCifar, "cnn_cifar10_bn": CNNCifarBN,
+        "lenet5": LeNet5, "lenet5_cifar": LeNet5_cifar,
+        "cnn_meta": CNNCifarMeta, "resnet_meta": ResNetMeta,
+    }
+    if key == "cnn":
+        return CNN_OriginalFedAvg(only_digits=digits, **kw)
+    if key == "cnn_dropout":
+        return CNN_DropOut(only_digits=digits, **kw)
+    return build[key](num_classes=num_classes, **kw)
+
+
+def create_model(name: str, input_shape: tuple[int, ...],
                  num_classes: int = 1, dtype: torch.dtype = torch.float32,
                  remat: bool | str = False):
-    """Build a model by its CLI name for volumes of ``input_shape``, in the
-    compute ``dtype`` (parameters stay float32), with the remat policy
-    ``remat`` (``False``, ``"stem"`` or ``True``; the AlexNet family only,
-    as in the reference). ``NIDT_FAST_STEM=1`` routes the 5^3 stem's weight
-    gradient through the hand-written kernel (ops/stemconv.py), as in the
-    reference: the AlexNet family has that stem, Tiny3DCNN and ResNet3D do
-    not."""
+    """Build a model by its CLI name for samples of ``input_shape`` (a 3D
+    model's ``[D, H, W]`` volume, a 2D model's ``[H, W, C]`` or ``[H, W]``
+    image, which sizes its dense layers), in the compute ``dtype``
+    (parameters stay float32), with the remat policy ``remat`` (``False``,
+    ``"stem"`` or ``True``; the AlexNet family only, as in the reference).
+    ``NIDT_FAST_STEM=1`` routes the 5^3 stem's weight gradient through the
+    hand-written kernel (ops/stemconv.py), as in the reference: the AlexNet
+    family has that stem, Tiny3DCNN, ResNet3D and the 2D models do not."""
     key = _CANONICAL.get(name.lower())
     if key is None:
         raise ValueError(f"unknown model {name!r}; the port has the 3D "
-                         f"models {', '.join(MODELS_3D)}")
+                         f"models {', '.join(MODELS_3D)} and the 2D models "
+                         f"{', '.join(MODELS_2D)}")
     shape = tuple(input_shape)
+    if key in MODELS_2D:
+        return _create_2d(key, shape, num_classes, dtype)
     fast = os.environ.get("NIDT_FAST_STEM") == "1"
     common = dict(num_classes=num_classes, dtype=dtype)
     if key == "3dcnn_tiny":

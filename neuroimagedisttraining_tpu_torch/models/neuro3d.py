@@ -103,11 +103,17 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return _cast(x, torch.float32)
 
 
+def _channel_view(x: torch.Tensor) -> tuple[int, ...]:
+    """The view of a per-channel ``[C]`` vector against ``x`` (N, C, ...)."""
+    return (1, -1) + (1,) * (x.dim() - 2)
+
+
 def batch_stats(x: torch.Tensor):
-    """``(x in float32, mean, biased variance)`` per channel of NCDHW
-    ``x``, flax's fast variance clipped at 0."""
+    """``(x in float32, mean, biased variance)`` per channel of ``x``
+    (NCDHW, or N, C and any spatial dims), flax's fast variance clipped at
+    0."""
     xf = _f32(x)
-    dims = (0, 2, 3, 4)
+    dims = (0, *range(2, xf.dim()))
     mean = xf.mean(dims)
     var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
     return xf, mean, var
@@ -115,10 +121,16 @@ def batch_stats(x: torch.Tensor):
 
 def normalize(xf, mean, var, scale, bias, eps: float, dtype):
     """flax's ``_normalize`` in float32, then cast to ``dtype``; ``mean``
-    and ``var`` are [C] or [B, C]."""
-    view = (*mean.shape, 1, 1, 1) if mean.dim() == 2 else _VIEW
-    mul = torch.rsqrt(var + eps) * scale
-    y = (xf - mean.view(view)) * mul.view(view) + bias.view(_VIEW)
+    and ``var`` are [C] or [B, C]; ``scale`` / ``bias`` None where the
+    layer has none."""
+    cview = _channel_view(xf)
+    view = (*mean.shape, *cview[2:]) if mean.dim() == 2 else cview
+    mul = torch.rsqrt(var + eps)
+    if scale is not None:
+        mul = mul * scale
+    y = (xf - mean.view(view)) * mul.view(view)
+    if bias is not None:
+        y = y + bias.view(cview)
     return _cast(y, dtype)
 
 
@@ -194,23 +206,31 @@ class Linear(nn.Module):
 
 
 class BatchNorm3d(nn.Module):
-    """BatchNorm with flax's statistics and momentum (see module doc); its
-    output has ``dtype``."""
+    """BatchNorm with flax's statistics and momentum (see module doc) over
+    N, C and any spatial dims; its output has ``dtype``. With ``affine``
+    False it has no scale or bias (flax's ``use_scale=False,
+    use_bias=False``)."""
 
     def __init__(self, features: int, momentum: float = 0.9,
-                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32,
+                 affine: bool = True):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(features))
-        self.bias = nn.Parameter(torch.empty(features))
+        if affine:
+            self.weight = nn.Parameter(torch.empty(features))
+            self.bias = nn.Parameter(torch.empty(features))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        nn.init.ones_(self.weight)
-        nn.init.zeros_(self.bias)
+        if self.weight is not None:
+            nn.init.ones_(self.weight)
+            nn.init.zeros_(self.bias)
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
@@ -237,8 +257,8 @@ class BatchNorm3d(nn.Module):
 
 
 class GroupNorm3d(nn.Module):
-    """flax ``GroupNorm(num_groups=min(32, C))``: epsilon 1e-6, no running
-    stats; its output has ``dtype``."""
+    """flax ``GroupNorm(num_groups=min(32, C))`` over N, C and any spatial
+    dims: epsilon 1e-6, no running stats; its output has ``dtype``."""
 
     def __init__(self, features: int, eps: float = 1e-6,
                  dtype: torch.dtype = torch.float32):
@@ -307,11 +327,13 @@ class ConvBNReLU3D(nn.Module):
         return y
 
 
-def _dropout(x, i: int, dropout_masks, generator):
+def _dropout(x, i: int, dropout_masks, generator, rate: float = 0.5):
+    """Dropout ``i`` of a model: keep-mask ``dropout_masks[i]`` where given,
+    else drawn from ``generator``; kept units scaled by ``1 / (1 - rate)``."""
     keep = (dropout_masks[i] if dropout_masks is not None
             else torch.rand(x.shape, generator=generator,
-                            device=x.device) < 0.5)
-    return torch.where(keep, x / 0.5, torch.zeros_like(x))
+                            device=x.device) < 1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _flatten_last(x: torch.Tensor) -> torch.Tensor:
@@ -321,6 +343,9 @@ def _flatten_last(x: torch.Tensor) -> torch.Tensor:
 
 class _Module3D(nn.Module):
     """What every model of the zoo shares: its init and compute dtype."""
+
+    #: the rank of the input it takes (batch, channel, D, H, W)
+    input_rank = 5
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for m in self.modules():

@@ -10,6 +10,14 @@ so counting at the flagship volume costs nothing. Per kernel, a conv counts
 mask (1 when dense). Training FLOPs are 3x inference (forward plus about
 twice that backward), the reference's convention. Communication volume is
 the nonzero entry count of an update.
+
+The port counts the convolutions that run. Two models differ from the
+reference package's counter there: ``cnn_meta``, whose conv kernels are
+top-level parameters (``meta_conv1_weight``), is counted at its
+``meta_conv1`` module's output where the reference's counter raises, and
+``resnet_meta``'s generated kernels (``KernelConv2d.kernel_shape``) are
+counted beside its hypernetworks' dense kernels, which are all the
+reference's counter sees.
 """
 
 from __future__ import annotations
@@ -24,10 +32,22 @@ from neuroimagedisttraining_tpu_torch.ops.masks import is_weight_kernel
 State = dict[str, torch.Tensor]
 
 
+def probe_shape(model: torch.nn.Module,
+                input_shape: tuple[int, ...]) -> tuple[int, ...]:
+    """The one-sample batch the model takes for a sample of
+    ``input_shape``: ``[1, 1, D, H, W]`` for a volume, ``[1, C, H, W]``
+    for a 2D model's ``[H, W, C]`` image (``[1, 1, H, W]`` for ``[H,
+    W]``)."""
+    if getattr(model, "input_rank", 5) == 4 and len(input_shape) == 3:
+        h, w, c = input_shape
+        return (1, c, h, w)
+    return (1, 1, *input_shape)
+
+
 def _conv_output_shapes(model: torch.nn.Module,
                         input_shape: tuple[int, ...]) -> dict[str, tuple]:
     """Output shape of every module, by name, from one evaluation-mode
-    forward of a ``[1, 1, *input_shape]`` input on the meta device."""
+    forward of one ``input_shape`` sample on the meta device."""
     shapes: dict[str, tuple] = {}
 
     def hook(name):
@@ -42,7 +62,8 @@ def _conv_output_shapes(model: torch.nn.Module,
     try:
         with torch.no_grad():
             functional_call(model, meta, (torch.empty(
-                (1, 1, *input_shape), device="meta"),), {"train": False})
+                probe_shape(model, input_shape), device="meta"),),
+                {"train": False})
     finally:
         for h in handles:
             h.remove()
@@ -66,7 +87,9 @@ def count_inference_flops(model: torch.nn.Module,
             mask_density.get(name, 1.0))
         macs_per_pos = float(math.prod(w.shape))
         if w.dim() > 2:  # conv weight [Cout, Cin, *k]
-            mod_path = name.rsplit(".", 1)[0]
+            # its module's output; a top-level kernel X_weight: module X's
+            mod_path = (name.rsplit(".", 1)[0] if "." in name
+                        else name.removesuffix("_weight"))
             out = out_shapes.get(mod_path)
             if out is None:
                 raise ValueError(
@@ -77,6 +100,10 @@ def count_inference_flops(model: torch.nn.Module,
             total += 2.0 * macs_per_pos * spatial * density
         else:  # dense [out, in]
             total += 2.0 * macs_per_pos * density
+    for name, mod in model.named_modules():  # generated kernels (dense)
+        kernel = getattr(mod, "kernel_shape", None)
+        if kernel is not None:
+            total += 2.0 * math.prod(kernel) * math.prod(out_shapes[name][2:])
     return total
 
 

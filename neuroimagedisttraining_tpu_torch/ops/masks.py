@@ -15,8 +15,8 @@ DisPFL's mask machinery:
 
 Both rank with a stable sort, so tied entries (dead entries at the fire
 sentinel, exact-zero gradients of ReLU-dead units) go in index order: the
-order of the reference's layouts (a conv weight flattened DHWIO, a dense
-one [in, out]), so that the same entries fire and regrow. The drop counts
+order of the reference's layouts (a conv weight flattened DHWIO or HWIO,
+a dense one [in, out]), so that the same entries fire and regrow. The drop counts
 stay on the device.
 """
 
@@ -114,9 +114,11 @@ def init_masks(generator: torch.Generator, params: State,
 
 def reference_flat(x: torch.Tensor) -> torch.Tensor:
     """``x`` flattened in the reference's layout: a conv weight OIDHW as
-    DHWIO, a dense weight [out, in] as [in, out]."""
+    DHWIO, OIHW as HWIO, a dense weight [out, in] as [in, out]."""
     if x.dim() == 5:
         x = x.permute(2, 3, 4, 1, 0)
+    elif x.dim() == 4:
+        x = x.permute(2, 3, 1, 0)
     elif x.dim() == 2:
         x = x.t()
     return x.reshape(-1)
@@ -128,6 +130,9 @@ def from_reference_flat(flat: torch.Tensor, like: torch.Tensor
     if like.dim() == 5:
         o, i, d, h, w = like.shape
         return flat.reshape(d, h, w, i, o).permute(4, 3, 0, 1, 2).contiguous()
+    if like.dim() == 4:
+        o, i, h, w = like.shape
+        return flat.reshape(h, w, i, o).permute(3, 2, 0, 1).contiguous()
     if like.dim() == 2:
         return flat.reshape(like.shape[1], like.shape[0]).t().contiguous()
     return flat.reshape(like.shape)

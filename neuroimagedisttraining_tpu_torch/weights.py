@@ -5,9 +5,16 @@ flax ``params`` / ``batch_stats`` are nested dicts of numpy arrays (e.g.
 ``params["f0"]["conv"]["kernel"]``); the port's state is flat dicts keyed
 ``"f0.conv.weight"``. Per leaf:
 
-- conv ``kernel`` DHWIO -> ``weight`` OIDHW (``permute(4, 3, 0, 1, 2)``);
+- conv ``kernel`` DHWIO -> ``weight`` OIDHW (``permute(4, 3, 0, 1, 2)``),
+  HWIO -> OIHW (``permute(3, 2, 0, 1)``);
 - dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]``;
-- BatchNorm and GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
+- a kernel that is a top-level parameter with no module of its own
+  (``meta.py``'s ``meta_conv1_kernel``) -> ``meta_conv1_weight``, laid
+  out as above;
+- BatchNorm and GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``
+  (nested as the modules are: ``bn1/norm/scale`` for the 2D ResNet's
+  BatchNorm, ``bn1/scale`` for its ``ipbn``; none for a BatchNorm without
+  scale or bias);
 - ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
 
 Every model of the zoo carries over leaf by leaf, both ways: the port's
@@ -39,20 +46,28 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, Any]:
     return out
 
 
+#: a flax kernel's axes as the port lays them out, by rank, and back
+_TO_TORCH = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 2: (1, 0)}
+_TO_FLAX = {5: (2, 3, 4, 1, 0), 4: (2, 3, 1, 0), 2: (1, 0)}
+
+
 def _to_torch_layout(leaf: str, a: np.ndarray) -> np.ndarray:
-    if leaf == "kernel" and a.ndim == 5:
-        return np.transpose(a, (4, 3, 0, 1, 2))
-    if leaf == "kernel" and a.ndim == 2:
-        return a.T
+    if leaf.endswith("kernel") and a.ndim in _TO_TORCH:
+        return np.transpose(a, _TO_TORCH[a.ndim])
     return a
 
 
 def _to_flax_layout(leaf: str, a: np.ndarray) -> np.ndarray:
-    if leaf == "kernel" and a.ndim == 5:
-        return np.transpose(a, (2, 3, 4, 1, 0))
-    if leaf == "kernel" and a.ndim == 2:
-        return a.T
+    if leaf.endswith("kernel") and a.ndim in _TO_FLAX:
+        return np.transpose(a, _TO_FLAX[a.ndim])
     return a
+
+
+def _port_name(mods, leaf: str, names: dict[str, str]) -> str:
+    """The port's name of the flax leaf ``mods/leaf``."""
+    if leaf not in names and leaf.endswith("_kernel"):  # a top-level kernel
+        return ".".join((*mods, leaf.removesuffix("kernel") + "weight"))
+    return ".".join((*mods, names[leaf]))
 
 
 def _convert(tree: Mapping, names: dict[str, str]) -> dict[str, torch.Tensor]:
@@ -60,7 +75,7 @@ def _convert(tree: Mapping, names: dict[str, str]) -> dict[str, torch.Tensor]:
     for path, a in _flatten(tree).items():
         *mods, leaf = path
         a = np.ascontiguousarray(_to_torch_layout(leaf, np.asarray(a)))
-        out[".".join((*mods, names[leaf]))] = torch.from_numpy(
+        out[_port_name(mods, leaf, names)] = torch.from_numpy(
             a.astype(np.float32))
     return out
 
@@ -90,7 +105,7 @@ def params_to_flax(params: Mapping[str, torch.Tensor],
                 if isinstance(v, Mapping):
                     out[k] = walk(v, prefix + (k,))
                 else:
-                    a = state[".".join((*prefix, names[k]))]
+                    a = state[_port_name(prefix, k, names)]
                     out[k] = np.ascontiguousarray(_to_flax_layout(
                         k, a.detach().cpu().numpy()))
             return out

@@ -4,6 +4,7 @@
         [--algorithm salientgrads|fedavg|subavg|dispfl|dpsgd|fedfomo|
                      turboaggregate] [--precision fp32|bf16_mixed]
         [--model 3DCNN|3dcnn_gn|3dcnn_deeper|...] [--out DIR]
+    python3 scripts/torch_port_profile.py --vision [--out DIR]
 
 Builds the flagship run as ``chip_smoke.py`` does (48 synthetic subjects
 over 4 sites at 121x145x121, ``3DCNN`` or ``--model``, batch 16, in
@@ -22,6 +23,12 @@ prints the wall time, the device time summed over kernels (and its share
 of the wall time: the device's busy share, one stream), the time by kernel
 family, and the top kernels; with ``--out``, a Chrome trace of each
 window is written there. The last line is one JSON object with the same numbers.
+
+``--vision`` profiles the 2D path instead: ``chip_smoke.py``'s CIFAR sweep
+(ResNet-18, SalientGrads, 100 clients at Dirichlet 0.3, frac 0.1, batch
+16, 2 epochs, on the synthetic cohort at CIFAR-10's size): after phase 1
+and one round to warm up, it traces phase 1 and one round (10 clients, 64
+local steps each).
 """
 
 from __future__ import annotations
@@ -94,6 +101,9 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--model", default="3DCNN")
     ap.add_argument("--out", default=None,
                     help="directory for the Chrome traces (none if unset)")
+    ap.add_argument("--vision", action="store_true",
+                    help="the CIFAR sweep on ResNet-18 (chip_smoke.py's "
+                         "vision main path) instead of the flagship run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_port_profile: needs a CUDA card", file=sys.stderr)
@@ -104,19 +114,24 @@ def main(argv: list[str]) -> int:
     )
     from neuroimagedisttraining_tpu_torch.ops import _cuda
 
-    from chip_smoke import ENGINE_ARGS
+    from chip_smoke import ENGINE_ARGS, cifar_sweep_engine
     from neuroimagedisttraining_tpu_torch.ops.masks import ones_mask
 
     _cuda.build(["stem_dw", "stem_dw_bf16", "fused_sgd", "count_ge"])
-    cfg = config_from_args(add_args(argparse.ArgumentParser()).parse_args([
-        "--algorithm", args.algorithm, "--dataset", "synthetic",
-        "--model", args.model, "--precision", args.precision,
-        "--synthetic_shape", "121", "145", "121",
-        "--synthetic_num_subjects", "48", "--client_num_in_total", "4",
-        "--batch_size", "16", "--itersnip_iteration", "1", "--epochs", "1",
-        "--comm_round", "2", "--fused_update",
-        *ENGINE_ARGS.get(args.algorithm, ())]))
-    engine, info = build_experiment(cfg, "cuda")
+    if args.vision:
+        args.algorithm, args.model = "salientgrads", "resnet18"
+        engine, info = cifar_sweep_engine(torch.device("cuda"))
+    else:
+        cfg = config_from_args(add_args(argparse.ArgumentParser())
+                               .parse_args([
+            "--algorithm", args.algorithm, "--dataset", "synthetic",
+            "--model", args.model, "--precision", args.precision,
+            "--synthetic_shape", "121", "145", "121",
+            "--synthetic_num_subjects", "48", "--client_num_in_total", "4",
+            "--batch_size", "16", "--itersnip_iteration", "1", "--epochs",
+            "1", "--comm_round", "2", "--fused_update",
+            *ENGINE_ARGS.get(args.algorithm, ())]))
+        engine, info = build_experiment(cfg, "cuda")
     params, bstats = engine.init_global_state()
     C = engine.num_clients
     if args.algorithm == "subavg":
@@ -159,6 +174,7 @@ def main(argv: list[str]) -> int:
         state = engine.run_round(0, params, bstats, [params] * C,
                                  [bstats] * C, masks,
                                  engine.client_sampling(0))
+        torch.cuda.synchronize()
         windows = {
             "phase1": lambda: engine.generate_global_mask(params, bstats),
             "round": lambda: engine.run_round(1, *state[:4], masks,
@@ -177,7 +193,7 @@ def main(argv: list[str]) -> int:
     print(card)
     result = {"card": card, "algorithm": args.algorithm,
               "model": args.model, "precision": args.precision,
-              "partition": info["train_counts"]}
+              "vision": args.vision, "partition": info["train_counts"]}
     for name, fn in windows.items():
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()

@@ -69,11 +69,15 @@ def test_port_imports_without_jax_or_cuda():
     "data/hdf5.py", "data/stream.py", "data/synthetic.py",
     "utils/native.py", "preprocess.py", "__main__.py", "models/neuro3d.py",
     "models/__init__.py", "ops/pooling.py", "ops/stemconv.py",
-    "core/losses.py", "core/trainer.py", "device.py", "weights.py"])
+    "core/losses.py", "core/trainer.py", "device.py", "weights.py",
+    "data/partition.py", "data/vision.py", "models/layers2d.py",
+    "models/resnet2d.py", "models/vision2d.py", "models/meta.py",
+    "ops/masks.py"])
 def test_engine_slice_modules_are_checked(module):
-    """The engines', the data planes' and the model zoo's and precision
-    contract's modules are among the sources checked above (none imports
-    JAX or the reference package)."""
+    """The engines', the data planes', the model zoo's (the 2D one with its
+    vision data included) and the precision contract's modules are among
+    the sources checked above (none imports JAX or the reference
+    package)."""
     path = PORT / module
     assert path in SOURCES
     assert not [m for m in _imported_modules(path)

@@ -329,7 +329,9 @@ def test_dataset_dispatch_and_defaults(tmp_path, monkeypatch):
                      "--device", "cpu"] + (["--streaming"] if streaming
                                           else []))
     with pytest.raises(ValueError, match="abcd/abcd_h5/synthetic"):
-        _experiment(["--dataset", "cifar10"], False)
+        _experiment(["--dataset", "mnist"], False)
+    with pytest.raises(FileNotFoundError):  # a vision loader, no files
+        _experiment(["--dataset", "cifar10", "--data_dir", missing], False)
     eng, info = _experiment(["--dataset", "abcd_h5", "--data_dir", path,
                              "--client_num_in_total", "4"], False)
     Xr, _, _ = _stack_pad(data["X"], data["y"], federation_maps(

@@ -28,7 +28,9 @@ from neuroimagedisttraining_tpu.models import create_model as jcreate
 from neuroimagedisttraining_tpu.ops import flops as JFLOPS
 from neuroimagedisttraining_tpu_torch.config import OptimConfig
 from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
-from neuroimagedisttraining_tpu_torch.models import MODELS_3D, create_model
+from neuroimagedisttraining_tpu_torch.models import (
+    MODELS_2D, MODELS_3D, create_model,
+)
 from neuroimagedisttraining_tpu_torch.models.neuro3d import GroupNorm3d
 from neuroimagedisttraining_tpu_torch.ops import flops as PFLOPS
 from neuroimagedisttraining_tpu_torch.ops.fused_update import MAX_LEAVES
@@ -329,15 +331,39 @@ def test_create_model_names(name, cls):
         assert create_model(name, (121, 145, 121)).fc1.weight.shape[1] == 512
 
 
-@pytest.mark.parametrize("name", ["resnet18", "vgg11", "cnn_cifar10",
-                                  "darts", "lenet5", "nope"])
+@pytest.mark.parametrize("name", ["darts", "darts_v2", "fednas_v1",
+                                  "darts_search", "nope", "resnet50"])
 def test_2d_and_unknown_models_raise(name):
-    """The 2D zoo is not ported: its names raise, naming the 3D models the
-    port has."""
+    """The DARTS family is not ported, and a name neither package has is
+    unknown: they raise, naming every model the port has, 3D and 2D."""
     with pytest.raises(ValueError) as e:
         create_model(name, (69, 69, 69))
-    for m in MODELS_3D:
+    for m in (*MODELS_3D, *MODELS_2D):
         assert m in str(e.value)
+
+
+@pytest.mark.parametrize("name", [
+    "resnet18", "customized_resnet18", "original_resnet18", "tiny_resnet18",
+    "resnet18_ip", "resnet_ip", "vgg11", "vgg16", "cnn_cifar10",
+    "cnn_cifar100", "simple-cnn", "cnn_cifar10_bn", "cnn_cifar100_bn", "cnn",
+    "cnn_originalfedavg", "cnn_dropout", "femnist-cnn", "lenet5",
+    "lenet5_cifar", "cnn_cifar10_meta", "cnn_meta", "resnet_meta",
+    "resnet20_meta"])
+def test_2d_model_names_build_the_reference_class(name):
+    """Every 2D name of the reference's ``create_model`` but the DARTS
+    family builds the port's model of the reference's class (the ResNet-18
+    variants' norm kinds and pool included), for 32x32x3 images."""
+    from neuroimagedisttraining_tpu.models import create_model as jcreate
+
+    ref = jcreate(name, num_classes=10)
+    got = create_model(name, (32, 32, 3), 10)
+    assert type(got).__name__ == type(ref).__name__
+    assert got.input_rank == 4
+    if type(ref).__name__ == "ResNet18":
+        kind = type(got.bn1).__name__
+        assert {"IPNorm": "ipbn"}.get(kind) or type(got.bn1.norm).__name__ \
+            == {"gn": "GroupNorm3d", "bn": "BatchNorm3d"}.get(ref.norm)
+        assert got.adaptive_pool == ref.adaptive_pool
 
 
 _ENGINE_RUNS: dict = {}

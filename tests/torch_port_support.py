@@ -59,8 +59,14 @@ def model_dropout_masks(model: str, shape, batch: int, seed: int = 0):
         flat_features, tiny_flat_features,
     )
 
+    from neuroimagedisttraining_tpu_torch.models import MODELS_2D, _CANONICAL
+
     model = model.lower()
     if model in ("resnet3d", "resnet_l3", "resnet3d_l3"):
+        return {}, ()
+    if _CANONICAL.get(model) in MODELS_2D:
+        if _CANONICAL[model] == "cnn_dropout":
+            raise ValueError("no fixed keep-masks for cnn_dropout here")
         return {}, ()
     if model in ("3dcnn_tiny", "tiny3dcnn"):
         rng = np.random.default_rng(seed)
@@ -152,6 +158,19 @@ def reference_probe_rows(jeng, epochs: int, batch_size: int):
     return screen_idx_for
 
 
+def reference_snip_rows(jeng, iterations: int, batch_size: int):
+    """SalientGrads' ``snip_idx_for``: the IterSNIP batch rows the
+    reference engine ``jeng`` draws for client ``c`` in phase 1."""
+    from neuroimagedisttraining_tpu.ops.snip import iter_snip_batch_indices
+
+    def snip_idx_for(c, n):
+        key = jeng.per_client_rngs(-1, np.array([c]))[0]
+        return torch.from_numpy(np.asarray(iter_snip_batch_indices(
+            key, iterations, batch_size, int(n))).copy())
+
+    return snip_idx_for
+
+
 def reference_initial_masks(jeng, jparams) -> list:
     """The reference DisPFL engine's initial per-client masks, one port
     mask dict a client."""
@@ -166,13 +185,18 @@ def reference_initial_masks(jeng, jparams) -> list:
 def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
                     shape=(69, 69, 69), seed: int = 0,
                     sparsity: dict | None = None, val_map: dict | None = None,
-                    model: str = "3DCNN"):
+                    model: str = "3DCNN", num_classes: int = 1,
+                    eval_pool: tuple | None = None):
     """The reference's engine ``name`` and the port's on the same federation,
-    model (``model``, in ``optim``'s precision), initial weights, epoch
-    permutations and dropout keep-masks (DisPFL: its initial masks and
-    gradient-probe rows too), each run through ``train()``, both logging
-    under ``tmp``. ``data`` is ``(X, y, train_map, test_map)``; ``val_map``
-    a validation split of the same rows (FedFomo's), where given. Returns
+    model (``model`` with ``num_classes`` outputs, in ``optim``'s
+    precision), initial weights, epoch permutations and dropout keep-masks
+    (DisPFL: its initial masks and gradient-probe rows too; SalientGrads:
+    its IterSNIP rows, and phase 2 under the reference's mask), each run
+    through ``train()``, both logging under ``tmp``. ``data`` is ``(X, y,
+    train_map, test_map)``, ``shape`` one sample's; ``eval_pool`` an
+    ``(X, y)`` pool of their own that ``test_map`` indexes (the vision
+    datasets'); ``val_map`` a validation split of the training rows
+    (FedFomo's), where given. Returns
     ``(reference result, port result, reference engine, port engine, port
     initial state)``; the port engine's ``rerun()`` runs it again with the
     same inputs."""
@@ -202,19 +226,23 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
     )
     from neuroimagedisttraining_tpu_torch.engines import create_engine
     from neuroimagedisttraining_tpu_torch.models import create_model
-    from neuroimagedisttraining_tpu_torch.weights import params_from_flax
+    from neuroimagedisttraining_tpu_torch.weights import (
+        masks_from_flax, params_from_flax,
+    )
 
     X, y, train_map, test_map = data
+    X_eval, y_eval = eval_pool if eval_pool is not None else (None, None)
     sparsity = sparsity or {}
     precision = optim.get("precision", "fp32")
-    jcfg = JExp(model=model, num_classes=1, algorithm=name,
+    jcfg = JExp(model=model, num_classes=num_classes, algorithm=name,
                 data=JData(dataset="synthetic", partition_method="site"),
                 optim=JOptim(**optim), fed=JFed(**fed),
                 sparsity=JSparsity(**sparsity), log_dir=str(tmp / "ref"))
-    jfed = jbuild(X, y, train_map, test_map, val_map=val_map)
-    jtrainer = JTrainer(jmodel(model, num_classes=1, remat=False,
+    jfed = jbuild(X, y, train_map, test_map, val_map=val_map, X_eval=X_eval,
+                  y_eval=y_eval)
+    jtrainer = JTrainer(jmodel(model, num_classes=num_classes, remat=False,
                                dtype=jcompute_dtype(precision)),
-                        jcfg.optim, num_classes=1)
+                        jcfg.optim, num_classes=num_classes)
     jeng = jcreate(name, jcfg, jfed, jtrainer, mesh=None,
                    logger=ExperimentLogger(str(tmp / "ref"), "synthetic",
                                            jcfg.identity(), console=False))
@@ -226,13 +254,14 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
         jres = jeng.train()
 
     pcfg = ExperimentConfig(
-        model=model, num_classes=1, algorithm=name,
+        model=model, num_classes=num_classes, algorithm=name,
         data=DataConfig(dataset="synthetic", synthetic_shape=tuple(shape)),
         optim=OptimConfig(**optim), fed=FedConfig(**fed),
         sparsity=SparsityConfig(**sparsity), log_dir=str(tmp / "port"))
     cpu = torch.device("cpu")
     pfed = build_federated_data(X, y, train_map, test_map, cpu,
-                                val_map=val_map)
+                                val_map=val_map, X_eval=X_eval,
+                                y_eval=y_eval)
     epochs = optim.get("epochs", 2)
     init = params_from_flax(jax.tree.map(np.asarray, gs.params),
                             jax.tree.map(np.asarray, gs.batch_stats))
@@ -241,13 +270,18 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
         engine_kw["screen_idx_for"] = reference_probe_rows(
             jeng, epochs, optim["batch_size"])
         train_kw["masks"] = reference_initial_masks(jeng, gs.params)
+    if name == "salientgrads":
+        engine_kw["snip_idx_for"] = reference_snip_rows(
+            jeng, sparsity.get("itersnip_iterations", 1), optim["batch_size"])
+        train_kw["masks"] = masks_from_flax(jax.tree.map(np.asarray,
+                                                         jres["masks"]))
 
     def port_engine():
-        trainer = LocalTrainer(create_model(model, tuple(shape),
+        trainer = LocalTrainer(create_model(model, tuple(shape), num_classes,
                                             dtype=compute_dtype(precision)),
                                pcfg.optim, cpu,
                                torch.Generator().manual_seed(seed),
-                               dropout_masks=pmasks)
+                               dropout_masks=pmasks, num_classes=num_classes)
         peng = create_engine(name, pcfg, pfed, trainer,
                              perms_for=reference_perms(
                                  jeng, nmax, epochs,
