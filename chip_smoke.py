@@ -4,6 +4,7 @@
     python3 chip_smoke.py --quick    # build + check the kernels only
     python3 chip_smoke.py --zoo-precision  # kernels, then step 7 alone
     python3 chip_smoke.py --vision   # kernels, then step 8 (2D) alone
+    python3 chip_smoke.py --darts    # kernels, then step 9 (DARTS) alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
@@ -122,7 +123,24 @@
    counts (``VISION_SCORES``): bit-equal to the host's plain loop on the
    four kinds of scores, no host sync, at most 6 device operations, timed
    against ``torch.topk``.
-9. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+9. The DARTS family (``darts_phase``): an engine built without
+   ``build_experiment`` must have switched TF32 and cuDNN's default
+   algorithms off (the fp32 contract lives in ``LocalTrainer``); the CIFAR
+   sweep on ``darts`` at full width (``DARTS_SWEEP``: DARTS_V2, C=36, 20
+   cells, 919 leaves, 1 epoch, 1 round) on the synthetic cohort at
+   CIFAR-10's size (``kth_select`` launched for the one mask over
+   3,308,940 scores, ``fused_sgd`` 2 launches a table a step over its 29
+   tables, no ``stem_dw``, density within 0.01), with one client's local
+   step split into wall and device time and ``fused_sgd``'s host and
+   device part; one FedAvg round of ``fednas_v1`` and ``darts_search``
+   (39 and 44 tables); SalientGrads on a narrow DARTS (C=8, 5 cells)
+   through the kernels and the plain paths, held as step 8's small inputs;
+   and the drivers, ``DartsSearch`` (first order and unrolled) and
+   ``DartsTrainer`` (auxiliary head, drop-path), on the card. With the
+   kernel checks, ``kth_largest`` runs at the DARTS network's 3,308,940
+   scores and the fused SGD step over its 919 and the search net's 1,401
+   leaves (bit-equal to the plain pass, timed against the library chain).
+10. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -135,7 +153,7 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-10. Prints the run's seconds, one JSON line per kernel, the
+11. Prints the run's seconds, one JSON line per kernel, the
    ``{"kernels": [...]}`` line (each kernel's launches on its main path,
    SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
    run), and last ``{"ok": true, "device": {...}}``.
@@ -1171,11 +1189,10 @@ def cifar_sweep_engine(dev, argv=CIFAR_SWEEP):
 
     from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
     from neuroimagedisttraining_tpu_torch.data.vision import federate_vision
-    from neuroimagedisttraining_tpu_torch.device import resolve_device
     from neuroimagedisttraining_tpu_torch.engines import create_engine
     from neuroimagedisttraining_tpu_torch.models import create_model
 
-    dev = resolve_device(dev)  # the fp32 contract and deterministic cuDNN
+    dev = torch.device(dev)  # LocalTrainer applies the fp32 contract
     cfg = parse_cfg(argv)
     d = cfg.data
     fed, info = federate_vision(
@@ -1273,9 +1290,10 @@ def vision_phase(card, dev, build_experiment, by_path: dict) -> None:
       one global mask, no ``stem_dw``, the mask's density within 0.01 of
       0.5, finite losses and metrics; its phase-1 and round seconds, peak
       memory and ``fused_sgd``'s host table time a step;
-    - one FedAvg round of every other 2D model on the CLI's synthetic vision
-      cohort: ``fused_sgd`` 2 a table a local step, no other kernel, finite
-      losses, its round seconds;
+    - one FedAvg round of every other 2D model but the DARTS family
+      (``darts_phase``) on the CLI's synthetic vision cohort: ``fused_sgd``
+      2 a table a local step, no other kernel, finite losses, its round
+      seconds;
     - SalientGrads and FedAvg on ``cnn_cifar10`` and ``resnet18`` on that
       cohort (2 rounds) through the kernels and the plain paths under
       deterministic cuDNN, held as the 3D engines' small input is: every
@@ -1343,9 +1361,10 @@ def vision_phase(card, dev, build_experiment, by_path: dict) -> None:
     del engine, result
     torch.cuda.empty_cache()
 
-    # ---- every other 2D model: one FedAvg round ----
+    # ---- every other 2D model but the DARTS family (darts_phase): one
+    # FedAvg round ----
     for name in MODELS_2D:
-        if name == "resnet18":
+        if name == "resnet18" or name in DARTS_SCORES:
             continue
         r = drive(build_experiment, vision_cfg("fedavg", name), dev)
         got, res, steps = r["launches"], r["result"], r["steps"]
@@ -1427,6 +1446,411 @@ def vision_phase(card, dev, build_experiment, by_path: dict) -> None:
     torch.cuda.empty_cache()
 
 
+#: the DARTS path's main run: the CIFAR sweep (``CIFAR_SWEEP``) on the
+#: DARTS_V2 network at full width (C=36, 20 cells, 919 leaves: 29 of
+#: fused_sgd's 32-leaf tables), 1 epoch and 1 round
+DARTS_SWEEP = ("--algorithm", "salientgrads", "--dataset", "cifar10",
+               "--model", "darts", "--partition_method", "dir",
+               "--partition_alpha", "0.3", "--client_num_in_total", "100",
+               "--frac", "0.1", "--comm_round", "1", "--batch_size", "16",
+               "--epochs", "1", "--lr", "0.01", "--dense_ratio", "0.5",
+               "--itersnip_iteration", "1", "--fused_update")
+#: the DARTS models' maskable scores (conv and dense kernels) at 10
+#: classes
+DARTS_SCORES = {"darts": 3_308_940, "fednas_v1": 4_226_076,
+                "darts_search": 1_930_512}
+
+
+class CallTimer:
+    """Inside ``with``, the host time of every call of ``module.name``
+    (the call's own wall time, queueing only where it launches), and the
+    calls."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.calls, self.seconds = 0, 0.0
+
+    def _call(self, *a, **kw):
+        t = time.perf_counter()
+        out = self.orig(*a, **kw)
+        self.seconds += time.perf_counter() - t
+        self.calls += 1
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self._call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def ms_per_call(self) -> float:
+        return 1e3 * self.seconds / max(self.calls, 1)
+
+
+def device_kernel_ms(fn) -> tuple[float, float]:
+    """``(all kernels, fused_sgd's kernels)``: the device milliseconds of
+    the kernels ``fn`` runs (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = fused = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            total += t / 1e3
+            fused += t / 1e3 if "fused_sgd" in e.key else 0.0
+    return total, fused
+
+
+def darts_step_split(engine, repeats: int = 2, steps: int = 4) -> dict:
+    """``steps`` local steps of the engine's largest client, timed: the wall
+    ms of a local step (host clock, the card synced after; the least of
+    ``repeats`` runs after a warm-up), the kernels' device ms a step
+    (``torch.profiler``, one more run), and ``fused_sgd``'s part: the host
+    ms of its call a step (its table and its launches) and its kernels'
+    device ms a step."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.core import optim
+
+    import numpy as np
+
+    tr, cfg = engine.trainer, engine.cfg
+    c = int(np.argmax(engine.n_train))
+    B = cfg.optim.batch_size
+    n = min(int(engine.n_train[c]), steps * B)
+    X, y = engine.data.X_train[c], engine.data.y_train[c]
+    p, b = engine.init_global_state()
+    lr = engine.round_lr(0)
+    steps = math.ceil(n / B)
+
+    def run():
+        return tr.local_train(p, b, X, y, n, lr, 1, B, engine.max_samples)
+
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    with CallTimer(optim, "fused_sgd_step") as fused:
+        for _ in range(repeats):
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+    dev_ms, fused_dev_ms = device_kernel_ms(run)
+    wall_ms = 1e3 * min(walls) / steps
+    out = {"client_rows": n, "steps": steps, "step_wall_ms": wall_ms,
+           "step_device_ms": dev_ms / steps,
+           "fused_sgd_host_ms_per_step": fused.ms_per_call(),
+           "fused_sgd_device_ms_per_step": fused_dev_ms / steps}
+    out["fused_sgd_host_share_of_step"] = (
+        out["fused_sgd_host_ms_per_step"] / wall_ms)
+    return out
+
+
+def narrow_darts_engine(dev, algorithm: str, kernels: bool, rounds: int = 2):
+    """``algorithm`` on a narrow DARTS_V2 network (C=8, 5 cells) on the CLI's
+    synthetic vision cohort (4 clients, batch 16, 1 epoch), through
+    ``federate_vision``, ``LocalTrainer`` and ``create_engine``; the fused
+    step where ``kernels``."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
+    from neuroimagedisttraining_tpu_torch.data.vision import federate_vision
+    from neuroimagedisttraining_tpu_torch.engines import create_engine
+    from neuroimagedisttraining_tpu_torch.models.darts import (
+        DARTS_V2, DartsNetwork,
+    )
+
+    cfg = vision_cfg(algorithm, "darts", kernels, rounds=rounds)
+    d = cfg.data
+    fed, _ = federate_vision("cifar10", d.data_dir, "dir", d.partition_alpha,
+                             cfg.fed.client_num_in_total, dev, seed=cfg.seed,
+                             synthetic=True, num_classes=cfg.num_classes)
+    model = DartsNetwork(genotype=DARTS_V2, c=8, layers=5,
+                         num_classes=cfg.num_classes)
+    trainer = LocalTrainer(model, cfg.optim, dev,
+                           torch.Generator(device=dev).manual_seed(cfg.seed),
+                           num_classes=cfg.num_classes)
+    return create_engine(algorithm, cfg, fed, trainer)
+
+
+def darts_drivers(card, dev, by_path: dict) -> None:
+    """``DartsSearch`` on ``darts_search`` (C=16, 8 cells, batch 16) for 3
+    steps first order and 2 unrolled, and ``DartsTrainer`` on ``darts``
+    with the auxiliary head for 3 steps at drop-path 0.2 over 4 total
+    steps, on random 32x32x3 images: finite losses, alphas and weights
+    that move, a derived genotype, BatchNorm stats that move, and
+    ``fused_sgd`` 2 launches a table a step (the launch counters set to 0
+    just before each run and read just after)."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.models import darts as D
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+    from neuroimagedisttraining_tpu_torch.ops.fused_update import MAX_LEAVES
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def batch():
+        return (torch.randn((16, 3, 32, 32), generator=gen, device=dev),
+                torch.randint(0, 10, (16,), generator=gen, device=dev))
+
+    for unrolled, steps in ((False, 3), (True, 2)):
+        net = D.DartsSearchNet(num_classes=10).to(dev)
+        search = D.DartsSearch(net, 10, unrolled=unrolled, total_steps=10)
+        state = search.init(torch.Generator().manual_seed(0))
+        a0 = {k: state["params"][k].clone() for k in D.ARCH_KEYS}
+        w0 = state["params"]["Dense_0.weight"].clone()
+        batches = [(batch(), batch()) for _ in range(steps)]
+        torch.cuda.synchronize()
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        losses = [float(search.step(state, tb, vb)[1]) for tb, vb in batches]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = _cuda.counts()
+        path = f"darts_search_driver{'_unrolled' if unrolled else ''}"
+        by_path[path] = got
+        tables = -(-(len(state["params"]) - 2) // MAX_LEAVES)
+        moved = all(not torch.equal(state["params"][k], a0[k])
+                    for k in D.ARCH_KEYS)
+        geno = search.genotype(state)
+        print(json.dumps({"darts_search_driver": {
+            "unrolled": unrolled, "card": card, "steps": steps,
+            "losses": losses, "seconds_per_step": secs / steps,
+            "launches": got, "fused_sgd_tables": tables,
+            "genotype_normal": geno.normal}}))
+        if got.get("fused_sgd", 0) != 2 * tables * steps:
+            fail(f"DartsSearch (unrolled {unrolled}): fused_sgd {got} in "
+                 f"{steps} steps of {tables} tables")
+        if not all(math.isfinite(v) for v in losses) or not moved or \
+                torch.equal(state["params"]["Dense_0.weight"], w0):
+            fail(f"DartsSearch (unrolled {unrolled}): losses {losses}, "
+                 f"alphas moved {moved}")
+        if len(geno.normal) != 8 or any(op == "none" for op, _ in
+                                        geno.normal + geno.reduce):
+            fail(f"DartsSearch derived a malformed genotype {geno}")
+        del net, search, state
+    net = D.DartsNetwork(num_classes=10, auxiliary=True).to(dev)
+    trainer = D.DartsTrainer(net, 10, total_steps=4)
+    state = trainer.init(torch.Generator().manual_seed(0))
+    b0 = {k: v.clone() for k, v in state["bstats"].items()}
+    batches = [batch() for _ in range(3)]
+    torch.cuda.synchronize()
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    losses = [float(trainer.step(state, bt, gen)[1]) for bt in batches]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = _cuda.counts()
+    by_path["darts_trainer_driver"] = got
+    tables = -(-len(state["params"]) // MAX_LEAVES)
+    print(json.dumps({"darts_trainer_driver": {
+        "card": card, "steps": 3, "losses": losses,
+        "seconds_per_step": secs / 3, "launches": got,
+        "fused_sgd_tables": tables,
+        "drop_prob_last_step": trainer.drop_prob(2)}}))
+    if got.get("fused_sgd", 0) != 2 * tables * 3:
+        fail(f"DartsTrainer: fused_sgd {got} in 3 steps of {tables} tables")
+    if not all(math.isfinite(v) for v in losses) or all(
+            torch.equal(state["bstats"][k], b0[k]) for k in b0):
+        fail(f"DartsTrainer: losses {losses} or BatchNorm stats that did "
+             "not move")
+    del net, trainer, state
+    torch.cuda.empty_cache()
+
+
+def darts_phase(card, dev, build_experiment, by_path: dict) -> None:
+    """The DARTS family on the card, each run with the launch counters set
+    to 0 just before and read just after:
+
+    - the fp32 contract: with TF32 and cuDNN's default algorithms switched
+      on, the main path's engine built through ``federate_vision``,
+      ``create_model``, ``LocalTrainer`` and ``create_engine`` (no
+      ``build_experiment``, no ``resolve_device``) must have switched them
+      off before its first step;
+    - the main path, the CIFAR sweep on ``darts`` at full width
+      (``DARTS_SWEEP``: DARTS_V2, C=36, 20 cells, SalientGrads, 100 clients
+      at Dirichlet 0.3, frac 0.1, batch 16, 1 epoch, 1 round, dense ratio
+      0.5) on the synthetic cohort at CIFAR-10's size: ``kth_select``
+      launched for the one global mask over 3,308,940 scores, ``fused_sgd``
+      2 launches a table a local step (29 tables: 58), no ``stem_dw``, the
+      mask's density within 0.01 of 0.5, finite losses and metrics; its
+      phase-1 and round seconds, peak memory, ``fused_sgd``'s host table ms
+      a step, and one client's local step split (wall and device ms,
+      ``fused_sgd``'s host and device ms);
+    - one FedAvg round of ``fednas_v1`` and of ``darts_search`` on the CLI's
+      synthetic vision cohort (4 clients, batch 16): ``fused_sgd`` 2 a
+      table a local step (39 and 44 tables), finite, and the search net's
+      local step split;
+    - SalientGrads on a narrow DARTS_V2 (C=8, 5 cells) through the kernels
+      and the plain paths under deterministic cuDNN, held as
+      ``vision_phase`` holds ``cnn_cifar10`` and ``resnet18``: every
+      ``fused_sgd`` call against its plain version (``PerCallCheck``), two
+      kernel runs bit-equal, the train losses rtol 1e-4, the weights within
+      1e-3 of the largest weight change, the evaluation loss rtol 1e-3;
+    - the drivers (``darts_drivers``)."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+
+    spent, mark = {}, [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        spent[part] = now - mark[0]
+        mark[0] = now
+
+    # ---- the fp32 contract without build_experiment ----
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    cudnn.deterministic, cudnn.benchmark = False, True
+    t0 = time.perf_counter()
+    engine, info = cifar_sweep_engine(dev, DARTS_SWEEP)
+    setup_s = time.perf_counter() - t0
+    contract = {"cudnn.allow_tf32": cudnn.allow_tf32,
+                "matmul.allow_tf32": matmul.allow_tf32,
+                "cudnn.deterministic": cudnn.deterministic,
+                "cudnn.benchmark": cudnn.benchmark}
+    print(json.dumps({"darts_fp32_contract_before_first_step": contract}))
+    if contract != {"cudnn.allow_tf32": False, "matmul.allow_tf32": False,
+                    "cudnn.deterministic": True, "cudnn.benchmark": False}:
+        fail(f"an engine built without build_experiment runs outside the "
+             f"fp32 contract: {contract}")
+
+    # ---- the main path: the CIFAR sweep on darts at full width ----
+    cfg, tables = engine.cfg, tables_of(engine)
+    steps = local_steps(engine)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    with TableTimer() as table:
+        result = engine.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    got = _cuda.counts()
+    by_path["salientgrads_darts"] = got
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    split = darts_step_split(engine)
+    losses = [h["train_loss"] for h in result["history"]]
+    metrics = [result[w][m] for w in ("final_global", "final_personal")
+               for m in ("acc", "loss", "auc")]
+    print(json.dumps({
+        "darts_main_path": "salientgrads darts cifar10-size", "card": card,
+        "clients": engine.num_clients, "leaves": len(result["params"]),
+        "setup_seconds": setup_s, "train_seconds": train_s,
+        "phase1_seconds": result["phase1_seconds"],
+        "round_seconds": [h["round_seconds"] for h in result["history"]],
+        "train_loss": losses, "mask_density": result["mask_density"],
+        "final_global": result["final_global"],
+        "final_personal": result["final_personal"], "launches": got,
+        "local_steps": steps, "fused_sgd_tables": tables,
+        "fused_sgd_table": table.summary(), "peak_memory_gb": peak,
+        "step_split": split}))
+    if tables != 29:
+        fail(f"darts has {tables} fused_sgd tables, not 29")
+    if got.get("fused_sgd", 0) != 2 * tables * steps:
+        fail(f"darts: fused_sgd launched {got.get('fused_sgd')} kernels in "
+             f"{steps} local steps, not {2 * tables} a step")
+    if not got.get("kth_select", 0) > 0:
+        fail("the DARTS sweep never launched the kth_select kernel")
+    if got.get("stem_dw", 0) or got.get("stem_dw_bf16", 0):
+        fail(f"the DARTS path launched a stem_dw kernel: {got}")
+    if abs(result["mask_density"] - cfg.sparsity.dense_ratio) > 0.01:
+        fail(f"darts mask density {result['mask_density']}")
+    if not all(math.isfinite(v) for v in losses + metrics):
+        fail(f"darts: non-finite losses or metrics {losses} {metrics}")
+    del engine, result
+    torch.cuda.empty_cache()
+    lap("main_path")
+
+    # ---- fednas_v1 and darts_search: one FedAvg round each ----
+    for name, want_tables in (("fednas_v1", 39), ("darts_search", 44)):
+        r = drive(build_experiment, vision_cfg("fedavg", name), dev)
+        got, res, steps = r["launches"], r["result"], r["steps"]
+        tables = tables_of(r["engine"])
+        by_path[f"fedavg_{name}"] = got
+        extra = ({"step_split": darts_step_split(r["engine"], steps=2)}
+                 if name == "darts_search" else {})
+        losses = [h["train_loss"] for h in res["history"]]
+        print(json.dumps({
+            "darts_zoo": name, "card": card, "launches": got,
+            "local_steps": steps, "leaves": len(res["params"]),
+            "fused_sgd_tables": tables, "round_seconds": res["round_seconds"],
+            "finetune_seconds": res["finetune_seconds"],
+            "peak_memory_gb": r["peak_memory_gb"], "train_loss": losses,
+            **extra}))
+        if tables != want_tables:
+            fail(f"{name} has {tables} fused_sgd tables, not {want_tables}")
+        if got.get("fused_sgd", 0) != 2 * tables * steps:
+            fail(f"{name}: fused_sgd {got.get('fused_sgd')} in {steps} "
+                 f"steps of {tables} tables")
+        if any(v for k, v in got.items() if k != "fused_sgd"):
+            fail(f"{name}: a kernel other than fused_sgd launched: {got}")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"{name}: non-finite losses {losses}")
+        del r, res
+        torch.cuda.empty_cache()
+        lap(f"fedavg_{name}")
+
+    # ---- a narrow DARTS: kernels against plain paths ----
+    det0 = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    per_call = PerCallCheck()
+    probe = narrow_darts_engine(dev, "salientgrads", True)
+    init_p, init_b = probe.init_global_state()
+    masks, _ = probe.generate_global_mask(init_p, init_b)
+    plain = narrow_darts_engine(dev, "salientgrads", False).train(masks=masks)
+    per_call.reset()
+    with per_call:
+        kern = narrow_darts_engine(dev, "salientgrads", True).train(masks=masks)
+    calls = per_call.check("salientgrads narrow darts small input",
+                           stem=False)
+    again = narrow_darts_engine(dev, "salientgrads", True).train(masks=masks)
+    if not states_bit_equal(kern, again):
+        fail("salientgrads narrow darts: two runs through the kernels "
+             "differ")
+    moved = max(float((v - init_p[k]).abs().max())
+                for k, v in plain["params"].items())
+    p_err = max(float((kern["params"][k] - v).abs().max())
+                for k, v in plain["params"].items())
+    lp = [h["train_loss"] for h in plain["history"]]
+    lk = [h["train_loss"] for h in kern["history"]]
+    ep, ek = plain["final_global"]["loss"], kern["final_global"]["loss"]
+    print(json.dumps({"darts_small_input_check": {
+        "engine": "salientgrads", "model": "darts C=8 5 cells",
+        "card": card, "train_loss_plain": lp, "train_loss_kernels": lk,
+        "eval_loss_plain": ep, "eval_loss_kernels": ek,
+        "param_max_abs_err": p_err, "largest_weight_change": moved,
+        "per_call": calls}}))
+    faults = []
+    if not all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lk, lp)):
+        faults.append(f"narrow darts train losses {lk} vs plain {lp}")
+    if not p_err <= 1e-3 * moved:
+        faults.append(f"narrow darts params differ by {p_err} (largest "
+                      f"weight change {moved})")
+    if not abs(ek - ep) <= 1e-3 * abs(ep):
+        faults.append(f"narrow darts eval loss {ek} vs plain {ep}")
+    if faults:
+        fail("; ".join(faults))
+    torch.backends.cudnn.deterministic = det0
+    del probe, plain, kern, again
+    torch.cuda.empty_cache()
+    lap("small_input")
+
+    # ---- the drivers ----
+    darts_drivers(card, dev, by_path)
+    lap("drivers")
+    print(json.dumps({"darts_phase_seconds": spent}))
+
+
 def torch_equal_bits(a, b) -> bool:
     import torch
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -1485,6 +1909,7 @@ def main(argv: list[str]) -> int:
     quick = "--quick" in argv
     only_new = "--zoo-precision" in argv
     only_vision = "--vision" in argv
+    only_darts = "--darts" in argv
     import numpy as np
     import torch
 
@@ -1801,7 +2226,11 @@ def main(argv: list[str]) -> int:
     # clip taken at gnorm / 3
     wide = {}
     ragged = [int(n) for n in np.random.default_rng(6).integers(0, 9000, 140)]
-    for tree, sizes in (("resnet18", RESNET18_SIZES), ("ragged140", ragged)):
+    darts_sizes = {name: [p.numel() for p in create_model(
+        name, (32, 32, 3), 10).parameters()] for name in ("darts",
+                                                          "darts_search")}
+    for tree, sizes in (("resnet18", RESNET18_SIZES), ("ragged140", ragged),
+                        *darts_sizes.items()):
         pw = [torch.randn(n, generator=gen, device=dev) * 0.05 for n in sizes]
         gw = [torch.randn(n, generator=gen, device=dev) * 0.01 for n in sizes]
         tw = [torch.randn(n, generator=gen, device=dev) * 0.01 for n in sizes]
@@ -1843,13 +2272,29 @@ def main(argv: list[str]) -> int:
                       "tables": ntables, "launches_per_step": step_launches,
                       "gnorm_rel_err": gn_err,
                       "bound_ms": bound_ms(4.0 * 6 * n_w, 11.0 * n_w)[0]}
-        if not quick and tree == "resnet18":
+        if not quick and tree != "ragged140":
             (pk_w, tk_w) = wstate()
             w_ms, w_host = time_ms(lambda: FU.fused_sgd_step(
                 pk_w, gw, tk_w, mw, lr=lr, **kw_w), 20)
             wp_ms, _ = time_ms(lambda: FU.sgd_step_plain(
                 pp_w, gw, tp_w, mw, lr=lr, **kw_w), 5)
             wide[tree].update(ms=w_ms, host_ms=w_host, plain_ms=wp_ms)
+            if fused_sgd_ is not None and tree != "resnet18":
+                gl_w = [g.clone() for g in gw]
+                pl_w, tl_w = wstate()
+                for pi, gi in zip(pl_w, gl_w):
+                    pi.grad = gi
+
+                def wide_chain():
+                    torch.nn.utils.clip_grad_norm_(pl_w, kw_w["clip"],
+                                                   foreach=True)
+                    fused_sgd_(pl_w, gl_w, tl_w, weight_decay=wd,
+                               momentum=mom, lr=lr_f, dampening=0.0,
+                               nesterov=False, maximize=False,
+                               is_first_step=False)
+                    torch._foreach_mul_(pl_w, mw)
+                wide[tree]["library_ms"], _ = time_ms(wide_chain, 10)
+                del gl_w, pl_w, tl_w
         del pw, gw, tw, mw, pk_w, tk_w, pp_w, tp_w
     rows.append({"name": "fused_sgd", "route": "cuda",
                  "source": "neuroimagedisttraining_tpu_torch/csrc/fused_sgd.cu",
@@ -1982,6 +2427,10 @@ def main(argv: list[str]) -> int:
         at = kth_select_at(n, gen, dev, time_ms, quick)
         rows[-1]["vision_scores"][name] = at
         print(json.dumps({"kth_select_at": name, "card": card, **at}))
+    # and at the DARTS network's (the DARTS path's one global mask)
+    at = kth_select_at(DARTS_SCORES["darts"], gen, dev, time_ms, quick)
+    rows[-1]["darts_scores"] = {"darts": at}
+    print(json.dumps({"kth_select_at": "darts", "card": card, **at}))
 
     # ---- the slice: flagship SalientGrads through the user entry points ----
     launches = {r["name"]: None for r in rows}
@@ -2018,6 +2467,9 @@ def main(argv: list[str]) -> int:
             return finish(rows, by_path, started)
         if only_vision:
             vision_phase(card, dev, build_experiment, by_path)
+            return finish(rows, by_path, started)
+        if only_darts:
+            darts_phase(card, dev, build_experiment, by_path)
             return finish(rows, by_path, started)
 
         cfg = flagship("salientgrads")
@@ -2363,6 +2815,9 @@ def main(argv: list[str]) -> int:
 
         # ---- the 2D vision path: the CIFAR sweep and the 2D zoo ----
         vision_phase(card, dev, build_experiment, by_path)
+
+        # ---- the DARTS family: the CIFAR sweep on darts, the drivers ----
+        darts_phase(card, dev, build_experiment, by_path)
 
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",

@@ -10,11 +10,13 @@
         [--partition_method site|dir|n_cls|my_part|homo|hetero|rescale \\
         --partition_alpha A] \\
         --model 3DCNN|3DCNN_gn|3DCNN_deeper|3DCNN_regression|3DCNN_tiny|\\
-                resnet3d|resnet18|vgg11|cnn_cifar10|resnet_meta|... \\
+                resnet3d|resnet18|vgg11|cnn_cifar10|resnet_meta|darts|\\
+                fednas_v1|darts_search|... \\
         [--num_classes K] [--fused_update] \\
         [--client_optimizer sgd|adam] [--precision fp32|bf16_mixed \\
         [--loss_scale S]] [--remat auto|none|stem|all] \\
-        [--val_fraction F] [--device cuda|cpu] [--log_dir LOG] ...
+        [--val_fraction F] [--device cuda|cpu] [--log_dir LOG] \\
+        [--tag TAG] [--ci 1] [--no_snip_mask] ...
 
 Flag names are the reference CLI's for the flags the port takes.
 ``--dataset ABCD`` / ``abcd_h5`` (the default) reads the X/y/site HDF5 file
@@ -84,6 +86,9 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--frac", type=float, default=1.0)
     parser.add_argument("--comm_round", type=int, default=200)
     parser.add_argument("--frequency_of_the_test", type=int, default=1)
+    parser.add_argument("--ci", type=int, default=0,
+                        help="nonzero: every evaluation takes client 0 "
+                             "only")
     parser.add_argument("--seed", type=int, default=1024)
     parser.add_argument("--seed_split", type=int, default=42)
     parser.add_argument("--cs", type=str, default="random",
@@ -94,6 +99,9 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--dense_ratio", type=float, default=0.5)
     parser.add_argument("--anneal_factor", type=float, default=0.5)
     parser.add_argument("--erk_power_scale", type=float, default=1.0)
+    parser.add_argument("--no_snip_mask", action="store_true",
+                        help="SalientGrads: train dense (every mask entry "
+                             "1) after phase 1")
     parser.add_argument("--uniform", action="store_true")
     parser.add_argument("--static", action="store_true")
     parser.add_argument("--dis_gradient_check", action="store_true")
@@ -158,6 +166,9 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                              "auto)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--tag", type=str, default="exp",
+                        help="the last part of the experiment's identity "
+                             "(its log file name)")
     return parser
 
 
@@ -174,7 +185,8 @@ def config_from_args(args) -> ExperimentConfig:
         num_classes = VISION_CLASSES.get(args.dataset.lower(), 1)
     return ExperimentConfig(
         model=args.model, num_classes=num_classes,
-        algorithm=args.algorithm, seed=args.seed, log_dir=args.log_dir,
+        algorithm=args.algorithm, seed=args.seed, tag=args.tag,
+        log_dir=args.log_dir,
         stream_chunk_clients=args.stream_chunk_clients, remat=args.remat,
         data=DataConfig(dataset=args.dataset.lower(), data_dir=args.data_dir,
                         partition_method=args.partition_method,
@@ -195,6 +207,7 @@ def config_from_args(args) -> ExperimentConfig:
         fed=FedConfig(client_num_in_total=args.client_num_in_total,
                       frac=args.frac, comm_round=args.comm_round,
                       frequency_of_the_test=args.frequency_of_the_test,
+                      ci=bool(args.ci),
                       lamda=args.lamda, local_epochs=args.local_epochs,
                       cs=args.cs, active=args.active, fomo_m=args.fomo_m,
                       mpc_n_shares=args.mpc_n_shares,
@@ -205,6 +218,7 @@ def config_from_args(args) -> ExperimentConfig:
             erk_power_scale=args.erk_power_scale, uniform=args.uniform,
             static=args.static, dis_gradient_check=args.dis_gradient_check,
             different_initial=args.different_initial, diff_spa=args.diff_spa,
+            snip_mask=not args.no_snip_mask,
             itersnip_iterations=args.itersnip_iteration,
             stratified_sampling=args.stratified_sampling,
             each_prune_ratio=args.each_prune_ratio,

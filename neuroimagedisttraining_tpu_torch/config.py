@@ -109,6 +109,8 @@ class FedConfig:
     cs: str = "random"
     active: float = 1.0
     frequency_of_the_test: int = 1
+    # CI mode: every evaluation takes client 0 only
+    ci: bool = False
     # Ditto's proximal weight (also FedProx's mu) and personal epochs
     lamda: float = 0.5
     local_epochs: int = 1
@@ -142,6 +144,8 @@ class ExperimentConfig:
     # the AlexNet family's rematerialisation: auto | none | stem | all
     # (core/optim.py resolve_remat)
     remat: str = "auto"
+    # the last part of the experiment's identity (its log file name)
+    tag: str = "exp"
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     fed: FedConfig = field(default_factory=FedConfig)
@@ -149,13 +153,13 @@ class ExperimentConfig:
 
     def identity(self) -> str:
         """The experiment's identity string (the reference's log file name,
-        with its tag ``exp``: the port takes no tag)."""
+        ending in its ``tag``)."""
         d, o, f, s = self.data, self.optim, self.fed, self.sparsity
         parts = [
             self.algorithm, d.dataset, self.model,
             f"c{f.client_num_in_total}", f"frac{f.frac}", f"r{f.comm_round}",
             f"e{o.epochs}", f"b{o.batch_size}", f"lr{o.lr}", f"dec{o.lr_decay}",
             f"wd{o.wd}", f"part-{d.partition_method}{d.partition_alpha}",
-            f"dr{s.dense_ratio}", f"seed{self.seed}", "exp",
+            f"dr{s.dense_ratio}", f"seed{self.seed}", self.tag,
         ]
         return "_".join(str(p) for p in parts)

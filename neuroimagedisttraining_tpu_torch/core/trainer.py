@@ -49,6 +49,7 @@ from neuroimagedisttraining_tpu_torch.core.losses import (
 from neuroimagedisttraining_tpu_torch.core.optim import (
     AdamState, LocalOptimizer, validate_precision,
 )
+from neuroimagedisttraining_tpu_torch.device import resolve_device
 from neuroimagedisttraining_tpu_torch.models import primary_logits
 
 State = dict[str, torch.Tensor]
@@ -74,13 +75,17 @@ def prox_pull_(params: list[torch.Tensor], ref: list[torch.Tensor], lr,
 
 
 class LocalTrainer:
-    """Trainer bound to one model, optimizer config and device."""
+    """Trainer bound to one model, optimizer config and device. A CUDA
+    device is resolved through ``device.resolve_device`` before the model
+    is put on it, so every engine and library caller runs with the fp32
+    contract (TF32 off) and cuDNN's deterministic algorithms."""
 
     def __init__(self, model: torch.nn.Module, optim: OptimConfig,
                  device: torch.device, generator: torch.Generator,
                  dropout_masks: tuple[torch.Tensor, ...] | None = None,
                  num_classes: int = 1):
         validate_precision(optim)
+        device = resolve_device(device)
         self.model = model.to(device)
         self.optim_cfg = optim
         self.num_classes = num_classes
@@ -238,22 +243,31 @@ class LocalTrainer:
                  y: torch.Tensor, valid: torch.Tensor, batch_size: int = 32):
         """Chunked eval: ``test_correct``, ``test_loss`` (sum),
         ``test_total`` and the ``scores`` for AUC (the logit; with several
-        classes the last class's log-probability)."""
+        classes the last class's log-probability). A model that normalises
+        by the batch's own statistics in evaluation (its
+        ``eval_batch_stats``: the DARTS search net, ``ipbn``) sees its last
+        chunk padded with zero rows to ``batch_size``, as the reference
+        pads every chunk, so its statistics are the reference's."""
         correct = torch.zeros((), device=self.device)
         loss = torch.zeros((), device=self.device)
         scores = []
         v_all = valid.to(torch.float32)
+        pad = getattr(self.model, "eval_batch_stats", False)
         for i in range(0, X.shape[0], batch_size):
             xb, yb, vb = (X[i:i + batch_size], y[i:i + batch_size],
                           v_all[i:i + batch_size])
+            rows = xb.shape[0]
+            if pad and rows < batch_size:
+                xb, yb, vb = (torch.cat([t, t.new_zeros(
+                    (batch_size - rows, *t.shape[1:]))]) for t in (xb, yb, vb))
             logits = self.apply(params, bstats,
                                 self._prep(xb, self.input_rank), train=False)
             correct = correct + torch.sum(
                 (predictions(logits, self.num_classes)
                  == yb.to(torch.int32)) * vb)
             loss = loss + self.loss(logits, yb, vb) * torch.sum(vb)
-            scores.append(logits.reshape(xb.shape[0], -1)[:, 0]
-                          if self.num_classes == 1
-                          else torch.log_softmax(logits, -1)[:, -1])
+            scores.append((logits.reshape(xb.shape[0], -1)[:, 0]
+                           if self.num_classes == 1
+                           else torch.log_softmax(logits, -1)[:, -1])[:rows])
         return {"test_correct": correct, "test_loss": loss,
                 "test_total": torch.sum(v_all), "scores": torch.cat(scores)}

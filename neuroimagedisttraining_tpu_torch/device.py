@@ -10,6 +10,10 @@ change, while on a flagship FedAvg round the deterministic ones cost
 nothing measurable (-0.9% of the round's seconds in fp32, +0.2% in
 bf16_mixed; ``chip_smoke.py`` on an H100 80GB HBM3 at 700 W), so the
 port's runs repeat bit for bit, as the reference's do on its chip.
+The contract holds wherever work first reaches a CUDA device: the CLI's
+``build_experiment`` resolves its device here, and so does every
+``LocalTrainer`` (where each engine and library caller puts its model on
+the device).
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """The torch device to run on; ``cuda`` must exist if asked for."""
+    """The torch device to run on; ``cuda`` must exist if asked for, and
+    gets the fp32 contract and cuDNN's deterministic algorithms."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -205,11 +205,12 @@ class FederatedEngine:
 
         walks = [*before, train_walk(round_idx)]
         if self.is_eval_round(round_idx):
-            walks += [("test", everyone)] * self.eval_walks
+            walks += [("test", self.eval_ids())] * self.eval_walks
         if round_idx + 1 < self.cfg.fed.comm_round:
             walks.append(train_walk(round_idx + 1))
         else:
-            walks += [(split, everyone) for split in self.final_walks]
+            walks += [(split, self.eval_ids() if split == "test"
+                       else everyone) for split in self.final_walks]
         self._walks = walks
 
     # ---------- local training ----------
@@ -375,13 +376,19 @@ class FederatedEngine:
 
     # ---------- evaluation ----------
 
+    def eval_ids(self) -> tuple[int, ...]:
+        """The clients an evaluation takes: every client, or client 0 alone
+        under ``fed.ci`` (the reference's CI mode)."""
+        return (0,) if self.cfg.fed.ci else tuple(range(self.num_clients))
+
     def _eval_clients(self, states: list[tuple[State, State]]
                       ) -> dict[str, float]:
-        """Each client's state on its own test rows, summarized (the
-        reference package's ``eval_global_stream`` and
-        ``eval_personalized_stream`` too: the walk serves both paths)."""
+        """Each evaluated client's state (:meth:`eval_ids`) on its own test
+        rows, summarized (the reference package's ``eval_global_stream``
+        and ``eval_personalized_stream`` too: the walk serves both
+        paths)."""
         out, n = [], []
-        for c, rows in self.client_rows(range(self.num_clients), "test"):
+        for c, rows in self.client_rows(self.eval_ids(), "test"):
             params, bstats = states[c]
             valid = torch.arange(rows.X.shape[0],
                                  device=self.device) < rows.n

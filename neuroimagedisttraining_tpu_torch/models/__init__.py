@@ -1,8 +1,9 @@
 """Model registry: the reference's model names (``--model 3DCNN`` ->
 ``AlexNet3D_Dropout(num_classes=1)``, the reference harness's choice), the
-3D zoo and the 2D one, with the reference package's aliases. The DARTS
-family (``darts``, ``darts_v2``, ``fednas_v1``, ``darts_search``) is not
-ported: those names raise."""
+3D zoo and the 2D one (the DARTS family among it: ``darts`` / ``darts_v2``
+and ``fednas_v1``, the fixed networks of those genotypes at C=36 and 20
+cells, and ``darts_search``, the search supernet at C=16 and 8 cells),
+with the reference package's aliases."""
 
 from __future__ import annotations
 
@@ -22,6 +23,12 @@ from neuroimagedisttraining_tpu_torch.models.neuro3d import (  # noqa: F401
     resnet_flat_features,
     tiny_flat_features,
 )
+from neuroimagedisttraining_tpu_torch.models.darts import (  # noqa: F401
+    DARTS_V2,
+    DartsNetwork,
+    DartsSearchNet,
+    FedNAS_V1,
+)
 from neuroimagedisttraining_tpu_torch.models.meta import (  # noqa: F401
     CHANNEL_SCALE,
     CNNCifarMeta,
@@ -29,6 +36,7 @@ from neuroimagedisttraining_tpu_torch.models.meta import (  # noqa: F401
     ResNetMeta,
     SlimBottleneckMeta,
 )
+from neuroimagedisttraining_tpu_torch.models.layers2d import in_channels
 from neuroimagedisttraining_tpu_torch.models.resnet2d import (  # noqa: F401
     ResNet18,
     customized_resnet18,
@@ -74,6 +82,9 @@ MODELS_2D = {
     "lenet5_cifar": (),
     "cnn_meta": ("cnn_cifar10_meta",),
     "resnet_meta": ("resnet20_meta",),
+    "darts": ("darts_v2",),
+    "fednas_v1": (),
+    "darts_search": (),
 }
 _CANONICAL = {a: k for k, al in (*MODELS_3D.items(), *MODELS_2D.items())
               for a in (k, *al)}
@@ -91,6 +102,13 @@ def _create_2d(key: str, shape: tuple, num_classes: int, dtype):
         "lenet5": LeNet5, "lenet5_cifar": LeNet5_cifar,
         "cnn_meta": CNNCifarMeta, "resnet_meta": ResNetMeta,
     }
+    darts = {"darts": DARTS_V2, "fednas_v1": FedNAS_V1}
+    if key in darts:
+        return DartsNetwork(genotype=darts[key], num_classes=num_classes,
+                            in_channels=in_channels(shape), dtype=dtype)
+    if key == "darts_search":
+        return DartsSearchNet(num_classes=num_classes,
+                              in_channels=in_channels(shape), dtype=dtype)
     if key == "cnn":
         return CNN_OriginalFedAvg(only_digits=digits, **kw)
     if key == "cnn_dropout":

@@ -7,7 +7,10 @@ reference's channels-last feature order (:func:`flatten_last`).
 
 - ``Conv2d``: a conv weight OIHW with an optional bias, padded
   symmetrically (``pad``) or as XLA's ``"SAME"`` (``same=True``: for a
-  stride-2 kernel on an even input nothing before and one after).
+  stride-2 kernel on an even input nothing before and one after); kernel,
+  stride and padding square or ``(H, W)`` pairs, with ``dilation`` and
+  ``groups`` (depthwise: ``groups = c_in``) as DARTS' convolutions take
+  them.
 - ``KernelConv2d``: the same convolution with its kernel handed in (a
   parameter held elsewhere, or one a hypernetwork generates); it records
   the generated kernel's shape for the FLOP counter.
@@ -64,13 +67,15 @@ def _same_pad(x: torch.Tensor, k: int, s: int, value: float = 0.0):
     return F.pad(x, (l, r, t, b), value=value), 0
 
 
-def conv2d(x, w, b, stride: int, pad: int, same: bool, dtype):
+def conv2d(x, w, b, stride, pad, same: bool, dtype, dilation: int = 1,
+           groups: int = 1):
     """``conv2d`` in ``dtype`` (input, kernel and bias cast to it), padded
     by ``pad`` on each side or as XLA's ``"SAME"``."""
     x, w, b = _cast(x, dtype), _cast(w, dtype), _cast(b, dtype)
     if same:
         x, pad = _same_pad(x, w.shape[-1], stride)
-    return F.conv2d(x, w, b, stride=stride, padding=pad)
+    return F.conv2d(x, w, b, stride=stride, padding=pad, dilation=dilation,
+                    groups=groups)
 
 
 def max_pool2d(x: torch.Tensor, k: int, s: int,
@@ -88,21 +93,27 @@ def flatten_last(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
 
-class Conv2d(nn.Module):
-    """A 2D convolution: ``weight`` OIHW (flax's lecun_normal init) and
-    ``bias`` (none with ``bias=False``)."""
+def _pair(v) -> tuple[int, int]:
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
-    def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1,
-                 pad: int = 0, bias: bool = True, same: bool = False,
-                 dtype: torch.dtype = torch.float32):
+
+class Conv2d(nn.Module):
+    """A 2D convolution: ``weight`` [c_out, c_in / groups, kh, kw] (flax's
+    lecun_normal init) and ``bias`` (none with ``bias=False``)."""
+
+    def __init__(self, c_in: int, c_out: int, kernel, stride=1, pad=0,
+                 bias: bool = True, same: bool = False,
+                 dtype: torch.dtype = torch.float32, dilation: int = 1,
+                 groups: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(c_out, c_in, kernel, kernel))
+        self.weight = nn.Parameter(torch.empty(c_out, c_in // groups,
+                                               *_pair(kernel)))
         if bias:
             self.bias = nn.Parameter(torch.empty(c_out))
         else:
             self.register_parameter("bias", None)
         self.stride, self.pad, self.same = stride, pad, same
-        self.dtype = dtype
+        self.dtype, self.dilation, self.groups = dtype, dilation, groups
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.weight, self.weight[0].numel(), generator)
@@ -111,7 +122,7 @@ class Conv2d(nn.Module):
 
     def forward(self, x):
         return conv2d(x, self.weight, self.bias, self.stride, self.pad,
-                      self.same, self.dtype)
+                      self.same, self.dtype, self.dilation, self.groups)
 
 
 class KernelConv2d(nn.Module):

@@ -131,6 +131,8 @@ class ResNet18(Module2D):
         super().__init__()
         self.dtype = dtype
         self.adaptive_pool = adaptive_pool
+        #: ``ipbn`` normalises by the batch in evaluation too
+        self.eval_batch_stats = norm == "ipbn"
         self.conv1 = Conv2d(in_channels, 64, 3, 1, 1, bias=False, dtype=dtype)
         self.bn1 = make_norm(norm, 64)
         self.blocks = []

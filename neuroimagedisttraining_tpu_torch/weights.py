@@ -15,7 +15,9 @@ flax ``params`` / ``batch_stats`` are nested dicts of numpy arrays (e.g.
   (nested as the modules are: ``bn1/norm/scale`` for the 2D ResNet's
   BatchNorm, ``bn1/scale`` for its ``ipbn``; none for a BatchNorm without
   scale or bias);
-- ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
+- ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
+- the DARTS search net's top-level ``alphas_normal`` / ``alphas_reduce``
+  keep their names and layout.
 
 Every model of the zoo carries over leaf by leaf, both ways: the port's
 module names are flax's (ResNet3D's nested ``layer2_0/ds_conv``), a
@@ -34,6 +36,8 @@ import torch
 
 _PARAM_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+#: top-level leaves that carry over under their own name
+_AS_IS = ("alphas_normal", "alphas_reduce")
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, Any]:
@@ -65,6 +69,8 @@ def _to_flax_layout(leaf: str, a: np.ndarray) -> np.ndarray:
 
 def _port_name(mods, leaf: str, names: dict[str, str]) -> str:
     """The port's name of the flax leaf ``mods/leaf``."""
+    if not mods and leaf in _AS_IS:
+        return leaf
     if leaf not in names and leaf.endswith("_kernel"):  # a top-level kernel
         return ".".join((*mods, leaf.removesuffix("kernel") + "weight"))
     return ".".join((*mods, names[leaf]))

@@ -5,6 +5,7 @@
                      turboaggregate] [--precision fp32|bf16_mixed]
         [--model 3DCNN|3dcnn_gn|3dcnn_deeper|...] [--out DIR]
     python3 scripts/torch_port_profile.py --vision [--out DIR]
+    python3 scripts/torch_port_profile.py --darts [--out DIR]
 
 Builds the flagship run as ``chip_smoke.py`` does (48 synthetic subjects
 over 4 sites at 121x145x121, ``3DCNN`` or ``--model``, batch 16, in
@@ -29,6 +30,12 @@ window is written there. The last line is one JSON object with the same numbers.
 16, 2 epochs, on the synthetic cohort at CIFAR-10's size): after phase 1
 and one round to warm up, it traces phase 1 and one round (10 clients, 64
 local steps each).
+
+``--darts`` profiles the DARTS path: the same sweep on ``darts`` at full
+width (``chip_smoke.py``'s ``DARTS_SWEEP``); after one warm-up of each it
+traces 4 local steps of the largest client (batch 16) and the evaluation
+of the global model on one client's test rows (the sweep evaluates 100
+clients four times).
 """
 
 from __future__ import annotations
@@ -104,6 +111,10 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--vision", action="store_true",
                     help="the CIFAR sweep on ResNet-18 (chip_smoke.py's "
                          "vision main path) instead of the flagship run")
+    ap.add_argument("--darts", action="store_true",
+                    help="4 local steps and one client's evaluation of the "
+                         "CIFAR sweep on darts (chip_smoke.py's DARTS main "
+                         "path)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_port_profile: needs a CUDA card", file=sys.stderr)
@@ -114,13 +125,17 @@ def main(argv: list[str]) -> int:
     )
     from neuroimagedisttraining_tpu_torch.ops import _cuda
 
-    from chip_smoke import ENGINE_ARGS, cifar_sweep_engine
+    from chip_smoke import (
+        CIFAR_SWEEP, DARTS_SWEEP, ENGINE_ARGS, cifar_sweep_engine,
+    )
     from neuroimagedisttraining_tpu_torch.ops.masks import ones_mask
 
     _cuda.build(["stem_dw", "stem_dw_bf16", "fused_sgd", "count_ge"])
-    if args.vision:
-        args.algorithm, args.model = "salientgrads", "resnet18"
-        engine, info = cifar_sweep_engine(torch.device("cuda"))
+    if args.vision or args.darts:
+        args.algorithm = "salientgrads"
+        args.model = "darts" if args.darts else "resnet18"
+        engine, info = cifar_sweep_engine(
+            torch.device("cuda"), DARTS_SWEEP if args.darts else CIFAR_SWEEP)
     else:
         cfg = config_from_args(add_args(argparse.ArgumentParser())
                                .parse_args([
@@ -134,7 +149,23 @@ def main(argv: list[str]) -> int:
         engine, info = build_experiment(cfg, "cuda")
     params, bstats = engine.init_global_state()
     C = engine.num_clients
-    if args.algorithm == "subavg":
+    if args.darts:
+        c = int(max(range(C), key=lambda i: engine.n_train[i]))
+        tr, B = engine.trainer, engine.cfg.optim.batch_size
+        X, y = engine.data.X_train[c], engine.data.y_train[c]
+        Xt, yt, nt = (engine.data.X_test[c], engine.data.y_test[c],
+                      int(engine.data.n_test[c]))
+        valid = torch.arange(Xt.shape[0], device=engine.device) < nt
+        lr = engine.round_lr(0)
+        windows = {
+            "local_steps": lambda: tr.local_train(
+                params, bstats, X, y, 4 * B, lr, 1, B, engine.max_samples),
+            "client_eval": lambda: tr.evaluate(params, bstats, Xt, yt,
+                                               valid),
+        }
+        for fn in windows.values():  # warm-up
+            fn()
+    elif args.algorithm == "subavg":
         masks = [ones_mask(params) for _ in range(C)]
         state = engine.run_round(0, params, bstats, masks,
                                  engine.client_sampling(0))
@@ -193,7 +224,8 @@ def main(argv: list[str]) -> int:
     print(card)
     result = {"card": card, "algorithm": args.algorithm,
               "model": args.model, "precision": args.precision,
-              "vision": args.vision, "partition": info["train_counts"]}
+              "vision": args.vision, "darts": args.darts,
+              "partition": info["train_counts"]}
     for name, fn in windows.items():
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()

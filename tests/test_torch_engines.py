@@ -4,8 +4,10 @@ on which track; the sample-weighted aggregation, the personal scatter and
 the round's loss. The trainer's ``local_train`` is replaced by a recorder
 that returns a known function of its inputs, so nothing here depends on the
 float32 trajectory of a real model (which the ``test_torch_fedavg`` and
-``test_torch_ditto_local`` parity runs hold at their tolerances). Also the
-engine registry and the CLI at 69^3 on the CPU."""
+``test_torch_ditto_local`` parity runs hold at their tolerances), and the
+engines run the tiny 3D model at 12x14x12 (the AlexNet at 69^3 goes
+through every engine in the pair tests). Also the engine registry and the
+CLI (FedAvg at 69^3) on the CPU."""
 
 import json
 
@@ -25,7 +27,9 @@ from neuroimagedisttraining_tpu_torch.data.federate import (
 from neuroimagedisttraining_tpu_torch.engines import ENGINES, create_engine
 from neuroimagedisttraining_tpu_torch.models import create_model
 
-SHAPE = (69, 69, 69)
+#: the recorded engines' model and volume (their logic does not depend
+#: on the model)
+MODEL, SHAPE = "3dcnn_tiny", (12, 14, 12)
 CPU = torch.device("cpu")
 # client 2 holds test rows but no training rows
 TRAIN = {0: [0, 1, 2, 3, 4], 1: [5, 6, 7], 2: [], 3: [8, 9]}
@@ -67,7 +71,7 @@ def _engine(name, sparsity=None, epochs=2, **fed):
         fed=FedConfig(**{"client_num_in_total": 4, "comm_round": 2,
                          "lamda": 0.25, "local_epochs": 3, **fed}),
         sparsity=SparsityConfig(**(sparsity or {})))
-    trainer = LocalTrainer(create_model("3dcnn", SHAPE), cfg.optim, CPU,
+    trainer = LocalTrainer(create_model(MODEL, SHAPE), cfg.optim, CPU,
                            torch.Generator().manual_seed(0))
     tracks = []
     eng = create_engine(name, cfg, data, trainer,

@@ -72,6 +72,7 @@ def test_port_imports_without_jax_or_cuda():
     "core/losses.py", "core/trainer.py", "device.py", "weights.py",
     "data/partition.py", "data/vision.py", "models/layers2d.py",
     "models/resnet2d.py", "models/vision2d.py", "models/meta.py",
+    "models/darts.py",
     "ops/masks.py"])
 def test_engine_slice_modules_are_checked(module):
     """The engines', the data planes', the model zoo's (the 2D one with its

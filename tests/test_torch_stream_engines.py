@@ -5,9 +5,11 @@ known function of their inputs) must receive the same bytes, call for
 call, whether the rows come from the resident stacks or from the streamed
 chunks, at chunk sizes 1 and 3; every streamed fetch is one a walk serves
 (the walk plan prefetches the next walk's first chunk, and none is
-wasted). One real pair: streamed SalientGrads at 69^3 bit-equal to the
-resident run; the CLI on an HDF5 cohort prints the same result resident
-and streamed. FedFomo refuses to stream without a validation split, and
+wasted). The recorded engines run the tiny 3D model at 12x14x12 (the
+recorder runs no model, so nothing they check depends on it). One real
+pair: streamed SalientGrads at 69^3 bit-equal to the resident run; the
+CLI on an HDF5 cohort at 69^3 prints the same result resident and
+streamed. FedFomo refuses to stream without a validation split, and
 D-PSGD skips its every-100-rounds fine-tune under streaming."""
 
 import hashlib
@@ -32,6 +34,8 @@ from neuroimagedisttraining_tpu_torch.models import create_model
 from torch_port_support import torch_threads
 
 SHAPE = (69, 69, 69)
+#: the recorded engines' model and volume
+REC_MODEL, REC_SHAPE = "3dcnn_tiny", (12, 14, 12)
 CPU = torch.device("cpu")
 # client 2 holds test and validation rows but no training rows
 TRAIN = {0: [0, 1, 2, 3, 4], 1: [5, 6, 7], 2: [], 3: [8, 9]}
@@ -94,7 +98,7 @@ class Recorder:
 
 def _cohort():
     rng = np.random.default_rng(0)
-    X = rng.integers(0, 256, (12,) + SHAPE, dtype=np.uint8)
+    X = rng.integers(0, 256, (12,) + REC_SHAPE, dtype=np.uint8)
     y = rng.integers(0, 2, 12).astype(np.int8)
     maps = [{c: np.asarray(v, np.int64) for c, v in m.items()}
             for m in (TRAIN, TEST, VAL)]
@@ -104,7 +108,7 @@ def _cohort():
 def _cfg(name, chunk=0, **fed):
     return ExperimentConfig(
         algorithm=name, stream_chunk_clients=chunk,
-        data=DataConfig(dataset="synthetic", synthetic_shape=SHAPE),
+        data=DataConfig(dataset="synthetic", synthetic_shape=REC_SHAPE),
         optim=OptimConfig(batch_size=2, epochs=2),
         fed=FedConfig(**{"client_num_in_total": 4, "comm_round": 2,
                          "frac": 0.75, "lamda": 0.25, "local_epochs": 1,
@@ -119,8 +123,8 @@ def _run(name, chunk, monkeypatch, init_state=None, **fed):
     result)``."""
     X, y, (tr, te, va) = _cohort()
     cfg = _cfg(name, chunk or 0, **fed)
-    trainer = LocalTrainer(create_model("3dcnn", SHAPE), cfg.optim, CPU,
-                           torch.Generator().manual_seed(0))
+    trainer = LocalTrainer(create_model(REC_MODEL, REC_SHAPE), cfg.optim,
+                           CPU, torch.Generator().manual_seed(0))
     rec = Recorder(trainer)
     monkeypatch.setattr(SG, "iter_snip_scores", rec.snip)
     val = va if name == "fedfomo" else None
@@ -169,8 +173,8 @@ def _untimed(history):
 def test_fedfomo_streaming_needs_a_validation_split():
     X, y, (tr, te, _) = _cohort()
     cfg = _cfg("fedfomo")
-    trainer = LocalTrainer(create_model("3dcnn", SHAPE), cfg.optim, CPU,
-                           torch.Generator().manual_seed(0))
+    trainer = LocalTrainer(create_model(REC_MODEL, REC_SHAPE), cfg.optim,
+                           CPU, torch.Generator().manual_seed(0))
     stream = StreamingFederation(X, y, tr, te, device="cpu")
     with pytest.raises(ValueError, match="FedFomo streaming requires a val"):
         create_engine("fedfomo", cfg, None, trainer, stream=stream)

@@ -238,7 +238,7 @@ def test_cli_vision_dispatch_and_refusals():
     """``synthetic_vision`` builds a federation of 32x32x3 float images (a
     ``site`` partition means ``dir``) and a model for them; streaming a
     vision dataset, an unknown dataset (the error lists every dataset the
-    port has) and a DARTS model (the error names the port's models)
+    port has) and an unknown model (the error names the port's models)
     raise."""
     cfg = _cfg("--dataset", "synthetic_vision", "--model", "cnn_cifar10",
                "--client_num_in_total", "4")
@@ -256,6 +256,6 @@ def test_cli_vision_dispatch_and_refusals():
         assert name in str(e.value)
     with pytest.raises(ValueError) as e:
         main(["--device", "cpu", "--dataset", "synthetic_vision",
-              "--model", "darts"])
-    for name in ("resnet18", "vgg11", "resnet_meta", "3dcnn"):
+              "--model", "darts_v3"])
+    for name in ("resnet18", "vgg11", "resnet_meta", "3dcnn", "darts"):
         assert name in str(e.value)

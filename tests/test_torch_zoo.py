@@ -331,15 +331,36 @@ def test_create_model_names(name, cls):
         assert create_model(name, (121, 145, 121)).fc1.weight.shape[1] == 512
 
 
-@pytest.mark.parametrize("name", ["darts", "darts_v2", "fednas_v1",
-                                  "darts_search", "nope", "resnet50"])
+@pytest.mark.parametrize("name", ["nope", "resnet50"])
 def test_2d_and_unknown_models_raise(name):
-    """The DARTS family is not ported, and a name neither package has is
-    unknown: they raise, naming every model the port has, 3D and 2D."""
+    """A name neither package has is unknown: it raises, naming every
+    model the port has, 3D and 2D (the DARTS family among them)."""
     with pytest.raises(ValueError) as e:
         create_model(name, (69, 69, 69))
-    for m in (*MODELS_3D, *MODELS_2D):
+    for m in (*MODELS_3D, *MODELS_2D, "darts", "fednas_v1", "darts_search"):
         assert m in str(e.value)
+
+
+@pytest.mark.parametrize("name", ["darts", "darts_v2", "fednas_v1",
+                                  "darts_search"])
+def test_darts_names_build_the_reference_class(name):
+    """The DARTS names build the port's model of the reference's class at
+    the reference's defaults: the fixed networks of its genotypes at C=36
+    and 20 cells without the auxiliary head, the search supernet at C=16,
+    8 cells of 4 steps, softmax mixture."""
+    from neuroimagedisttraining_tpu.models import create_model as jcreate
+
+    ref = jcreate(name, num_classes=10)
+    got = create_model(name, (32, 32, 3), 10)
+    assert type(got).__name__ == type(ref).__name__
+    assert got.input_rank == 4
+    assert (got.c, got.layers) == (ref.c, ref.layers)
+    if type(ref).__name__ == "DartsSearchNet":
+        assert (got.steps, got.multiplier, got.gumbel) == (
+            ref.steps, ref.multiplier, ref.gumbel)
+    else:
+        assert tuple(got.genotype) == tuple(ref.genotype)
+        assert got.auxiliary == ref.auxiliary
 
 
 @pytest.mark.parametrize("name", [
