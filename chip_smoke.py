@@ -5,6 +5,7 @@
     python3 chip_smoke.py --zoo-precision  # kernels, then step 7 alone
     python3 chip_smoke.py --vision   # kernels, then step 8 (2D) alone
     python3 chip_smoke.py --darts    # kernels, then step 9 (DARTS) alone
+    python3 chip_smoke.py --defense  # kernels, then step 10 (defended) alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
@@ -127,8 +128,8 @@
    ``build_experiment`` must have switched TF32 and cuDNN's default
    algorithms off (the fp32 contract lives in ``LocalTrainer``); the CIFAR
    sweep on ``darts`` at full width (``DARTS_SWEEP``: DARTS_V2, C=36, 20
-   cells, 919 leaves, 1 epoch, 1 round) on the synthetic cohort at
-   CIFAR-10's size (``kth_select`` launched for the one mask over
+   cells, 919 leaves, 1 epoch, 1 round; its evaluations take client 0
+   alone, ``--ci 1``) on the synthetic cohort at CIFAR-10's size (``kth_select`` launched for the one mask over
    3,308,940 scores, ``fused_sgd`` 2 launches a table a step over its 29
    tables, no ``stem_dw``, density within 0.01), with one client's local
    step split into wall and device time and ``fused_sgd``'s host and
@@ -140,7 +141,21 @@
    kernel checks, ``kth_largest`` runs at the DARTS network's 3,308,940
    scores and the fused SGD step over its 919 and the search net's 1,401
    leaves (bit-equal to the plain pass, timed against the library chain).
-10. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+10. The defended round (``defense_phase``) at the flagship width over 6
+   site clients: a sign_flip attack against each of the 8 defenses on
+   FedAvg and a nonfinite one (one upload rejected), with the launches of
+   an undefended run and the round tail's ms; FedAvg with ``--wire_codec
+   delta+sparse+quant`` for 2 rounds, plain and under a nonfinite attack:
+   ``kth_select`` once a client a round over the upload's 2,571,649
+   residual scores at k = 25%, each call equal to its plain version
+   (threshold and keep count; the NaN row's NaN), the codec's ms a client
+   and its bytes against the dense wire's; SalientGrads with the codec
+   (no select beyond its mask's); the select alone on a captured residual
+   vector against ``torch.topk``; D-PSGD under ``--dp_clip 1 --dp_sigma 1``
+   and FedAvg under ``--defense weak_dp``, each ledger's epsilon equal to
+   the host accountant's; FedAvg under ``crash:2@0``, only survivors
+   training.
+11. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -153,7 +168,7 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-11. Prints the run's seconds, one JSON line per kernel, the
+12. Prints the run's seconds, one JSON line per kernel, the
    ``{"kernels": [...]}`` line (each kernel's launches on its main path,
    SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
    run), and last ``{"ok": true, "device": {...}}``.
@@ -1454,7 +1469,7 @@ DARTS_SWEEP = ("--algorithm", "salientgrads", "--dataset", "cifar10",
                "--partition_alpha", "0.3", "--client_num_in_total", "100",
                "--frac", "0.1", "--comm_round", "1", "--batch_size", "16",
                "--epochs", "1", "--lr", "0.01", "--dense_ratio", "0.5",
-               "--itersnip_iteration", "1", "--fused_update")
+               "--itersnip_iteration", "1", "--fused_update", "--ci", "1")
 #: the DARTS models' maskable scores (conv and dense kernels) at 10
 #: classes
 DARTS_SCORES = {"darts": 3_308_940, "fednas_v1": 4_226_076,
@@ -1851,6 +1866,320 @@ def darts_phase(card, dev, build_experiment, by_path: dict) -> None:
     print(json.dumps({"darts_phase_seconds": spent}))
 
 
+#: the defended round's runs on the flagship model (defense_phase): 48
+#: subjects over 6 sites (the synthetic cohort draws max(4, clients / 4)
+#: sites: 24 clients in total gives 6 site clients, all sampled)
+DEFENSE_SITES = ("--client_num_in_total", "24")
+#: the residual scores of one flagship upload: 2,570,241 parameters and
+#: 1,408 BatchNorm statistics
+CODEC_SCORES = 2_571_649
+
+
+def defense_phase(card, dev, build_experiment, by_path: dict, rows: list,
+                  time_ms) -> None:
+    """The defended aggregation tail at the flagship width (AlexNet3D,
+    121x145x121, batch 16, ``--fused_update``, ``NIDT_FAST_STEM=1``, 48
+    subjects over 6 sites, 1 round unless stated), each run with the launch
+    counters set to 0 just before and read just after:
+
+    - ``--fault_spec byz:1@0:sign_flip`` against each of the 8
+      ``--defense_type`` values on FedAvg: finite losses, no rejected
+      upload, ``stem_dw`` 3 and ``fused_sgd`` 2 launches a local step as an
+      undefended run, no top-k; the round tail's device ms (attack, guard,
+      defense, aggregation: ``defended_aggregate`` synchronized around);
+      then ``byz:2@0:nonfinite`` (one upload rejected, finite weights);
+    - the wire codec, ``--wire_codec delta+sparse+quant`` on FedAvg for 2
+      rounds (error feedback carried): one ``kth_select`` a client a round
+      over the upload's 2,571,649 residual scores at k = 25%, each call
+      held against its plain version on its own input (equal thresholds,
+      equal keep counts; NaN for NaN) and its keep count beside the exact
+      k-th largest's (``torch.topk``), the codec stage's device ms a
+      client apart from the host's frame encode,
+      ``sum_comm_bytes`` against ``sum_comm_bytes_dense``; then the same
+      under ``byz:2@0:nonfinite`` (the NaN row's select); then
+      SalientGrads with the codec (the mask handoff: no select beyond the
+      phase-1 mask's); ``kth_select`` alone on a captured residual vector
+      against ``torch.topk`` and its byte bound;
+    - DP: D-PSGD with ``--dp_clip 1 --dp_sigma 1`` and FedAvg with
+      ``--defense weak_dp``: ``epsilon_per_round`` equal to the host
+      accountant's for the run's q and z;
+    - crashes: FedAvg with ``--fault_spec crash:2@0``: only survivors
+      train."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.__main__ import (
+        add_args, config_from_args,
+    )
+    from neuroimagedisttraining_tpu_torch.codec import device as CD
+    from neuroimagedisttraining_tpu_torch.codec.wire import WireSpec
+    from neuroimagedisttraining_tpu_torch.core.robust import DEFENSES
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+    from neuroimagedisttraining_tpu_torch.ops import topk as TK
+    from neuroimagedisttraining_tpu_torch.privacy import accountant as acct
+
+    spent, mark = {}, [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        spent[part] = now - mark[0]
+        mark[0] = now
+
+    def cfg_of(algorithm: str, *extra: str):
+        return config_from_args(add_args(argparse.ArgumentParser())
+                                .parse_args([
+            "--algorithm", algorithm, "--dataset", "synthetic",
+            "--model", "3DCNN", "--synthetic_shape", "121", "145", "121",
+            "--synthetic_num_subjects", "48", *DEFENSE_SITES,
+            "--batch_size", "16", "--itersnip_iteration", "1",
+            "--epochs", "1", "--comm_round", "1", "--fused_update",
+            *extra]))
+
+    def synced_ms(fn, out: list):
+        """``fn`` timed on the host around two device syncs, ms into
+        ``out``."""
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+            return r
+        return timed
+
+    def run(tag: str, algorithm: str, *extra: str, hook=None) -> dict:
+        engine, _ = build_experiment(cfg_of(algorithm, *extra), "cuda")
+        tail_ms, codec_ms, wire_ms = [], [], []
+        engine.defended_aggregate = synced_ms(engine.defended_aggregate,
+                                              tail_ms)
+        engine.codec_stage = synced_ms(engine.codec_stage, codec_ms)
+        engine.account_wire_bytes = synced_ms(engine.account_wire_bytes,
+                                              wire_ms)
+        if hook is not None:
+            hook(engine)
+        steps = local_steps(engine)
+        # SalientGrads' phase 1: one IterSNIP pass a client with rows
+        snips = (int((engine.n_train > 0).sum())
+                 if algorithm == "salientgrads" else 0)
+        torch.cuda.synchronize()
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        res = engine.train()
+        torch.cuda.synchronize()
+        got = _cuda.counts()
+        by_path[tag] = got
+        losses = [h["train_loss"] for h in res["history"]]
+        final = res.get("final_global") or res["final_personal"]
+        out = {"run": tag, "card": card, "launches": got,
+               "local_steps": steps, "train_seconds": time.perf_counter() - t0,
+               "tail_ms": tail_ms, "codec_ms": codec_ms,
+               # the host's frame encode and byte count, inside codec_ms
+               "wire_bytes_ms": wire_ms,
+               "nonfinite_uploads": engine.stat_info["nonfinite_uploads"],
+               "round_seconds": res.get("round_seconds") or [
+                   h.get("round_seconds") for h in res["history"]],
+               "train_loss": losses}
+        if not all(math.isfinite(v) for v in losses
+                   + [final[m] for m in ("acc", "loss", "auc")]):
+            fail(f"{tag}: non-finite losses or metrics {losses} {final}")
+        state = res.get("params") or res.get("global_params")
+        if not all(bool(torch.isfinite(v).all()) for v in state.values()):
+            fail(f"{tag}: non-finite weights")
+        if got.get("stem_dw", 0) != 3 * (steps + snips) or \
+                got.get("fused_sgd", 0) != 2 * steps:
+            fail(f"{tag}: launches {got} in {steps} local steps and {snips} "
+                 "SNIP passes, not stem_dw 3 a step or pass and fused_sgd 2 "
+                 "a step")
+        return {"engine": engine, "result": res, "row": out}
+
+    # ---- attacks against defenses ----
+    defenses = {}
+    for defense in DEFENSES:
+        r = run(f"fedavg_{defense}", "fedavg", "--fault_spec",
+                "byz:1@0:sign_flip", "--defense", defense)
+        row = r["row"]
+        print(json.dumps({"defense_run": defense, **row}))
+        if row["nonfinite_uploads"] != 0:
+            fail(f"{defense}: {row['nonfinite_uploads']} uploads rejected")
+        if row["launches"].get("kth_select", 0):
+            fail(f"{defense}: a top-k select launched")
+        defenses[defense] = row["tail_ms"]
+        del r
+        torch.cuda.empty_cache()
+    r = run("fedavg_nonfinite", "fedavg", "--fault_spec",
+            "byz:2@0:nonfinite", "--defense", "trimmed_mean")
+    print(json.dumps({"defense_run": "trimmed_mean nonfinite", **r["row"]}))
+    if r["row"]["nonfinite_uploads"] != 1:
+        fail(f"byz:2@0:nonfinite rejected {r['row']['nonfinite_uploads']} "
+             "uploads, not 1")
+    del r
+    lap("defenses")
+
+    # ---- the wire codec: kth_select on the residuals ----
+    checks, captured = [], []
+
+    def checked(x, k):
+        thr = TK.kth_largest(x, k)
+        plain = TK.kth_largest_plain(x.contiguous(), k)
+        both_nan = bool(torch.isnan(thr)) and bool(torch.isnan(plain))
+        same = both_nan or torch_equal_bits(thr.reshape(1), plain.reshape(1))
+        keep, keep_plain = int((x >= thr).sum()), int((x >= plain).sum())
+        checks.append({"n": x.numel(), "k": k, "equal": same,
+                       "nan": both_nan, "keep": keep,
+                       "keep_plain": keep_plain,
+                       # the exact k-th largest keeps at least k (ties)
+                       "keep_exact": 0 if both_nan else int(
+                           (x >= torch.topk(x, k).values[-1]).sum())})
+        if len(captured) < 1 and not both_nan:
+            captured.append(x.detach().clone())
+        return thr
+
+    codec_rows = {}
+    for tag, extra in (("fedavg_codec", ()),
+                       ("fedavg_codec_nonfinite",
+                        ("--fault_spec", "byz:2@0:nonfinite"))):
+        del checks[:]
+        real = CD.kth_largest
+        CD.kth_largest = checked
+        try:
+            r = run(tag, "fedavg", "--wire_codec", "delta+sparse+quant",
+                    "--comm_round", "2", *extra)
+        finally:
+            CD.kth_largest = real
+        eng, row = r["engine"], r["row"]
+        clients = sum(len(eng.client_sampling(q)) for q in range(2))
+        selects = row["launches"].get("kth_select", 0) // 5
+        row.update({
+            "selects": selects, "select_checks": len(checks),
+            "selects_nan": sum(c["nan"] for c in checks),
+            # entries kept beyond the exact k-th largest's support, a call
+            "keep_over_exact": [c["keep"] - c["keep_exact"] for c in checks],
+            "codec_device_ms_a_client": [
+                (a - b) / len(eng.client_sampling(q))
+                for q, (a, b) in enumerate(zip(row["codec_ms"],
+                                               row["wire_bytes_ms"]))],
+            "sum_comm_bytes": eng.stat_info["sum_comm_bytes"],
+            "sum_comm_bytes_dense": eng.stat_info["sum_comm_bytes_dense"]})
+        print(json.dumps({"codec_run": tag, **row}))
+        if selects != clients or len(checks) != clients:
+            fail(f"{tag}: {selects} kth_select runs ({len(checks)} checked) "
+                 f"for {clients} client uploads")
+        bad = [c for c in checks if not c["equal"]
+               or c["keep"] != c["keep_plain"] or c["n"] != CODEC_SCORES]
+        if bad:
+            fail(f"{tag}: kth_select against its plain version: {bad}")
+        if "nonfinite" in tag and not any(c["nan"] for c in checks):
+            fail(f"{tag}: no select saw the NaN row")
+        if not 0 < row["sum_comm_bytes"] < row["sum_comm_bytes_dense"]:
+            fail(f"{tag}: encoded bytes {row['sum_comm_bytes']} against "
+                 f"dense {row['sum_comm_bytes_dense']}")
+        codec_rows[tag] = row
+        del r, eng
+        torch.cuda.empty_cache()
+    r = run("salientgrads_codec", "salientgrads", "--wire_codec",
+            "delta+sparse+quant")
+    print(json.dumps({"codec_run": "salientgrads_codec", **r["row"]}))
+    if r["row"]["launches"].get("kth_select", 0) != 5:
+        fail(f"salientgrads with the codec launched "
+             f"{r['row']['launches'].get('kth_select')} select kernels, not "
+             "the phase-1 mask's 5")
+    del r
+    torch.cuda.empty_cache()
+    lap("codec")
+
+    # the select alone on a residual vector the codec ranked
+    xs = captured[0]
+    k = CD.topk_count(WireSpec(sparse=True, topk_ratio=0.25), xs.numel())
+    search = math.ceil(math.log2(512 + 1))
+    b_ms, b_by = bound_ms(4.0 * (xs.numel() + 1),
+                          xs.numel() * (2 + 4 * search))
+    at = {"n": xs.numel(), "k": k, "bound_ms": b_ms, "bound_by": b_by,
+          "equals_plain": torch_equal_bits(
+              TK.kth_largest(xs, k).reshape(1),
+              TK.kth_largest_plain(xs, k).reshape(1)),
+          "equals_topk": bool(TK.kth_largest(xs, k)
+                              == torch.topk(xs, k).values[-1]),
+          "threshold": float(TK.kth_largest(xs, k)),
+          "topk_value": float(torch.topk(xs, k).values[-1]),
+          "keep": int((xs >= TK.kth_largest(xs, k)).sum()),
+          "keep_exact": int((xs >= torch.topk(xs, k).values[-1]).sum())}
+    at["ms"], at["host_ms"] = time_ms(lambda: TK.kth_largest(xs, k), 20)
+    at["plain_ms"], _ = time_ms(lambda: TK.kth_largest_plain(xs, k), 5)
+    at["library_ms"], _ = time_ms(lambda: torch.topk(xs, k).values[-1], 20)
+    print(json.dumps({"kth_select_at": "codec residuals", "card": card,
+                      **at}))
+    if not at["equals_plain"]:
+        fail("kth_select on the codec's residuals differs from its plain "
+             "version")
+    for row in rows:
+        if row["name"] == "kth_select":
+            row["codec_scores"] = {
+                **at, "selects": {t: r["selects"]
+                                  for t, r in codec_rows.items()},
+                "codec_device_ms_a_client": codec_rows["fedavg_codec"][
+                    "codec_device_ms_a_client"],
+                "keep_over_exact": codec_rows["fedavg_codec"][
+                    "keep_over_exact"]}
+    del xs, captured
+    torch.cuda.empty_cache()
+    lap("codec_select")
+
+    # ---- DP: the ledgers against the host accountant ----
+    r = run("dpsgd_dp", "dpsgd", "--dp_clip", "1", "--dp_sigma", "1",
+            "--comm_round", "2")
+    led = r["engine"].stat_info["dp"]
+    rdp = np.zeros(len(acct.DEFAULT_ORDERS))
+    want = []
+    for _ in range(2):
+        rdp = rdp + acct.rdp_gaussian(1.0, 1.0)
+        want.append(round(acct.rdp_to_epsilon(rdp, delta=1e-5)[0], 4))
+    print(json.dumps({"dp_run": "dpsgd", **r["row"], "ledger": led,
+                      "host_epsilon_per_round": want}))
+    if led["epsilon_per_round"] != want:
+        fail(f"dpsgd epsilon {led['epsilon_per_round']} != host {want}")
+    del r
+    r = run("fedavg_weak_dp", "fedavg", "--defense", "weak_dp")
+    eng = r["engine"]
+    led = eng.stat_info["weak_dp"]
+    sampled = eng.client_sampling(0)
+    z = acct.weak_dp_noise_multiplier(0.05, 5.0, eng.n_train[sampled])
+    q = len(sampled) / eng.real_clients
+    want = [round(acct.rdp_to_epsilon(acct.rdp_gaussian(q, z),
+                                      delta=1e-5)[0], 4)]
+    print(json.dumps({"dp_run": "fedavg weak_dp", **r["row"], "ledger": led,
+                      "q": q, "z": z, "host_epsilon_per_round": want}))
+    if led["epsilon_per_round"] != want:
+        fail(f"weak_dp epsilon {led['epsilon_per_round']} != host {want}")
+    del r, eng
+    lap("dp")
+
+    # ---- crashes: only survivors train ----
+    trained = []
+
+    def record(engine):
+        inner = engine.client_train
+
+        def client_train(r, c, *a, **k):
+            trained.append((r, c))
+            return inner(r, c, *a, **k)
+        engine.client_train = client_train
+
+    r = run("fedavg_crash", "fedavg", "--fault_spec", "crash:2@0",
+            "--comm_round", "2", hook=record)
+    rounds = [c for q, c in trained if q < 2]
+    print(json.dumps({"crash_run": "crash:2@0", **r["row"],
+                      "trained": trained}))
+    if 1 in rounds or len(rounds) != 2 * (r["engine"].num_clients - 1):
+        fail(f"crash:2@0: the rounds trained clients {rounds}")
+    del r
+    torch.cuda.empty_cache()
+    lap("crash")
+    print(json.dumps({"defense_phase_seconds": spent,
+                      "defense_tail_ms": defenses}))
+
+
 def torch_equal_bits(a, b) -> bool:
     import torch
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -1910,6 +2239,7 @@ def main(argv: list[str]) -> int:
     only_new = "--zoo-precision" in argv
     only_vision = "--vision" in argv
     only_darts = "--darts" in argv
+    only_defense = "--defense" in argv
     import numpy as np
     import torch
 
@@ -2471,6 +2801,10 @@ def main(argv: list[str]) -> int:
         if only_darts:
             darts_phase(card, dev, build_experiment, by_path)
             return finish(rows, by_path, started)
+        if only_defense:
+            defense_phase(card, dev, build_experiment, by_path, rows,
+                          time_ms)
+            return finish(rows, by_path, started)
 
         cfg = flagship("salientgrads")
         t0 = time.perf_counter()
@@ -2818,6 +3152,9 @@ def main(argv: list[str]) -> int:
 
         # ---- the DARTS family: the CIFAR sweep on darts, the drivers ----
         darts_phase(card, dev, build_experiment, by_path)
+
+        # ---- the defended tail: attacks, defenses, codec, DP, crashes ----
+        defense_phase(card, dev, build_experiment, by_path, rows, time_ms)
 
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",

@@ -21,7 +21,10 @@ engines) on every 3D model of its zoo, in fp32 or ``bf16_mixed``:
   scoring, masks (ERK, fire and regrow), magnitude pruning, FLOPs
   accounting;
 - ``engines/``: the engines by the reference's algorithm names;
-- ``faults/``: DisPFL's seeded activity draw;
+- ``faults/``: the seeded fault schedule (crashes, Byzantine value faults,
+  DisPFL's activity draw) and the attacks on the uploads;
+- ``core/robust.py``, ``privacy/``, ``codec/``: the defenses, the RDP
+  accountant and the wire codec of the defended round;
 - ``weights.py``: carries flax parameter/mask trees across.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

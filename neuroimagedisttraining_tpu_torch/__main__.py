@@ -16,7 +16,11 @@
         [--client_optimizer sgd|adam] [--precision fp32|bf16_mixed \\
         [--loss_scale S]] [--remat auto|none|stem|all] \\
         [--val_fraction F] [--device cuda|cpu] [--log_dir LOG] \\
-        [--tag TAG] [--ci 1] [--no_snip_mask] ...
+        [--tag TAG] [--ci 1] [--no_snip_mask] \\
+        [--fault_spec SPEC] [--defense_type NAME --norm_bound B \\
+        --stddev S --byz_f F --geomed_iters N] [--dp_clip C \\
+        --dp_sigma Z --dp_delta D] [--wire_codec STAGES \\
+        --wire_topk_ratio R] ...
 
 Flag names are the reference CLI's for the flags the port takes.
 ``--dataset ABCD`` / ``abcd_h5`` (the default) reads the X/y/site HDF5 file
@@ -36,7 +40,11 @@ except its model states (``mask_density`` for SalientGrads only).
 bfloat16, by ``--precision``), ``NIDT_FAST_POOL=1`` the tie-splitting max
 pool. FedFomo needs ``--val_fraction > 0``; ``--fused_update`` is for the
 SGD optimizer only; ``--loss_scale`` other than 1 needs ``--precision
-bf16_mixed``.
+bf16_mixed``. The fault, defense, DP and codec flags are the reference's,
+with its defaults and refusals (TurboAggregate takes neither the codec nor
+an order-statistic defense; ``--dp_sigma`` needs ``--dp_clip``; the DP
+flags only D-PSGD; the engines refuse what their round does not run, and
+``preempt:`` faults).
 """
 
 from __future__ import annotations
@@ -129,6 +137,66 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         choices=["device", "host"],
                         help="TurboAggregate's share stage: on the device "
                              "(default) or in numpy on the host")
+    parser.add_argument("--fault_spec", type=str, default="",
+                        help="deterministic fault schedule (faults/): "
+                             "'crash:RANK@ROUND,crash_prob:P,"
+                             "straggle:P:MAX_S,drop:P,dup:P,disconnect:P,"
+                             "byz:RANK@ROUND:KIND,byz_prob:P[:KIND]' "
+                             "— crashed clients leave the sampled cohort "
+                             "(survivor-reweighted rounds); byz clients "
+                             "upload KIND-corrupted values (sign_flip | "
+                             "scale:K | gauss:STD | nonfinite, "
+                             "faults/adversary.py); client c is rank c+1")
+    parser.add_argument("--wire_codec", type=str, default="none",
+                        help="model-update wire codec (codec/): '+'-"
+                             "joined stages from {delta, sparse, quant, "
+                             "quant16}, e.g. delta+sparse+quant; the "
+                             "round applies the codec's lossy transform "
+                             "to client uploads before aggregation and "
+                             "accounts encoded vs dense bytes in "
+                             "stat_info")
+    parser.add_argument("--wire_topk_ratio", type=float, default=0.25,
+                        help="wire codec sparse stage for dense engines: "
+                             "magnitude top-k keep fraction (per-client "
+                             "error feedback re-injects dropped mass "
+                             "next round); masked engines use their own "
+                             "mask instead")
+    parser.add_argument("--dp_clip", type=float, default=0.0,
+                        help="dpsgd round-level DP: clip each client's "
+                             "update delta (vs its consensus point) to "
+                             "this L2 bound before it reaches any "
+                             "neighbor (0 = off)")
+    parser.add_argument("--dp_sigma", type=float, default=0.0,
+                        help="dpsgd round-level DP: Gaussian noise "
+                             "multiplier — noise stddev is dp_sigma * "
+                             "dp_clip; the RDP accountant "
+                             "(privacy/accountant.py) reports the running "
+                             "per-silo (epsilon, dp_delta) in stat_info "
+                             "(0 = off; requires --dp_clip)")
+    parser.add_argument("--dp_delta", type=float, default=1e-5,
+                        help="target delta for the RDP -> (epsilon, "
+                             "delta) conversion (dpsgd DP and the "
+                             "weak_dp defense accountant)")
+    parser.add_argument("--defense_type", "--defense", dest="defense_type",
+                        type=str, default="none",
+                        help="none | norm_diff_clipping | weak_dp | "
+                             "trimmed_mean | median | krum | multi_krum | "
+                             "geometric_median — the clip family applies "
+                             "per client before the weighted mean; the "
+                             "order-statistic family (core/robust.py) "
+                             "replaces the mean and tolerates up to "
+                             "--byz_f Byzantine clients")
+    parser.add_argument("--norm_bound", type=float, default=5.0)
+    parser.add_argument("--stddev", type=float, default=0.05)
+    parser.add_argument("--byz_f", type=int, default=1,
+                        help="assumed Byzantine client count f for the "
+                             "order-statistic defenses: trim depth per "
+                             "side (trimmed_mean), Krum neighborhood "
+                             "(sampled cohort must be >= f + 3; "
+                             "trimmed_mean/median need 2f < n)")
+    parser.add_argument("--geomed_iters", type=int, default=8,
+                        help="geometric_median: fixed Weiszfeld "
+                             "iteration count")
     parser.add_argument("--fused_update", action="store_true")
     parser.add_argument("--precision", type=str, default="fp32",
                         choices=("fp32", "bf16_mixed"),
@@ -212,7 +280,14 @@ def config_from_args(args) -> ExperimentConfig:
                       cs=args.cs, active=args.active, fomo_m=args.fomo_m,
                       mpc_n_shares=args.mpc_n_shares,
                       mpc_frac_bits=args.mpc_frac_bits,
-                      mpc_backend=args.mpc_backend),
+                      mpc_backend=args.mpc_backend,
+                      defense_type=args.defense_type,
+                      norm_bound=args.norm_bound, stddev=args.stddev,
+                      byz_f=args.byz_f, geomed_iters=args.geomed_iters,
+                      dp_clip=args.dp_clip, dp_sigma=args.dp_sigma,
+                      dp_delta=args.dp_delta, fault_spec=args.fault_spec,
+                      wire_codec=args.wire_codec,
+                      wire_topk_ratio=args.wire_topk_ratio),
         sparsity=SparsityConfig(
             dense_ratio=args.dense_ratio, anneal_factor=args.anneal_factor,
             erk_power_scale=args.erk_power_scale, uniform=args.uniform,
@@ -315,6 +390,38 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
                          stream=stream), info
 
 
+def check_privacy_flags(parser: argparse.ArgumentParser, args) -> None:
+    """The privacy-plane conflicts the reference's CLI refuses at argparse
+    (the engine constructors refuse them too, after the data build)."""
+    from neuroimagedisttraining_tpu_torch.core import robust
+
+    if args.algorithm.lower() == "turboaggregate":
+        if args.wire_codec not in ("", "none"):
+            parser.error(
+                "--wire_codec does not compose with the secure "
+                "turboaggregate engine (the codec's float stages would "
+                "corrupt the GF(p) share embedding)")
+        if args.defense_type in robust.ROBUST_AGGREGATORS:
+            parser.error(
+                f"--defense {args.defense_type} does not compose with "
+                "secure aggregation (no per-client plaintext to select "
+                "over); the clip family (norm_diff_clipping, weak_dp) "
+                "composes client-side")
+    if args.dp_sigma > 0 and args.dp_clip <= 0:
+        parser.error("--dp_sigma needs --dp_clip > 0 (the clip bound is "
+                     "the sensitivity the noise multiplier is stated "
+                     "against)")
+    if args.dp_sigma > 0 or args.dp_clip > 0:
+        cls = ENGINES.get(args.algorithm.lower())
+        if cls is None or not cls.supports_dp:
+            ok = sorted({c.name for c in ENGINES.values() if c.supports_dp})
+            parser.error(
+                f"--dp_clip/--dp_sigma need an engine with the round-"
+                f"level DP transform; algorithm {args.algorithm!r} "
+                f"would train un-noised while the accountant reported "
+                f"epsilon (supported: {ok})")
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = add_args(argparse.ArgumentParser(
         prog="neuroimagedisttraining_tpu_torch"))
@@ -327,6 +434,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.algorithm == "fedfomo" and args.val_fraction <= 0:
         parser.error("--algorithm fedfomo needs a validation split: give "
                      "--val_fraction > 0")
+    check_privacy_flags(parser, args)
     logging.basicConfig(level=logging.INFO, format="%(message)s",
                         stream=sys.stdout)
     engine, info = build_experiment(cfg, args.device,

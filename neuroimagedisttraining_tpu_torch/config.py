@@ -5,7 +5,8 @@ run: 3DCNN, 21 site-clients, batch 16, 200 rounds, SGD lr 0.01 decayed
 dense ratio 0.5; Ditto's lamda 0.5 and 1 personal epoch; Sub-FedAvg's
 prune ratio 0.1 with its accept thresholds; DisPFL's ERK masks, cosine
 anneal 0.5 and random neighbours; FedFomo's 5 requested models;
-TurboAggregate's 3 additive shares at 16 fraction bits on the device).
+TurboAggregate's 3 additive shares at 16 fraction bits on the device; no
+defense, fault, DP or wire codec).
 """
 
 from __future__ import annotations
@@ -121,6 +122,29 @@ class FedConfig:
     mpc_n_shares: int = 3
     mpc_frac_bits: int = 16
     mpc_backend: str = "device"
+    # the defended round (core/robust.py): none | norm_diff_clipping |
+    # weak_dp | trimmed_mean | median | krum | multi_krum |
+    # geometric_median; the clip bound and weak-DP noise; the assumed
+    # Byzantine count f (trim depth a side, Krum's neighbourhood: the
+    # cohort needs n >= f + 3 for Krum, 2f < n for the coordinate-wise
+    # defenses); the geometric median's Weiszfeld steps
+    defense_type: str = "none"
+    norm_bound: float = 5.0
+    stddev: float = 0.05
+    byz_f: int = 1
+    geomed_iters: int = 8
+    # D-PSGD's round-level DP: each client's update against its consensus
+    # point clipped to dp_clip and noised with N(0, (dp_sigma * dp_clip)^2);
+    # 0 is off, dp_sigma > 0 needs dp_clip > 0; the accountant's delta
+    dp_clip: float = 0.0
+    dp_sigma: float = 0.0
+    dp_delta: float = 1e-5
+    # the seeded fault schedule (faults/schedule.py): crashes, Byzantine
+    # value faults and the comm-level draws
+    fault_spec: str = ""
+    # the wire codec's stages (codec/wire.py) and the top-k keep fraction
+    wire_codec: str = "none"
+    wire_topk_ratio: float = 0.25
 
     @property
     def client_num_per_round(self) -> int:

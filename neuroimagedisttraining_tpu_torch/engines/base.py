@@ -21,11 +21,27 @@ then the next round's training), so the last chunk of each walk
 prefetches the first of the next. The port has no mesh: the reference's
 ``stream_sampling`` pads nothing here.
 
+The round's tail (``defended_aggregate``) runs, in the reference's order:
+the Byzantine attack on the uploads of the clients the fault schedule
+names (``faults/adversary.py``), the wire codec's lossy roundtrip
+(``codec/device.py``, with per-client error feedback where the engine
+declares it), the non-finite guard, the defense and the aggregation
+(``core/robust.py``). With no attack, codec or defense it is the plain
+guarded FedAvg, bit for bit. The engines that run it say so by their
+``supports_*`` flags, and the constructor refuses what an engine does not
+run, with the reference's messages. ``record_privacy`` charges the RDP
+accountant (``privacy/``) for every round of an armed noise path.
+
 ``perms_for(round_idx, client, n_valid[, track])`` may supply a client's
 epoch permutations (the tests feed the reference's draws; ``track`` is
 ``"personal"`` for Ditto's personal track, ``"first"`` and ``"tail"`` for
 Sub-FedAvg's first epoch and the epochs after it, and absent otherwise);
-by default they come from the trainer's generator.
+by default they come from the trainer's generator. ``noise_for(stream,
+round_idx, client, like)`` gives a client's standard normal draws for the
+Gaussian attack (``"attack"``), the weak-DP defense (``"weak_dp"``) and
+D-PSGD's DP transform (``"dp"``); by default each leaf's come from a
+generator keyed by (seed, stream, round, rank, leaf), and the tests set the
+reference's draws.
 """
 
 from __future__ import annotations
@@ -36,17 +52,35 @@ from typing import Iterator, NamedTuple
 import numpy as np
 import torch
 
+from neuroimagedisttraining_tpu_torch.codec import device as codec_device
+from neuroimagedisttraining_tpu_torch.codec import wire as codec_wire
 from neuroimagedisttraining_tpu_torch.config import ExperimentConfig
+from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.core.losses import binary_auc
 from neuroimagedisttraining_tpu_torch.core.optim import round_lr
 from neuroimagedisttraining_tpu_torch.core.trainer import LocalTrainer
 from neuroimagedisttraining_tpu_torch.data.federate import FederatedData
+from neuroimagedisttraining_tpu_torch.faults import adversary
+from neuroimagedisttraining_tpu_torch.faults.schedule import (
+    FaultSchedule, parse_fault_spec,
+)
 from neuroimagedisttraining_tpu_torch.ops.masks import mask_nnz
 from neuroimagedisttraining_tpu_torch.utils.logging import ExperimentLogger
+from neuroimagedisttraining_tpu_torch.weights import flax_named_leaves
 
 State = dict[str, torch.Tensor]
 
 log = logging.getLogger(__name__)
+
+#: the noise streams of ``noise_for``
+NOISE_STREAMS = {"attack": 1, "weak_dp": 2, "dp": 3}
+
+
+def _capable(flag: str) -> list[str]:
+    """The engines whose class sets ``flag``, by name."""
+    from neuroimagedisttraining_tpu_torch.engines import ENGINES
+
+    return sorted({c.name for c in ENGINES.values() if getattr(c, flag)})
 
 
 class ClientRows(NamedTuple):
@@ -61,6 +95,19 @@ class ClientRows(NamedTuple):
 
 class FederatedEngine:
     """Shared state and helpers of a federated run."""
+
+    name = "base"
+    #: the round's uploads go through the attack stage under ``byz:``
+    #: value faults
+    supports_byz_faults = False
+    #: the round's uploads go through the wire codec's roundtrip
+    supports_wire_codec = False
+    #: the codec's top-k stage keeps per-client error feedback
+    wire_uses_ef = False
+    #: the round applies ``--dp_clip`` / ``--dp_sigma``
+    supports_dp = False
+    #: the defenses the round can realize
+    supported_defenses: tuple = ("none",)
 
     #: the round's training walk covers the sampled clients (else every
     #: client)
@@ -102,9 +149,77 @@ class FederatedEngine:
         # uploads dropped, and the accuracy at every evaluation
         self.stat_info: dict = {
             "sum_comm_params": 0.0, "sum_training_flops": 0.0,
+            "sum_comm_bytes": 0.0, "sum_comm_bytes_dense": 0.0,
             "nonfinite_uploads": 0.0,
             "global_test_acc": [], "person_test_acc": [],
         }
+        self._init_defended_round(stream)
+
+    def _init_defended_round(self, stream) -> None:
+        """The fault schedule, the privacy ledger and the wire codec's
+        state; what this engine cannot run (a fault, defense, DP or codec
+        flag) fails here, at startup, with the reference's messages."""
+        f = self.cfg.fed
+        spec = parse_fault_spec(f.fault_spec) if f.fault_spec else None
+        if spec is not None and spec.preempts:
+            raise ValueError(
+                "--fault_spec preempt: directives need the elastic device "
+                "plane (a training mesh that shrinks and resumes from a "
+                "checkpoint), which the port does not have")
+        self.fault_schedule = (FaultSchedule(spec, self.cfg.seed)
+                               if spec is not None and spec.any_faults
+                               else None)
+        if spec is not None and spec.any_value_faults \
+                and not self.supports_byz_faults:
+            raise ValueError(
+                f"algorithm {self.name!r} does not simulate byz: value "
+                "faults (its round program does not route client "
+                "uploads through faults/adversary.py, so the spec "
+                f"would silently run attack-free); supported: "
+                f"{_capable('supports_byz_faults')}")
+        robust.validate_defense(f.defense_type)
+        if f.defense_type not in self.supported_defenses:
+            raise ValueError(
+                f"algorithm {self.name!r} does not support --defense "
+                f"{f.defense_type!r}; this engine supports: "
+                f"{', '.join(self.supported_defenses)}")
+        if f.defense_type in robust.ROBUST_AGGREGATORS:
+            robust._check_f(f.client_num_per_round, f.byz_f, f.defense_type)
+        if f.dp_sigma < 0 or f.dp_clip < 0:
+            raise ValueError(
+                f"dp_sigma/dp_clip must be >= 0 (got "
+                f"{f.dp_sigma}/{f.dp_clip})")
+        if f.dp_sigma > 0 and f.dp_clip <= 0:
+            raise ValueError(
+                "--dp_sigma needs --dp_clip > 0: the clip bound IS the "
+                "sensitivity the noise multiplier is stated against "
+                "(privacy/accountant.py)")
+        if (f.dp_sigma > 0 or f.dp_clip > 0) and not self.supports_dp:
+            raise ValueError(
+                f"algorithm {self.name!r} does not apply the "
+                "--dp_clip/--dp_sigma round-level DP transform (its "
+                "round program would train un-noised while the "
+                f"accountant reported epsilon); supported: "
+                f"{_capable('supports_dp')}")
+        #: the RDP ledger of the armed noise path (``record_privacy``)
+        self._dp_rdp = None
+        self._dp_recorded_through = -1
+        self.wire_spec = codec_wire.parse_wire_spec(f.wire_codec,
+                                                    f.wire_topk_ratio)
+        if self.wire_spec is not None and not self.supports_wire_codec:
+            raise ValueError(
+                f"algorithm {self.name!r} does not simulate --wire_codec "
+                "(its round program does not pass client uploads through "
+                "the codec roundtrip, so the flag would silently train "
+                f"dense); supported: {_capable('supports_wire_codec')}")
+        if self.wire_spec is not None and stream is not None:
+            raise ValueError(
+                "--wire_codec simulates the encoded wire on the "
+                "device-resident path only; streaming rounds (--streaming) "
+                "keep the dense aggregation")
+        #: each client's error feedback (top-k codec), made at first use
+        self._wire_ef: dict[int, State] = {}
+        self._dense_upload_nbytes: int | None = None
 
     # ---------- state ----------
 
@@ -145,10 +260,23 @@ class FederatedEngine:
         total = self.real_clients
         per_round = min(self.cfg.fed.client_num_per_round, total)
         if total == per_round:
-            return np.arange(total)
-        np.random.seed(round_idx)
-        return np.sort(np.random.choice(range(total), per_round,
-                                        replace=False))
+            sampled = np.arange(total)
+        else:
+            np.random.seed(round_idx)
+            sampled = np.sort(np.random.choice(range(total), per_round,
+                                               replace=False))
+        if self.fault_schedule is not None:
+            # crashed clients (rank = index + 1) leave the cohort; the
+            # weighted mean over the survivors re-weights by sample count
+            sampled = self.fault_schedule.survivors(round_idx, sampled)
+        if len(sampled) == 0:
+            raise ValueError(
+                f"round {round_idx}: the sampled client set is empty — "
+                f"client_num_per_round={per_round} and the fault "
+                f"schedule ({self.cfg.fed.fault_spec!r}) left no "
+                "survivors; raise --frac / --client_num_in_total or "
+                "reduce the crash coverage in --fault_spec")
+        return sampled
 
     def round_lr(self, round_idx: int) -> torch.Tensor:
         return round_lr(self.cfg.optim, round_idx, self.device)
@@ -249,13 +377,14 @@ class FederatedEngine:
     def train_and_aggregate(self, round_idx: int, params: State,
                             bstats: State, sampled, lr, **kw):
         """The sampled clients train from the global model for ``epochs``;
-        FedAvg of their uploads. Returns ``(params, bstats, loss, n_bad,
-        uploads)``, ``uploads`` the clients' ``(params, bstats)`` lists."""
+        the round's tail (:meth:`defended_aggregate`). Returns ``(params,
+        bstats, loss, n_bad, uploads)``, ``uploads`` the clients' honest
+        ``(params, bstats)`` lists (before any attack or codec)."""
         ups_p, ups_b, losses = self.train_sampled(round_idx, params, bstats,
                                                   sampled, lr, **kw)
         ns = self.to_device(self.n_train[sampled])
-        new_p, new_b, loss, n_bad = self.sanitize_aggregate(
-            ups_p, ups_b, params, bstats, ns, losses)
+        new_p, new_b, loss, n_bad = self.defended_aggregate(
+            round_idx, sampled, ups_p, ups_b, params, bstats, ns, losses)
         return new_p, new_b, loss, n_bad, (ups_p, ups_b)
 
     # ---------- host boundaries ----------
@@ -273,7 +402,9 @@ class FederatedEngine:
     def read_round(self, round_idx: int, loss: torch.Tensor,
                    n_bad: torch.Tensor | None = None) -> float:
         """The round's loss on the host (one device read); non-finite
-        uploads go into ``stat_info`` with a warning."""
+        uploads go into ``stat_info`` with a warning, and the privacy
+        ledger is charged through the round."""
+        self.record_privacy(round_idx)
         if n_bad is None:
             return float(loss)
         loss_h, bad_h = torch.stack([loss, n_bad.to(loss.dtype)]).tolist()
@@ -309,24 +440,9 @@ class FederatedEngine:
 
     # ---------- aggregation ----------
 
-    @staticmethod
-    def finite_per_client(states: list[State]) -> torch.Tensor:
-        """[S] bool: client s is finite in every leaf."""
-        return torch.stack([
-            torch.stack([torch.isfinite(v).all() for v in st.values()]).all()
-            for st in states])
-
-    @staticmethod
-    def aggregate(states: list[State], weights: torch.Tensor) -> State:
-        """Weighted mean over clients: weights normalized first, then
-        ``sum_s x_s * w_s`` per leaf (FedAvg)."""
-        w = weights / torch.clamp(torch.sum(weights), min=1e-12)
-        out = {}
-        for k in states[0]:
-            x = torch.stack([st[k] for st in states])
-            out[k] = torch.sum(x * w.reshape((-1,) + (1,) * (x.dim() - 1)),
-                               dim=0)
-        return out
+    #: the weighted mean over clients (weights normalized first, then
+    #: ``sum_s x_s * w_s`` per leaf): FedAvg
+    aggregate = staticmethod(robust.weighted_mean)
 
     def guard_uploads(self, params_up: list[State], bstats_up: list[State],
                       ref_params: State, ref_bstats: State, ns: torch.Tensor,
@@ -337,31 +453,17 @@ class FederatedEngine:
         mean_loss, n_bad)``: the guarded uploads, the weights ``ns`` with
         the bad clients' zeroed, the weighted mean of the finite losses and
         the count of bad clients, all on the device."""
-        finite = self.finite_per_client(
+        finite = robust.finite_per_client(
             [{**p, **b} for p, b in zip(params_up, bstats_up)])
-
-        def guard(ups, ref):
-            return [{k: torch.where(finite[s], v, ref[k])
-                     for k, v in up.items()} for s, up in enumerate(ups)]
-
         w = ns.to(torch.float32) * finite.to(torch.float32)
         safe = torch.where(torch.isfinite(losses), losses,
                            torch.zeros_like(losses))
         mean_loss = torch.sum(safe * w) / torch.clamp(torch.sum(w), min=1e-9)
-        return (guard(params_up, ref_params), guard(bstats_up, ref_bstats),
+        return (robust.replace_nonfinite_clients(params_up, ref_params,
+                                                 finite),
+                robust.replace_nonfinite_clients(bstats_up, ref_bstats,
+                                                 finite),
                 w, mean_loss, torch.sum(~finite))
-
-    def sanitize_aggregate(self, params_up: list[State],
-                           bstats_up: list[State], ref_params: State,
-                           ref_bstats: State, ns: torch.Tensor,
-                           losses: torch.Tensor):
-        """The round's tail: the uploads guarded (:meth:`guard_uploads`),
-        then their FedAvg. Returns ``(params, bstats, mean_loss, n_bad)``,
-        all on the device."""
-        params_up, bstats_up, w, mean_loss, n_bad = self.guard_uploads(
-            params_up, bstats_up, ref_params, ref_bstats, ns, losses)
-        return (self.aggregate(params_up, w), self.aggregate(bstats_up, w),
-                mean_loss, n_bad)
 
     @staticmethod
     def scatter_sampled_rows(all_states: list, new_states: list,
@@ -373,6 +475,214 @@ class FederatedEngine:
             if r:
                 out[int(c)] = st
         return out
+
+    # ---------- the defended tail ----------
+
+    def noise_for(self, stream: str, round_idx: int, client: int,
+                  like: State) -> State:
+        """Standard normal draws shaped like each leaf of ``like``, for the
+        noise ``stream`` (``NOISE_STREAMS``) of client ``client`` in round
+        ``round_idx``: each leaf from a generator on ``like``'s device
+        keyed by (seed, stream, round, rank, leaf)."""
+        out = {}
+        for i, (k, v) in enumerate(like.items()):
+            key = np.random.SeedSequence(
+                [self.cfg.seed, NOISE_STREAMS[stream], round_idx + 1,
+                 client + 1, i]).generate_state(2, np.uint32)
+            gen = torch.Generator(device=v.device).manual_seed(
+                (int(key[0]) | int(key[1]) << 32) & (2 ** 63 - 1))
+            out[k] = torch.randn(v.shape, generator=gen, device=v.device,
+                                 dtype=torch.float32)
+        return out
+
+    def byz_round_plan(self, round_idx: int, sampled):
+        """The round's attack plan over the sampled clients (client ``c`` is
+        rank ``c + 1``): ``(mult, std, nonfinite)`` numpy arrays, or None
+        when the schedule has no value faults."""
+        sched = self.fault_schedule
+        if sched is None or not sched.spec.any_value_faults:
+            return None
+        ranks = np.asarray(sampled) + 1
+        mult, std, nan = adversary.plan_arrays(sched, round_idx, ranks)
+        bad = np.flatnonzero((mult != 1.0) | (std != 0.0) | nan)
+        if bad.size:
+            log.info("round %d: clients %s upload BYZANTINE values (%s)",
+                     round_idx, np.asarray(sampled)[bad].tolist(),
+                     [sched.byzantine_kind(round_idx, int(r))
+                      for r in ranks[bad]])
+        return mult, std, nan
+
+    def wire_masks(self, ref: State) -> State | None:
+        """The mask the codec packs uploads against (keyed like an upload),
+        or None for the top-k stage. Base engines own no mask."""
+        return None
+
+    def codec_stage(self, sampled, uploads: list[State], ref: State,
+                    masks: State | None) -> list[State]:
+        """The wire codec's lossy roundtrip of each upload, against the
+        round's broadcast ``ref``: with per-client error feedback where the
+        engine keeps it (a non-finite upload's next feedback is zero, so
+        the fault stays transient), else against ``masks``. Adds the
+        round's encoded and dense bytes to ``stat_info``."""
+        spec = self.wire_spec
+        if self.wire_uses_ef and spec.needs_ef:
+            efs = [self._wire_ef.get(int(c)) for c in sampled]
+            efs = [e if e is not None else
+                   {k: torch.zeros_like(v, dtype=torch.float32)
+                    for k, v in ref.items()} for e in efs]
+            outs = [codec_device.lossy_roundtrip(spec, u, reference=ref,
+                                                 ef=e)
+                    for u, e in zip(uploads, efs)]
+            fin = robust.finite_per_client(uploads)
+            for j, c in enumerate(sampled):
+                if self.n_train[c] > 0:
+                    self._wire_ef[int(c)] = {
+                        k: torch.where(fin[j], e, torch.zeros_like(e))
+                        for k, e in outs[j][1].items()}
+        else:
+            outs = [codec_device.lossy_roundtrip(spec, u, reference=ref,
+                                                 masks=masks)
+                    for u in uploads]
+        decoded = [d for d, _ in outs]
+        self.account_wire_bytes(decoded[0], ref, masks, len(sampled))
+        return decoded
+
+    def account_wire_bytes(self, upload: State, ref: State,
+                           masks: State | None = None,
+                           n_uploads: int = 1) -> int:
+        """Add ``n_uploads`` times the encoded frame size of ``upload`` (one
+        representative upload: uploads share sizes up to zlib's) to
+        ``sum_comm_bytes``, and the dense msgpack size the plain wire would
+        ship to ``sum_comm_bytes_dense``; the frames in the reference's
+        names and layout, so the bytes are the reference's. One device
+        read of the upload. Returns the frame size."""
+        pkeys = {k for k, _ in self.trainer.model.named_parameters()}
+
+        def named(st):
+            return flax_named_leaves(
+                {k: v for k, v in st.items() if k in pkeys},
+                {k: v for k, v in st.items() if k not in pkeys})
+
+        up, refh = named(upload), named(ref)
+        frame, _ = codec_wire.encode_update(
+            self.wire_spec, up, reference=refh,
+            masks=named(masks) if masks is not None else None,
+            mask_on_wire=False)
+        nbytes = codec_wire.frame_nbytes(frame)
+        if self._dense_upload_nbytes is None:
+            self._dense_upload_nbytes = codec_wire.frame_nbytes(
+                codec_wire.nest(up))
+        self.stat_info["sum_comm_bytes"] += float(nbytes * n_uploads)
+        self.stat_info["sum_comm_bytes_dense"] += float(
+            self._dense_upload_nbytes * n_uploads)
+        return nbytes
+
+    def defended_aggregate(self, round_idx: int, sampled,
+                           params_up: list[State], bstats_up: list[State],
+                           ref_params: State, ref_bstats: State,
+                           ns: torch.Tensor, losses: torch.Tensor):
+        """The round's tail over the sampled clients' uploads: the attack
+        (``byz:`` faults), the codec (``--wire_codec``), the non-finite
+        guard (:meth:`guard_uploads`), the defense and the aggregation.
+        Returns ``(params, bstats, mean_loss, n_bad)``, all on the device.
+        With none armed it is the guarded FedAvg."""
+        f = self.cfg.fed
+        plan = self.byz_round_plan(round_idx, sampled)
+        if plan is not None or self.wire_spec is not None:
+            # the attack and the codec take the whole upload, parameters
+            # and BatchNorm statistics (what the wire ships)
+            ref = {**ref_params, **ref_bstats}
+            uploads = [{**p, **b} for p, b in zip(params_up, bstats_up)]
+            if plan is not None:
+                mult, std, nan = plan
+                noises = [self.noise_for("attack", round_idx, int(c), ref)
+                          if std[j] != 0 else None
+                          for j, c in enumerate(sampled)]
+                uploads = adversary.apply_attack_stacked(uploads, ref, mult,
+                                                         std, nan, noises)
+            if self.wire_spec is not None:
+                uploads = self.codec_stage(sampled, uploads, ref,
+                                           self.wire_masks(ref))
+            params_up = [{k: u[k] for k in ref_params} for u in uploads]
+            bstats_up = [{k: u[k] for k in ref_bstats} for u in uploads]
+        params_up, bstats_up, w, mean_loss, n_bad = self.guard_uploads(
+            params_up, bstats_up, ref_params, ref_bstats, ns, losses)
+        defense = robust.effective_defense(f.defense_type, len(params_up),
+                                           f.byz_f, warn=self._warn_once)
+        if defense in robust.ROBUST_AGGREGATORS:
+            agg = robust.robust_aggregate(
+                [{**p, **b} for p, b in zip(params_up, bstats_up)], w,
+                defense=defense, byz_f=f.byz_f, geomed_iters=f.geomed_iters)
+            return ({k: agg[k] for k in ref_params},
+                    {k: agg[k] for k in ref_bstats}, mean_loss, n_bad)
+        noises = ([self.noise_for("weak_dp", round_idx, int(c), ref_params)
+                   for c in sampled] if defense == "weak_dp" else None)
+        params_up = robust.defend_stacked(
+            params_up, ref_params, defense=defense, norm_bound=f.norm_bound,
+            stddev=f.stddev, noises=noises)
+        return (self.aggregate(params_up, w), self.aggregate(bstats_up, w),
+                mean_loss, n_bad)
+
+    def _warn_once(self, fmt: str, *args) -> None:
+        """A warning logged once a run (``effective_defense``'s, once a
+        cohort size, as the reference's at its trace)."""
+        msg = fmt % args
+        seen = self.__dict__.setdefault("_warned", set())
+        if msg not in seen:
+            seen.add(msg)
+            log.warning(msg)
+
+    # ---------- privacy accounting ----------
+
+    def record_privacy(self, round_idx: int) -> None:
+        """Charge the RDP ledger for every round through ``round_idx`` and
+        publish the running (epsilon, delta) in ``stat_info``, one entry a
+        round (host numpy, no device read). The armed source: the
+        ``weak_dp`` defense (a subsampled Gaussian at q = cohort / clients
+        with the effective multiplier over the round's sample-count
+        weights, the cohorts re-derived from the sampling) or ``dp_sigma >
+        0`` (D-PSGD: full participation, q = 1, multiplier ``dp_sigma``)."""
+        from neuroimagedisttraining_tpu_torch.privacy import accountant as acct
+
+        f = self.cfg.fed
+        weak = f.defense_type == "weak_dp"
+        dp = f.dp_sigma > 0
+        if not (weak or dp) or round_idx <= self._dp_recorded_through:
+            return
+        if weak and (f.stddev <= 0 or f.norm_bound <= 0):
+            if not getattr(self, "_warned_dp_disabled", False):
+                self._warned_dp_disabled = True
+                log.warning(
+                    "weak_dp with stddev=%s/norm_bound=%s adds no "
+                    "accountable noise — epsilon is infinite; the "
+                    "accountant records nothing", f.stddev, f.norm_bound)
+            return
+        key = "weak_dp" if weak else "dp"
+        stats = self.stat_info.setdefault(key, {
+            "norm_bound": f.norm_bound if weak else f.dp_clip,
+            "stddev": f.stddev if weak else f.dp_sigma * f.dp_clip,
+            "delta": f.dp_delta, "noise_multiplier_per_round": [],
+            "epsilon_per_round": [], "epsilon": 0.0})
+        if self._dp_rdp is None:
+            self._dp_rdp = np.zeros(len(acct.DEFAULT_ORDERS), np.float64)
+        for r in range(self._dp_recorded_through + 1, round_idx + 1):
+            if weak:
+                sampled = self.client_sampling(r)
+                w = self.n_train[np.asarray(sampled)]
+                q = len(sampled) / max(1, self.real_clients)
+                z = acct.weak_dp_noise_multiplier(f.stddev, f.norm_bound, w)
+            else:
+                q, z = 1.0, f.dp_sigma
+            self._dp_rdp = self._dp_rdp + acct.rdp_gaussian(q, z)
+            eps = acct.rdp_to_epsilon(self._dp_rdp, delta=f.dp_delta)[0]
+            stats["noise_multiplier_per_round"].append(round(z, 6))
+            stats["epsilon_per_round"].append(round(eps, 4))
+        stats["epsilon"] = stats["epsilon_per_round"][-1]
+        # under the sampling model every silo's loss is the same
+        stats["epsilon_per_silo"] = {
+            int(c): stats["epsilon"] for c in range(self.real_clients)}
+        self._dp_recorded_through = round_idx
+
 
     # ---------- evaluation ----------
 

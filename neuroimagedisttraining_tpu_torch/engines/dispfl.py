@@ -56,6 +56,7 @@ DIFF_SPA_CYCLE = (0.2, 0.4, 0.6, 0.8, 1.0)
 
 
 class DisPFLEngine(FederatedEngine):
+    name = "dispfl"
     trains_sampled = False
 
     def __init__(self, cfg, data, trainer, perms_for=None,

@@ -3,7 +3,8 @@
 Each round has two tracks over the sampled clients:
 
 - global: each client trains the round's global model for ``epochs``;
-  sample-weighted FedAvg of the uploads (non-finite ones dropped);
+  sample-weighted FedAvg of the uploads (non-finite ones dropped) through
+  the round's tail (the attack and the defense; no wire codec);
 - personal: each client trains its own persistent model for
   ``local_epochs`` with a fresh optimizer, pulled toward the round's
   incoming global model after every step,
@@ -23,13 +24,17 @@ import time
 
 import torch
 
+from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
 
 log = logging.getLogger(__name__)
 
 
 class DittoEngine(FederatedEngine):
+    name = "ditto"
     eval_walks = 2
+    supports_byz_faults = True
+    supported_defenses = robust.DEFENSES
 
     def run_round(self, round_idx, params, bstats, per_params, per_bstats,
                   sampled):
@@ -50,8 +55,8 @@ class DittoEngine(FederatedEngine):
                 prox_ref=params)
             pp.append(p)
             pb.append(b)
-        new_p, new_b, loss, n_bad = self.sanitize_aggregate(
-            ups_p, ups_b, params, bstats,
+        new_p, new_b, loss, n_bad = self.defended_aggregate(
+            round_idx, sampled, ups_p, ups_b, params, bstats,
             self.to_device(self.n_train[sampled]), torch.stack(losses))
         real = self.n_train[sampled] > 0
         per_params = self.scatter_sampled_rows(per_params, pp, sampled, real)

@@ -9,7 +9,12 @@
   {neighbours ∪ c} of LAST round's personal models and BatchNorm stats,
   one row-stochastic mixing matrix ``M[C, C]`` a round applied as a dense
   ``einsum('cj,j...->c...')`` (padding clients keep themselves).
-- Every client then trains from its consensus point.
+- Every client then trains from its consensus point. Under round-level DP
+  (``dp_clip`` > 0) its update against that point is clipped to
+  ``dp_clip`` and, with ``dp_sigma`` > 0, noised with
+  ``N(0, (dp_sigma * dp_clip)^2)`` before anything leaves the client (the
+  BatchNorm statistics untouched); ``record_privacy`` charges the RDP
+  accountant at full participation.
 - ``w_global``, the plain mean of the real clients' personal models, is
   the global model evaluated each evaluation round.
 - After every round ``r`` with ``r % 100 == 99`` every client trains
@@ -34,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
 
 log = logging.getLogger(__name__)
@@ -65,7 +71,9 @@ def benefit_choose(round_idx: int, cur_clnt: int, total: int,
 
 
 class DPSGDEngine(FederatedEngine):
+    name = "dpsgd"
     trains_sampled = False
+    supports_dp = True
     eval_walks = 2
 
     def mixing_matrix(self, round_idx: int) -> np.ndarray:
@@ -121,11 +129,18 @@ class DPSGDEngine(FederatedEngine):
         real clients' mean on the device."""
         mixed_p, mixed_b = self.consensus(per_params, per_bstats, M)
         lr = self.round_lr(round_idx)
+        f = self.cfg.fed
         new_p, new_b, losses = [], [], []
         for c, rows in self.client_rows(range(self.num_clients)):
             p, b, loss = self.client_train(round_idx, c, rows, mixed_p[c],
                                            mixed_b[c], lr,
                                            self.cfg.optim.epochs)
+            if f.dp_clip > 0:
+                p = robust.norm_diff_clip(p, mixed_p[c], f.dp_clip)
+                if f.dp_sigma > 0:
+                    p = robust.add_weak_dp_noise(
+                        p, self.noise_for("dp", round_idx, c, p),
+                        f.dp_sigma * f.dp_clip)
             new_p.append(p)
             new_b.append(b)
             losses.append(loss)

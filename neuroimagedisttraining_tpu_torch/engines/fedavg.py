@@ -2,9 +2,11 @@
 fine-tune.
 
 A round samples clients (``np.random.seed(round)``, as the reference
-does), trains each sampled client from the round's global model, and
-averages their uploads weighted by sample count (a non-finite upload is
-dropped). The global model is evaluated every ``frequency_of_the_test``
+does; crashed clients of the fault schedule leave the cohort), trains each
+sampled client from the round's global model, and averages their uploads
+weighted by sample count (a non-finite upload is dropped), through the
+round's tail: the Byzantine attack, the wire codec with per-client error
+feedback, the defense (engines/base.py ``defended_aggregate``). The global model is evaluated every ``frequency_of_the_test``
 rounds and at the last round. After the last round every client fine-tunes
 the aggregated model on its own rows at ``round_lr(-1)``, i.e.
 ``lr / lr_decay`` (the reference passes round -1 there), which gives the
@@ -25,13 +27,19 @@ from __future__ import annotations
 import logging
 import time
 
+from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
 
 log = logging.getLogger(__name__)
 
 
 class FedAvgEngine(FederatedEngine):
+    name = "fedavg"
     final_walks = ("train", "test", "test")
+    supports_byz_faults = True
+    supports_wire_codec = True
+    wire_uses_ef = True
+    supported_defenses = robust.DEFENSES
 
     def _prox_kwargs(self, global_params) -> dict:
         """Extra ``local_train`` arguments for the round's local training."""

@@ -47,6 +47,7 @@ log = logging.getLogger(__name__)
 
 
 class FedFomoEngine(FederatedEngine):
+    name = "fedfomo"
     trains_sampled = False
 
     def __init__(self, cfg, data, trainer, perms_for=None, stream=None):

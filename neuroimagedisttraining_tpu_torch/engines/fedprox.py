@@ -12,6 +12,7 @@ from neuroimagedisttraining_tpu_torch.engines.fedavg import FedAvgEngine
 
 
 class FedProxEngine(FedAvgEngine):
+    name = "fedprox"
 
     def _prox_kwargs(self, global_params) -> dict:
         return {"prox_lamda": float(self.cfg.fed.lamda),

@@ -22,6 +22,7 @@ log = logging.getLogger(__name__)
 
 
 class LocalEngine(FederatedEngine):
+    name = "local"
     trains_sampled = False
 
     def run_round(self, round_idx, per_params, per_bstats):

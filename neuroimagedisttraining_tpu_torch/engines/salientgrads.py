@@ -6,8 +6,10 @@
   (``ops/snip.py``; the threshold comes from the count-greater-or-equal
   kernel of ``ops/topk.py``). ``snip_mask=False`` keeps every weight.
 - Phase 2 (rounds): the sampled clients train from the global model with
-  the mask re-applied after every step; FedAvg weighs them by sample count;
-  each client's personal model is its latest local result; the global and
+  the mask re-applied after every step; FedAvg weighs them by sample count
+  through the round's tail (the attack, the wire codec against the phase-1
+  mask, which both ends hold: no bitmap and no top-k select; the defense);
+  each client's personal model is its latest honest local result; the global and
   personal models are evaluated on the clients' test rows.
 
 ``perms_for`` (engines/base.py) and ``snip_idx_for(client, n_valid)`` may
@@ -32,7 +34,9 @@ import logging
 import time
 
 import numpy as np
+import torch
 
+from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
 from neuroimagedisttraining_tpu_torch.ops import flops as flops_ops
 from neuroimagedisttraining_tpu_torch.ops.masks import mask_density, ones_mask
@@ -44,8 +48,14 @@ log = logging.getLogger(__name__)
 
 
 class SalientGradsEngine(FederatedEngine):
+    name = "salientgrads"
     eval_walks = 2
     final_walks = ("test", "test")
+    supports_byz_faults = True
+    supports_wire_codec = True
+    supported_defenses = robust.DEFENSES
+    #: the phase-1 mask once made (the codec's mask handoff)
+    _masks = None
 
     def __init__(self, cfg, data, trainer, perms_for=None, snip_idx_for=None,
                  stream=None):
@@ -82,6 +92,13 @@ class SalientGradsEngine(FederatedEngine):
             wsum += 1
         return {k: v / max(wsum, 1) for k, v in total.items()}
 
+    def wire_masks(self, ref):
+        """The mask handoff: the phase-1 mask over the parameters, all ones
+        over the BatchNorm statistics (both endpoints hold it, so the codec
+        ships no bitmap and no top-k select runs)."""
+        return {k: self._masks[k] if k in self._masks
+                else torch.ones_like(v) for k, v in ref.items()}
+
     # ---------- phase 2: one masked round ----------
 
     def run_round(self, round_idx, params, bstats, per_params, per_bstats,
@@ -110,6 +127,7 @@ class SalientGradsEngine(FederatedEngine):
         else:
             masks = {k: v.to(self.device) for k, v in masks.items()}
             thr = None
+        self._masks = masks
         density = float(mask_density(masks))
         phase1_seconds = time.perf_counter() - t0
         log.info("global SNIP mask density = %.4f (target %.4f)", density,

@@ -56,6 +56,7 @@ def _f32(x: float) -> torch.Tensor:
 
 
 class SubFedAvgEngine(FederatedEngine):
+    name = "subavg"
 
     def client_round(self, round_idx: int, c: int, rows, params, bstats,
                      mask, lr):

@@ -4,7 +4,9 @@ over GF(p).
 Sampling, local training, the final fine-tune and the accounting are
 FedAvg's (engines/fedavg.py). Only the aggregation of the parameters
 changes: a non-finite upload is swapped for the broadcast model at weight
-0, each sampled client's upload is multiplied by its weight ``w / sum w``
+0, the clip-family defense (``--defense norm_diff_clipping | weak_dp``)
+clips each client's parameters, each sampled client's upload is
+multiplied by its weight ``w / sum w``
 (float32), and every parameter leaf goes through the share stage: each
 client's weighted leaf is quantized into GF(p) at ``mpc_frac_bits``
 fraction bits, split into ``mpc_n_shares`` additive shares, each share
@@ -28,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.engines.fedavg import FedAvgEngine
 from neuroimagedisttraining_tpu_torch.ops import mpc, mpc_device
 
@@ -35,6 +38,14 @@ MPC_BACKENDS = ("device", "host")
 
 
 class TurboAggregateEngine(FedAvgEngine):
+    name = "turboaggregate"
+    # the server never sees a client's update in the clear: no order
+    # statistic to select over, no codec over the field embedding, and no
+    # attack stage; the clip family composes (each client clips its own
+    # update before sharing it)
+    supports_byz_faults = False
+    supports_wire_codec = False
+    supported_defenses = robust.CLIP_DEFENSES
 
     def __init__(self, cfg, data, trainer, perms_for=None, stream=None):
         super().__init__(cfg, data, trainer, perms_for, stream=stream)
@@ -78,6 +89,13 @@ class TurboAggregateEngine(FedAvgEngine):
         ns = self.to_device(self.n_train[sampled])
         ups_p, ups_b, w, loss, n_bad = self.guard_uploads(
             ups_p, ups_b, params, bstats, ns, losses)
+        f = self.cfg.fed
+        noises = ([self.noise_for("weak_dp", round_idx, int(c), params)
+                   for c in sampled] if f.defense_type == "weak_dp"
+                  else None)
+        ups_p = robust.defend_stacked(ups_p, params, defense=f.defense_type,
+                                      norm_bound=f.norm_bound,
+                                      stddev=f.stddev, noises=noises)
         wn = w / torch.clamp(torch.sum(w), min=1e-12)
         weighted = {}
         for k in ups_p[0]:

@@ -1,1 +1,3 @@
-"""Seeded client-activity schedules."""
+"""The seeded fault schedule (``schedule.py``: crashes, Byzantine value
+faults, the comm-level draws, DisPFL's activity draw) and the Byzantine
+transforms of the uploads (``adversary.py``)."""

@@ -119,3 +119,43 @@ def params_to_flax(params: Mapping[str, torch.Tensor],
 
     return (back(like_params, _PARAM_NAMES, params),
             back(like_stats, _STAT_NAMES, bstats))
+
+
+def _flax_path(name: str, ndim: int, stats: bool) -> tuple[str, ...]:
+    """The flax path (within ``params`` / ``batch_stats``) of the port's
+    leaf ``name`` of rank ``ndim``: the inverse of ``_port_name``."""
+    if name in _AS_IS:
+        return (name,)
+    *mods, leaf = name.split(".")
+    if stats:
+        back = {v: k for k, v in _STAT_NAMES.items()}
+        return (*mods, back[leaf])
+    if not mods and leaf.endswith("_weight"):  # a top-level kernel
+        return (leaf.removesuffix("weight") + "kernel",)
+    if leaf == "bias":
+        return (*mods, "bias")
+    if leaf == "weight":
+        if ndim in _TO_FLAX:
+            return (*mods, "kernel")
+        if ndim == 1:
+            return (*mods, "scale")
+    raise ValueError(f"no flax name for the port's leaf {name!r} "
+                     f"(rank {ndim})")
+
+
+def flax_named_leaves(params: Mapping[str, torch.Tensor],
+                      bstats: Mapping[str, torch.Tensor]
+                      ) -> dict[str, np.ndarray]:
+    """The upload ``{"params": params, "batch_stats": bstats}`` as the
+    reference's wire names it: float32 numpy leaves in flax's layout,
+    keyed by their flax paths (``"params/f0/conv/kernel"``), in flax's
+    leaf order (keys sorted at every level)."""
+    out = {}
+    for top, state, stats in (("batch_stats", bstats, True),
+                              ("params", params, False)):
+        for name, v in state.items():
+            a = v.detach().cpu().numpy()
+            path = _flax_path(name, a.ndim, stats)
+            out[(top, *path)] = np.ascontiguousarray(
+                _to_flax_layout(path[-1], a))
+    return {"/".join(p): out[p] for p in sorted(out)}

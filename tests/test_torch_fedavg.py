@@ -3,7 +3,9 @@ package's engine and the port's on the same cohort, initial weights, epoch
 permutations (the round's and the fine-tune's) and dropout keep-masks,
 with both switches of the flagship path on (``--fused_update``,
 ``NIDT_FAST_STEM=1``; on the CPU both sides take their plain paths).
-AlexNet3D at 69^3, 2 site clients, batch 2, 1 round of 1 epoch. The runs
+FedProx on AlexNet3D at 69^3, FedAvg on Tiny3DCNN at 12x14x12 (the
+AlexNet family's FedAvg pairs at 69^3 are in test_torch_zoo.py), 2 site
+clients, batch 2, 1 round of 1 epoch. The runs
 take several SGD steps, so they are held at the tolerances of
 ``torch_port_support.TRAJECTORY`` (a ReLU input within float32 rounding of
 0 is active on one side only); test_torch_engines.py holds the engines'
@@ -30,8 +32,15 @@ OPTIM = dict(batch_size=2, epochs=1, fused_update=True)
 FED = dict(client_num_in_total=2, comm_round=1, frequency_of_the_test=1)
 
 
-def _cohort():
-    c = generate_synthetic_abcd(num_subjects=12, shape=(69, 69, 69),
+#: the model and volume of each pair: FedProx's on the flagship model at
+#: the stem's width, FedAvg's on the tiny model (test_torch_zoo.py holds
+#: FedAvg pairs on the AlexNet family at 69^3)
+PAIRS = {"fedavg": ("3dcnn_tiny", (12, 14, 12)),
+         "fedprox": ("3DCNN", (69, 69, 69))}
+
+
+def _cohort(shape=(69, 69, 69)):
+    c = generate_synthetic_abcd(num_subjects=12, shape=shape,
                                 num_sites=2, seed=0)
     train_map, test_map, _ = site_partition(c["site"], seed=42)
     return c["X"], c["y"], train_map, test_map
@@ -45,13 +54,12 @@ def runs(tmp_path_factory):
     mp.setenv("NIDT_FAST_STEM", "1")
     try:
         with torch_threads(2):
-            data = _cohort()
             out = {}
-            for name in ("fedavg", "fedprox"):
+            for name, (model, shape) in PAIRS.items():
                 before = sum(_cuda.counts().values())
                 out[name] = run_engine_pair(
-                    name, data, OPTIM, dict(FED, lamda=0.5),
-                    tmp_path_factory.mktemp(name))
+                    name, _cohort(shape), OPTIM, dict(FED, lamda=0.5),
+                    tmp_path_factory.mktemp(name), shape=shape, model=model)
                 # CPU tensors: plain paths only, no kernel launched
                 assert sum(_cuda.counts().values()) == before
             yield out

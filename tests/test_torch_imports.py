@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``neuroimagedisttraining_tpu_torch``,
-and not ``chip_smoke.py``, imports JAX, flax, optax or the reference
-package, and importing the port compiles nothing."""
+and not ``chip_smoke.py``, imports JAX, flax, optax, msgpack or the
+reference package, and importing the port compiles nothing."""
 
 import ast
 import subprocess
@@ -11,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "neuroimagedisttraining_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "neuroimagedisttraining_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "neuroimagedisttraining_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -72,11 +73,14 @@ def test_port_imports_without_jax_or_cuda():
     "core/losses.py", "core/trainer.py", "device.py", "weights.py",
     "data/partition.py", "data/vision.py", "models/layers2d.py",
     "models/resnet2d.py", "models/vision2d.py", "models/meta.py",
-    "models/darts.py",
+    "models/darts.py", "faults/adversary.py", "core/robust.py",
+    "privacy/__init__.py", "privacy/accountant.py", "codec/__init__.py",
+    "codec/wire.py", "codec/device.py", "faults/__init__.py",
     "ops/masks.py"])
 def test_engine_slice_modules_are_checked(module):
     """The engines', the data planes', the model zoo's (the 2D one with its
-    vision data included) and the precision contract's modules are among
+    vision data included), the precision contract's and the defended
+    round's (faults, defenses, accountant, wire codec) modules are among
     the sources checked above (none imports JAX or the reference
     package)."""
     path = PORT / module

@@ -45,7 +45,9 @@ from neuroimagedisttraining_tpu_torch.weights import (
     masks_from_flax, params_from_flax,
 )
 
-from torch_port_support import dropout_masks, fixed_dropout, torch_threads
+from torch_port_support import (
+    dropout_masks, evaluate_in_one_chunk, fixed_dropout, torch_threads,
+)
 
 SHAPE = (69, 69, 69)
 CPU = torch.device("cpu")
@@ -76,6 +78,7 @@ def _run_both(tmp):
     fed, _ = jfed(cohort, partition_method="site", mesh=None)
     jtrainer = JTrainer(jmodel("3dcnn", num_classes=1, remat=False),
                         jcfg.optim, num_classes=1)
+    evaluate_in_one_chunk(jtrainer)
     jeng = create_engine("salientgrads", jcfg, fed, jtrainer, mesh=None,
                          logger=ExperimentLogger(str(tmp), "synthetic",
                                                  jcfg.identity(),

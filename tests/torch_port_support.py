@@ -182,11 +182,25 @@ def reference_initial_masks(jeng, jparams) -> list:
             for c in range(jeng.num_clients)]
 
 
+def evaluate_in_one_chunk(jtrainer) -> None:
+    """Let the reference trainer ``jtrainer`` evaluate a client's test stack
+    in one chunk of its own rows instead of zero-padded chunks of 32. For a
+    model that normalises with running statistics in evaluation every row's
+    output is its own, so the metrics are the same (the sums over a
+    client's rows may round in another order); the padding is what costs:
+    at 69^3 it is most of a reference engine run on the CPU. A model that
+    normalises by the batch in evaluation keeps the reference's chunks."""
+    full = jtrainer.evaluate
+    jtrainer.evaluate = (lambda params, bstats, X, y, valid, batch_size=None:
+                         full(params, bstats, X, y, valid,
+                              batch_size=max(1, X.shape[0])))
+
+
 def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
                     shape=(69, 69, 69), seed: int = 0,
                     sparsity: dict | None = None, val_map: dict | None = None,
                     model: str = "3DCNN", num_classes: int = 1,
-                    eval_pool: tuple | None = None):
+                    eval_pool: tuple | None = None, setup=None):
     """The reference's engine ``name`` and the port's on the same federation,
     model (``model`` with ``num_classes`` outputs, in ``optim``'s
     precision), initial weights, epoch permutations and dropout keep-masks
@@ -196,7 +210,11 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
     train_map, test_map)``, ``shape`` one sample's; ``eval_pool`` an
     ``(X, y)`` pool of their own that ``test_map`` indexes (the vision
     datasets'); ``val_map`` a validation split of the training rows
-    (FedFomo's), where given. Returns
+    (FedFomo's), where given; the reference evaluates in one chunk a
+    client (``evaluate_in_one_chunk``) unless the model normalises by the
+    batch in evaluation; ``setup(jeng, peng)`` runs on each port
+    engine before it trains (e.g. to give it the reference's noise draws).
+    Returns
     ``(reference result, port result, reference engine, port engine, port
     initial state)``; the port engine's ``rerun()`` runs it again with the
     same inputs."""
@@ -243,6 +261,9 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
     jtrainer = JTrainer(jmodel(model, num_classes=num_classes, remat=False,
                                dtype=jcompute_dtype(precision)),
                         jcfg.optim, num_classes=num_classes)
+    if not getattr(create_model(model, tuple(shape), num_classes),
+                   "eval_batch_stats", False):
+        evaluate_in_one_chunk(jtrainer)
     jeng = jcreate(name, jcfg, jfed, jtrainer, mesh=None,
                    logger=ExperimentLogger(str(tmp / "ref"), "synthetic",
                                            jcfg.identity(), console=False))
@@ -287,6 +308,8 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
                                  jeng, nmax, epochs,
                                  fed.get("local_epochs", 1)), **engine_kw)
         peng.rerun = lambda: port_engine().train(init_state=init, **train_kw)
+        if setup is not None:
+            setup(jeng, peng)
         return peng
 
     peng = port_engine()
