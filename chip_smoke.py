@@ -6,6 +6,7 @@
     python3 chip_smoke.py --vision   # kernels, then step 8 (2D) alone
     python3 chip_smoke.py --darts    # kernels, then step 9 (DARTS) alone
     python3 chip_smoke.py --defense  # kernels, then step 10 (defended) alone
+    python3 chip_smoke.py --secure   # kernels, then step 11 (secure) alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
@@ -111,8 +112,8 @@
    against the default pool.
 8. The 2D vision path (``vision_phase``): the reference package's CIFAR
    sweep (``CIFAR_SWEEP``: ResNet-18, SalientGrads, 100 clients at
-   Dirichlet 0.3, frac 0.1, batch 16, 2 epochs, dense ratio 0.5) for 2
-   rounds on the synthetic vision cohort at CIFAR-10's size, through
+   Dirichlet 0.3, frac 0.1, batch 16, 2 epochs, dense ratio 0.5) for 1
+   round on the synthetic vision cohort at CIFAR-10's size, through
    ``federate_vision``, ``create_model``, ``LocalTrainer`` and
    ``create_engine`` (``fused_sgd`` 2 launches a table a step, its 62
    leaves two tables; ``kth_select`` launched; no ``stem_dw``; mask
@@ -128,8 +129,8 @@
    ``build_experiment`` must have switched TF32 and cuDNN's default
    algorithms off (the fp32 contract lives in ``LocalTrainer``); the CIFAR
    sweep on ``darts`` at full width (``DARTS_SWEEP``: DARTS_V2, C=36, 20
-   cells, 919 leaves, 1 epoch, 1 round; its evaluations take client 0
-   alone, ``--ci 1``) on the synthetic cohort at CIFAR-10's size (``kth_select`` launched for the one mask over
+   cells, 919 leaves, 1 epoch, 1 round of 5 clients; its evaluations
+   take client 0 alone, ``--ci 1``) on the synthetic cohort at CIFAR-10's size (``kth_select`` launched for the one mask over
    3,308,940 scores, ``fused_sgd`` 2 launches a table a step over its 29
    tables, no ``stem_dw``, density within 0.01), with one client's local
    step split into wall and device time and ``fused_sgd``'s host and
@@ -155,7 +156,20 @@
    and FedAvg under ``--defense weak_dp``, each ledger's epsilon equal to
    the host accountant's; FedAvg under ``crash:2@0``, only survivors
    training.
-11. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+11. Secure quantized aggregation (``secure_phase``) in the defended
+   cells' configuration with ``--secure_quant --secure_quant_field_bits
+   32``: FedAvg (2 rounds), FedProx, Ditto and SalientGrads through the
+   GF(p) fold with the launches of an undefended run (SalientGrads'
+   ``kth_select`` 5, its density within 0.01, its aggregate 0 off the
+   mask) and no host sync inside the fold; one captured FedAvg round's
+   fold bit for bit the host protocol's (``encode_secure_quant`` frames
+   folded by a ``SlotAccumulator``) and within one lattice step of the
+   plain mean, its device ms beside the undefended tail's, the host's
+   encode and fold ms a client, a frame's bytes a parameter at field_bits
+   8, 16 and 32; ``byz:2@0:nonfinite`` (one row counted), the clip family
+   (the weak-DP ledger against the host accountant); TurboAggregate
+   unchanged by the flag, bit for bit; the startup refusals.
+12. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -168,7 +182,7 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-12. Prints the run's seconds, one JSON line per kernel, the
+13. Prints the run's seconds, one JSON line per kernel, the
    ``{"kernels": [...]}`` line (each kernel's launches on its main path,
    SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
    run), and last ``{"ok": true, "device": {...}}``.
@@ -1171,12 +1185,13 @@ def zoo_precision_phase(card, dev, flagship, build_experiment,
 
 
 #: the reference package's CIFAR sweep (scripts/run_cifar_salientgrads.sh),
-#: cut to 2 rounds; its data is the synthetic vision cohort at CIFAR-10's
-#: size (CIFAR_SIZE), since neither machine holds the CIFAR files
+#: cut to 1 round to keep the whole smoke well inside its limit on a slow
+#: host; its data is the synthetic vision cohort at CIFAR-10's size
+#: (CIFAR_SIZE), since neither machine holds the CIFAR files
 CIFAR_SWEEP = ("--algorithm", "salientgrads", "--dataset", "cifar10",
                "--model", "resnet18", "--partition_method", "dir",
                "--partition_alpha", "0.3", "--client_num_in_total", "100",
-               "--frac", "0.1", "--comm_round", "2", "--batch_size", "16",
+               "--frac", "0.1", "--comm_round", "1", "--batch_size", "16",
                "--epochs", "2", "--lr", "0.01", "--dense_ratio", "0.5",
                "--itersnip_iteration", "1", "--fused_update")
 CIFAR_SIZE = (50000, 10000)
@@ -1299,7 +1314,7 @@ def vision_phase(card, dev, build_experiment, by_path: dict) -> None:
 
     - the main path, the CIFAR sweep (``CIFAR_SWEEP``: ResNet-18 with
       GroupNorm, SalientGrads, 100 clients at Dirichlet 0.3, frac 0.1,
-      batch 16, 2 epochs, dense ratio 0.5, ``--fused_update``) for 2 rounds
+      batch 16, 2 epochs, dense ratio 0.5, ``--fused_update``) for 1 round
       on the synthetic cohort at CIFAR-10's size: ``fused_sgd`` 2 launches
       a table a local step (two tables: 4), ``kth_select`` launched for the
       one global mask, no ``stem_dw``, the mask's density within 0.01 of
@@ -1463,11 +1478,13 @@ def vision_phase(card, dev, build_experiment, by_path: dict) -> None:
 
 #: the DARTS path's main run: the CIFAR sweep (``CIFAR_SWEEP``) on the
 #: DARTS_V2 network at full width (C=36, 20 cells, 919 leaves: 29 of
-#: fused_sgd's 32-leaf tables), 1 epoch and 1 round
+#: fused_sgd's 32-leaf tables), 1 epoch and 1 round of 5 clients (the
+#: sweep's frac 0.1 halved: a step is ~0.25-0.5 s of host dispatch, and
+#: the whole smoke must stay well inside its limit on a slow host)
 DARTS_SWEEP = ("--algorithm", "salientgrads", "--dataset", "cifar10",
                "--model", "darts", "--partition_method", "dir",
                "--partition_alpha", "0.3", "--client_num_in_total", "100",
-               "--frac", "0.1", "--comm_round", "1", "--batch_size", "16",
+               "--frac", "0.05", "--comm_round", "1", "--batch_size", "16",
                "--epochs", "1", "--lr", "0.01", "--dense_ratio", "0.5",
                "--itersnip_iteration", "1", "--fused_update", "--ci", "1")
 #: the DARTS models' maskable scores (conv and dense kernels) at 10
@@ -1692,7 +1709,7 @@ def darts_phase(card, dev, build_experiment, by_path: dict) -> None:
       off before its first step;
     - the main path, the CIFAR sweep on ``darts`` at full width
       (``DARTS_SWEEP``: DARTS_V2, C=36, 20 cells, SalientGrads, 100 clients
-      at Dirichlet 0.3, frac 0.1, batch 16, 1 epoch, 1 round, dense ratio
+      at Dirichlet 0.3, frac 0.05, batch 16, 1 epoch, 1 round, dense ratio
       0.5) on the synthetic cohort at CIFAR-10's size: ``kth_select``
       launched for the one global mask over 3,308,940 scores, ``fused_sgd``
       2 launches a table a local step (29 tables: 58), no ``stem_dw``, the
@@ -1875,6 +1892,98 @@ DEFENSE_SITES = ("--client_num_in_total", "24")
 CODEC_SCORES = 2_571_649
 
 
+def defense_cfg(algorithm: str, *extra: str):
+    """The defended cells' configuration: AlexNet3D at 121x145x121, batch
+    16, ``--fused_update``, 48 subjects over 6 site clients, 1 round, then
+    ``extra``."""
+    import argparse
+
+    from neuroimagedisttraining_tpu_torch.__main__ import (
+        add_args, config_from_args,
+    )
+
+    return config_from_args(add_args(argparse.ArgumentParser()).parse_args([
+        "--algorithm", algorithm, "--dataset", "synthetic",
+        "--model", "3DCNN", "--synthetic_shape", "121", "145", "121",
+        "--synthetic_num_subjects", "48", *DEFENSE_SITES,
+        "--batch_size", "16", "--itersnip_iteration", "1",
+        "--epochs", "1", "--comm_round", "1", "--fused_update", *extra]))
+
+
+def synced_ms(fn, out: list):
+    """``fn`` timed on the host around two device syncs, ms into ``out``."""
+    import torch
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn(*a, **k)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+        return r
+    return timed
+
+
+def defended_run(card, build_experiment, by_path: dict, tag: str,
+                 algorithm: str, *extra: str, hook=None) -> dict:
+    """One defended cell (``defense_cfg``) through ``build_experiment`` and
+    ``engine.train()``, the launch counters set to 0 just before and read
+    just after (into ``by_path[tag]``), with the round tail, the codec
+    stage, the host's frame encode and the secure fold each timed
+    (``synced_ms``); ``hook(engine)`` runs before the training. Fails
+    unless the losses, metrics and weights are finite and ``stem_dw``
+    launched 3 times and ``fused_sgd`` 2 a local step (or SNIP pass).
+    Returns the engine, its result and the printed row."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+
+    engine, _ = build_experiment(defense_cfg(algorithm, *extra), "cuda")
+    tail_ms, codec_ms, wire_ms, fold_ms = [], [], [], []
+    engine.defended_aggregate = synced_ms(engine.defended_aggregate, tail_ms)
+    engine.codec_stage = synced_ms(engine.codec_stage, codec_ms)
+    engine.account_wire_bytes = synced_ms(engine.account_wire_bytes,
+                                          wire_ms)
+    engine.secure_quant_aggregate = synced_ms(engine.secure_quant_aggregate,
+                                              fold_ms)
+    if hook is not None:
+        hook(engine)
+    steps = local_steps(engine)
+    # SalientGrads' phase 1: one IterSNIP pass a client with rows
+    snips = (int((engine.n_train > 0).sum())
+             if algorithm == "salientgrads" else 0)
+    torch.cuda.synchronize()
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    res = engine.train()
+    torch.cuda.synchronize()
+    got = _cuda.counts()
+    by_path[tag] = got
+    losses = [h["train_loss"] for h in res["history"]]
+    final = res.get("final_global") or res["final_personal"]
+    out = {"run": tag, "card": card, "launches": got,
+           "local_steps": steps, "train_seconds": time.perf_counter() - t0,
+           "tail_ms": tail_ms, "codec_ms": codec_ms,
+           # the host's frame encode and byte count, inside codec_ms
+           "wire_bytes_ms": wire_ms, "fold_ms": fold_ms,
+           "nonfinite_uploads": engine.stat_info["nonfinite_uploads"],
+           "round_seconds": res.get("round_seconds") or [
+               h.get("round_seconds") for h in res["history"]],
+           "train_loss": losses}
+    if not all(math.isfinite(v) for v in losses
+               + [final[m] for m in ("acc", "loss", "auc")]):
+        fail(f"{tag}: non-finite losses or metrics {losses} {final}")
+    state = res.get("params") or res.get("global_params")
+    if not all(bool(torch.isfinite(v).all()) for v in state.values()):
+        fail(f"{tag}: non-finite weights")
+    if got.get("stem_dw", 0) != 3 * (steps + snips) or \
+            got.get("fused_sgd", 0) != 2 * steps:
+        fail(f"{tag}: launches {got} in {steps} local steps and {snips} "
+             "SNIP passes, not stem_dw 3 a step or pass and fused_sgd 2 "
+             "a step")
+    return {"engine": engine, "result": res, "row": out}
+
+
 def defense_phase(card, dev, build_experiment, by_path: dict, rows: list,
                   time_ms) -> None:
     """The defended aggregation tail at the flagship width (AlexNet3D,
@@ -1905,18 +2014,14 @@ def defense_phase(card, dev, build_experiment, by_path: dict, rows: list,
       accountant's for the run's q and z;
     - crashes: FedAvg with ``--fault_spec crash:2@0``: only survivors
       train."""
-    import argparse
+    import functools
 
     import numpy as np
     import torch
 
-    from neuroimagedisttraining_tpu_torch.__main__ import (
-        add_args, config_from_args,
-    )
     from neuroimagedisttraining_tpu_torch.codec import device as CD
     from neuroimagedisttraining_tpu_torch.codec.wire import WireSpec
     from neuroimagedisttraining_tpu_torch.core.robust import DEFENSES
-    from neuroimagedisttraining_tpu_torch.ops import _cuda
     from neuroimagedisttraining_tpu_torch.ops import topk as TK
     from neuroimagedisttraining_tpu_torch.privacy import accountant as acct
 
@@ -1927,72 +2032,7 @@ def defense_phase(card, dev, build_experiment, by_path: dict, rows: list,
         spent[part] = now - mark[0]
         mark[0] = now
 
-    def cfg_of(algorithm: str, *extra: str):
-        return config_from_args(add_args(argparse.ArgumentParser())
-                                .parse_args([
-            "--algorithm", algorithm, "--dataset", "synthetic",
-            "--model", "3DCNN", "--synthetic_shape", "121", "145", "121",
-            "--synthetic_num_subjects", "48", *DEFENSE_SITES,
-            "--batch_size", "16", "--itersnip_iteration", "1",
-            "--epochs", "1", "--comm_round", "1", "--fused_update",
-            *extra]))
-
-    def synced_ms(fn, out: list):
-        """``fn`` timed on the host around two device syncs, ms into
-        ``out``."""
-        def timed(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            r = fn(*a, **k)
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t) * 1e3)
-            return r
-        return timed
-
-    def run(tag: str, algorithm: str, *extra: str, hook=None) -> dict:
-        engine, _ = build_experiment(cfg_of(algorithm, *extra), "cuda")
-        tail_ms, codec_ms, wire_ms = [], [], []
-        engine.defended_aggregate = synced_ms(engine.defended_aggregate,
-                                              tail_ms)
-        engine.codec_stage = synced_ms(engine.codec_stage, codec_ms)
-        engine.account_wire_bytes = synced_ms(engine.account_wire_bytes,
-                                              wire_ms)
-        if hook is not None:
-            hook(engine)
-        steps = local_steps(engine)
-        # SalientGrads' phase 1: one IterSNIP pass a client with rows
-        snips = (int((engine.n_train > 0).sum())
-                 if algorithm == "salientgrads" else 0)
-        torch.cuda.synchronize()
-        _cuda.reset_counts()
-        t0 = time.perf_counter()
-        res = engine.train()
-        torch.cuda.synchronize()
-        got = _cuda.counts()
-        by_path[tag] = got
-        losses = [h["train_loss"] for h in res["history"]]
-        final = res.get("final_global") or res["final_personal"]
-        out = {"run": tag, "card": card, "launches": got,
-               "local_steps": steps, "train_seconds": time.perf_counter() - t0,
-               "tail_ms": tail_ms, "codec_ms": codec_ms,
-               # the host's frame encode and byte count, inside codec_ms
-               "wire_bytes_ms": wire_ms,
-               "nonfinite_uploads": engine.stat_info["nonfinite_uploads"],
-               "round_seconds": res.get("round_seconds") or [
-                   h.get("round_seconds") for h in res["history"]],
-               "train_loss": losses}
-        if not all(math.isfinite(v) for v in losses
-                   + [final[m] for m in ("acc", "loss", "auc")]):
-            fail(f"{tag}: non-finite losses or metrics {losses} {final}")
-        state = res.get("params") or res.get("global_params")
-        if not all(bool(torch.isfinite(v).all()) for v in state.values()):
-            fail(f"{tag}: non-finite weights")
-        if got.get("stem_dw", 0) != 3 * (steps + snips) or \
-                got.get("fused_sgd", 0) != 2 * steps:
-            fail(f"{tag}: launches {got} in {steps} local steps and {snips} "
-                 "SNIP passes, not stem_dw 3 a step or pass and fused_sgd 2 "
-                 "a step")
-        return {"engine": engine, "result": res, "row": out}
+    run = functools.partial(defended_run, card, build_experiment, by_path)
 
     # ---- attacks against defenses ----
     defenses = {}
@@ -2180,6 +2220,276 @@ def defense_phase(card, dev, build_experiment, by_path: dict, rows: list,
                       "defense_tail_ms": defenses}))
 
 
+#: the secure cells' flags: an in-process cohort of 2 or more clients
+#: needs the 32-bit field
+SECURE = ("--secure_quant", "--secure_quant_field_bits", "32")
+
+
+def secure_phase(card, build_experiment, by_path: dict) -> None:
+    """Secure quantized aggregation (``--secure_quant``) at the flagship
+    width, in the defended cells' configuration (``defense_cfg``: 6 site
+    clients, 1 round unless stated), each run with the launch counters set
+    to 0 just before and read just after:
+
+    - FedAvg (2 rounds), FedProx, Ditto and SalientGrads through the GF(p)
+      fold: finite losses, ``stem_dw`` 3 and ``fused_sgd`` 2 launches a
+      local step, ``kth_select`` only in SalientGrads (5, its mask), whose
+      density is within 0.01 of ``dense_ratio`` and whose aggregate is 0
+      wherever the mask is 0; no host sync inside the fold (sync debug
+      mode);
+    - the fold of one captured FedAvg round against the host protocol:
+      every client's ``encode_secure_quant`` frame (its own generator)
+      folded by a ``SlotAccumulator`` at the round's integer weights,
+      finalized and divided by the integer mass, equal to the card's fold
+      in every bit; within one lattice step (``2^-frac_bits`` times the
+      leaf's scale) of the plain weighted mean at the integer weights
+      (the error against the sample-count mean printed beside it); the
+      fold's and the undefended tail's device ms on those uploads, in
+      turns; the host's encode and fold ms a client; a frame's bytes a
+      parameter at field_bits 8, 16 and 32 against the dense float32
+      upload's;
+    - ``byz:2@0:nonfinite`` (one row counted, none dropped, a finite
+      aggregate), ``--defense norm_diff_clipping`` and ``--defense
+      weak_dp`` (its epsilon equal to the host accountant's);
+    - TurboAggregate with the flag bit for bit its run without it (its
+      own share stage keeps the round);
+    - the startup refusals: the 16-bit field at 6 clients, the codec and
+      an order-statistic defense."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.codec import wire
+    from neuroimagedisttraining_tpu_torch.core import robust
+    from neuroimagedisttraining_tpu_torch.engines.base import (
+        FederatedEngine,
+    )
+    from neuroimagedisttraining_tpu_torch.ops.mpc_device import (
+        sq_integer_weights,
+    )
+    from neuroimagedisttraining_tpu_torch.privacy import accountant as acct
+    from neuroimagedisttraining_tpu_torch.privacy import secure_quant as SQ
+    from neuroimagedisttraining_tpu_torch.weights import flax_named_leaves
+
+    t_phase = time.perf_counter()
+    run = functools.partial(defended_run, card, build_experiment, by_path)
+    captured: dict = {}
+
+    def capture(engine):
+        """Keep a copy of the first round tail's inputs."""
+        inner = engine.defended_aggregate
+
+        def tail(*a):
+            if not captured:
+                captured["args"] = tuple(
+                    [{k: v.clone() for k, v in st.items()} for st in x]
+                    if isinstance(x, list) else
+                    x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in a)
+            return inner(*a)
+        engine.defended_aggregate = tail
+
+    rows = {}
+    for algorithm, rounds in (("fedavg", "2"), ("fedprox", "1"),
+                              ("ditto", "1"), ("salientgrads", "1")):
+        tag = f"{algorithm}_sq"
+        r = run(tag, algorithm, *SECURE, "--comm_round", rounds,
+                hook=capture if algorithm == "fedavg" else None)
+        eng, res, row = r["engine"], r["result"], r["row"]
+        folds = len(row["fold_ms"])
+        row["sq"] = {"p": eng.sq_spec.p, "frac_bits": eng.sq_spec.frac_bits,
+                     "weight_shift": eng.sq_weight_shift}
+        if folds != int(rounds):
+            fail(f"{tag}: {folds} folds in {rounds} rounds")
+        selects = row["launches"].get("kth_select", 0)
+        if algorithm == "salientgrads":
+            row["mask_density"] = res["mask_density"]
+            if selects != 5:
+                fail(f"{tag}: {selects} kth_select launches, not its "
+                     "mask's 5")
+            if abs(res["mask_density"] - eng.cfg.sparsity.dense_ratio) \
+                    > 0.01:
+                fail(f"{tag}: mask density {res['mask_density']}")
+            off = [k for k, m in res["masks"].items()
+                   if bool((res["params"][k][m == 0] != 0).any())]
+            if off:
+                fail(f"{tag}: the aggregate is not 0 off the mask in {off}")
+        elif selects:
+            fail(f"{tag}: {selects} kth_select launches")
+        if algorithm == "fedavg":
+            args = captured["args"]
+            row["fold_syncs"] = hidden_syncs(
+                lambda: FederatedEngine.secure_quant_aggregate(
+                    eng, *args[:5], *args[6:]))
+            if row["fold_syncs"]:
+                fail(f"the fold synced with the host at "
+                     f"{row['fold_syncs']}")
+            fedavg = eng
+        print(json.dumps({"secure_run": tag, **row}))
+        rows[tag] = row
+        del r, eng, res
+        torch.cuda.empty_cache()
+
+    # ---- one captured round: the card's fold against the host's ----
+    eng = fedavg
+    rnd, sampled, params_up, bstats_up, ref_p, ref_b, ns, losses = \
+        captured["args"]
+    spec, shift, scales = eng.sq_spec, eng.sq_weight_shift, eng.sq_scales
+    fold_args = (rnd, sampled, params_up, bstats_up, ref_p, ns, losses)
+    card_p, card_b, _, _ = FederatedEngine.secure_quant_aggregate(
+        eng, *fold_args)
+    got = {**card_p, **card_b}
+    uploads = [{**p, **b} for p, b in zip(params_up, bstats_up)]
+    host_up = [{k: v.cpu().numpy() for k, v in u.items()} for u in uploads]
+    w = ns.cpu().numpy().astype(np.float32)
+    wi = np.maximum(np.rint(w / np.float32(w.max()) * np.float32(1 << shift)),
+                    np.float32(1.0)).astype(np.int64)
+    denom = np.float32(wi.sum())
+    acc = SQ.SlotAccumulator(spec, like=host_up[0])
+    enc_ms, hfold_ms = [], []
+    for c, u in enumerate(host_up):
+        t = time.perf_counter()
+        frame = SQ.encode_secure_quant(u, 1.0, spec,
+                                       np.random.default_rng(1000 + c),
+                                       scales=scales)
+        enc_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        acc.fold(frame, weight_int=int(wi[c]))
+        hfold_ms.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    host = acc.finalize(like=host_up[0], rescale=1.0, scales=scales)
+    final_ms = (time.perf_counter() - t) * 1e3
+    host = {k: (np.asarray(v, np.float32) / denom).astype(v.dtype)
+            for k, v in host.items()}
+    differ = [k for k in host
+              if got[k].cpu().numpy().tobytes() != host[k].tobytes()]
+    wi_dev = sq_integer_weights(ns, shift)
+    if wi_dev.cpu().numpy().astype(np.int64).tolist() != wi.tolist():
+        fail(f"integer weights: card {wi_dev.tolist()}, host {wi.tolist()}")
+    step = {k: scales[k] * 2.0 ** -spec.frac_bits for k in got}
+    plain_wi = robust.weighted_mean(uploads, wi_dev)
+    plain_ns = robust.weighted_mean(uploads, ns.to(torch.float32))
+    over_wi = max(float((got[k] - plain_wi[k]).abs().max()) / step[k]
+                  for k in got)
+    over_ns = max(float((got[k] - plain_ns[k]).abs().max()) / step[k]
+                  for k in got)
+
+    # the fold and the undefended tail on the same uploads, in turns
+    fold_t, tail_t = [], []
+    timed_fold = synced_ms(functools.partial(
+        FederatedEngine.secure_quant_aggregate, eng), fold_t)
+    timed_tail = synced_ms(functools.partial(
+        FederatedEngine.defended_aggregate, eng), tail_t)
+    for _ in range(5):
+        timed_fold(*fold_args)
+        eng.sq_spec = None
+        timed_tail(*captured["args"])
+        eng.sq_spec = spec
+
+    # a frame's bytes a parameter against the dense float32 upload's
+    pkeys = set(params_up[0])
+    named = flax_named_leaves(
+        {k: v for k, v in uploads[0].items() if k in pkeys},
+        {k: v for k, v in uploads[0].items() if k not in pkeys})
+    n_params = sum(v.size for v in named.values())
+    dense = wire.frame_nbytes(wire.nest(named))
+    per_param = {}
+    for bits in (8, 16, 32):
+        fspec = SQ.QuantSpec.from_bits(bits, 3 if bits == 8 else 10)
+        nbytes = SQ.frame_nbytes(SQ.encode_secure_quant(
+            named, 1.0, fspec, np.random.default_rng(bits)))
+        per_param[bits] = {"bytes": nbytes,
+                           "bytes_a_parameter": nbytes / n_params,
+                           "of_dense": nbytes / dense}
+    fold_row = {
+        "fold_vs_host": "bit-equal" if not differ else differ,
+        "leaves": len(got), "clients": len(uploads),
+        "integer_weights": wi.tolist(), "denom": float(denom),
+        "sample_counts": w.tolist(),
+        "fold_err_over_lattice_vs_plain_at_integer_weights": over_wi,
+        "fold_err_over_lattice_vs_plain_at_sample_counts": over_ns,
+        "fold_ms": fold_t, "undefended_tail_ms": tail_t,
+        "fold_ms_a_round_in_the_run": rows["fedavg_sq"]["fold_ms"],
+        "host_encode_ms_a_client": enc_ms,
+        "host_fold_ms_a_client": hfold_ms, "host_finalize_ms": final_ms,
+        "parameters": n_params, "dense_bytes": dense,
+        "dense_bytes_a_parameter": dense / n_params,
+        "frame_by_field_bits": per_param}
+    print(json.dumps({"secure_fold": "fedavg round 0", "card": card,
+                      **fold_row}))
+    if differ:
+        fail(f"the card's fold differs from the host protocol's in {differ}")
+    if not over_wi <= 1.0:
+        fail(f"the fold is {over_wi} lattice steps from the plain mean at "
+             "its integer weights")
+    del captured["args"], fold_args, uploads, params_up, bstats_up, got
+    del plain_wi, plain_ns, host, host_up, acc
+    torch.cuda.empty_cache()
+
+    # ---- faults and clips under the fold ----
+    r = run("fedavg_sq_nonfinite", "fedavg", *SECURE, "--fault_spec",
+            "byz:2@0:nonfinite")
+    print(json.dumps({"secure_run": "fedavg_sq_nonfinite", **r["row"]}))
+    if r["row"]["nonfinite_uploads"] != 1:
+        fail(f"byz:2@0:nonfinite under --secure_quant counted "
+             f"{r['row']['nonfinite_uploads']} rows, not 1")
+    del r
+    r = run("fedavg_sq_clip", "fedavg", *SECURE, "--defense",
+            "norm_diff_clipping")
+    print(json.dumps({"secure_run": "fedavg_sq_clip", **r["row"]}))
+    del r
+    r = run("fedavg_sq_weak_dp", "fedavg", *SECURE, "--defense", "weak_dp")
+    eng = r["engine"]
+    led = eng.stat_info["weak_dp"]
+    sampled = eng.client_sampling(0)
+    z = acct.weak_dp_noise_multiplier(0.05, 5.0, eng.n_train[sampled])
+    q = len(sampled) / eng.real_clients
+    want = [round(acct.rdp_to_epsilon(acct.rdp_gaussian(q, z),
+                                      delta=1e-5)[0], 4)]
+    print(json.dumps({"secure_run": "fedavg_sq_weak_dp", **r["row"],
+                      "ledger": led, "q": q, "z": z,
+                      "host_epsilon_per_round": want}))
+    if led["epsilon_per_round"] != want:
+        fail(f"weak_dp under --secure_quant: epsilon "
+             f"{led['epsilon_per_round']} != host {want}")
+    del r, eng
+    torch.cuda.empty_cache()
+
+    # ---- TurboAggregate keeps its own share stage ----
+    ta = [run(f"turboaggregate_6{tag}", "turboaggregate", *flags)
+          for tag, flags in (("", ()), ("_sq", SECURE))]
+    same = states_bit_equal(ta[0]["result"], ta[1]["result"])
+    print(json.dumps({"secure_run": "turboaggregate with and without",
+                      "bit_equal": same,
+                      "train_loss": [t["row"]["train_loss"] for t in ta],
+                      "fold_ms": [t["row"]["fold_ms"] for t in ta]}))
+    if not same or ta[1]["row"]["fold_ms"]:
+        fail("TurboAggregate under --secure_quant is not its run without")
+    del ta
+    torch.cuda.empty_cache()
+
+    # ---- the startup refusals ----
+    refusals = {}
+    for what, flags, needle in (
+            ("16-bit field", ("--secure_quant",), "field_bits 32"),
+            ("codec", (*SECURE, "--wire_codec", "delta+quant"),
+             "does not compose with --wire_codec"),
+            ("krum", (*SECURE, "--defense", "krum"),
+             "does not compose with --secure_quant")):
+        try:
+            build_experiment(defense_cfg("fedavg", *flags), "cuda")
+        except ValueError as e:
+            refusals[what] = str(e)
+            if needle not in str(e):
+                fail(f"{what}: refused with {e}")
+        else:
+            fail(f"{what}: --secure_quant was not refused")
+    print(json.dumps({"secure_refusals": refusals,
+                      "secure_phase_seconds":
+                          time.perf_counter() - t_phase}))
+
+
 def torch_equal_bits(a, b) -> bool:
     import torch
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -2212,13 +2522,15 @@ def streamed_bit_equal(a: dict, b: dict) -> bool:
 MAIN_PATH = {"stem_dw_bf16": "salientgrads_bf16"}
 
 
-def finish(rows: list, by_path: dict, started: float) -> int:
-    """The run's seconds since ``started``, the ``kernels`` line (each
-    row's launches on its main path and on every path) and the contract's
-    last line."""
+def finish(rows: list, by_path: dict, started: float,
+           laps: dict | None = None) -> int:
+    """The run's seconds since ``started`` (and each part's, ``laps``), the
+    ``kernels`` line (each row's launches on its main path and on every
+    path) and the contract's last line."""
     import torch
 
-    print(json.dumps({"smoke_seconds": time.perf_counter() - started}))
+    print(json.dumps({"smoke_seconds": time.perf_counter() - started,
+                      "part_seconds": laps or {}}))
 
     for r in rows:
         main_path = by_path.get(MAIN_PATH.get(r["name"], "salientgrads"))
@@ -2240,6 +2552,7 @@ def main(argv: list[str]) -> int:
     only_vision = "--vision" in argv
     only_darts = "--darts" in argv
     only_defense = "--defense" in argv
+    only_secure = "--secure" in argv
     import numpy as np
     import torch
 
@@ -2333,6 +2646,15 @@ def main(argv: list[str]) -> int:
         return sum(dev_ms) / iters, sum(host_ms) / iters
 
     rows = []
+    laps, lap_at = {}, [started]
+
+    def lap(part: str) -> None:
+        """The seconds since the last lap, as ``part``'s."""
+        now = time.perf_counter()
+        laps[part] = now - lap_at[0]
+        lap_at[0] = now
+
+    lap("build")
 
     # ---- kernel 1: stem weight gradient at the flagship shape ----
     B, D, H, W = 16, 121, 145, 121
@@ -2414,9 +2736,12 @@ def main(argv: list[str]) -> int:
     del x, g, g_ncdhw, dw_k, dw_k2, dw_p
     torch.cuda.empty_cache()
 
+    lap("kernel stem_dw")
+
     # ---- kernel 1b: the stem weight gradient in bf16 (bf16_mixed) ----
     rows.append(bf16_stem_dw_row(dev, gen, quick, time_ms))
     torch.cuda.empty_cache()
+    lap("kernel stem_dw_bf16")
 
     # ---- kernel 2: fused SGD tail over the flagship AlexNet3D leaves ----
     from neuroimagedisttraining_tpu_torch.models import create_model
@@ -2651,6 +2976,8 @@ def main(argv: list[str]) -> int:
     del p0, g0, t0_, m0, pk, tk, pp, tp, pq, tq, pk2, tk2, gl, pl, tl
     torch.cuda.empty_cache()
 
+    lap("kernel fused_sgd")
+
     # ---- kernel 3: count >= thresholds over the flagship score vector ----
     n_scores = sum(math.prod(s) for s in shapes if len(s) >= 2)
     xs = torch.rand(n_scores, generator=gen, device=dev) ** 3
@@ -2762,6 +3089,8 @@ def main(argv: list[str]) -> int:
     rows[-1]["darts_scores"] = {"darts": at}
     print(json.dumps({"kth_select_at": "darts", "card": card, **at}))
 
+    lap("kernel count_ge, kth_select")
+
     # ---- the slice: flagship SalientGrads through the user entry points ----
     launches = {r["name"]: None for r in rows}
     by_path: dict[str, dict] = {}  # kernel launches of each engine's run
@@ -2794,17 +3123,25 @@ def main(argv: list[str]) -> int:
         if only_new:
             zoo_precision_phase(card, dev, flagship, build_experiment, {},
                                 by_path)
-            return finish(rows, by_path, started)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
         if only_vision:
             vision_phase(card, dev, build_experiment, by_path)
-            return finish(rows, by_path, started)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
         if only_darts:
             darts_phase(card, dev, build_experiment, by_path)
-            return finish(rows, by_path, started)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
         if only_defense:
             defense_phase(card, dev, build_experiment, by_path, rows,
                           time_ms)
-            return finish(rows, by_path, started)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
+        if only_secure:
+            secure_phase(card, build_experiment, by_path)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
 
         cfg = flagship("salientgrads")
         t0 = time.perf_counter()
@@ -3139,22 +3476,33 @@ def main(argv: list[str]) -> int:
             fail("the CLI did not refuse --client_optimizer adam "
                  "--fused_update")
 
+        lap("engines")
+
         # ---- the streamed feed at full width (--streaming) ----
         stream_phase(card, dev, flagship, build_experiment, synthetic,
                      resident, by_path)
+        lap("stream")
 
         # ---- the model zoo, bf16_mixed, memory, cuDNN's determinism ----
         zoo_precision_phase(card, dev, flagship, build_experiment, resident,
                             by_path)
+        lap("zoo_precision")
 
         # ---- the 2D vision path: the CIFAR sweep and the 2D zoo ----
         vision_phase(card, dev, build_experiment, by_path)
+        lap("vision")
 
         # ---- the DARTS family: the CIFAR sweep on darts, the drivers ----
         darts_phase(card, dev, build_experiment, by_path)
+        lap("darts")
 
         # ---- the defended tail: attacks, defenses, codec, DP, crashes ----
         defense_phase(card, dev, build_experiment, by_path, rows, time_ms)
+        lap("defense")
+
+        # ---- secure quantized aggregation: the GF(p) fold ----
+        secure_phase(card, build_experiment, by_path)
+        lap("secure")
 
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",
@@ -3337,7 +3685,8 @@ def main(argv: list[str]) -> int:
                 fail(f"{algorithm} small-input personal eval loss {ek} vs "
                      f"plain {ep}")
         torch.backends.cudnn.deterministic = det0
-    return finish(rows, by_path, started)
+        lap("small input")
+    return finish(rows, by_path, started, laps)
 
 
 if __name__ == "__main__":

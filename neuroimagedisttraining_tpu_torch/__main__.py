@@ -20,7 +20,8 @@
         [--fault_spec SPEC] [--defense_type NAME --norm_bound B \\
         --stddev S --byz_f F --geomed_iters N] [--dp_clip C \\
         --dp_sigma Z --dp_delta D] [--wire_codec STAGES \\
-        --wire_topk_ratio R] ...
+        --wire_topk_ratio R] [--secure_quant --secure_quant_field_bits \\
+        8|16|32 --secure_quant_frac_bits F] ...
 
 Flag names are the reference CLI's for the flags the port takes.
 ``--dataset ABCD`` / ``abcd_h5`` (the default) reads the X/y/site HDF5 file
@@ -40,11 +41,14 @@ except its model states (``mask_density`` for SalientGrads only).
 bfloat16, by ``--precision``), ``NIDT_FAST_POOL=1`` the tie-splitting max
 pool. FedFomo needs ``--val_fraction > 0``; ``--fused_update`` is for the
 SGD optimizer only; ``--loss_scale`` other than 1 needs ``--precision
-bf16_mixed``. The fault, defense, DP and codec flags are the reference's,
-with its defaults and refusals (TurboAggregate takes neither the codec nor
-an order-statistic defense; ``--dp_sigma`` needs ``--dp_clip``; the DP
-flags only D-PSGD; the engines refuse what their round does not run, and
-``preempt:`` faults).
+bf16_mixed``. The fault, defense, DP, codec and secure quantization flags
+are the reference's, with its defaults and refusals (TurboAggregate and
+``--secure_quant`` take neither the codec nor an order-statistic defense;
+``--dp_sigma`` needs ``--dp_clip``; the DP flags only D-PSGD;
+``--secure_quant`` only an engine with the default aggregation tail and a
+field with the headroom; the engines refuse what their round does not run,
+and ``preempt:`` faults). An in-process ``--secure_quant`` cohort of 2 or
+more clients needs ``--secure_quant_field_bits 32``.
 """
 
 from __future__ import annotations
@@ -137,6 +141,25 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         choices=["device", "host"],
                         help="TurboAggregate's share stage: on the device "
                              "(default) or in numpy on the host")
+    parser.add_argument("--secure_quant", action="store_true",
+                        help="secure QUANTIZED aggregation "
+                             "(privacy/secure_quant.py): the round "
+                             "aggregates through the GF(p) integer-weight "
+                             "fold on the device (bit for bit the host "
+                             "SlotAccumulator fold), so round metrics "
+                             "reflect exactly what the encoded secure "
+                             "wire would deliver. Needs "
+                             "--secure_quant_field_bits 32 (the one-"
+                             "phase capacity bound)")
+    parser.add_argument("--secure_quant_field_bits", type=int, default=16,
+                        choices=(8, 16, 32),
+                        help="secure_quant field width: p = largest prime "
+                             "below 2^bits (the wire ships one uintN "
+                             "residue per parameter)")
+    parser.add_argument("--secure_quant_frac_bits", type=int, default=10,
+                        help="secure_quant fixed-point fraction bits; the "
+                             "aggregate range value_bound * 2^frac_bits "
+                             "must stay inside p/2 (checked at startup)")
     parser.add_argument("--fault_spec", type=str, default="",
                         help="deterministic fault schedule (faults/): "
                              "'crash:RANK@ROUND,crash_prob:P,"
@@ -281,6 +304,9 @@ def config_from_args(args) -> ExperimentConfig:
                       mpc_n_shares=args.mpc_n_shares,
                       mpc_frac_bits=args.mpc_frac_bits,
                       mpc_backend=args.mpc_backend,
+                      secure_quant=args.secure_quant,
+                      secure_quant_field_bits=args.secure_quant_field_bits,
+                      secure_quant_frac_bits=args.secure_quant_frac_bits,
                       defense_type=args.defense_type,
                       norm_bound=args.norm_bound, stddev=args.stddev,
                       byz_f=args.byz_f, geomed_iters=args.geomed_iters,
@@ -420,6 +446,39 @@ def check_privacy_flags(parser: argparse.ArgumentParser, args) -> None:
                 f"level DP transform; algorithm {args.algorithm!r} "
                 f"would train un-noised while the accountant reported "
                 f"epsilon (supported: {ok})")
+    if args.secure_quant:
+        from neuroimagedisttraining_tpu_torch.privacy import (
+            QuantSpec, check_headroom,
+        )
+
+        cls = ENGINES.get(args.algorithm.lower())
+        if cls is None or not cls.supports_secure_quant:
+            ok = sorted({c.name for c in ENGINES.values()
+                         if c.supports_secure_quant})
+            parser.error(
+                f"--secure_quant needs an engine whose round has the "
+                f"default aggregation tail; algorithm "
+                f"{args.algorithm!r} has no server fold for the field "
+                f"algebra to replace (supported: {ok})")
+        if args.wire_codec not in ("", "none"):
+            parser.error(
+                "--secure_quant does not compose with --wire_codec "
+                "(the codec's float stages would corrupt the GF(p) "
+                "residue embedding)")
+        if args.defense_type in robust.ROBUST_AGGREGATORS:
+            parser.error(
+                f"--defense {args.defense_type} does not compose with "
+                "--secure_quant (no per-client plaintext to select "
+                "over); the clip family (norm_diff_clipping, weak_dp) "
+                "composes client-side")
+        try:
+            check_headroom(
+                QuantSpec.from_bits(args.secure_quant_field_bits,
+                                    args.secure_quant_frac_bits,
+                                    args.mpc_n_shares),
+                args.client_num_in_total)
+        except ValueError as e:
+            parser.error(str(e))
 
 
 def main(argv: list[str] | None = None) -> int:

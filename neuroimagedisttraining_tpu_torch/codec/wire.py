@@ -44,6 +44,11 @@ import torch
 FRAME_KEY = "__nidt_codec__"
 FRAME_VERSION = 1
 
+#: magic of the other tagged body of the wire, a secure quantized
+#: field-element frame (privacy/secure_quant.py): defined here so that the
+#: plain decode path can refuse one, without an import of privacy/
+SECURE_QUANT_KEY = "__nidt_secure_quant__"
+
 # sparse-record modes: how the receiver learns the support
 _SP_DENSE = 0      # all values shipped
 _SP_BITMAP = 1     # packed bitmap frame precedes the values
@@ -429,7 +434,15 @@ def decode_update(obj: Any, *, like: dict[str, Any],
     """Decode a wire frame back into the leaves named by ``like`` (in its
     order). Anything without the frame magic is a dense update and passes
     through unchanged. ``reference`` is required for delta frames,
-    ``masks`` for shared-mask frames."""
+    ``masks`` for shared-mask frames. A secure quantized frame is refused:
+    its values are masked GF(p) residues, not model floats."""
+    if isinstance(obj, dict) and SECURE_QUANT_KEY in obj:
+        raise ValueError(
+            "received a secure-quant field-element frame on the plain "
+            "decode path: its values are masked GF(p) residues, not "
+            "model floats — the receiver must run the secure-quant "
+            "server (--secure_quant on every rank; see "
+            "privacy/secure_quant.py)")
     if not is_codec_frame(obj):
         return obj  # dense fallback: always decodable
     ver = obj[FRAME_KEY]

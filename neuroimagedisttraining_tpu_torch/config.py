@@ -6,7 +6,7 @@ dense ratio 0.5; Ditto's lamda 0.5 and 1 personal epoch; Sub-FedAvg's
 prune ratio 0.1 with its accept thresholds; DisPFL's ERK masks, cosine
 anneal 0.5 and random neighbours; FedFomo's 5 requested models;
 TurboAggregate's 3 additive shares at 16 fraction bits on the device; no
-defense, fault, DP or wire codec).
+defense, fault, DP, wire codec or secure quantized aggregation).
 """
 
 from __future__ import annotations
@@ -122,6 +122,13 @@ class FedConfig:
     mpc_n_shares: int = 3
     mpc_frac_bits: int = 16
     mpc_backend: str = "device"
+    # secure quantized aggregation (privacy/secure_quant.py): the round's
+    # tail becomes the GF(p) fold of field-element frames, p the largest
+    # prime below 2^field_bits, at frac_bits fixed-point bits; an
+    # in-process cohort of 2 or more needs field_bits 32
+    secure_quant: bool = False
+    secure_quant_field_bits: int = 16
+    secure_quant_frac_bits: int = 10
     # the defended round (core/robust.py): none | norm_diff_clipping |
     # weak_dp | trimmed_mean | median | krum | multi_krum |
     # geometric_median; the clip bound and weak-DP noise; the assumed

@@ -27,10 +27,15 @@ names (``faults/adversary.py``), the wire codec's lossy roundtrip
 (``codec/device.py``, with per-client error feedback where the engine
 declares it), the non-finite guard, the defense and the aggregation
 (``core/robust.py``). With no attack, codec or defense it is the plain
-guarded FedAvg, bit for bit. The engines that run it say so by their
-``supports_*`` flags, and the constructor refuses what an engine does not
-run, with the reference's messages. ``record_privacy`` charges the RDP
-accountant (``privacy/``) for every round of an armed noise path.
+guarded FedAvg, bit for bit. Under ``--secure_quant`` the guard, defense
+and mean give way to the GF(p) fold of secure quantized aggregation
+(``secure_quant_aggregate``; ``ops/mpc_device.py`` ``secure_quant_fold``):
+the clip family clips each client first, and a non-finite row is counted
+but folds as the zero residue at its weight, as in the host protocol. The
+engines that run it say so by their ``supports_*`` flags, and the
+constructor refuses what an engine does not run, with the reference's
+messages. ``record_privacy`` charges the RDP accountant (``privacy/``) for
+every round of an armed noise path.
 
 ``perms_for(round_idx, client, n_valid[, track])`` may supply a client's
 epoch permutations (the tests feed the reference's draws; ``track`` is
@@ -64,6 +69,7 @@ from neuroimagedisttraining_tpu_torch.faults import adversary
 from neuroimagedisttraining_tpu_torch.faults.schedule import (
     FaultSchedule, parse_fault_spec,
 )
+from neuroimagedisttraining_tpu_torch.ops import mpc_device
 from neuroimagedisttraining_tpu_torch.ops.masks import mask_nnz
 from neuroimagedisttraining_tpu_torch.utils.logging import ExperimentLogger
 from neuroimagedisttraining_tpu_torch.weights import flax_named_leaves
@@ -106,6 +112,9 @@ class FederatedEngine:
     wire_uses_ef = False
     #: the round applies ``--dp_clip`` / ``--dp_sigma``
     supports_dp = False
+    #: the round has the default aggregation tail, which ``--secure_quant``
+    #: swaps for the GF(p) fold
+    supports_secure_quant = False
     #: the defenses the round can realize
     supported_defenses: tuple = ("none",)
 
@@ -220,6 +229,64 @@ class FederatedEngine:
         #: each client's error feedback (top-k codec), made at first use
         self._wire_ef: dict[int, State] = {}
         self._dense_upload_nbytes: int | None = None
+        #: secure quantized aggregation: the field, the static weight shift
+        #: and the leaf scales of the initial model (None: off)
+        self.sq_spec, self.sq_weight_shift, self.sq_scales = None, 0, None
+        if f.secure_quant:
+            self._init_secure_quant()
+
+    def _init_secure_quant(self) -> None:
+        """``--secure_quant``'s startup checks, with the reference's
+        messages: the engine must have the default tail, neither the codec
+        nor an order-statistic defense may be armed, the field must have
+        the headroom for the cohort (``check_headroom``), and the largest
+        weight shift ``s <= WEIGHT_FRAC_BITS`` with ``cohort * 2^s`` below
+        the field's fold capacity is chosen once for the run. The leaf
+        scales come from the initial model (parameters and BatchNorm
+        statistics), read once here."""
+        from neuroimagedisttraining_tpu_torch.privacy.secure_quant import (
+            WEIGHT_FRAC_BITS, QuantSpec, check_headroom, leaf_scales,
+            weighted_fold_capacity,
+        )
+
+        f = self.cfg.fed
+        if not self.supports_secure_quant:
+            raise ValueError(
+                f"algorithm {self.name!r} does not simulate "
+                "--secure_quant: its round has no default "
+                "server-side aggregation tail for the field fold to "
+                f"replace; supported: {_capable('supports_secure_quant')}")
+        if self.wire_spec is not None:
+            raise ValueError(
+                "--secure_quant does not compose with --wire_codec: "
+                "the codec's float stages would corrupt the GF(p) "
+                "residue embedding (field-element frames, not model "
+                "floats)")
+        if f.defense_type in robust.ROBUST_AGGREGATORS:
+            raise ValueError(
+                f"--defense {f.defense_type} does not compose "
+                "with --secure_quant (no per-client plaintext to "
+                "select over); the clip family (norm_diff_clipping, "
+                "weak_dp) composes CLIENT-side pre-quantize")
+        spec = QuantSpec.from_bits(f.secure_quant_field_bits,
+                                   f.secure_quant_frac_bits)
+        check_headroom(spec, f.client_num_per_round)
+        cap = weighted_fold_capacity(spec)
+        cohort = max(1, int(f.client_num_per_round))
+        shift = next((s for s in range(WEIGHT_FRAC_BITS, -1, -1)
+                      if cohort * (1 << s) < cap), None)
+        if shift is None:
+            raise ValueError(
+                f"--secure_quant field too small for the in-process "
+                f"integer-weight fold: a {cohort}-client cohort "
+                f"exceeds the {f.secure_quant_field_bits}-bit "
+                f"field's capacity of {cap:.1f} weight units — pass "
+                "--secure_quant_field_bits 32")
+        self.sq_spec, self.sq_weight_shift = spec, shift
+        params, bstats = self.init_global_state()
+        self.sq_scales = leaf_scales({
+            k: v.detach().cpu().numpy() for k, v in {**params,
+                                                     **bstats}.items()})
 
     # ---------- state ----------
 
@@ -410,8 +477,9 @@ class FederatedEngine:
         loss_h, bad_h = torch.stack([loss, n_bad.to(loss.dtype)]).tolist()
         if bad_h:
             self.stat_info["nonfinite_uploads"] += bad_h
-            log.warning("round %d: %d non-finite uploads dropped", round_idx,
-                        int(bad_h))
+            log.warning("round %d: %d non-finite uploads %s", round_idx,
+                        int(bad_h), "dropped" if self.sq_spec is None else
+                        "folded as the zero residue")
         return loss_h
 
     def warn_if_masks_collapsed(self, masks: list[State], round_idx: int
@@ -583,9 +651,11 @@ class FederatedEngine:
                            ns: torch.Tensor, losses: torch.Tensor):
         """The round's tail over the sampled clients' uploads: the attack
         (``byz:`` faults), the codec (``--wire_codec``), the non-finite
-        guard (:meth:`guard_uploads`), the defense and the aggregation.
-        Returns ``(params, bstats, mean_loss, n_bad)``, all on the device.
-        With none armed it is the guarded FedAvg."""
+        guard (:meth:`guard_uploads`), the defense and the aggregation;
+        under ``--secure_quant`` the attack, then the GF(p) fold
+        (:meth:`secure_quant_aggregate`). Returns ``(params, bstats,
+        mean_loss, n_bad)``, all on the device. With none armed it is the
+        guarded FedAvg."""
         f = self.cfg.fed
         plan = self.byz_round_plan(round_idx, sampled)
         if plan is not None or self.wire_spec is not None:
@@ -605,6 +675,10 @@ class FederatedEngine:
                                            self.wire_masks(ref))
             params_up = [{k: u[k] for k in ref_params} for u in uploads]
             bstats_up = [{k: u[k] for k in ref_bstats} for u in uploads]
+        if self.sq_spec is not None:
+            return self.secure_quant_aggregate(round_idx, sampled, params_up,
+                                               bstats_up, ref_params, ns,
+                                               losses)
         params_up, bstats_up, w, mean_loss, n_bad = self.guard_uploads(
             params_up, bstats_up, ref_params, ref_bstats, ns, losses)
         defense = robust.effective_defense(f.defense_type, len(params_up),
@@ -622,6 +696,40 @@ class FederatedEngine:
             stddev=f.stddev, noises=noises)
         return (self.aggregate(params_up, w), self.aggregate(bstats_up, w),
                 mean_loss, n_bad)
+
+    def secure_quant_aggregate(self, round_idx: int, sampled,
+                               params_up: list[State],
+                               bstats_up: list[State], ref_params: State,
+                               ns: torch.Tensor, losses: torch.Tensor):
+        """``--secure_quant``'s tail: the clip family on each client's
+        parameters (before quantization, as a client would), then the
+        whole upload, parameters and BatchNorm statistics, through the
+        GF(p) fold at integer weights (``mpc_device.secure_quant_fold``).
+        No guard: a non-finite row quantizes to the zero residue and its
+        weight stays in the mass; ``n_bad`` counts such rows and gates
+        nothing. The mean loss weighs the finite losses by sample count.
+        Returns ``(params, bstats, mean_loss, n_bad)`` on the device, with
+        no host sync."""
+        f = self.cfg.fed
+        if f.defense_type != "none":
+            noises = ([self.noise_for("weak_dp", round_idx, int(c),
+                                      ref_params) for c in sampled]
+                      if f.defense_type == "weak_dp" else None)
+            params_up = robust.defend_stacked(
+                params_up, ref_params, defense=f.defense_type,
+                norm_bound=f.norm_bound, stddev=f.stddev, noises=noises)
+        uploads = [{**p, **b} for p, b in zip(params_up, bstats_up)]
+        n_bad = torch.sum(~robust.finite_per_client(uploads))
+        w = ns.to(torch.float32)
+        safe = torch.where(torch.isfinite(losses), losses,
+                           torch.zeros_like(losses))
+        mean_loss = torch.sum(safe * w) / torch.clamp(torch.sum(w), min=1e-9)
+        spec = self.sq_spec
+        agg = mpc_device.secure_quant_fold(uploads, w, spec.p, spec.frac_bits,
+                                           self.sq_weight_shift,
+                                           self.sq_scales)
+        return ({k: agg[k] for k in params_up[0]},
+                {k: agg[k] for k in bstats_up[0]}, mean_loss, n_bad)
 
     def _warn_once(self, fmt: str, *args) -> None:
         """A warning logged once a run (``effective_defense``'s, once a

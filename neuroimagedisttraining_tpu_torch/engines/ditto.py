@@ -34,6 +34,7 @@ class DittoEngine(FederatedEngine):
     name = "ditto"
     eval_walks = 2
     supports_byz_faults = True
+    supports_secure_quant = True
     supported_defenses = robust.DEFENSES
 
     def run_round(self, round_idx, params, bstats, per_params, per_bstats,

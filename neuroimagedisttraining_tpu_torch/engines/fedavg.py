@@ -38,6 +38,7 @@ class FedAvgEngine(FederatedEngine):
     final_walks = ("train", "test", "test")
     supports_byz_faults = True
     supports_wire_codec = True
+    supports_secure_quant = True
     wire_uses_ef = True
     supported_defenses = robust.DEFENSES
 

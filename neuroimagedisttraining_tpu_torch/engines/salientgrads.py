@@ -53,6 +53,7 @@ class SalientGradsEngine(FederatedEngine):
     final_walks = ("test", "test")
     supports_byz_faults = True
     supports_wire_codec = True
+    supports_secure_quant = True
     supported_defenses = robust.DEFENSES
     #: the phase-1 mask once made (the codec's mask handoff)
     _masks = None

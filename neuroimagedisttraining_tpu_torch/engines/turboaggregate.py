@@ -23,6 +23,10 @@ call; ``"host"`` runs the numpy stage of ``ops/mpc.py`` on the host (one
 read of the weighted uploads and one upload of the aggregate a round),
 masks from a seeded numpy generator. The aggregate does not depend on the
 masks.
+
+``--secure_quant`` passes the startup checks (the flag comes with FedAvg)
+and changes nothing: the round keeps this share stage, as in the
+reference.
 """
 
 from __future__ import annotations

@@ -16,6 +16,12 @@ The masks are uniform draws in [0, p) from an explicit
 ``torch.Generator``; they cancel exactly in the slot sum, so the aggregate
 does not depend on them. This is plain PyTorch: the reference computes
 the stage in plain XLA, with no Pallas kernel.
+
+``secure_quant_fold`` is the engines' ``--secure_quant`` tail: the
+one-phase GF(p) fold of secure quantized aggregation
+(``privacy/secure_quant.py``) with integer client weights, bit for bit
+what the host protocol's ``SlotAccumulator`` gives over the clients'
+masked frames (the masks cancel mod p, so the fold needs none).
 """
 
 from __future__ import annotations
@@ -101,3 +107,38 @@ def secure_aggregate_tree(weighted: dict[str, torch.Tensor],
     are held at once, never the whole model's)."""
     return {k: secure_sum_device(v, generator, n_shares, frac_bits=frac_bits,
                                  p=p) for k, v in weighted.items()}
+
+
+def sq_integer_weights(w: torch.Tensor, shift: int) -> torch.Tensor:
+    """The integer fold weights ``max(rint(w / max(w) * 2^shift), 1)`` as
+    float32. Each operation is one correctly rounded float32 operation (or
+    exact), so the same numpy formula over the same float32 weights gives
+    the same integers."""
+    w = w.to(torch.float32)
+    wn = w / torch.max(w)
+    return torch.clamp(torch.round(wn * float(1 << shift)), min=1.0)
+
+
+def secure_quant_fold(uploads: list[dict[str, torch.Tensor]],
+                      w: torch.Tensor, p: int, frac_bits: int, shift: int,
+                      scales: dict[str, float]) -> dict[str, torch.Tensor]:
+    """The weighted mean of the clients' ``uploads`` through the field: a
+    leaf over its power-of-two scale, quantized (``quantize_device``; a
+    NaN to the zero residue), times the client's integer weight
+    (:func:`sq_integer_weights` of ``w``) mod p, summed over the clients
+    mod p, the centred lift over ``2^frac_bits``, times the scale, over
+    the integer mass, in the leaf's dtype. The products ``wi * q`` stay
+    below 2^7 * 2^31, exact in int64. No host sync."""
+    wi = sq_integer_weights(w, shift)
+    denom = torch.sum(wi)  # an integer well inside float32's exact range
+    wq = wi.to(torch.int64)
+    out = {}
+    for k, v in uploads[0].items():
+        x = torch.stack([u[k] for u in uploads]).to(torch.float32)
+        s = float(scales.get(k, 1.0))
+        q = quantize_device(x / s, p=p, frac_bits=frac_bits)
+        q = q * wq.reshape((-1,) + (1,) * (q.dim() - 1)) % p
+        total = torch.sum(q, dim=0) % p
+        deq = dequantize_device(total, p=p, frac_bits=frac_bits) * s
+        out[k] = (deq / denom).to(v.dtype)
+    return out
