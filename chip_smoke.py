@@ -7,6 +7,7 @@
     python3 chip_smoke.py --darts    # kernels, then step 9 (DARTS) alone
     python3 chip_smoke.py --defense  # kernels, then step 10 (defended) alone
     python3 chip_smoke.py --secure   # kernels, then step 11 (secure) alone
+    python3 chip_smoke.py --dispatch # kernels, then step 12 (dispatch) alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
@@ -169,7 +170,23 @@
    8, 16 and 32; ``byz:2@0:nonfinite`` (one row counted), the clip family
    (the weak-DP ledger against the host accountant); TurboAggregate
    unchanged by the flag, bit for bit; the startup refusals.
-12. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+12. Round programs and dispatch (``dispatch_phase``): SalientGrads and
+   FedAvg on the flagship slice for 5 rounds (evaluation at rounds 0 and
+   4) with ``--rounds_per_dispatch 4`` and 1: rounds 1-4 one window whose
+   local steps replay CUDA graphs with ``stem_dw`` and ``fused_sgd``
+   inside; models, masks and losses bit-equal to the single rounds', one
+   host read a window, no host sync inside a window (sync debug mode),
+   the launches with replays equal to the single rounds', the graphs'
+   captures and replays, round times and the busy share of a window and
+   of four single rounds; FedAvg on ResNet-18 over the synthetic cohort at
+   CIFAR-10's size (10 clients a round), a 2-round window against 2
+   single rounds, bit-equal, round time and busy share of both; the mesh:
+   ``--client_mesh 2`` on 2 entries of the card bit-equal to the
+   unsharded run, ``--client_mesh 1`` logging its one-device fallback,
+   ``--mesh_shape 2 2`` aggregating silo first within 1e-6 of the flat
+   mean, D-PSGD over a ring on 4 entries through ring shifts within 1e-6
+   of its einsum.
+13. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -182,7 +199,7 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-13. Prints the run's seconds, one JSON line per kernel, the
+14. Prints the run's seconds, one JSON line per kernel, the
    ``{"kernels": [...]}`` line (each kernel's launches on its main path,
    SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
    run), and last ``{"ok": true, "device": {...}}``.
@@ -193,6 +210,7 @@ printing any result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -300,6 +318,16 @@ class TableTimer:
                 "host_ms_per_step": 1e3 * self.seconds / max(self.calls, 1)}
 
 
+def free_card() -> None:
+    """Collect the engines a part let go of (a trainer's CUDA graphs hold
+    their memory pools until the trainer is collected), then return the
+    cached blocks to the card."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def hidden_syncs(fn) -> list[str]:
     """Run ``fn`` with torch's sync debug mode at "warn"; the port's source
     lines (file:line) where a synchronizing CUDA operation ran."""
@@ -311,11 +339,17 @@ def hidden_syncs(fn) -> list[str]:
     sites = []
 
     def record(message, category, filename, lineno, file=None, line=None):
-        frames = [f for f in traceback.extract_stack()[:-1]
+        if "called a synchronizing CUDA operation" not in str(message):
+            return  # not torch's sync warning (set_sync_debug_mode's own)
+        stack = traceback.extract_stack()[:-1]
+        frames = [f for f in stack
                   if "neuroimagedisttraining_tpu_torch" in f.filename]
         f = frames[-1] if frames else None
+        # no frame of the port: the innermost frames outside warnings
+        outer = " < ".join(f"{Path(x.filename).name}:{x.lineno}:{x.name}"
+                           for x in stack[::-1][:6])
         sites.append(f"{Path(f.filename).name}:{f.lineno}" if f
-                     else f"{filename}:{lineno}")
+                     else f"{filename}:{lineno} ({outer})")
 
     torch.cuda.synchronize()
     with warnings.catch_warnings():
@@ -350,11 +384,13 @@ class PerCallCheck:
     ``inexact`` the steps that were not bit-equal."""
 
     def __init__(self):
+        from neuroimagedisttraining_tpu_torch.core import graphs as G
         from neuroimagedisttraining_tpu_torch.core import optim
         from neuroimagedisttraining_tpu_torch.ops import fused_update as FU
         from neuroimagedisttraining_tpu_torch.ops import stemconv as SC
-        self.SC, self.optim, self.FU = SC, optim, FU
+        self.SC, self.optim, self.FU, self.G = SC, optim, FU, G
         self.orig_dw, self.orig_step = SC.stem_dw, optim.fused_sgd_step
+        self.orig_graph_init = G.StepGraph.__init__
         self.reset()
 
     def reset(self) -> None:
@@ -421,11 +457,21 @@ class PerCallCheck:
 
     def __enter__(self):
         self.SC.stem_dw, self.optim.fused_sgd_step = self.dw, self.step
+        # a graph replay calls no wrapper, and a check reads the host: the
+        # local steps made inside run eagerly (``StepGraph`` capture off)
+        init = self.orig_graph_init
+
+        def eager_init(graph, *args, **kw):
+            init(graph, *args, **kw)
+            graph.capture = False
+
+        self.G.StepGraph.__init__ = eager_init
         return self
 
     def __exit__(self, *exc):
         self.SC.stem_dw = self.orig_dw
         self.optim.fused_sgd_step = self.orig_step
+        self.G.StepGraph.__init__ = self.orig_graph_init
 
     def check(self, what: str, stem: bool = True) -> dict:
         """Fails unless both kernels ran (``fused_sgd`` alone where
@@ -700,7 +746,7 @@ def stream_phase(card, dev, flagship, build_experiment, synthetic,
             print(json.dumps(out))
             stream.close()
             del engine, result, stream
-            torch.cuda.empty_cache()
+            free_card()
     finally:
         synthetic.generate_synthetic_abcd = cached
         shutil.rmtree(tmp, ignore_errors=True)
@@ -979,7 +1025,7 @@ def zoo_precision_phase(card, dev, flagship, build_experiment,
             fail(f"{prec}: two flagship FedAvg runs under deterministic "
                  "cuDNN differ")
         del runs
-        torch.cuda.empty_cache()
+        free_card()
     print(json.dumps({"determinism": det_out}))
     torch.backends.cudnn.deterministic = det0
 
@@ -1024,7 +1070,7 @@ def zoo_precision_phase(card, dev, flagship, build_experiment,
         if not all(math.isfinite(v) for v in losses):
             fail(f"{algorithm} bf16: non-finite losses {losses}")
         del r, res
-        torch.cuda.empty_cache()
+        free_card()
     scaled = {}
     per_call = PerCallCheck()
     with per_call:
@@ -1053,7 +1099,7 @@ def zoo_precision_phase(card, dev, flagship, build_experiment,
     if not calls["calls"]["stem_dw_bf16"]:
         fail("the bf16 SalientGrads run made no bf16 stem_dw call")
     torch.backends.cudnn.deterministic = det0
-    torch.cuda.empty_cache()
+    free_card()
 
     # ---- the zoo: one FedAvg round each at full width ----
     for name, stem in ZOO.items():
@@ -1081,7 +1127,7 @@ def zoo_precision_phase(card, dev, flagship, build_experiment,
         if not all(math.isfinite(v) for v in losses):
             fail(f"{name}: non-finite losses {losses}")
         del r, res
-        torch.cuda.empty_cache()
+        free_card()
 
     # ---- memory: a sample's peak and the remat policies ----
     total = torch.cuda.get_device_properties(dev).total_memory
@@ -1127,7 +1173,7 @@ def zoo_precision_phase(card, dev, flagship, build_experiment,
                 row["committed_cutoff"] = REMAT_AUTO_SAMPLES[prec]
             mem[f"{prec}_{remat}"] = row
             del engine, params, bstats, tr
-            torch.cuda.empty_cache()
+            free_card()
     del X, y
     runs = {}
     for remat in ("none", "stem"):
@@ -1146,7 +1192,7 @@ def zoo_precision_phase(card, dev, flagship, build_experiment,
         fail("flagship FedAvg under --remat stem differs from --remat none "
              "under deterministic cuDNN")
     del runs
-    torch.cuda.empty_cache()
+    free_card()
     pools = {}
     try:
         for env in ("0", "1"):
@@ -1181,7 +1227,7 @@ def zoo_precision_phase(card, dev, flagship, build_experiment,
              f"over 5e-2 of the largest change {moved}")
     del pools, a, b
     torch.backends.cudnn.deterministic = det0
-    torch.cuda.empty_cache()
+    free_card()
 
 
 #: the reference package's CIFAR sweep (scripts/run_cifar_salientgrads.sh),
@@ -1293,7 +1339,7 @@ def kth_select_at(n: int, gen, dev, time_ms, quick: bool) -> dict:
         out["library_ms"], _ = time_ms(
             lambda: torch.topk(xs, k).values[-1], 20)
     del xs, u
-    torch.cuda.empty_cache()
+    free_card()
     return out
 
 
@@ -1389,7 +1435,7 @@ def vision_phase(card, dev, build_experiment, by_path: dict) -> None:
     if not all(math.isfinite(v) for v in losses + metrics):
         fail(f"resnet18: non-finite losses or metrics {losses} {metrics}")
     del engine, result
-    torch.cuda.empty_cache()
+    free_card()
 
     # ---- every other 2D model but the DARTS family (darts_phase): one
     # FedAvg round ----
@@ -1416,7 +1462,7 @@ def vision_phase(card, dev, build_experiment, by_path: dict) -> None:
         if not all(math.isfinite(v) for v in losses):
             fail(f"{name}: non-finite losses {losses}")
         del r, res
-        torch.cuda.empty_cache()
+        free_card()
 
     # ---- SalientGrads and FedAvg: kernels against plain paths ----
     det0 = torch.backends.cudnn.deterministic
@@ -1473,7 +1519,7 @@ def vision_phase(card, dev, build_experiment, by_path: dict) -> None:
     if faults:
         fail("; ".join(faults))
     torch.backends.cudnn.deterministic = det0
-    torch.cuda.empty_cache()
+    free_card()
 
 
 #: the DARTS path's main run: the CIFAR sweep (``CIFAR_SWEEP``) on the
@@ -1547,7 +1593,9 @@ def darts_step_split(engine, repeats: int = 2, steps: int = 4) -> dict:
     ``repeats`` runs after a warm-up), the kernels' device ms a step
     (``torch.profiler``, one more run), and ``fused_sgd``'s part: the host
     ms of its call a step (its table and its launches) and its kernels'
-    device ms a step."""
+    device ms a step. These run with capture off (eager steps: a replay
+    calls no wrapper); ``step_wall_ms_graphed`` is the same steps' wall ms
+    as graph replays, the default."""
     import torch
 
     from neuroimagedisttraining_tpu_torch.core import optim
@@ -1555,6 +1603,7 @@ def darts_step_split(engine, repeats: int = 2, steps: int = 4) -> dict:
     import numpy as np
 
     tr, cfg = engine.trainer, engine.cfg
+    capture = tr.capture_steps
     c = int(np.argmax(engine.n_train))
     B = cfg.optim.batch_size
     n = min(int(engine.n_train[c]), steps * B)
@@ -1566,21 +1615,29 @@ def darts_step_split(engine, repeats: int = 2, steps: int = 4) -> dict:
     def run():
         return tr.local_train(p, b, X, y, n, lr, 1, B, engine.max_samples)
 
-    run()
-    torch.cuda.synchronize()
-    walls = []
-    with CallTimer(optim, "fused_sgd_step") as fused:
+    def walls_ms() -> float:
+        run()
+        torch.cuda.synchronize()
+        walls = []
         for _ in range(repeats):
             t = time.perf_counter()
             run()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
-    dev_ms, fused_dev_ms = device_kernel_ms(run)
-    wall_ms = 1e3 * min(walls) / steps
+        return 1e3 * min(walls) / steps
+
+    tr.capture_steps = False
+    try:
+        with CallTimer(optim, "fused_sgd_step") as fused:
+            wall_ms = walls_ms()
+        dev_ms, fused_dev_ms = device_kernel_ms(run)
+    finally:
+        tr.capture_steps = capture
     out = {"client_rows": n, "steps": steps, "step_wall_ms": wall_ms,
            "step_device_ms": dev_ms / steps,
            "fused_sgd_host_ms_per_step": fused.ms_per_call(),
-           "fused_sgd_device_ms_per_step": fused_dev_ms / steps}
+           "fused_sgd_device_ms_per_step": fused_dev_ms / steps,
+           "step_wall_ms_graphed": walls_ms()}
     out["fused_sgd_host_share_of_step"] = (
         out["fused_sgd_host_ms_per_step"] / wall_ms)
     return out
@@ -1695,7 +1752,7 @@ def darts_drivers(card, dev, by_path: dict) -> None:
         fail(f"DartsTrainer: losses {losses} or BatchNorm stats that did "
              "not move")
     del net, trainer, state
-    torch.cuda.empty_cache()
+    free_card()
 
 
 def darts_phase(card, dev, build_experiment, by_path: dict) -> None:
@@ -1800,7 +1857,7 @@ def darts_phase(card, dev, build_experiment, by_path: dict) -> None:
     if not all(math.isfinite(v) for v in losses + metrics):
         fail(f"darts: non-finite losses or metrics {losses} {metrics}")
     del engine, result
-    torch.cuda.empty_cache()
+    free_card()
     lap("main_path")
 
     # ---- fednas_v1 and darts_search: one FedAvg round each ----
@@ -1829,7 +1886,7 @@ def darts_phase(card, dev, build_experiment, by_path: dict) -> None:
         if not all(math.isfinite(v) for v in losses):
             fail(f"{name}: non-finite losses {losses}")
         del r, res
-        torch.cuda.empty_cache()
+        free_card()
         lap(f"fedavg_{name}")
 
     # ---- a narrow DARTS: kernels against plain paths ----
@@ -1874,7 +1931,7 @@ def darts_phase(card, dev, build_experiment, by_path: dict) -> None:
         fail("; ".join(faults))
     torch.backends.cudnn.deterministic = det0
     del probe, plain, kern, again
-    torch.cuda.empty_cache()
+    free_card()
     lap("small_input")
 
     # ---- the drivers ----
@@ -2047,7 +2104,7 @@ def defense_phase(card, dev, build_experiment, by_path: dict, rows: list,
             fail(f"{defense}: a top-k select launched")
         defenses[defense] = row["tail_ms"]
         del r
-        torch.cuda.empty_cache()
+        free_card()
     r = run("fedavg_nonfinite", "fedavg", "--fault_spec",
             "byz:2@0:nonfinite", "--defense", "trimmed_mean")
     print(json.dumps({"defense_run": "trimmed_mean nonfinite", **r["row"]}))
@@ -2117,7 +2174,7 @@ def defense_phase(card, dev, build_experiment, by_path: dict, rows: list,
                  f"dense {row['sum_comm_bytes_dense']}")
         codec_rows[tag] = row
         del r, eng
-        torch.cuda.empty_cache()
+        free_card()
     r = run("salientgrads_codec", "salientgrads", "--wire_codec",
             "delta+sparse+quant")
     print(json.dumps({"codec_run": "salientgrads_codec", **r["row"]}))
@@ -2126,7 +2183,7 @@ def defense_phase(card, dev, build_experiment, by_path: dict, rows: list,
              f"{r['row']['launches'].get('kth_select')} select kernels, not "
              "the phase-1 mask's 5")
     del r
-    torch.cuda.empty_cache()
+    free_card()
     lap("codec")
 
     # the select alone on a residual vector the codec ranked
@@ -2163,7 +2220,7 @@ def defense_phase(card, dev, build_experiment, by_path: dict, rows: list,
                 "keep_over_exact": codec_rows["fedavg_codec"][
                     "keep_over_exact"]}
     del xs, captured
-    torch.cuda.empty_cache()
+    free_card()
     lap("codec_select")
 
     # ---- DP: the ledgers against the host accountant ----
@@ -2214,7 +2271,7 @@ def defense_phase(card, dev, build_experiment, by_path: dict, rows: list,
     if 1 in rounds or len(rounds) != 2 * (r["engine"].num_clients - 1):
         fail(f"crash:2@0: the rounds trained clients {rounds}")
     del r
-    torch.cuda.empty_cache()
+    free_card()
     lap("crash")
     print(json.dumps({"defense_phase_seconds": spent,
                       "defense_tail_ms": defenses}))
@@ -2329,7 +2386,7 @@ def secure_phase(card, build_experiment, by_path: dict) -> None:
         print(json.dumps({"secure_run": tag, **row}))
         rows[tag] = row
         del r, eng, res
-        torch.cuda.empty_cache()
+        free_card()
 
     # ---- one captured round: the card's fold against the host's ----
     eng = fedavg
@@ -2425,7 +2482,7 @@ def secure_phase(card, build_experiment, by_path: dict) -> None:
              "its integer weights")
     del captured["args"], fold_args, uploads, params_up, bstats_up, got
     del plain_wi, plain_ns, host, host_up, acc
-    torch.cuda.empty_cache()
+    free_card()
 
     # ---- faults and clips under the fold ----
     r = run("fedavg_sq_nonfinite", "fedavg", *SECURE, "--fault_spec",
@@ -2454,7 +2511,7 @@ def secure_phase(card, build_experiment, by_path: dict) -> None:
         fail(f"weak_dp under --secure_quant: epsilon "
              f"{led['epsilon_per_round']} != host {want}")
     del r, eng
-    torch.cuda.empty_cache()
+    free_card()
 
     # ---- TurboAggregate keeps its own share stage ----
     ta = [run(f"turboaggregate_6{tag}", "turboaggregate", *flags)
@@ -2467,7 +2524,7 @@ def secure_phase(card, build_experiment, by_path: dict) -> None:
     if not same or ta[1]["row"]["fold_ms"]:
         fail("TurboAggregate under --secure_quant is not its run without")
     del ta
-    torch.cuda.empty_cache()
+    free_card()
 
     # ---- the startup refusals ----
     refusals = {}
@@ -2488,6 +2545,438 @@ def secure_phase(card, build_experiment, by_path: dict) -> None:
     print(json.dumps({"secure_refusals": refusals,
                       "secure_phase_seconds":
                           time.perf_counter() - t_phase}))
+
+
+def run_states(res: dict) -> list:
+    """Every model state a result holds (global, personal, masks), in a
+    fixed order, for bit-equality."""
+    out = []
+    for k in ("params", "batch_stats", "masks", "per_params", "per_bstats",
+              "personal_params", "personal_batch_stats", "global_params",
+              "global_batch_stats"):
+        v = res.get(k)
+        if v is not None:
+            out += v if isinstance(v, list) else [v]
+    if "personal" in res:
+        out += res["personal"]["params"] + res["personal"]["batch_stats"]
+    return out
+
+
+def states_equal(a: list, b: list) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+        for x, y in zip(a, b))
+
+
+#: the launch counter each kernel of ``csrc/`` counts toward, by a part of
+#: its name in a trace (the first that matches; ``ops/*.py`` counts the
+#: same launches where it calls them)
+TRACE_COUNTERS = (("stem_dw_bf16_", "stem_dw_bf16"), ("stem_dw_", "stem_dw"),
+                  ("fused_sgd_", "fused_sgd"),
+                  ("count_ge_minmax_kernel", "kth_select"),
+                  ("count_ge_round_kernel", "kth_select"),
+                  ("count_ge_kernel", "count_ge"))
+
+
+def kernel_trace(fn) -> tuple[float, dict]:
+    """``fn`` once under ``torch.profiler``: the device ms of its kernels
+    and the launches of each ported kernel in the trace, by counter name
+    (kernels inside CUDA graph replays included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total, traced = 0.0, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        total += max(t, 0) / 1e3
+        for part, counter in TRACE_COUNTERS:
+            if part in e.key:
+                traced[counter] = traced.get(counter, 0) + e.count
+                break
+    return total, traced
+
+
+def busy_share(fn) -> dict:
+    """``fn``'s wall time (synchronized around it, no profiler), and the
+    device time of its kernels in a second call under ``torch.profiler``;
+    busy = device / wall. The second call's launches twice: as the trace
+    has them (``traced``) and as the wrappers count them (``counted``; a
+    graph replay adds its capture's launches)."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    before = _cuda.counts()
+    total, traced = kernel_trace(fn)
+    after = _cuda.counts()
+    counted = {k: n - before.get(k, 0) for k, n in after.items()
+               if n != before.get(k, 0)}
+    return {"wall_ms": wall, "device_ms": total,
+            "busy": total / max(wall, 1e-9), "traced": traced,
+            "counted": counted}
+
+
+def traced_as_counted(busy: dict, kernels: tuple) -> bool:
+    """Each of ``kernels`` launched in ``busy``'s profiled call, as many
+    times in the trace as the wrappers counted."""
+    return all(busy["traced"].get(k, 0) == busy["counted"].get(k, 0) > 0
+               for k in kernels)
+
+
+#: how far D-PSGD's ring run on 4 mesh entries may part from its einsum
+#: run, as a multiple of how far the float64 einsum's run parts from it
+RING_WITNESS_FACTOR = 3.0
+
+#: the flagship windows: 5 rounds, an evaluation at rounds 0 and 4 (the
+#: last), so K = 4 runs round 0 alone and rounds 1-4 as one window
+WINDOW_ROUNDS = ("--comm_round", "5", "--frequency_of_the_test", "4")
+#: the host-bound window: FedAvg on ResNet-18 over the synthetic cohort at
+#: CIFAR-10's size, 10 clients a round (100 at frac 0.1, Dirichlet 0.3)
+RESNET_WINDOW = ("--algorithm", "fedavg", "--dataset", "cifar10",
+                 "--model", "resnet18", "--client_num_in_total", "100",
+                 "--frac", "0.1", "--partition_method", "dir",
+                 "--partition_alpha", "0.3", "--batch_size", "16",
+                 "--epochs", "1", "--comm_round", "2",
+                 "--rounds_per_dispatch", "2", "--fused_update")
+
+
+def dispatch_phase(card, dev, flagship, build_experiment,
+                   by_path: dict) -> None:
+    """Round programs and dispatch on the card (``engines/program.py``,
+    ``parallel/``): flagship windows of SalientGrads and FedAvg bit-equal
+    to single rounds, their local steps CUDA graph replays with
+    ``stem_dw`` and ``fused_sgd`` inside, one host read a window and no
+    host sync inside one; the ResNet-18 window's round time and busy
+    share beside single rounds'; the mesh: a sharded FedAvg round, a
+    one-entry client mesh, silo-first aggregation, D-PSGD's ring gossip."""
+    import logging
+
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+
+
+    def train(cfg, tag: str, capture: bool = True, setup=None):
+        engine, _ = build_experiment(cfg, "cuda")
+        engine.trainer.capture_steps = capture
+        if setup is not None:
+            setup(engine)
+        reads = []
+        read = engine.read_host
+        engine.read_host = lambda v: (reads.append(len(v)), read(v))[1]
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        res = engine.train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        by_path[tag] = _cuda.counts()
+        return engine, res, reads, secs
+
+    # ---- flagship windows: K = 4 (graph replays) against K = 1 (eager) ----
+    for algorithm, extra in (("salientgrads", ()),
+                             ("fedavg", ("--frac", "0.75"))):
+        runs = {}
+        for K, tag in ((1, "k1_eager"), (4, "k4")):
+            cfg = flagship(algorithm, *extra, *WINDOW_ROUNDS,
+                           "--rounds_per_dispatch", str(K))
+            runs[K] = train(cfg, f"{algorithm}_{tag}", capture=K > 1)
+        (e1, r1, reads1, s1), (e4, r4, reads4, s4) = runs[1], runs[4]
+        l1 = [h["train_loss"] for h in r1["history"]]
+        l4 = [h["train_loss"] for h in r4["history"]]
+        equal = states_equal(run_states(r1), run_states(r4))
+        launches1 = by_path[f"{algorithm}_k1_eager"]
+        launches4 = by_path[f"{algorithm}_k4"]
+        # the window again from the run's last state: no host sync in it,
+        # and its busy share beside four single eager rounds'
+        carry = ((r4["params"], r4["batch_stats"]) if algorithm == "fedavg"
+                 else (r4["params"], r4["batch_stats"], r4["per_params"],
+                       r4["per_bstats"]))
+        syncs = hidden_syncs(lambda: e4.program.run_window(carry, 1, 4))
+
+        def singles(eng=e1, carry=carry):
+            c = carry
+            for r in range(1, 5):
+                c, _ = eng.window_round(c, r, eng.client_sampling(r))
+
+        busy = {"k1_eager": busy_share(singles),
+                "k4": busy_share(lambda: e4.program.run_window(carry, 1, 4))}
+        out = {
+            "engine": algorithm, "card": card, "bit_equal": equal,
+            "train_loss_k1": l1, "train_loss_k4": l4,
+            "round_seconds_k1": r1.get("round_seconds") or [
+                h["round_seconds"] for h in r1["history"]],
+            "round_seconds_k4": r4.get("round_seconds") or [
+                h["round_seconds"] for h in r4["history"]],
+            "train_seconds": {"k1_eager": s1, "k4": s4},
+            "host_reads": {"k1": reads1, "k4": reads4},
+            "graph_captures": e4.program.built,
+            "graph_replays": e4.program.dispatches,
+            "eager_captures": e1.program.built,
+            "launches": {"k1_eager": launches1, "k4": launches4},
+            "window_sync_warnings": syncs, "window_busy": busy}
+        print(json.dumps({"dispatch_window": out}))
+        if not equal or l1 != l4:
+            fail(f"{algorithm}: the 4-round window is not bit-equal to four "
+                 f"single eager rounds (losses {l1} vs {l4})")
+        if len(reads4) != 2 or len(reads1) != 5:
+            fail(f"{algorithm}: host reads {reads1} (K=1) and {reads4} "
+                 "(K=4): not one a round, and one a window (round 0, "
+                 "rounds 1-4)")
+        if syncs:
+            fail(f"{algorithm}: the window synchronized with the host at "
+                 f"{syncs}")
+        if not (e4.program.built >= 1 and e4.program.dispatches >= 1):
+            fail(f"{algorithm}: no CUDA graph was captured or replayed")
+        if launches4 != launches1 or not (launches4.get("stem_dw")
+                                          and launches4.get("fused_sgd")):
+            fail(f"{algorithm}: launches with replays {launches4} against "
+                 f"single eager rounds' {launches1}")
+        for name, b in busy.items():
+            if not traced_as_counted(b, ("stem_dw", "fused_sgd")):
+                fail(f"{algorithm} {name}: the trace has the launches "
+                     f"{b['traced']}, the wrappers counted {b['counted']}")
+        del e1, e4, r1, r4, runs, carry
+        free_card()
+
+    # ---- the host-bound window: ResNet-18 FedAvg, eager single rounds,
+    # graphed single rounds (the default) and a graphed window of 2 ----
+    engine, _ = cifar_sweep_engine(dev, RESNET_WINDOW)
+    gen = engine.trainer.generator
+    seed = engine.cfg.seed
+    p0, b0 = engine.init_global_state()
+    sampled = [engine.client_sampling(r) for r in range(2)]
+
+    def singles():
+        c = (p0, b0)
+        for r in range(2):
+            c, _ = engine.window_round(c, r, sampled[r])
+        return c
+
+    def window():
+        return engine.program.run_window((p0, b0), 0, 2)[0]
+
+    gen.manual_seed(seed)
+    window()  # the step graph's warm-up, capture and first replays
+    res, timing = {}, {}
+    for name, capture, fn in (("k1_eager", False, singles),
+                              ("k1", True, singles), ("k2", True, window)):
+        engine.trainer.capture_steps = capture
+        gen.manual_seed(seed)
+        _cuda.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[name] = fn()
+        torch.cuda.synchronize()
+        timing[name] = (time.perf_counter() - t0) / 2
+        by_path[f"fedavg_resnet18_{name}"] = _cuda.counts()
+    equal = all(states_equal(list(res["k1_eager"]), list(res[k]))
+                for k in ("k1", "k2"))
+    # the busy share of one sampled client's local training (its steps
+    # are most of a round), eager and as graph replays: a profiled round
+    # of ~6,100 aten calls a step would take minutes under the profiler
+    c0 = int(sampled[0][0])
+    rows0 = dict(engine.client_rows([c0]))[c0]
+    lr0 = engine.round_lr(0)
+    busy = {}
+    for name, capture in (("eager", False), ("graphed", True)):
+        engine.trainer.capture_steps = capture
+        busy[name] = busy_share(lambda: engine.client_train(
+            0, c0, rows0, p0, b0, lr0, engine.cfg.optim.epochs))
+    engine.trainer.capture_steps = True
+    steps = sum(math.ceil(int(engine.n_train[c]) / engine.cfg.optim.batch_size)
+                for s in sampled for c in s)
+    out = {"engine": "fedavg", "model": "resnet18", "card": card,
+           "clients_a_round": len(sampled[0]), "local_steps": steps,
+           "bit_equal": equal, "round_seconds": timing,
+           "busy_one_client": busy,
+           "graph_captures": engine.program.built,
+           "graph_replays": engine.program.dispatches,
+           "launches": {k: by_path[f"fedavg_resnet18_{k}"]
+                        for k in ("k1_eager", "k1", "k2")}}
+    print(json.dumps({"dispatch_window": out}))
+    if not equal:
+        fail("resnet18: the graphed single rounds or the 2-round window are "
+             "not bit-equal to two single eager rounds")
+    for name, b in busy.items():
+        if not traced_as_counted(b, ("fused_sgd",)):
+            fail(f"resnet18 {name}: the trace has the launches "
+                 f"{b['traced']}, the wrappers counted {b['counted']}")
+    del engine, res, p0, b0
+    free_card()
+
+    # ---- the mesh ----
+    def flag_run(tag, algorithm, *extra, setup=None):
+        engine, res, _, secs = train(flagship(algorithm, *extra), tag,
+                                     setup=setup)
+        return engine, res, secs
+
+    _, plain, _ = flag_run("fedavg_plain", "fedavg", "--frac", "0.75")
+    caplog = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: caplog.append(rec.getMessage())
+    prog_log = logging.getLogger(
+        "neuroimagedisttraining_tpu_torch.engines.program")
+    level = prog_log.level
+    prog_log.setLevel(logging.INFO)
+    prog_log.addHandler(handler)
+    try:
+        sharded_eng, sharded, _ = flag_run(
+            "fedavg_mesh2", "fedavg", "--frac", "0.75", "--client_mesh", "2",
+            "--virtual_devices", "2")
+        one_eng, _, _ = flag_run("fedavg_mesh1", "fedavg", "--frac", "0.75",
+                                 "--client_mesh", "1")
+    finally:
+        prog_log.removeHandler(handler)
+        prog_log.setLevel(level)
+    mesh_equal = states_equal(run_states(plain), run_states(sharded))
+    one_logged = any("only one device visible" in m for m in caplog)
+    if not sharded_eng._cohort_on or not mesh_equal:
+        fail("fedavg --client_mesh 2: the sharded run is not bit-equal to "
+             "the unsharded one")
+    if one_eng._cohort_on or not one_logged:
+        fail("fedavg --client_mesh 1 did not log the one-device fallback")
+    del sharded_eng, one_eng, sharded, plain
+    # silo first on a 2 x 2 mesh against the flat mean: one round of 4
+    flat_eng, flat, _ = flag_run("fedavg_flat", "fedavg", "--comm_round",
+                                 "1")
+    two_eng, two, _ = flag_run("fedavg_two_level", "fedavg", "--comm_round",
+                               "1", "--mesh_shape", "2", "2",
+                               "--virtual_devices", "4")
+    rel = max(float((two["params"][k] - flat["params"][k]).abs().max())
+              / max(float(flat["params"][k].abs().max()), 1e-30)
+              for k in flat["params"])
+    if not rel <= 1e-6:
+        fail(f"--mesh_shape 2 2: the silo-first mean is {rel} relative from "
+             "the flat mean")
+    del flat_eng, two_eng, flat, two
+    # D-PSGD with ring gossip over 4 mesh entries against its einsum: every
+    # round's mix of the meshed run held against the einsum of the same
+    # inputs, the first round's states (trained from the first mix) and the
+    # two runs after 2 rounds; the einsum in float64 as the witness of how
+    # far a rounding-level difference of the mix carries through training
+    def einsum_mix(states, M, dtype=torch.float32):
+        Mt = torch.as_tensor(M, dtype=dtype, device=dev)
+        return [torch.einsum("cj,j...->c...", Mt,
+                             torch.stack([st[k] for st in states]).to(dtype)
+                             ).to(states[0][k].dtype)
+                for k in states[0]]
+
+    def rel_to(a: list, b: list) -> float:
+        return max(float((y - x).abs().max())
+                   / max(float(x.abs().max()), 1e-30) for x, y in zip(a, b))
+
+    mix_rel, inputs = [], {}
+
+    def record(tag, check=False, f64=False):
+        def setup(eng):
+            mix = eng.consensus
+
+            def consensus(per_params, per_bstats, M):
+                inputs.setdefault(tag, []).append(
+                    [{k: v.clone() for k, v in st.items()}
+                     for st in per_params])
+                if f64:
+                    return f64_consensus(per_params, per_bstats, M)
+                out = mix(per_params, per_bstats, M)
+                if check:
+                    mix_rel.append(max(
+                        rel_to(einsum_mix(states, M),
+                               [torch.stack([st[k] for st in mixed])
+                                for k in states[0]])
+                        for states, mixed in ((per_params, out[0]),
+                                              (per_bstats, out[1]))
+                        if states[0]))
+                return out
+
+            eng.consensus = consensus
+        return setup
+
+    def f64_consensus(per_params, per_bstats, M):
+        def mix(states):
+            if not states[0]:
+                return [{} for _ in states]
+            leaves = einsum_mix(states, M, torch.float64)
+            return [{k: x[c] for k, x in zip(states[0], leaves)}
+                    for c in range(len(states))]
+        return mix(per_params), mix(per_bstats)
+
+    ring = ("--cs", "ring", "--frac", "0.5")
+    dense_eng, dense, _ = flag_run("dpsgd_ring", "dpsgd", *ring,
+                                   setup=record("dense"))
+    mesh_eng, meshed, _ = flag_run("dpsgd_ring_mesh4", "dpsgd", *ring,
+                                   "--virtual_devices", "4",
+                                   setup=record("mesh", check=True))
+    _, dense64, _ = flag_run("dpsgd_ring_f64", "dpsgd", *ring,
+                             setup=record("f64", f64=True))
+    M = mesh_eng.mixing_matrix(2)
+    from neuroimagedisttraining_tpu_torch.parallel import gossip
+    plan, _ = gossip.make_plan(M, mesh_eng.mesh, mesh_eng.num_clients)
+    mixed = [type(eng).consensus(eng, meshed["personal_params"],
+                                 meshed["personal_batch_stats"], M)
+             for eng in (dense_eng, mesh_eng)]
+    g_rel = max(float((b[k] - a[k]).abs().max())
+                / max(float(a[k].abs().max()), 1e-30)
+                for part in (0, 1) for a, b in zip(mixed[0][part],
+                                                    mixed[1][part])
+                for k in a)
+
+    # the two runs' client states after round 0 (the inputs of round 1's
+    # mix) and after 2 rounds, as shares of the einsum run's largest
+    # weight change from the initial model by then
+    init_p, _ = dense_eng.init_global_state()
+
+    def over_change(ref: list, other: list) -> float:
+        moved = max(float((v - init_p[k]).abs().max())
+                    for st in ref for k, v in st.items())
+        return max(float((b[k] - a[k]).abs().max())
+                   for a, b in zip(ref, other) for k in a) / moved
+
+    first = {t: over_change(inputs["dense"][1], inputs[t][1])
+             for t in ("mesh", "f64")}
+    end = {t: over_change(dense["personal_params"], r["personal_params"])
+           for t, r in (("mesh", meshed), ("f64", dense64))}
+    out = {"card": card, "sharded_bit_equal": mesh_equal,
+           "one_device_logged": one_logged, "silo_first_rel": rel,
+           "ring_plan": repr(plan), "ring_consensus_rel": g_rel,
+           "ring_mix_rel_by_round": mix_rel,
+           "ring_first_round_over_largest_change": first["mesh"],
+           "f64_first_round_over_largest_change": first["f64"],
+           "ring_runs_over_largest_change": end["mesh"],
+           "f64_runs_over_largest_change": end["f64"]}
+    print(json.dumps({"dispatch_mesh": out}))
+    if not isinstance(plan, tuple) or not g_rel <= 1e-6:
+        fail(f"dpsgd ring on 4 entries: plan {plan!r}, consensus {g_rel} "
+             "relative from the einsum")
+    if len(mix_rel) != 2 or not max(mix_rel) <= 1e-6:
+        fail(f"dpsgd ring on 4 entries: the run's mixes {mix_rel} relative "
+             "from the einsum of the same inputs")
+    # the float64 einsum's run is the witness: its mix is more exact than
+    # either float32 one, so how far its run parts from the einsum run's
+    # is how far a rounding of the mix carries through training
+    for when, d in (("after round 0", first), ("after 2 rounds", end)):
+        if not d["mesh"] <= RING_WITNESS_FACTOR * d["f64"]:
+            fail(f"dpsgd ring on 4 entries {when}: {d['mesh']} of the "
+                 "largest weight change from the einsum run, more than "
+                 f"{RING_WITNESS_FACTOR}x the float64 einsum's {d['f64']}")
+    losses = [h["train_loss"] for h in meshed["history"]]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"dpsgd ring on the mesh: non-finite losses {losses}")
+    del dense_eng, mesh_eng, dense, meshed, dense64
+    free_card()
 
 
 def torch_equal_bits(a, b) -> bool:
@@ -2553,6 +3042,7 @@ def main(argv: list[str]) -> int:
     only_darts = "--darts" in argv
     only_defense = "--defense" in argv
     only_secure = "--secure" in argv
+    only_dispatch = "--dispatch" in argv
     import numpy as np
     import torch
 
@@ -2734,13 +3224,13 @@ def main(argv: list[str]) -> int:
                  "bound_by": b_by, "library_ms": l_ms,
                  "library": "torch.nn.grad.conv3d_weight", **stem_extra})
     del x, g, g_ncdhw, dw_k, dw_k2, dw_p
-    torch.cuda.empty_cache()
+    free_card()
 
     lap("kernel stem_dw")
 
     # ---- kernel 1b: the stem weight gradient in bf16 (bf16_mixed) ----
     rows.append(bf16_stem_dw_row(dev, gen, quick, time_ms))
-    torch.cuda.empty_cache()
+    free_card()
     lap("kernel stem_dw_bf16")
 
     # ---- kernel 2: fused SGD tail over the flagship AlexNet3D leaves ----
@@ -2931,8 +3421,9 @@ def main(argv: list[str]) -> int:
             (pk_w, tk_w) = wstate()
             w_ms, w_host = time_ms(lambda: FU.fused_sgd_step(
                 pk_w, gw, tk_w, mw, lr=lr, **kw_w), 20)
+            # the plain chain is no yardstick: one timed call
             wp_ms, _ = time_ms(lambda: FU.sgd_step_plain(
-                pp_w, gw, tp_w, mw, lr=lr, **kw_w), 5)
+                pp_w, gw, tp_w, mw, lr=lr, **kw_w), 1)
             wide[tree].update(ms=w_ms, host_ms=w_host, plain_ms=wp_ms)
             if fused_sgd_ is not None and tree != "resnet18":
                 gl_w = [g.clone() for g in gw]
@@ -2974,7 +3465,7 @@ def main(argv: list[str]) -> int:
                                "plain pass under its scalars",
                                "two calls"], **timed})
     del p0, g0, t0_, m0, pk, tk, pp, tp, pq, tq, pk2, tk2, gl, pl, tl
-    torch.cuda.empty_cache()
+    free_card()
 
     lap("kernel fused_sgd")
 
@@ -3077,7 +3568,7 @@ def main(argv: list[str]) -> int:
                  "kinds_bit_equal": kind_names,
                  "device_ops": len(kth_ops) or None})
     del xs, thr, c_k, c_p
-    torch.cuda.empty_cache()
+    free_card()
     # the select at the 2D path's score counts (resnet18, vgg11)
     rows[-1]["vision_scores"] = {}
     for name, n in VISION_SCORES.items():
@@ -3140,6 +3631,10 @@ def main(argv: list[str]) -> int:
             return finish(rows, by_path, started, laps)
         if only_secure:
             secure_phase(card, build_experiment, by_path)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
+        if only_dispatch:
+            dispatch_phase(card, dev, flagship, build_experiment, by_path)
             lap("phase")
             return finish(rows, by_path, started, laps)
 
@@ -3260,7 +3755,7 @@ def main(argv: list[str]) -> int:
             if got["kth_select"] or got["count_ge"]:
                 fail(f"{algorithm} launched the top-k kernels: {got}")
             del engine, result
-            torch.cuda.empty_cache()
+            free_card()
 
         # ---- the sparse personalized engines at full width ----
         from neuroimagedisttraining_tpu_torch.ops import masks as M
@@ -3352,7 +3847,7 @@ def main(argv: list[str]) -> int:
                          f"within 0.01 of {ecfg.sparsity.dense_ratio}")
             print(json.dumps(out))
             del engine, result
-            torch.cuda.empty_cache()
+            free_card()
 
         # ---- D-PSGD, FedFomo and TurboAggregate at full width ----
         from neuroimagedisttraining_tpu_torch.__main__ import main as cli
@@ -3432,7 +3927,7 @@ def main(argv: list[str]) -> int:
             out["sync_warnings"] = syncs
             print(json.dumps(out))
             del engine, result
-            torch.cuda.empty_cache()
+            free_card()
 
         # Adam: unfused (no fused_sgd launch), and refused with the flag
         acfg = flagship("fedavg", "--frac", "0.75", "--client_optimizer",
@@ -3457,7 +3952,7 @@ def main(argv: list[str]) -> int:
         if not all(math.isfinite(v) for v in losses):
             fail(f"fedavg with adam: non-finite losses {losses}")
         del engine, result
-        torch.cuda.empty_cache()
+        free_card()
         refused = False
         try:
             LocalOptimizer(flagship("fedavg", "--client_optimizer",
@@ -3503,6 +3998,10 @@ def main(argv: list[str]) -> int:
         # ---- secure quantized aggregation: the GF(p) fold ----
         secure_phase(card, build_experiment, by_path)
         lap("secure")
+
+        # ---- round programs and dispatch: windows, CUDA graphs, mesh ----
+        dispatch_phase(card, dev, flagship, build_experiment, by_path)
+        lap("dispatch")
 
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",

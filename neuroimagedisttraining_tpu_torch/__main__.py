@@ -21,7 +21,9 @@
         --stddev S --byz_f F --geomed_iters N] [--dp_clip C \\
         --dp_sigma Z --dp_delta D] [--wire_codec STAGES \\
         --wire_topk_ratio R] [--secure_quant --secure_quant_field_bits \\
-        8|16|32 --secure_quant_frac_bits F] ...
+        8|16|32 --secure_quant_frac_bits F] [--rounds_per_dispatch K] \\
+        [--client_mesh N] [--mesh_shape S [C]] [--virtual_devices N] \\
+        [--cs random|ring|full --neighbor_num K] ...
 
 Flag names are the reference CLI's for the flags the port takes.
 ``--dataset ABCD`` / ``abcd_h5`` (the default) reads the X/y/site HDF5 file
@@ -49,6 +51,14 @@ are the reference's, with its defaults and refusals (TurboAggregate and
 field with the headroom; the engines refuse what their round does not run,
 and ``preempt:`` faults). An in-process ``--secure_quant`` cohort of 2 or
 more clients needs ``--secure_quant_field_bits 32``.
+
+``--rounds_per_dispatch K`` runs windows of up to K rounds
+(``engines/program.py``: one host read a window); on a card the local
+steps of every round replay CUDA graphs (``core/graphs.py``); ``--client_mesh N`` splits each round's clients over a
+mesh of N entries, ``--mesh_shape S C`` aggregates silo first, and
+``--virtual_devices N`` makes the mesh's N entries on the run's device
+(``parallel/``). ``--neighbor_num`` is stored, as in the reference, and read
+by no engine.
 """
 
 from __future__ import annotations
@@ -106,6 +116,8 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--cs", type=str, default="random",
                         choices=["random", "ring", "full", "self"],
                         help="DisPFL's and D-PSGD's neighbour choice")
+    parser.add_argument("--neighbor_num", type=int, default=5,
+                        help="gossip fan-out when --cs random")
     parser.add_argument("--active", type=float, default=1.0,
                         help="DisPFL: each client's activity probability")
     parser.add_argument("--dense_ratio", type=float, default=0.5)
@@ -255,6 +267,43 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         help="clients per host-fetched chunk in streaming "
                              "rounds, evaluation and SNIP scoring (0 = "
                              "auto)")
+    parser.add_argument("--virtual_devices", type=int, default=0,
+                        help="a device mesh of N entries on the run's "
+                             "device (N streams of one card, or N CPU "
+                             "entries): mesh simulation without N cards, "
+                             "as the reference provisions N virtual CPU "
+                             "devices")
+    parser.add_argument("--mesh_shape", type=int, nargs="*", default=[],
+                        help="device mesh layout: one value = first-N 1-D "
+                             "clients mesh; two values (silos clients) = "
+                             "two-level cross-silo mesh (silo-first "
+                             "aggregation, parallel/hierarchical.py)")
+    parser.add_argument("--client_mesh", type=int, default=0,
+                        help="split the sampled clients of every round "
+                             "over a client mesh of exactly N entries "
+                             "(parallel/cohort.py): each entry trains its "
+                             "block of clients on its own stream, the "
+                             "aggregation runs on the gathered states, "
+                             "bit-equal to the unsharded round; cohorts "
+                             "that do not tile the mesh pad with "
+                             "zero-weight rows. Engines and modes without "
+                             "a sharded round (engines/program.py) run "
+                             "unsharded with a logged reason. Combine "
+                             "with --virtual_devices N to simulate N "
+                             "entries on one device")
+    parser.add_argument("--rounds_per_dispatch", type=int, default=1,
+                        help="run up to K rounds as one window when the "
+                             "engine's round keeps no host-side state "
+                             "between rounds: sampling and lr come from "
+                             "the round index, the host reads the "
+                             "window's losses once at its end, and "
+                             "evaluation / the last round / an engine's "
+                             "extra hook land on a window's last round; "
+                             "on a card each local step replays a CUDA "
+                             "graph. Fused engines: fedavg/fedprox/"
+                             "salientgrads/ditto/local/subavg/dpsgd; the "
+                             "others run one round at a time with a "
+                             "logged reason")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--tag", type=str, default="exp",
@@ -279,6 +328,8 @@ def config_from_args(args) -> ExperimentConfig:
         algorithm=args.algorithm, seed=args.seed, tag=args.tag,
         log_dir=args.log_dir,
         stream_chunk_clients=args.stream_chunk_clients, remat=args.remat,
+        mesh_shape=tuple(args.mesh_shape),
+        virtual_devices=args.virtual_devices,
         data=DataConfig(dataset=args.dataset.lower(), data_dir=args.data_dir,
                         partition_method=args.partition_method,
                         partition_alpha=args.partition_alpha,
@@ -300,7 +351,10 @@ def config_from_args(args) -> ExperimentConfig:
                       frequency_of_the_test=args.frequency_of_the_test,
                       ci=bool(args.ci),
                       lamda=args.lamda, local_epochs=args.local_epochs,
-                      cs=args.cs, active=args.active, fomo_m=args.fomo_m,
+                      cs=args.cs, neighbor_num=args.neighbor_num,
+                      active=args.active, fomo_m=args.fomo_m,
+                      rounds_per_dispatch=args.rounds_per_dispatch,
+                      client_mesh=args.client_mesh,
                       mpc_n_shares=args.mpc_n_shares,
                       mpc_frac_bits=args.mpc_frac_bits,
                       mpc_backend=args.mpc_backend,
@@ -341,7 +395,9 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
     (for the data's sample shape, in the precision's compute dtype, with
     the resolved remat policy) -> trainer -> engine. Returns ``(engine,
     partition_info)``; ``partition_info["file"]`` is the HDF5 file a
-    streamed run reads, for the caller to close (None otherwise)."""
+    streamed run reads, for the caller to close (None otherwise). The
+    engine gets the run's device mesh (:func:`build_mesh`), and a resident
+    federation is padded to a multiple of its size."""
     from neuroimagedisttraining_tpu_torch.core.optim import (
         compute_dtype, resolve_remat,
     )
@@ -361,6 +417,8 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
     from neuroimagedisttraining_tpu_torch.models import create_model
 
     dev = resolve_device(device)
+    mesh = build_mesh(cfg, dev, streaming)
+    mesh_size = mesh.devices.size if mesh is not None else 1
     d = cfg.data
     dataset = d.dataset.lower()
     if dataset not in DATASETS:
@@ -377,7 +435,8 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
             d.partition_alpha, cfg.fed.client_num_in_total, dev,
             val_fraction=d.val_fraction, seed=cfg.seed,
             synthetic=dataset == "synthetic_vision",
-            num_classes=cfg.num_classes if cfg.num_classes > 1 else None)
+            num_classes=cfg.num_classes if cfg.num_classes > 1 else None,
+            mesh_size=mesh_size)
         info["file"] = None
         shape = tuple(fed.X_train.shape[2:])
     else:
@@ -402,7 +461,7 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
                 cohort, dev, d.seed_split, d.val_fraction,
                 partition_method=d.partition_method,
                 client_number=cfg.fed.client_num_in_total,
-                alpha=d.partition_alpha)
+                alpha=d.partition_alpha, mesh_size=mesh_size)
         info["file"] = cohort.get("file")
         shape = tuple(cohort["X"].shape[1:])
     o = cfg.optim
@@ -413,7 +472,26 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     trainer = LocalTrainer(model, o, dev, gen, num_classes=cfg.num_classes)
     return create_engine(cfg.algorithm, cfg, fed, trainer,
-                         stream=stream), info
+                         stream=stream, mesh=mesh), info
+
+
+def build_mesh(cfg: ExperimentConfig, dev, streaming: bool = False):
+    """The run's device mesh, as the reference's CLI builds it: none for a
+    plain streamed run; ``--client_mesh N`` (without ``--mesh_shape``) the
+    1-D mesh of N entries; else ``--mesh_shape`` (by default every device)
+    over the visible devices, or ``--virtual_devices`` entries of the run's
+    device."""
+    from neuroimagedisttraining_tpu_torch.parallel.mesh import (
+        make_mesh, virtual_devices, visible_devices,
+    )
+
+    if streaming and not cfg.mesh_shape and not cfg.fed.client_mesh:
+        return None
+    devices = (virtual_devices(cfg.virtual_devices, dev)
+               if cfg.virtual_devices else visible_devices(dev))
+    if cfg.fed.client_mesh > 0 and not cfg.mesh_shape:
+        return make_mesh(num_devices=cfg.fed.client_mesh, devices=devices)
+    return make_mesh(shape=cfg.mesh_shape, devices=devices)
 
 
 def check_privacy_flags(parser: argparse.ArgumentParser, args) -> None:

@@ -108,6 +108,7 @@ class FedConfig:
     # DisPFL's neighbour choice (random | ring | full | self) and each
     # client's Bernoulli activity a round
     cs: str = "random"
+    neighbor_num: int = 5          # gossip fan-out when cs == "random"
     active: float = 1.0
     frequency_of_the_test: int = 1
     # CI mode: every evaluation takes client 0 only
@@ -152,6 +153,15 @@ class FedConfig:
     # the wire codec's stages (codec/wire.py) and the top-k keep fraction
     wire_codec: str = "none"
     wire_topk_ratio: float = 0.25
+    # up to K rounds a window (engines/program.py): their host reads wait
+    # for the window's end, hooks (evaluation, the last round, an engine's
+    # extra hook) land on a window's last round, and on a card the local
+    # steps replay CUDA graphs; engines that cross the host each round run
+    # one round at a time, with a logged reason
+    rounds_per_dispatch: int = 1
+    # split the sampled clients of a round over a client mesh of exactly
+    # this many entries (parallel/cohort.py); 0: unsharded
+    client_mesh: int = 0
 
     @property
     def client_num_per_round(self) -> int:
@@ -175,6 +185,13 @@ class ExperimentConfig:
     # the AlexNet family's rematerialisation: auto | none | stem | all
     # (core/optim.py resolve_remat)
     remat: str = "auto"
+    # the device mesh (parallel/mesh.py): () => every visible device on
+    # one "clients" axis; one value: the first N; two (silos, clients):
+    # the two-level mesh of silo-first aggregation
+    mesh_shape: tuple[int, ...] = ()
+    # a mesh of N entries on the run's device (N > 0), as the reference
+    # provisions N virtual CPU devices; 0: the visible devices
+    virtual_devices: int = 0
     # the last part of the experiment's identity (its log file name)
     tag: str = "exp"
     data: DataConfig = field(default_factory=DataConfig)

@@ -15,7 +15,10 @@ serves every client.
   instead. FedProx and Ditto add a proximal pull toward a reference
   model after every step. The optimizer state (SGD's momentum buffers,
   Adam's moments and step count) starts at zero, or carries on from a
-  caller's (Sub-FedAvg's epoch-1 and tail calls share one).
+  caller's (Sub-FedAvg's epoch-1 and tail calls share one). Every step
+  runs on static buffers through its configuration's ``StepGraph``
+  (``core/graphs.py``): on a CUDA device a graph captured at the
+  configuration's second step and replayed after.
 - ``eval_grad``: the dense gradient of one batch in evaluation mode
   (DisPFL's gradient probe).
 - ``evaluate``: chunked eval returning correct / loss sum / total and the
@@ -37,7 +40,9 @@ tests can feed the reference's draws.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import weakref
 
 import torch
 from torch.func import functional_call
@@ -49,6 +54,7 @@ from neuroimagedisttraining_tpu_torch.core.losses import (
 from neuroimagedisttraining_tpu_torch.core.optim import (
     AdamState, LocalOptimizer, validate_precision,
 )
+from neuroimagedisttraining_tpu_torch.core.graphs import StepGraph
 from neuroimagedisttraining_tpu_torch.device import resolve_device
 from neuroimagedisttraining_tpu_torch.models import primary_logits
 
@@ -97,6 +103,14 @@ class LocalTrainer:
         #: None draws fresh ones from ``generator``
         self.dropout_masks = dropout_masks
         self.opt = LocalOptimizer(optim)
+        #: each local step runs through its configuration's
+        #: :class:`StepGraph` (``core/graphs.py``): captured as a CUDA graph
+        #: and replayed on a CUDA device; False runs the same steps on the
+        #: same buffers without capture (the eager steps that a graph's
+        #: replays are held against)
+        self.capture_steps = device.type == "cuda"
+        self._graphs: dict[tuple, StepGraph] = {}
+        self._last_graph_stream = None
         #: the rank of the model's input (batch and channel included)
         self.input_rank = getattr(model, "input_rank", 5)
 
@@ -177,7 +191,12 @@ class LocalTrainer:
 
         ``prox_lamda`` / ``prox_ref``: after each step (and the mask) the
         proximal pull ``w -= (lr * lamda) * (w - ref)``, in place, so the
-        fused step keeps its table of the leaves' addresses."""
+        fused step keeps its table of the leaves' addresses.
+
+        The steps run on the configuration's static buffers (the client's
+        state is copied in first and out after the last step; each step's
+        batch rows are gathered into them) through its
+        :class:`StepGraph`. ``lr`` is taken as a float32 0-d tensor."""
         n_valid = int(n_valid)
         my_steps = math.ceil(n_valid / batch_size)
         shuffle = self.optim_cfg.batch_order == "shuffle"
@@ -188,44 +207,167 @@ class LocalTrainer:
             perms = perms.to(self.device)
         elif batch_idx is not None:
             batch_idx = batch_idx.to(self.device)
-        p = {k: v.detach().clone() for k, v in params.items()}
-        b = {k: v.clone() for k, v in bstats.items()}
-        names = list(p)
-        p_list = [p[k] for k in names]
-        m_list = [mask[k] for k in names] if mask is not None else None
-        ref_list = ([prox_ref[k] for k in names] if prox_lamda is not None
-                    else None)
-        if momentum is None:
-            trace = self.opt.init(p_list)
-        elif isinstance(momentum, AdamState):
-            trace = AdamState([momentum.mu[k] for k in names],
-                              [momentum.nu[k] for k in names], momentum.count)
-        else:
-            trace = [momentum[k] for k in names]
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         offsets = torch.arange(batch_size, device=self.device)
-        for e in range(epochs):
-            for s in range(my_steps):
-                if shuffle:
-                    pos = s * batch_size + offsets
-                    idx = perms[e][pos % max(n_valid, 1)]
-                    w = (pos < n_valid).to(torch.float32)
-                else:
-                    idx = (batch_idx[e * my_steps + s] if batch_idx is not None
-                           else torch.randint(0, max(n_valid, 1),
-                                              (batch_size,),
-                                              generator=self.generator,
-                                              device=self.device))
-                    w = None
-                loss, grads, b = self.loss_and_grad(p, b, X[idx], y[idx], w)
-                self.opt.step(p_list, [grads[k] for k in names], trace, lr,
-                              m_list)
+
+        def batch(e: int, s: int):
+            """Step ``(e, s)``'s row indices and filler weights (None: an
+            unweighted loss)."""
+            if shuffle:
+                pos = s * batch_size + offsets
+                return (perms[e][pos % max(n_valid, 1)],
+                        (pos < n_valid).to(torch.float32))
+            if batch_idx is not None:
+                return batch_idx[e * my_steps + s], None
+            return torch.randint(0, max(n_valid, 1), (batch_size,),
+                                 generator=self.generator,
+                                 device=self.device), None
+
+        steps = [(e, s) for e in range(epochs) for s in range(my_steps)]
+        if not isinstance(lr, torch.Tensor):
+            lr = torch.tensor(lr, dtype=torch.float32, device=self.device)
+        kind = ("adam" if self.opt.adam else
+                "sgd" if self.optim_cfg.momentum > 0 else "none")
+        # an unweighted loss (replacement batches) and a weighted one are
+        # different steps, as are a masked, a proximal and a plain one
+        cur = (torch.cuda.current_stream(self.device).cuda_stream
+               if self.device.type == "cuda" else 0)
+        key = (X.dtype, tuple(X.shape[1:]), y.dtype, tuple(y.shape[1:]),
+               batch_size, shuffle, mask is not None, prox_lamda, kind, cur,
+               self.capture_steps)
+        g = self._step_graph(key, params, bstats, X, y, batch_size, shuffle,
+                             mask is not None, prox_lamda is not None,
+                             prox_lamda, kind)
+        st, names = g.static, g.names
+        ambient = (torch.cuda.current_stream(self.device)
+                   if g.stream is not None else None)
+        if g.stream is not None:
+            g.stream.wait_stream(ambient)
+            # the graphs of one generator read its offset from one device
+            # tensor that each replay sets first: one graph after another
+            last = self._last_graph_stream
+            if last is not None and last != g.stream:
+                g.stream.wait_stream(last)
+            self._last_graph_stream = g.stream
+
+        def on_stream():
+            return (torch.cuda.stream(g.stream) if g.stream is not None
+                    else contextlib.nullcontext())
+
+        with on_stream(), torch.no_grad():
+            for k in names:
+                st["p"][k].copy_(params[k])
+                if mask is not None:
+                    st["mask"][k].copy_(mask[k])
                 if prox_lamda is not None:
-                    prox_pull_(p_list, ref_list, lr, prox_lamda)
-                loss_sum = loss_sum + loss
-        if isinstance(momentum, AdamState):
-            momentum.count = trace.count
-        return p, b, loss_sum / max(epochs * my_steps, 1)
+                    st["ref"][k].copy_(prox_ref[k])
+            for k, v in bstats.items():
+                st["b"][k].copy_(v)
+            st["lr"].copy_(lr)
+            st["loss_sum"].zero_()
+            if kind == "adam":
+                trace = (AdamState([momentum.mu[k] for k in names],
+                                   [momentum.nu[k] for k in names],
+                                   momentum.count)
+                         if momentum is not None
+                         else self.opt.init(g.p_list))
+            elif st["trace"] is not None:
+                for i, k in enumerate(names):
+                    if momentum is None:
+                        st["trace"][i].zero_()
+                    else:
+                        st["trace"][i].copy_(momentum[k])
+        for e, s in steps:
+            with on_stream():
+                idx, w = batch(e, s)
+                with torch.no_grad():
+                    torch.index_select(X, 0, idx, out=st["x"])
+                    torch.index_select(y, 0, idx, out=st["y"])
+                    if w is not None:
+                        st["w"].copy_(w)
+                loss, grads = g()
+                if kind == "adam":
+                    self.opt.step(g.p_list, grads, trace, st["lr"],
+                                  g.m_list)
+                    if prox_lamda is not None:
+                        prox_pull_(g.p_list, g.ref_list, st["lr"],
+                                   prox_lamda)
+                    with torch.no_grad():
+                        st["loss_sum"].add_(loss)
+        if ambient is not None:
+            ambient.wait_stream(g.stream)
+        with torch.no_grad():
+            p = {k: st["p"][k].clone() for k in names}
+            b = {k: v.clone() for k, v in st["b"].items()}
+            if kind == "sgd" and momentum is not None:
+                for i, k in enumerate(names):
+                    momentum[k].copy_(st["trace"][i])
+            if kind == "adam" and momentum is not None:
+                momentum.count = trace.count
+            loss = st["loss_sum"] / max(len(steps), 1)
+        return p, b, loss
+
+    # ---------- the local step and its CUDA graph ----------
+
+    def _step_graph(self, key, params: State, bstats: State, X, y, bsz: int,
+                    weighted: bool, masked: bool, prox: bool,
+                    prox_lamda, momentum_kind: str):
+        """The :class:`StepGraph` of one step configuration with its static
+        buffers, made at first use."""
+        g = self._graphs.get(key)
+        if g is not None:
+            return g
+        dev = self.device
+        st = {
+            "p": {k: torch.empty_like(v) for k, v in params.items()},
+            "b": {k: torch.empty_like(v) for k, v in bstats.items()},
+            "x": torch.empty((bsz, *X.shape[1:]), dtype=X.dtype, device=dev),
+            "y": torch.empty((bsz, *y.shape[1:]), dtype=y.dtype, device=dev),
+            "w": (torch.empty(bsz, dtype=torch.float32, device=dev)
+                  if weighted else None),
+            "lr": torch.empty((), dtype=torch.float32, device=dev),
+            "loss_sum": torch.zeros((), dtype=torch.float32, device=dev),
+            "mask": ({k: torch.empty_like(v) for k, v in params.items()}
+                     if masked else None),
+            "ref": ({k: torch.empty_like(v) for k, v in params.items()}
+                    if prox else None),
+        }
+        names = list(st["p"])
+        p_list = [st["p"][k] for k in names]
+        st["trace"] = ([torch.zeros_like(v) for v in p_list]
+                       if momentum_kind == "sgd" else None)
+        m_list = ([st["mask"][k] for k in names] if masked else None)
+        ref_list = [st["ref"][k] for k in names] if prox else None
+        adam = momentum_kind == "adam"
+        # the trainer holds its graphs: the step reaches it weakly
+        tr = weakref.proxy(self)
+
+        def body():
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in st["p"].items()}
+            logits = tr.apply(leaves, st["b"],
+                              tr._prep(st["x"], tr.input_rank), train=True)
+            loss, grads = tr._grads(tr.loss(logits, st["y"], st["w"]),
+                                    leaves)
+            grads = [grads[k] for k in names]
+            if adam:  # its bias corrections are host floats of the count
+                return loss, grads
+            tr.opt.step(p_list, grads, st["trace"], st["lr"], m_list)
+            if prox:
+                prox_pull_(p_list, ref_list, st["lr"], prox_lamda)
+            st["loss_sum"].add_(loss)
+            return loss, grads
+
+        g = StepGraph(body, dev, self.generator, capture=self.capture_steps)
+        g.static, g.names, g.p_list, g.m_list, g.ref_list = (
+            st, names, p_list, m_list, ref_list)
+        self._graphs[key] = g
+        return g
+
+    @property
+    def graph_stats(self) -> tuple[int, int]:
+        """``(captures, replays)`` over every step configuration."""
+        return (sum(g.captures for g in self._graphs.values()),
+                sum(g.replays for g in self._graphs.values()))
 
     def eval_grad(self, params: State, bstats: State, x: torch.Tensor,
                   y: torch.Tensor) -> State:

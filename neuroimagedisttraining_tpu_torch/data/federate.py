@@ -39,12 +39,13 @@ class FederatedData:
         return int(self.X_train.shape[0])
 
 
-def _stack_pad(X: np.ndarray, y: np.ndarray, idx_map: dict[int, np.ndarray]):
+def _stack_pad(X: np.ndarray, y: np.ndarray, idx_map: dict[int, np.ndarray],
+               pad: int = 0):
     C = len(idx_map)
     nmax = max(1, max(len(v) for v in idx_map.values()))
-    Xs = np.zeros((C, nmax) + X.shape[1:], dtype=X.dtype)
-    ys = np.zeros((C, nmax), dtype=np.int32)
-    ns = np.zeros((C,), dtype=np.int64)
+    Xs = np.zeros((C + pad, nmax) + X.shape[1:], dtype=X.dtype)
+    ys = np.zeros((C + pad, nmax), dtype=np.int32)
+    ns = np.zeros((C + pad,), dtype=np.int64)
     for c in range(C):
         idx = idx_map[c]
         Xs[c, : len(idx)] = X[idx]
@@ -59,18 +60,23 @@ def build_federated_data(X: np.ndarray, y: np.ndarray,
                          device: torch.device,
                          val_map: dict[int, np.ndarray] | None = None,
                          X_eval: np.ndarray | None = None,
-                         y_eval: np.ndarray | None = None) -> FederatedData:
+                         y_eval: np.ndarray | None = None,
+                         mesh_size: int = 1) -> FederatedData:
     """Stack, pad and move the federation to ``device`` (with the
     validation rows of ``val_map``, where given). ``test_map`` indexes
-    ``X_eval`` / ``y_eval`` where given, ``X`` / ``y`` otherwise."""
+    ``X_eval`` / ``y_eval`` where given, ``X`` / ``y`` otherwise. The
+    client count is padded up to a multiple of ``mesh_size`` with
+    zero-sample clients (their aggregation weight is always 0), as the
+    reference pads to its mesh."""
     put = lambda a: torch.from_numpy(a).to(device)
     Xev = X if X_eval is None else X_eval
     yev = y if y_eval is None else y_eval
-    Xtr, ytr, ntr = _stack_pad(X, y, train_map)
-    Xte, yte, nte = _stack_pad(Xev, yev, test_map)
+    pad = (mesh_size - len(train_map) % mesh_size) % mesh_size
+    Xtr, ytr, ntr = _stack_pad(X, y, train_map, pad)
+    Xte, yte, nte = _stack_pad(Xev, yev, test_map, pad)
     val = {}
     if val_map is not None:
-        Xv, yv, nv = _stack_pad(X, y, val_map)
+        Xv, yv, nv = _stack_pad(X, y, val_map, pad)
         val = dict(X_val=put(Xv), y_val=put(yv), n_val=nv)
     return FederatedData(X_train=put(Xtr), y_train=put(ytr), n_train=ntr,
                          X_test=put(Xte), y_test=put(yte), n_test=nte, **val)
@@ -112,13 +118,14 @@ def federation_maps(site: np.ndarray, seed: int = 42,
 def federate_cohort(data: dict[str, np.ndarray], device: torch.device,
                     seed: int = 42, val_fraction: float = 0.0,
                     partition_method: str = "site",
-                    client_number: int | None = None, alpha: float = 0.5
-                    ) -> tuple[FederatedData, dict]:
+                    client_number: int | None = None, alpha: float = 0.5,
+                    mesh_size: int = 1) -> tuple[FederatedData, dict]:
     """Partition a cohort ``{X, y, site}`` into clients on ``device``,
     carving a validation split where ``val_fraction > 0``: by site, or into
     ``client_number`` clients by ``rescale`` (contiguous shards of one
     shuffle), ``dir`` / ``hetero`` (Dirichlet(``alpha``) over the labels)
-    or ``homo`` (IID), the last three split 80/20 inside each client."""
+    or ``homo`` (IID), the last three split 80/20 inside each client;
+    the client count padded to a multiple of ``mesh_size``."""
     X, y = data["X"], data["y"]
     if partition_method == "site":
         train_map, test_map, val_map, info = federation_maps(
@@ -150,5 +157,5 @@ def federate_cohort(data: dict[str, np.ndarray], device: torch.device,
                                  for c in sorted(train_map)]}
     info["stats"] = P.record_data_stats(y, train_map)
     fed = build_federated_data(X, y, train_map, test_map, device,
-                               val_map=val_map)
+                               val_map=val_map, mesh_size=mesh_size)
     return fed, info

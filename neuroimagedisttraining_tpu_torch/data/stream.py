@@ -6,7 +6,8 @@ not fit on the card: the voxels stay in the source (an open HDF5 dataset
 or a row-sliceable ndarray such as a memmap), and only the clients the
 engine is about to read are gathered and copied over. The port of the
 reference package's ``data/stream.py:47-353``, with its surface and its
-bytes: ``prefetch_train`` / ``get_train``, ``eval_chunks``,
+bytes: ``prefetch_train`` / ``get_train``, ``prefetch_window`` /
+``get_window`` (a dispatch window's rounds as one fetch), ``eval_chunks``,
 ``get_val_resident``, ``transfer_stats``, ``sync`` and ``close``.
 
 Every buffer holds the bytes of the resident ``_stack_pad``
@@ -46,10 +47,16 @@ On a CPU device (the tests) the slabs are ordinary tensors, the copy is a
 plain ``copy_`` and no event is used. Pinning follows the ``device`` the
 caller gives, never a probe for a card.
 
-Left out of the port: the mesh sharding of the reference's ``_put`` and
-its window feed (``prefetch_window`` / ``get_window``) go with its
-``engines/program.py`` and ``parallel/``, and the ``nidt_stream_transfer``
-gauge with its ``obs/``.
+A window of ``--rounds_per_dispatch K`` rounds (``engines/program.py``)
+reads its K rounds' training rows as one fetch, ``[K, S, nmax, ...]``
+(``get_window``), and ``prefetch_window`` starts the next window's behind
+the current compute, through the same two slots (a slot then holds K
+rounds' rows).
+
+Left out of the port: the mesh sharding of the reference's ``_put`` (a
+streamed run under ``--client_mesh`` runs unsharded with the reference's
+``streaming-sharded-feed`` reason) and the ``nidt_stream_transfer``
+gauge, which goes with its ``obs/``.
 """
 
 from __future__ import annotations
@@ -339,6 +346,33 @@ class StreamingFederation:
         the prefetched chunk where it matches, else a fresh read."""
         return self._get(self._train_key(client_ids, n_real), client_ids,
                          n_real)
+
+    @staticmethod
+    def _window_key(ids_per_round, n_real):
+        return ("train", tuple(int(c) for ids in ids_per_round for c in ids),
+                n_real, len(ids_per_round))
+
+    def prefetch_window(self, ids_per_round: list[np.ndarray],
+                        n_real: int | None = None) -> None:
+        """Start the read and copy of a whole window's training rows (each
+        round's ``ids``, all of one size) behind the current compute."""
+        key = self._window_key(ids_per_round, n_real)
+        if self._pending is None or self._pending[0] != key:
+            self._submit(key, np.concatenate(
+                [np.asarray(i) for i in ids_per_round]), None)
+
+    def get_window(self, ids_per_round: list[np.ndarray],
+                   n_real: int | None = None):
+        """``(X, y, n)`` ``[K, S, nmax, ...]`` of a window's rounds on the
+        device: the prefetched fetch where it matches, else a fresh read.
+        ``n_real`` is the reference's mesh padding, always None here."""
+        key = self._window_key(ids_per_round, n_real)
+        X, y, n = self._get(key, np.concatenate(
+            [np.asarray(i) for i in ids_per_round]), None)
+        K = len(ids_per_round)
+        S = len(ids_per_round[0])
+        return (X.view((K, S) + tuple(X.shape[1:])),
+                y.view((K, S) + tuple(y.shape[1:])), n.view(K, S))
 
     # ---------- resident validation rows (FedFomo) ----------
 

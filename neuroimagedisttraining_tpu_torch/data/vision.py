@@ -293,7 +293,8 @@ def federate_vision(name: str, data_dir: str, partition_method: str,
                     device: torch.device | str = "cuda",
                     val_fraction: float = 0.0, seed: int = 0,
                     synthetic: bool = False, num_classes: int | None = None,
-                    synthetic_num: tuple[int, int] | None = None):
+                    synthetic_num: tuple[int, int] | None = None,
+                    mesh_size: int = 1):
     """``(FederatedData on device, info)``: the vision counterpart of
     ``federate_cohort``, with separate train and test pools and the
     reference's partition modes (``n_cls``, ``dir``, ``my_part``, ``homo``,
@@ -347,5 +348,5 @@ def federate_vision(name: str, data_dir: str, partition_method: str,
                              for c in sorted(train_map)]}
     fed = build_federated_data(Xtr, ytr, train_map, test_map,
                                torch.device(device), val_map=val_map,
-                               X_eval=Xte, y_eval=yte)
+                               X_eval=Xte, y_eval=yte, mesh_size=mesh_size)
     return fed, info

@@ -18,8 +18,21 @@ next chunk is on its way. A client's result does not depend on the chunk
 it came in, so a streamed run equals the resident one. :meth:`plan_walks`
 tells the feed the walks a round makes (training, then the evaluations,
 then the next round's training), so the last chunk of each walk
-prefetches the first of the next. The port has no mesh: the reference's
-``stream_sampling`` pads nothing here.
+prefetches the first of the next.
+
+The engine owns its :class:`~engines.program.RoundProgram` (``program``):
+the reference's fallback keys and window planner. Under
+``--rounds_per_dispatch K`` an engine that declares its round
+(``round_stages``) runs windows of up to K rounds (``run_rounds``), whose
+host reads wait for the window's end (one read a window,
+:meth:`FederatedEngine.read_host`) and whose local steps run as CUDA graphs
+on a card. Under ``--client_mesh N`` (a :class:`~parallel.mesh.Mesh` of N
+entries) the sampled clients of a round are split over the mesh's entries
+(:meth:`FederatedEngine.map_clients`, ``parallel/cohort.py``); on a
+two-level ``--mesh_shape S C`` mesh the mean is taken silo first
+(``parallel/hierarchical.py``); D-PSGD and DisPFL gossip over the mesh
+(``parallel/gossip.py``). A streamed round pads nothing (sharding refuses
+streaming, as the reference's ``streaming-sharded-feed``).
 
 The round's tail (``defended_aggregate``) runs, in the reference's order:
 the Byzantine attack on the uploads of the clients the fault schedule
@@ -52,6 +65,7 @@ reference's draws.
 from __future__ import annotations
 
 import logging
+import time
 from typing import Iterator, NamedTuple
 
 import numpy as np
@@ -69,8 +83,10 @@ from neuroimagedisttraining_tpu_torch.faults import adversary
 from neuroimagedisttraining_tpu_torch.faults.schedule import (
     FaultSchedule, parse_fault_spec,
 )
+from neuroimagedisttraining_tpu_torch.engines import program as round_program
 from neuroimagedisttraining_tpu_torch.ops import mpc_device
 from neuroimagedisttraining_tpu_torch.ops.masks import mask_nnz
+from neuroimagedisttraining_tpu_torch.parallel import cohort
 from neuroimagedisttraining_tpu_torch.utils.logging import ExperimentLogger
 from neuroimagedisttraining_tpu_torch.weights import flax_named_leaves
 
@@ -117,6 +133,13 @@ class FederatedEngine:
     supports_secure_quant = False
     #: the defenses the round can realize
     supported_defenses: tuple = ("none",)
+    #: the round's local training can be split over a client mesh
+    #: (``--client_mesh``)
+    supports_cohort_sharding = False
+    #: a streamed run can run windows (``--rounds_per_dispatch``)
+    supports_fused_streaming = False
+    #: a window's log line for an engine that trains every client
+    cohort_label = "every client"
 
     #: the round's training walk covers the sampled clients (else every
     #: client)
@@ -127,15 +150,18 @@ class FederatedEngine:
     final_walks: tuple[str, ...] = ("test",)
 
     def __init__(self, cfg: ExperimentConfig, data: FederatedData | None,
-                 trainer: LocalTrainer, perms_for=None, stream=None):
+                 trainer: LocalTrainer, perms_for=None, stream=None,
+                 mesh=None):
         """``data``: the resident federation, or None with ``stream``, a
-        ``StreamingFederation``."""
+        ``StreamingFederation``; ``mesh``: the device mesh
+        (``parallel/mesh.py``), None for one device."""
         if (data is None) == (stream is None):
             raise ValueError("an engine takes its data or a stream (one "
                              "of the two)")
         self.cfg = cfg
         self.data = data
         self.stream = stream
+        self.mesh = mesh
         self.trainer = trainer
         self.device = trainer.device
         src = data if data is not None else stream
@@ -163,6 +189,192 @@ class FederatedEngine:
             "global_test_acc": [], "person_test_acc": [],
         }
         self._init_defended_round(stream)
+        self._init_dispatch()
+
+    def _init_dispatch(self) -> None:
+        """The startup checks of ``--client_mesh`` and
+        ``--rounds_per_dispatch``, with the reference's messages: a mesh of
+        another size is an error; an engine or mode that cannot shard or
+        run windows says so once, with its reason."""
+        f = self.cfg.fed
+        self._cohort_on = False
+        cm = int(f.client_mesh)
+        if cm > 0:
+            mesh = self.mesh
+            if mesh is None:
+                raise ValueError(
+                    f"--client_mesh {cm} requested but no device mesh was "
+                    "constructed — build the engine with a mesh (the CLIs "
+                    "do this automatically; tests: make_mesh())")
+            if cm != mesh.devices.size:
+                raise ValueError(
+                    f"--client_mesh {cm} does not match the constructed "
+                    f"{mesh.devices.size}-device mesh; pass a matching "
+                    "--client_mesh / --mesh_shape / --virtual_devices "
+                    "combination (the sampled-client axis shards over "
+                    "EVERY mesh device)")
+            key = self.program.cohort_fallback_key()
+            if key is None:
+                self._cohort_on = True
+                log.info(
+                    "client_mesh=%d: cohort sharding armed — the sampled-"
+                    "client axis of every round shards over the "
+                    "%d-device mesh (pad rows zero-weighted; "
+                    "parallel/cohort.py)", cm, mesh.devices.size)
+            else:
+                round_program.report_fallback(
+                    self.name, key, "client_mesh=%d requested; running the "
+                    "unsharded round program", cm)
+        if f.rounds_per_dispatch > 1:
+            key = self.fused_fallback_key()
+            if key is not None:
+                round_program.report_fallback(
+                    self.name, key, "rounds_per_dispatch=%d requested; "
+                    "dispatching one round at a time",
+                    f.rounds_per_dispatch)
+
+    # ---------- the round program (engines/program.py) ----------
+
+    @property
+    def program(self) -> round_program.RoundProgram:
+        """The engine's planner and window runner, made at first use."""
+        prog = self.__dict__.get("_program")
+        if prog is None:
+            prog = self._program = round_program.RoundProgram(
+                self, self.round_stages())
+        return prog
+
+    def round_stages(self) -> round_program.RoundStages | None:
+        """The engine's declared round, or None where its rounds keep
+        host-side state between them (no windows, no sharding)."""
+        return None
+
+    def fused_fallback_key(self) -> str | None:
+        """Why the engine runs one round at a time under
+        ``--rounds_per_dispatch K``: a ``REASONS`` key, or None."""
+        return self.program.fused_fallback_key()
+
+    def cohort_fallback_key(self) -> str | None:
+        """Why an engine without a sharded round runs unsharded under
+        ``--client_mesh``; engines with their own story override."""
+        return "no-sharded-body"
+
+    def _ckpt_active(self) -> bool:
+        """Checkpoints are not ported: no round is a checkpoint round."""
+        return False
+
+    def _fuse(self) -> bool:
+        return (self.cfg.fed.rounds_per_dispatch > 1
+                and self.fused_fallback_key() is None)
+
+    def _cohort_pad(self, sampled) -> tuple[np.ndarray, int]:
+        """``(padded_ids, n_real)``: the sampled set padded to tile the
+        client mesh (``parallel/cohort.py`` ``pad_cohort``)."""
+        return cohort.pad_cohort(np.asarray(sampled), self.real_clients,
+                                 self.num_clients, self.mesh.devices.size)
+
+    def map_clients(self, fn, ids) -> list:
+        """``fn(c, rows)`` for each client of ``ids`` with its training
+        rows, in client order. With cohort sharding armed the clients
+        (padded to tile the mesh where the round trains a sampled set) are
+        split over the mesh's entries (``cohort.cohort_map``); a pad row
+        trains nothing and is dropped, so the list is ``ids``'."""
+        ids = np.asarray(ids)
+        if not self._cohort_on:
+            return [fn(c, rows) for c, rows in self.client_rows(ids)]
+        if self.program.stages.gathers_cohort:
+            padded, n_real = self._cohort_pad(ids)
+        else:
+            padded, n_real = ids, len(ids)
+        rows = dict(self.client_rows(ids))
+        live = cohort.pad_row_weights(torch.ones(len(padded)), n_real) > 0
+        items = [(int(c), rows[int(c)] if live[i] else None)
+                 for i, c in enumerate(padded)]
+        out = cohort.cohort_map(
+            self.mesh, lambda it: None if it[1] is None else fn(*it), items,
+            self.device)
+        return out[:n_real]
+
+    # ---------- the round loop with windows ----------
+
+    def window_round(self, carry: tuple, round_idx: int, sampled):
+        """One round of the engine's declared round from ``carry``:
+        ``(carry, outs)``, ``outs`` a dict of device scalars (``loss``,
+        and ``n_bad`` where the round counts non-finite uploads). Engines
+        that declare ``round_stages`` implement it."""
+        raise NotImplementedError
+
+    def run_rounds(self, carry: tuple, on_round) -> tuple:
+        """Every round from ``carry``: one at a time, or in windows under
+        ``--rounds_per_dispatch``. After each round's outputs are read,
+        ``on_round(r, carry, row, seconds, sampled)`` runs in round order
+        (``row``: the round's outputs as host floats; ``carry``: the state
+        after the window, which is the round's own for the window's last
+        round, the only one that can be hooked; ``seconds``: the window's
+        time shared by its rounds). Returns the last carry."""
+        f = self.cfg.fed
+        fuse = self._fuse()
+        r = 0
+        while r < f.comm_round:
+            k = self.program.dispatch_window(r) if fuse else 1
+            t0 = time.perf_counter()
+            if k > 1:
+                carry, outs, wi = self.program.run_window(carry, r, k)
+                k, sampled = wi.k, wi.sampled
+            else:
+                self.plan_walks(r)
+                s = self.round_sampling(r)
+                carry, o = self.window_round(carry, r, s)
+                outs, sampled = [o], [s]
+            rows = self.read_outs(r, outs)
+            self._sync()
+            dt = (time.perf_counter() - t0) / k
+            for off, row in enumerate(rows):
+                on_round(r + off, carry, row, dt,
+                         sampled[off] if sampled is not None else None)
+            r += k
+        return carry
+
+    def round_sampling(self, round_idx: int):
+        """A single round's cohort, logged (None for an engine that trains
+        every client)."""
+        sampled = self.client_sampling(round_idx)
+        log.info("round %d: clients %s", round_idx, sampled.tolist())
+        return sampled
+
+    def read_host(self, values: list[torch.Tensor]) -> list:
+        """The host's read of device values: one device read for the whole
+        list (a window's, or a round's); a scalar comes back as a float, a
+        vector as a list of floats."""
+        flat = torch.cat([v.to(torch.float64).reshape(-1)
+                          for v in values]).tolist()
+        out, i = [], 0
+        for v in values:
+            n = v.numel()
+            out.append(flat[i] if v.dim() == 0 else flat[i:i + n])
+            i += n
+        return out
+
+    def read_outs(self, round_idx: int, outs: list[dict]) -> list[dict]:
+        """Rounds ``round_idx ..``'s outputs on the host in one read; each
+        round's non-finite uploads go into ``stat_info`` with a warning,
+        and the privacy ledger is charged through the last round."""
+        names = [list(o) for o in outs]
+        flat = self.read_host([v for o in outs for v in o.values()])
+        rows, i = [], 0
+        for r, keys in enumerate(names):
+            row = dict(zip(keys, flat[i:i + len(keys)]))
+            i += len(keys)
+            bad = row.get("n_bad", 0.0)
+            if bad:
+                self.stat_info["nonfinite_uploads"] += bad
+                log.warning("round %d: %d non-finite uploads %s",
+                            round_idx + r, int(bad),
+                            "dropped" if self.sq_spec is None else
+                            "folded as the zero residue")
+            rows.append(row)
+        self.record_privacy(round_idx + len(outs) - 1)
+        return rows
 
     def _init_defended_round(self, stream) -> None:
         """The fault schedule, the privacy ledger and the wire codec's
@@ -371,6 +583,12 @@ class FederatedEngine:
                 c = int(c)
                 yield c, ClientRows(X[c], y[c], int(n[c]))
             return
+        window = self._round_rows
+        if window is not None and split == "train" and all(
+                int(c) in window for c in ids):
+            for c in ids:
+                yield int(c), window[int(c)]
+            return
         walk = (split, tuple(int(c) for c in ids))
         if self._walks and self._walks[0] == walk:
             self._walks.pop(0)
@@ -383,6 +601,29 @@ class FederatedEngine:
                                           ids=walk[1], then=then):
             for j, c in enumerate(ch.ids):
                 yield int(c), ClientRows(ch.X[j], ch.y[j], int(n[c]))
+
+    #: a streamed window's rows of the round being trained (client ->
+    #: rows), which ``client_rows`` serves its training walk from
+    _round_rows: dict | None = None
+
+    def stream_window(self, sampled: list, next_round: int) -> list[dict]:
+        """A streamed window's training rows, one fetch for its rounds
+        (``get_window``), each round's as a dict client -> rows; the next
+        window's fetch starts behind it unless the window ends at an
+        evaluation, whose test walks come first."""
+        X, y, _ = self.stream.get_window(sampled)
+        out = [{int(c): ClientRows(X[off, j], y[off, j],
+                                   int(self.n_train[c]))
+                for j, c in enumerate(ids)}
+               for off, ids in enumerate(sampled)]
+        last = next_round - 1
+        if next_round < self.cfg.fed.comm_round \
+                and not self.is_eval_round(last):
+            k = self.program.dispatch_window(next_round)
+            if k > 1:
+                nxt, _ = self.program.window_sampling(next_round, k)
+                self.stream.prefetch_window(nxt)
+        return out
 
     def plan_walks(self, round_idx: int, before=()) -> None:
         """Streamed runs: the walks from round ``round_idx`` on that the
@@ -431,14 +672,12 @@ class FederatedEngine:
         """The sampled clients train from the global model for ``epochs``.
         Returns their ``(params, bstats)`` lists and their losses
         ``[S]``."""
-        ups_p, ups_b, losses = [], [], []
-        for c, rows in self.client_rows(sampled):
-            p, b, loss = self.client_train(round_idx, c, rows, params,
-                                           bstats, lr, self.cfg.optim.epochs,
-                                           **kw)
-            ups_p.append(p)
-            ups_b.append(b)
-            losses.append(loss)
+        out = self.map_clients(
+            lambda c, rows: self.client_train(round_idx, c, rows, params,
+                                              bstats, lr,
+                                              self.cfg.optim.epochs, **kw),
+            sampled)
+        ups_p, ups_b, losses = map(list, zip(*out))
         return ups_p, ups_b, torch.stack(losses)
 
     def train_and_aggregate(self, round_idx: int, params: State,
@@ -473,8 +712,8 @@ class FederatedEngine:
         ledger is charged through the round."""
         self.record_privacy(round_idx)
         if n_bad is None:
-            return float(loss)
-        loss_h, bad_h = torch.stack([loss, n_bad.to(loss.dtype)]).tolist()
+            return self.read_host([loss])[0]
+        loss_h, bad_h = self.read_host([loss, n_bad])
         if bad_h:
             self.stat_info["nonfinite_uploads"] += bad_h
             log.warning("round %d: %d non-finite uploads %s", round_idx,
@@ -482,14 +721,24 @@ class FederatedEngine:
                         "folded as the zero residue")
         return loss_h
 
+    def masks_nnz(self, masks: list[State]) -> torch.Tensor:
+        """Each real client's count of kept entries over the maskable
+        leaves, on the device."""
+        return torch.stack([mask_nnz(m) for m in masks[:self.real_clients]])
+
     def warn_if_masks_collapsed(self, masks: list[State], round_idx: int
                                 ) -> np.ndarray:
         """Each real client's count of kept entries over the maskable
-        leaves (one device read); logs a warning naming every client whose
-        mask kept none (a NaN in the weights or gradients ranks every entry
-        out)."""
-        nnz = torch.stack([mask_nnz(m) for m in masks[:self.real_clients]]
-                          ).cpu().numpy()
+        leaves (one device read), through :meth:`warn_collapsed`."""
+        return self.warn_collapsed(self.masks_nnz(masks).cpu().numpy(),
+                                   round_idx)
+
+    @staticmethod
+    def warn_collapsed(nnz, round_idx: int) -> np.ndarray:
+        """Logs a warning naming every client whose mask kept none of the
+        host counts ``nnz`` (a NaN in the weights or gradients ranks every
+        entry out)."""
+        nnz = np.asarray(nnz)
         if (nnz == 0).any():
             log.warning("round %d: clients %s have an empty mask (0 kept "
                         "weights); check their local losses for divergence",
@@ -508,9 +757,50 @@ class FederatedEngine:
 
     # ---------- aggregation ----------
 
-    #: the weighted mean over clients (weights normalized first, then
-    #: ``sum_s x_s * w_s`` per leaf): FedAvg
-    aggregate = staticmethod(robust.weighted_mean)
+    def aggregate(self, states: list[State], w: torch.Tensor) -> State:
+        """The weighted mean over clients (weights normalized first, then
+        ``sum_s x_s * w_s`` per leaf): FedAvg. On a two-level mesh the mean
+        is taken silo first (``parallel/hierarchical.py``), or flat, with
+        the reference's line once, where the clients do not tile the
+        mesh."""
+        from neuroimagedisttraining_tpu_torch.parallel.hierarchical import (
+            is_two_level, silo_then_global_mean,
+        )
+
+        if not states or not states[0]:
+            return robust.weighted_mean(states, w)
+        if is_two_level(self.mesh):
+            if len(states) % self.mesh.devices.size == 0:
+                return silo_then_global_mean(states, w, self.mesh)
+            if not getattr(self, "_warned_flat_fallback", False):
+                self._warned_flat_fallback = True
+                log.info(
+                    "two-level mesh: sampled-client axis (%d) does not "
+                    "tile the %d-device grid; falling back to the FLAT "
+                    "weighted mean (same result, but aggregation will NOT "
+                    "be routed silo-first over ICI/DCN). Choose frac so "
+                    "client_num_per_round is a multiple of the device "
+                    "count to keep the two-level routing.",
+                    len(states), self.mesh.devices.size)
+        return robust.weighted_mean(states, w)
+
+    def gossip_mixer(self, M: np.ndarray):
+        """The consensus ``x -> einsum("cj,j...->c...", M, x)`` of a stacked
+        client leaf: ring shifts or the routed exchange over the mesh
+        where ``M``'s pattern allows (``parallel/gossip.py`` ``make_plan``),
+        else the dense einsum."""
+        from neuroimagedisttraining_tpu_torch.parallel import gossip
+
+        plan, arrays = (gossip.make_plan(M, self.mesh, self.num_clients)
+                        if self.mesh is not None else (None, {}))
+        if isinstance(plan, gossip.SparseSpec):
+            return lambda x: gossip.gossip_apply_sparse(
+                {"x": x}, plan, arrays, self.mesh)["x"]
+        if plan is not None:
+            return lambda x: gossip.gossip_apply({"x": x}, plan,
+                                                 self.mesh)["x"]
+        Mt = self.to_device(M)
+        return lambda x: torch.einsum("cj,j...->c...", Mt, x)
 
     def guard_uploads(self, params_up: list[State], bstats_up: list[State],
                       ref_params: State, ref_bstats: State, ns: torch.Tensor,

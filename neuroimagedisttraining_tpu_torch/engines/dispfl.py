@@ -60,8 +60,9 @@ class DisPFLEngine(FederatedEngine):
     trains_sampled = False
 
     def __init__(self, cfg, data, trainer, perms_for=None,
-                 screen_idx_for=None, stream=None):
-        super().__init__(cfg, data, trainer, perms_for, stream=stream)
+                 screen_idx_for=None, stream=None, mesh=None):
+        super().__init__(cfg, data, trainer, perms_for, stream=stream,
+                         mesh=mesh)
         self.screen_idx_for = screen_idx_for
 
     # ---------- start ----------
@@ -95,6 +96,9 @@ class DisPFLEngine(FederatedEngine):
                 w_spa)
 
     # ---------- the round's graph (host) ----------
+
+    def cohort_fallback_key(self) -> str | None:
+        return "gossip-mesh-collectives"
 
     def active_draw(self, round_idx: int) -> np.ndarray:
         """Each real client's Bernoulli(``active``) draw; padding clients
@@ -145,13 +149,14 @@ class DisPFLEngine(FederatedEngine):
         """Each client's mixed ``(params, bstats)``: per weight the
         neighbours' sum over their shared masks' overlap count (0 where it
         is 0), times the client's own mask; BatchNorm stats the
-        neighbours' mean."""
+        neighbours' mean. The sums run over the mesh where the adjacency's
+        pattern allows (:meth:`gossip_mixer`)."""
         At = self.to_device(A)
         deg = At.sum(1)
+        mixer = self.gossip_mixer(A)
 
         def mix(states, k):
-            return torch.einsum("cj,j...->c...", At,
-                                torch.stack([st[k] for st in states]))
+            return mixer(torch.stack([st[k] for st in states]))
 
         C = len(per_params)
         w_local = [{} for _ in range(C)]

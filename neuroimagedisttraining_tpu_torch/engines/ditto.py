@@ -20,12 +20,12 @@ asked for the personal track's permutations with ``track="personal"``.
 from __future__ import annotations
 
 import logging
-import time
 
 import torch
 
 from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.engines.program import RoundStages
 
 log = logging.getLogger(__name__)
 
@@ -36,6 +36,10 @@ class DittoEngine(FederatedEngine):
     supports_byz_faults = True
     supports_secure_quant = True
     supported_defenses = robust.DEFENSES
+    supports_cohort_sharding = True
+
+    def round_stages(self):
+        return RoundStages()
 
     def run_round(self, round_idx, params, bstats, per_params, per_bstats,
                   sampled):
@@ -43,19 +47,18 @@ class DittoEngine(FederatedEngine):
         loss, n_bad)``; ``loss`` is the global track's."""
         f = self.cfg.fed
         lr = self.round_lr(round_idx)
-        ups_p, ups_b, losses, pp, pb = [], [], [], [], []
-        for c, rows in self.client_rows(sampled):
+
+        def both_tracks(c, rows):
             p, b, loss = self.client_train(round_idx, c, rows, params,
                                            bstats, lr, self.cfg.optim.epochs)
-            ups_p.append(p)
-            ups_b.append(b)
-            losses.append(loss)
-            p, b, _ = self.client_train(
+            pp, pb, _ = self.client_train(
                 round_idx, c, rows, per_params[c], per_bstats[c], lr,
                 f.local_epochs, track="personal", prox_lamda=float(f.lamda),
                 prox_ref=params)
-            pp.append(p)
-            pb.append(b)
+            return p, b, loss, pp, pb
+
+        ups_p, ups_b, losses, pp, pb = map(
+            list, zip(*self.map_clients(both_tracks, sampled)))
         new_p, new_b, loss, n_bad = self.defended_aggregate(
             round_idx, sampled, ups_p, ups_b, params, bstats,
             self.to_device(self.n_train[sampled]), torch.stack(losses))
@@ -63,6 +66,10 @@ class DittoEngine(FederatedEngine):
         per_params = self.scatter_sampled_rows(per_params, pp, sampled, real)
         per_bstats = self.scatter_sampled_rows(per_bstats, pb, sampled, real)
         return new_p, new_b, per_params, per_bstats, loss, n_bad
+
+    def window_round(self, carry, round_idx, sampled):
+        *carry, loss, n_bad = self.run_round(round_idx, *carry, sampled)
+        return tuple(carry), {"loss": loss, "n_bad": n_bad}
 
     def train(self, init_state=None) -> dict:
         """The whole run from ``init_state`` (default
@@ -72,26 +79,22 @@ class DittoEngine(FederatedEngine):
         per_params, per_bstats = self.broadcast_states(params, bstats,
                                                        self.num_clients)
         history, round_seconds = [], []
-        for r in range(cfg.fed.comm_round):
-            self.plan_walks(r)
-            sampled = self.client_sampling(r)
-            log.info("round %d: clients %s", r, sampled.tolist())
-            t0 = time.perf_counter()
-            params, bstats, per_params, per_bstats, loss, n_bad = \
-                self.run_round(r, params, bstats, per_params, per_bstats,
-                               sampled)
-            loss_h = self.read_round(r, loss, n_bad)
-            self._sync()
-            round_seconds.append(time.perf_counter() - t0)
+
+        def on_round(r, carry, row, seconds, sampled):
+            round_seconds.append(seconds)
             if self.is_eval_round(r):
-                m = self.eval_personalized(per_params, per_bstats)
-                mg = self.eval_global(params, bstats)
+                m = self.eval_personalized(*carry[2:])
+                mg = self.eval_global(*carry[:2])
                 self.stat_info["person_test_acc"].append(m["acc"])
-                self.metrics(r, train_loss=loss_h, personal=m, global_=mg)
-                history.append({"round": r, "train_loss": loss_h,
+                self.metrics(r, train_loss=row["loss"], personal=m,
+                             global_=mg)
+                history.append({"round": r, "train_loss": row["loss"],
                                 "personal_acc": m["acc"],
                                 "global_acc": mg["acc"]})
                 log.info("round %d: %s", r, history[-1])
+
+        params, bstats, per_params, per_bstats = self.run_rounds(
+            (params, bstats, per_params, per_bstats), on_round)
         m = self.eval_personalized(per_params, per_bstats)
         return {"params": params, "batch_stats": bstats,
                 "personal_params": per_params,

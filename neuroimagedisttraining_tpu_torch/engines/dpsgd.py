@@ -34,13 +34,13 @@ generator. ``stat_info`` records the global accuracy at each evaluation.
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import torch
 
 from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.engines.program import RoundStages
 
 log = logging.getLogger(__name__)
 
@@ -75,6 +75,22 @@ class DPSGDEngine(FederatedEngine):
     trains_sampled = False
     supports_dp = True
     eval_walks = 2
+    supports_cohort_sharding = True
+    cohort_label = "decentralized cohort"
+
+    def round_stages(self):
+        return RoundStages(gathers_cohort=False,
+                           extra_hooked=self._finetune_hooked)
+
+    @staticmethod
+    def _finetune_hooked(r: int) -> bool:
+        """The every-100-rounds fine-tune is a host hook: it ends a
+        window."""
+        return r % FINETUNE_EVERY == FINETUNE_EVERY - 1
+
+    def round_sampling(self, round_idx):
+        log.info("round %d: decentralized cohort", round_idx)
+        return None
 
     def mixing_matrix(self, round_idx: int) -> np.ndarray:
         """Row ``c``: uniform weights over {neighbours(c) ∪ c} among the
@@ -95,14 +111,14 @@ class DPSGDEngine(FederatedEngine):
 
     def consensus(self, per_params, per_bstats, M: np.ndarray):
         """Every client's mixed ``(params, bstats)``: ``M`` applied to the
-        clients' stacked leaves."""
-        Mt = self.to_device(M)
+        clients' stacked leaves (over the mesh where its pattern allows,
+        :meth:`gossip_mixer`)."""
+        mixer = self.gossip_mixer(M)
 
         def mix(states):
             out = [{} for _ in states]
             for k in states[0]:
-                x = torch.einsum("cj,j...->c...", Mt,
-                                 torch.stack([st[k] for st in states]))
+                x = mixer(torch.stack([st[k] for st in states]))
                 for c in range(len(states)):
                     out[c][k] = x[c]
             return out
@@ -130,8 +146,8 @@ class DPSGDEngine(FederatedEngine):
         mixed_p, mixed_b = self.consensus(per_params, per_bstats, M)
         lr = self.round_lr(round_idx)
         f = self.cfg.fed
-        new_p, new_b, losses = [], [], []
-        for c, rows in self.client_rows(range(self.num_clients)):
+
+        def train(c, rows):
             p, b, loss = self.client_train(round_idx, c, rows, mixed_p[c],
                                            mixed_b[c], lr,
                                            self.cfg.optim.epochs)
@@ -141,13 +157,21 @@ class DPSGDEngine(FederatedEngine):
                     p = robust.add_weak_dp_noise(
                         p, self.noise_for("dp", round_idx, c, p),
                         f.dp_sigma * f.dp_clip)
-            new_p.append(p)
-            new_b.append(b)
-            losses.append(loss)
+            return p, b, loss
+
+        new_p, new_b, losses = map(list, zip(*self.map_clients(
+            train, range(self.num_clients))))
         real = self.to_device((self.n_train > 0).astype(np.float32))
         loss = (torch.sum(torch.stack(losses) * real)
                 / torch.clamp(real.sum(), min=1.0))
         return new_p, new_b, loss
+
+    def window_round(self, carry, round_idx, sampled):
+        per_params, per_bstats = carry[:2]
+        per_params, per_bstats, loss = self.run_round(
+            round_idx, per_params, per_bstats, self.mixing_matrix(round_idx))
+        g_params, g_bstats = self.global_mean(per_params, per_bstats)
+        return (per_params, per_bstats, g_params, g_bstats), {"loss": loss}
 
     def finetune(self, g_params, g_bstats):
         """Every client trains ``w_global`` for ``epochs`` at
@@ -171,40 +195,37 @@ class DPSGDEngine(FederatedEngine):
                                                        self.num_clients)
         history, round_seconds = [], []
         warned_skip = False
-        for r in range(cfg.fed.comm_round):
-            self.plan_walks(r)
-            M = self.mixing_matrix(r)
-            log.info("round %d: decentralized cohort", r)
-            t0 = time.perf_counter()
-            per_params, per_bstats, loss = self.run_round(r, per_params,
-                                                          per_bstats, M)
-            g_params, g_bstats = self.global_mean(per_params, per_bstats)
-            loss_h = self.read_round(r, loss)
-            self._sync()
-            round_seconds.append(time.perf_counter() - t0)
+
+        def on_round(r, carry, row, seconds, sampled):
+            nonlocal warned_skip
+            round_seconds.append(seconds)
+            per_params, per_bstats, g_params, g_bstats = carry
             if self.is_eval_round(r):
                 mg = self.eval_global(g_params, g_bstats)
                 mp = self.eval_personalized(per_params, per_bstats)
                 self.stat_info["global_test_acc"].append(mg["acc"])
-                self.metrics(r, train_loss=loss_h, global_=mg, personal=mp)
-                history.append({"round": r, "train_loss": loss_h,
+                self.metrics(r, train_loss=row["loss"], global_=mg,
+                             personal=mp)
+                history.append({"round": r, "train_loss": row["loss"],
                                 "global_acc": mg["acc"],
                                 "personal_acc": mp["acc"]})
                 log.info("round %d: %s", r, history[-1])
-            if (r % FINETUNE_EVERY == FINETUNE_EVERY - 1
-                    and self.stream is not None and not warned_skip):
+            if (self._finetune_hooked(r) and self.stream is not None
+                    and not warned_skip):
                 warned_skip = True
                 log.info("streaming run: skipping the every-100-rounds "
                          "fine-tune DIAGNOSTIC pass (its models are "
                          "evaluated then discarded; no training state "
                          "depends on it)")
-            if (r % FINETUNE_EVERY == FINETUNE_EVERY - 1
-                    and self.stream is None):
+            if self._finetune_hooked(r) and self.stream is None:
                 ft_p, ft_b = self.finetune(g_params, g_bstats)
                 mft = self.eval_personalized(ft_p, ft_b)
                 self.metrics(-1, finetune_after_round=r,
                              finetune_personal=mft)
                 log.info("fine-tune after round %d: %s", r, mft)
+
+        per_params, per_bstats, g_params, g_bstats = self.run_rounds(
+            (per_params, per_bstats, g_params, g_bstats), on_round)
         return {"personal_params": per_params,
                 "personal_batch_stats": per_bstats,
                 "global_params": g_params, "global_batch_stats": g_bstats,

@@ -29,6 +29,7 @@ import time
 
 from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.engines.program import RoundStages
 
 log = logging.getLogger(__name__)
 
@@ -41,6 +42,11 @@ class FedAvgEngine(FederatedEngine):
     supports_secure_quant = True
     wire_uses_ef = True
     supported_defenses = robust.DEFENSES
+    supports_cohort_sharding = True
+    supports_fused_streaming = True
+
+    def round_stages(self):
+        return RoundStages()
 
     def _prox_kwargs(self, global_params) -> dict:
         """Extra ``local_train`` arguments for the round's local training."""
@@ -54,41 +60,39 @@ class FedAvgEngine(FederatedEngine):
             **self._prox_kwargs(params))
         return new_p, new_b, loss, n_bad
 
+    def window_round(self, carry, round_idx, sampled):
+        params, bstats, loss, n_bad = self.run_round(round_idx, *carry,
+                                                     sampled)
+        return (params, bstats), {"loss": loss, "n_bad": n_bad}
+
     def finetune(self, params, bstats):
         """Every client trains the aggregated model for ``epochs`` at
         ``round_lr(-1)``: the personal ``(params, bstats)`` lists."""
         lr = self.round_lr(-1)
-        per_params, per_bstats = [], []
-        for c, rows in self.client_rows(range(self.num_clients)):
-            p, b, _ = self.client_train(self.cfg.fed.comm_round, c, rows,
-                                        params, bstats, lr,
-                                        self.cfg.optim.epochs)
-            per_params.append(p)
-            per_bstats.append(b)
-        return per_params, per_bstats
+        out = self.map_clients(
+            lambda c, rows: self.client_train(
+                self.cfg.fed.comm_round, c, rows, params, bstats, lr,
+                self.cfg.optim.epochs),
+            range(self.num_clients))
+        return [o[0] for o in out], [o[1] for o in out]
 
     def train(self, init_state=None) -> dict:
         """The whole run from ``init_state`` (default
         :meth:`init_global_state`)."""
         cfg = self.cfg
-        params, bstats = self.start_state(init_state)
         history, round_seconds = [], []
-        for r in range(cfg.fed.comm_round):
-            self.plan_walks(r)
-            sampled = self.client_sampling(r)
-            log.info("round %d: clients %s", r, sampled.tolist())
-            t0 = time.perf_counter()
-            params, bstats, loss, n_bad = self.run_round(r, params, bstats,
-                                                         sampled)
-            loss_h = self.read_round(r, loss, n_bad)
-            self._sync()
-            round_seconds.append(time.perf_counter() - t0)
+
+        def on_round(r, carry, row, seconds, sampled):
+            round_seconds.append(seconds)
             if self.is_eval_round(r):
-                m = self.eval_global(params, bstats)
+                m = self.eval_global(*carry)
                 self.stat_info["global_test_acc"].append(m["acc"])
-                self.metrics(r, train_loss=loss_h, **m)
-                history.append({"round": r, "train_loss": loss_h, **m})
+                self.metrics(r, train_loss=row["loss"], **m)
+                history.append({"round": r, "train_loss": row["loss"], **m})
                 log.info("round %d: %s", r, history[-1])
+
+        params, bstats = self.run_rounds(self.start_state(init_state),
+                                         on_round)
         t0 = time.perf_counter()
         per_params, per_bstats = self.finetune(params, bstats)
         self._sync()

@@ -50,8 +50,10 @@ class FedFomoEngine(FederatedEngine):
     name = "fedfomo"
     trains_sampled = False
 
-    def __init__(self, cfg, data, trainer, perms_for=None, stream=None):
-        super().__init__(cfg, data, trainer, perms_for, stream=stream)
+    def __init__(self, cfg, data, trainer, perms_for=None, stream=None,
+                 mesh=None):
+        super().__init__(cfg, data, trainer, perms_for, stream=stream,
+                         mesh=mesh)
         if stream is not None:
             if stream.val_map is None:
                 raise ValueError(

@@ -12,11 +12,11 @@ every client's training rows in chunks (the reference package's
 from __future__ import annotations
 
 import logging
-import time
 
 import torch
 
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.engines.program import RoundStages
 
 log = logging.getLogger(__name__)
 
@@ -24,6 +24,14 @@ log = logging.getLogger(__name__)
 class LocalEngine(FederatedEngine):
     name = "local"
     trains_sampled = False
+    supports_cohort_sharding = True
+    cohort_label = "local-only cohort"
+
+    def round_stages(self):
+        return RoundStages(gathers_cohort=False)
+
+    def round_sampling(self, round_idx):
+        return None
 
     def run_round(self, round_idx, per_params, per_bstats):
         """Every client's local training. Returns ``(per_params,
@@ -31,19 +39,25 @@ class LocalEngine(FederatedEngine):
         lr = self.round_lr(round_idx)
         per_params, per_bstats = list(per_params), list(per_bstats)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        losses = []
-        for c, rows in self.client_rows(range(self.num_clients)):
+
+        def train(c, rows):
             if rows.n == 0:
-                losses.append(zero)
-                continue
-            per_params[c], per_bstats[c], loss = self.client_train(
-                round_idx, c, rows, per_params[c], per_bstats[c], lr,
-                self.cfg.optim.epochs)
-            losses.append(loss)
+                return per_params[c], per_bstats[c], zero
+            return self.client_train(round_idx, c, rows, per_params[c],
+                                     per_bstats[c], lr, self.cfg.optim.epochs)
+
+        out = self.map_clients(train, range(self.num_clients))
+        losses = [o[2] for o in out]
+        for c, o in enumerate(out):
+            per_params[c], per_bstats[c] = o[0], o[1]
         w = self.to_device(self.n_train).to(torch.float32)
         loss = (torch.sum(torch.stack(losses) * w)
                 / torch.clamp(torch.sum(w), min=1e-9))
         return per_params, per_bstats, loss
+
+    def window_round(self, carry, round_idx, sampled):
+        *carry, loss = self.run_round(round_idx, *carry)
+        return tuple(carry), {"loss": loss}
 
     def train(self, init_state=None) -> dict:
         """The whole run from ``init_state`` (default
@@ -53,20 +67,18 @@ class LocalEngine(FederatedEngine):
         per_params, per_bstats = self.broadcast_states(params, bstats,
                                                        self.num_clients)
         history, round_seconds = [], []
-        for r in range(cfg.fed.comm_round):
-            self.plan_walks(r)
-            t0 = time.perf_counter()
-            per_params, per_bstats, loss = self.run_round(r, per_params,
-                                                          per_bstats)
-            loss_h = self.read_round(r, loss)
-            self._sync()
-            round_seconds.append(time.perf_counter() - t0)
+
+        def on_round(r, carry, row, seconds, sampled):
+            round_seconds.append(seconds)
             if self.is_eval_round(r):
-                m = self.eval_personalized(per_params, per_bstats)
+                m = self.eval_personalized(*carry)
                 self.stat_info["person_test_acc"].append(m["acc"])
-                self.metrics(r, train_loss=loss_h, **m)
-                history.append({"round": r, "train_loss": loss_h, **m})
+                self.metrics(r, train_loss=row["loss"], **m)
+                history.append({"round": r, "train_loss": row["loss"], **m})
                 log.info("round %d: %s", r, history[-1])
+
+        per_params, per_bstats = self.run_rounds((per_params, per_bstats),
+                                                 on_round)
         m = self.eval_personalized(per_params, per_bstats)
         self.metrics(-1, personal=m)
         return {"personal_params": per_params,

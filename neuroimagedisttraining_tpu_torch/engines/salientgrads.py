@@ -38,6 +38,7 @@ import torch
 
 from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.engines.program import RoundStages
 from neuroimagedisttraining_tpu_torch.ops import flops as flops_ops
 from neuroimagedisttraining_tpu_torch.ops.masks import mask_density, ones_mask
 from neuroimagedisttraining_tpu_torch.ops.snip import (
@@ -55,12 +56,17 @@ class SalientGradsEngine(FederatedEngine):
     supports_wire_codec = True
     supports_secure_quant = True
     supported_defenses = robust.DEFENSES
+    supports_cohort_sharding = True
     #: the phase-1 mask once made (the codec's mask handoff)
     _masks = None
 
+    def round_stages(self):
+        return RoundStages()
+
     def __init__(self, cfg, data, trainer, perms_for=None, snip_idx_for=None,
-                 stream=None):
-        super().__init__(cfg, data, trainer, perms_for, stream=stream)
+                 stream=None, mesh=None):
+        super().__init__(cfg, data, trainer, perms_for, stream=stream,
+                         mesh=mesh)
         self.snip_idx_for = snip_idx_for
 
     # ---------- phase 1: the global mask ----------
@@ -114,6 +120,11 @@ class SalientGradsEngine(FederatedEngine):
         per_bstats = self.scatter_sampled_rows(per_bstats, ups_b, sampled, real)
         return new_p, new_b, per_params, per_bstats, loss, n_bad
 
+    def window_round(self, carry, round_idx, sampled):
+        *carry, loss, n_bad = self.run_round(round_idx, *carry, self._masks,
+                                             sampled)
+        return tuple(carry), {"loss": loss, "n_bad": n_bad}
+
     def train(self, init_state=None, masks=None) -> dict:
         """The whole run. ``init_state``: initial ``(params, bstats)``
         (default: :meth:`init_global_state`); ``masks``: a phase-1 mask to
@@ -143,31 +154,27 @@ class SalientGradsEngine(FederatedEngine):
         per_params, per_bstats = self.broadcast_states(params, bstats,
                                                        self.num_clients)
         history = []
-        for r in range(cfg.fed.comm_round):
-            self.plan_walks(r)
-            sampled = self.client_sampling(r)
-            t0 = time.perf_counter()
-            params, bstats, per_params, per_bstats, loss, n_bad = \
-                self.run_round(r, params, bstats, per_params, per_bstats,
-                               masks, sampled)
-            loss_h = self.read_round(r, loss, n_bad)
-            self._sync()
-            entry = {"round": r, "train_loss": loss_h,
-                     "round_seconds": time.perf_counter() - t0}
+
+        def on_round(r, carry, row, seconds, sampled):
+            entry = {"round": r, "train_loss": row["loss"],
+                     "round_seconds": seconds}
             n_samples = float(np.sum(self.n_train[sampled]))
             self.stat_info["sum_training_flops"] += (
                 flops_per_sample * cfg.optim.epochs * n_samples)
             self.stat_info["sum_comm_params"] += comm_per_client * len(sampled)
             if self.is_eval_round(r):
-                m = self.eval_global(params, bstats)
-                mp = self.eval_personalized(per_params, per_bstats)
+                m = self.eval_global(*carry[:2])
+                mp = self.eval_personalized(*carry[2:])
                 self.stat_info["global_test_acc"].append(m["acc"])
                 self.stat_info["person_test_acc"].append(mp["acc"])
-                self.metrics(r, train_loss=loss_h, **m,
+                self.metrics(r, train_loss=row["loss"], **m,
                              personal_acc=mp["acc"])
                 entry.update(m, personal_acc=mp["acc"])
             log.info("round %d: %s", r, entry)
             history.append(entry)
+
+        params, bstats, per_params, per_bstats = self.run_rounds(
+            (params, bstats, per_params, per_bstats), on_round)
         m_global = self.eval_global(params, bstats)
         m_person = self.eval_personalized(per_params, per_bstats)
         self.metrics(-1, global_=m_global, personal=m_person)

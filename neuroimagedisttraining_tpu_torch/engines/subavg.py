@@ -31,12 +31,12 @@ and the dense training FLOPs of the round's samples and epochs.
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import torch
 
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.engines.program import RoundStages
 from neuroimagedisttraining_tpu_torch.ops import flops as flops_ops
 from neuroimagedisttraining_tpu_torch.ops.masks import ones_mask
 from neuroimagedisttraining_tpu_torch.ops.prune import (
@@ -57,6 +57,10 @@ def _f32(x: float) -> torch.Tensor:
 
 class SubFedAvgEngine(FederatedEngine):
     name = "subavg"
+    supports_cohort_sharding = True
+
+    def round_stages(self):
+        return RoundStages()
 
     def client_round(self, round_idx: int, c: int, rows, params, bstats,
                      mask, lr):
@@ -115,10 +119,11 @@ class SubFedAvgEngine(FederatedEngine):
         outs)``, ``outs`` the device scalars ``[loss, mean_dist, n_accept,
         up_nnz]``."""
         lr = self.round_lr(round_idx)
-        ups_p, ups_b, new_m, losses, dists, accepts = map(list, zip(*(
-            self.client_round(round_idx, c, rows, params, bstats,
-                              mask_pers[c], lr)
-            for c, rows in self.client_rows(sampled))))
+        ups_p, ups_b, new_m, losses, dists, accepts = map(list, zip(
+            *self.map_clients(
+                lambda c, rows: self.client_round(round_idx, c, rows, params,
+                                                  bstats, mask_pers[c], lr),
+                sampled)))
         real = self.n_train[sampled] > 0
         r = self.to_device(real.astype(np.float32))
         n_real = torch.clamp(r.sum(), min=1.0)
@@ -134,6 +139,13 @@ class SubFedAvgEngine(FederatedEngine):
         outs = torch.cat([outs, torch.sum(up_nnz * r.to(torch.float64))[None]])
         mask_pers = self.scatter_sampled_rows(mask_pers, new_m, sampled, real)
         return new_params, new_bstats, mask_pers, outs
+
+    def window_round(self, carry, round_idx, sampled):
+        params, bstats, mask_pers, outs = self.run_round(round_idx, *carry,
+                                                         sampled)
+        return (params, bstats, mask_pers), {
+            "loss": outs[0], "mean_dist": outs[1], "n_accept": outs[2],
+            "up_nnz": outs[3], "nnz": self.masks_nnz(mask_pers)}
 
     def eval_masked_global(self, params, bstats, mask_pers) -> dict:
         """Client ``c`` evaluates ``w_global * mask_c`` with the global
@@ -151,24 +163,19 @@ class SubFedAvgEngine(FederatedEngine):
             self.trainer.model, self.sample_shape)
         n_params = sum(v.numel() for v in params.values())
         history, round_seconds = [], []
-        for r in range(cfg.fed.comm_round):
-            self.plan_walks(r)
-            sampled = self.client_sampling(r)
-            log.info("round %d: clients %s", r, sampled.tolist())
-            t0 = time.perf_counter()
-            params, bstats, mask_pers, outs = self.run_round(
-                r, params, bstats, mask_pers, sampled)
-            loss, mean_dist, n_accept, up_nnz = outs.tolist()  # one read
-            self._sync()
-            round_seconds.append(time.perf_counter() - t0)
+
+        def on_round(r, carry, row, seconds, sampled):
+            round_seconds.append(seconds)
+            loss, mean_dist, n_accept = (row["loss"], row["mean_dist"],
+                                         row["n_accept"])
             n_samples = float(np.sum(self.n_train[sampled]))
             self.stat_info["sum_training_flops"] += (
                 flops_per_sample * cfg.optim.epochs * n_samples)
             self.stat_info["sum_comm_params"] += (n_params * len(sampled)
-                                                  + up_nnz)
-            self.warn_if_masks_collapsed(mask_pers, r)
+                                                  + row["up_nnz"])
+            self.warn_collapsed(row["nnz"], r)
             if self.is_eval_round(r):
-                mp = self.eval_masked_global(params, bstats, mask_pers)
+                mp = self.eval_masked_global(*carry)
                 self.stat_info["person_test_acc"].append(mp["acc"])
                 self.metrics(r, train_loss=loss, personal=mp,
                              mean_mask_dist=mean_dist,
@@ -178,6 +185,9 @@ class SubFedAvgEngine(FederatedEngine):
                                 "mean_mask_dist": mean_dist,
                                 "prunes_accepted": int(n_accept)})
                 log.info("round %d: %s", r, history[-1])
+
+        params, bstats, mask_pers = self.run_rounds(
+            (params, bstats, mask_pers), on_round)
         m_person = self.eval_masked_global(params, bstats, mask_pers)
         self.metrics(-1, personal=m_person)
         densities = torch.stack([density_all_leaves(_times(params, m))

@@ -50,9 +50,22 @@ class TurboAggregateEngine(FedAvgEngine):
     supports_byz_faults = False
     supports_wire_codec = False
     supported_defenses = robust.CLIP_DEFENSES
+    # the round crosses the host at the MPC share boundary every round
+    supports_cohort_sharding = False
 
-    def __init__(self, cfg, data, trainer, perms_for=None, stream=None):
-        super().__init__(cfg, data, trainer, perms_for, stream=stream)
+    def round_stages(self):
+        return None
+
+    def cohort_fallback_key(self) -> str | None:
+        return "mpc-host-boundary"
+
+    def fused_fallback_key(self) -> str | None:
+        return "mpc-host-stage"
+
+    def __init__(self, cfg, data, trainer, perms_for=None, stream=None,
+                 mesh=None):
+        super().__init__(cfg, data, trainer, perms_for, stream=stream,
+                         mesh=mesh)
         if cfg.fed.mpc_backend not in MPC_BACKENDS:
             raise ValueError(f"unknown mpc_backend {cfg.fed.mpc_backend!r} "
                              f"(have {MPC_BACKENDS})")

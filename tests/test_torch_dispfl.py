@@ -4,10 +4,11 @@ initial masks (the reference's draw, passed in) and gradient-probe rows
 (replayed from the rng the reference's ``local_train`` leaves behind), with
 both switches of the flagship path on (``--fused_update``,
 ``NIDT_FAST_STEM=1``; on the CPU both sides take their plain paths).
-AlexNet3D at 69^3, batch 3 (one step an epoch), 1 epoch, 2 rounds over 4
-clients with 2 random neighbours each (``--frac 0.5``) and activity 0.75
-(client 1 inactive in round 0, client 0 in round 1), ERK masks at dense
-ratio 0.5, ``--save_masks``.
+Tiny3DCNN at 12x14x12 (test_torch_flagship_engines.py holds the engine
+against the reference on the flagship model at 69^3), batch 3 (one step
+an epoch), 1 epoch, 2 rounds over 4 clients with 2 random neighbours
+each (``--frac 0.5``) and activity 0.75 (client 1 inactive in round 0,
+client 0 in round 1), ERK masks at dense ratio 0.5, ``--save_masks``.
 
 The runs take several SGD steps, so states are held at
 ``torch_port_support.TRAJECTORY``. Fire ranks |w| and regrow |grad|, so an
@@ -35,7 +36,8 @@ from neuroimagedisttraining_tpu_torch.weights import (
 
 from torch_port_support import (
     EVAL_LOSS_RTOL, LOSS_RTOL, TRAJECTORY, assert_metrics_close,
-    assert_state_close, four_client_federation, run_engine_pair,
+    TINY_MODEL, TINY_SHAPE, assert_state_close, four_client_federation,
+    run_engine_pair,
     torch_threads,
 )
 
@@ -65,10 +67,12 @@ def run(tmp_path_factory):
     try:
         with torch_threads(2):
             before = sum(_cuda.counts().values())
-            out = run_engine_pair("dispfl", four_client_federation(),
+            out = run_engine_pair("dispfl",
+                                  four_client_federation(TINY_SHAPE),
                                   OPTIM, FED,
                                   tmp_path_factory.mktemp("dispfl"),
-                                  sparsity=SPARSITY)
+                                  sparsity=SPARSITY, shape=TINY_SHAPE,
+                                  model=TINY_MODEL)
             # CPU tensors: plain paths only, no kernel launched
             assert sum(_cuda.counts().values()) == before
             yield out

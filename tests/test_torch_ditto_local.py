@@ -3,9 +3,11 @@ port's on the same federation, initial weights, epoch permutations (Ditto's
 personal track from each client's round key folded with 1) and dropout
 keep-masks, with both switches of the flagship path on (``--fused_update``,
 ``NIDT_FAST_STEM=1``; on the CPU both sides take their plain paths).
-AlexNet3D at 69^3, batch 2, 1 round of 1 epoch (Ditto: 1 personal epoch)
-over 3 clients: two site clients and a third with test rows but no
-training rows, which is never sampled (Ditto) or takes no step (Local).
+Tiny3DCNN at 12x14x12 (test_torch_flagship_engines.py holds both engines
+against the reference on the flagship model at 69^3), batch 2, 1 round
+of 1 epoch (Ditto: 1 personal epoch) over 3 clients: two site clients
+and a third with test rows but no training rows, which is never sampled
+(Ditto) or takes no step (Local).
 The runs take several SGD steps, so they are held at the tolerances of
 ``torch_port_support.TRAJECTORY`` (a ReLU input within float32 rounding of
 0 is active on one side only); test_torch_engines.py holds the engines'
@@ -27,10 +29,11 @@ from torch_port_support import (
 OPTIM = dict(batch_size=2, epochs=1, fused_update=True)
 FED = dict(client_num_in_total=3, comm_round=1, frequency_of_the_test=1,
            lamda=0.5, local_epochs=1)
+MODEL, SHAPE = "3dcnn_tiny", (12, 14, 12)
 
 
 def _federation():
-    c = generate_synthetic_abcd(num_subjects=12, shape=(69, 69, 69),
+    c = generate_synthetic_abcd(num_subjects=12, shape=SHAPE,
                                 num_sites=2, seed=0)
     train_map, test_map, _ = site_partition(c["site"], seed=42)
     train_map[2] = np.array([], dtype=np.int64)
@@ -51,7 +54,8 @@ def runs(tmp_path_factory):
             for name in ("ditto", "local"):
                 before = sum(_cuda.counts().values())
                 out[name] = run_engine_pair(name, data, OPTIM, FED,
-                                            tmp_path_factory.mktemp(name))
+                                            tmp_path_factory.mktemp(name),
+                                            shape=SHAPE, model=MODEL)
                 # CPU tensors: plain paths only, no kernel launched
                 assert sum(_cuda.counts().values()) == before
             yield out

@@ -4,8 +4,10 @@
   the reference's, bit for bit, for ``cs`` random, ring and full over 50
   rounds (numpy's global stream reseeded as the reference reseeds it).
 - The whole run: both engines on the same federation, initial weights,
-  epoch permutations and dropout keep-masks (AlexNet3D at 69^3, batch 3,
-  1 epoch, 2 rounds over 4 clients, ``--frac 0.5`` so each client mixes
+  epoch permutations and dropout keep-masks (Tiny3DCNN at 12x14x12:
+  test_torch_flagship_engines.py holds the engine and its fine-tune
+  against the reference on the flagship model at 69^3; batch 3, 1 epoch,
+  2 rounds over 4 clients, ``--frac 0.5`` so each client mixes
   with 2 random others, ``--fused_update`` and ``NIDT_FAST_STEM=1``: on
   the CPU both sides take their plain paths). Several SGD steps chain, so
   personal and global states are held at ``torch_port_support.TRAJECTORY``
@@ -45,7 +47,8 @@ from neuroimagedisttraining_tpu_torch.ops import _cuda
 from test_torch_engines import Recorder
 from torch_port_support import (
     LOSS_RTOL, TRAJECTORY, assert_metrics_close, assert_state_close,
-    dropout_masks, fixed_dropout, four_client_federation, run_engine_pair,
+    TINY_MODEL, TINY_SHAPE, fixed_dropout, four_client_federation,
+    model_dropout_masks, run_engine_pair,
     torch_threads,
 )
 
@@ -64,8 +67,10 @@ def run(tmp_path_factory):
     try:
         with torch_threads(2):
             before = sum(_cuda.counts().values())
-            out = run_engine_pair("dpsgd", four_client_federation(), OPTIM,
-                                  FED, tmp_path_factory.mktemp("dpsgd"))
+            out = run_engine_pair("dpsgd", four_client_federation(TINY_SHAPE),
+                                  OPTIM, FED,
+                                  tmp_path_factory.mktemp("dpsgd"),
+                                  shape=TINY_SHAPE, model=TINY_MODEL)
             # CPU tensors: plain paths only, no kernel launched
             assert sum(_cuda.counts().values()) == before
             yield out
@@ -161,7 +166,8 @@ def test_finetune_matches_reference_finetune(run):
     the stem BatchNorm scale's change in one element)."""
     _, _, jeng, peng, (init_p, init_b) = run
     gs = jeng.init_global_state()
-    jmasks, _ = dropout_masks(OPTIM["batch_size"], 128, seed=1)
+    jmasks, _ = model_dropout_masks(TINY_MODEL, TINY_SHAPE,
+                                    OPTIM["batch_size"], seed=1)
     with fixed_dropout(jmasks):
         ft_p, ft_b = jeng._finetune_jit(
             gs.params, gs.batch_stats, jeng.data,

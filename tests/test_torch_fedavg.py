@@ -3,10 +3,11 @@ package's engine and the port's on the same cohort, initial weights, epoch
 permutations (the round's and the fine-tune's) and dropout keep-masks,
 with both switches of the flagship path on (``--fused_update``,
 ``NIDT_FAST_STEM=1``; on the CPU both sides take their plain paths).
-FedProx on AlexNet3D at 69^3, FedAvg on Tiny3DCNN at 12x14x12 (the
-AlexNet family's FedAvg pairs at 69^3 are in test_torch_zoo.py), 2 site
-clients, batch 2, 1 round of 1 epoch. The runs
-take several SGD steps, so they are held at the tolerances of
+Both on Tiny3DCNN at 12x14x12 (the AlexNet family's FedAvg pairs at 69^3
+are in test_torch_zoo.py, and test_torch_flagship_engines.py holds FedProx
+against the reference on the flagship model at 69^3), 2 site clients,
+batch 2, 1 round of 1 epoch. The runs take several SGD steps, so they are
+held at the tolerances of
 ``torch_port_support.TRAJECTORY`` (a ReLU input within float32 rounding of
 0 is active on one side only); test_torch_engines.py holds the engines'
 logic exactly."""
@@ -32,11 +33,11 @@ OPTIM = dict(batch_size=2, epochs=1, fused_update=True)
 FED = dict(client_num_in_total=2, comm_round=1, frequency_of_the_test=1)
 
 
-#: the model and volume of each pair: FedProx's on the flagship model at
-#: the stem's width, FedAvg's on the tiny model (test_torch_zoo.py holds
-#: FedAvg pairs on the AlexNet family at 69^3)
+#: the model and volume of each pair: the tiny model (test_torch_zoo.py
+#: holds FedAvg pairs on the AlexNet family at 69^3, and
+#: test_torch_flagship_engines.py holds FedProx on the flagship at 69^3)
 PAIRS = {"fedavg": ("3dcnn_tiny", (12, 14, 12)),
-         "fedprox": ("3DCNN", (69, 69, 69))}
+         "fedprox": ("3dcnn_tiny", (12, 14, 12))}
 
 
 def _cohort(shape=(69, 69, 69)):

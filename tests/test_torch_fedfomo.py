@@ -12,11 +12,13 @@
   trajectory because the weights divide a difference of validation losses
   by a distance, and a weight near 0 that changes sign changes what the
   ReLU lets through.
-- The whole run: both engines on the same federation (AlexNet3D at 69^3,
-  4 clients with a validation split of 0.2 of their training rows, batch
-  3, 1 epoch, 2 rounds, ``--frac 0.5``), initial weights, permutations and
-  dropout keep-masks, with ``--fused_update`` and ``NIDT_FAST_STEM=1`` (plain
-  paths on the CPU): personal states at ``TRAJECTORY``, the count of
+- The whole run: both engines on the same federation (Tiny3DCNN at
+  12x14x12: test_torch_flagship_engines.py holds the engine against the
+  reference on the flagship model at 69^3; 4 clients with a validation
+  split of 0.2 of their training rows, batch 3, 1 epoch, 2 rounds,
+  ``--frac 0.5``), initial weights, permutations and dropout keep-masks,
+  with ``--fused_update`` and ``NIDT_FAST_STEM=1`` (plain paths on the
+  CPU): personal states at ``TRAJECTORY``, the count of
   weight entries whose sign differs reported and bounded.
 - The refusal to run without a validation split (constructor and CLI).
 """
@@ -46,7 +48,8 @@ from neuroimagedisttraining_tpu_torch.weights import params_from_flax
 
 from torch_port_support import (
     LOSS_RTOL, TRAJECTORY, assert_metrics_close, assert_state_close,
-    four_client_federation, run_engine_pair, torch_threads,
+    TINY_MODEL, TINY_SHAPE, four_client_federation, run_engine_pair,
+    torch_threads,
 )
 
 OPTIM = dict(batch_size=3, epochs=1, fused_update=True)
@@ -68,7 +71,7 @@ MODEL_RTOL = 2e-3
 
 
 def _federation():
-    X, y, train, test = four_client_federation()
+    X, y, train, test = four_client_federation(TINY_SHAPE)
     val, train = JF.carve_val_split(train, VAL_FRACTION, seed=42)
     return (X, y, train, test), val
 
@@ -99,7 +102,8 @@ def run(tmp_path_factory):
             data, val = _federation()
             out = run_engine_pair("fedfomo", data, OPTIM, FED,
                                   tmp_path_factory.mktemp("fedfomo"),
-                                  val_map=val)
+                                  val_map=val, shape=TINY_SHAPE,
+                                  model=TINY_MODEL)
             jax.effects_barrier()
             assert sum(_cuda.counts().values()) == before
             assert len(captured) == FED["comm_round"]

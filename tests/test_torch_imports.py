@@ -76,7 +76,10 @@ def test_port_imports_without_jax_or_cuda():
     "models/darts.py", "faults/adversary.py", "core/robust.py",
     "privacy/__init__.py", "privacy/accountant.py", "codec/__init__.py",
     "codec/wire.py", "codec/device.py", "faults/__init__.py",
-    "ops/masks.py"])
+    "ops/masks.py", "engines/program.py", "core/graphs.py",
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/topology.py",
+    "parallel/cohort.py", "parallel/hierarchical.py", "parallel/gossip.py",
+    "parallel/spatial.py"])
 def test_engine_slice_modules_are_checked(module):
     """The engines', the data planes', the model zoo's (the 2D one with its
     vision data included), the precision contract's and the defended

@@ -7,6 +7,8 @@ inputs made with numpy from a seed. The CUDA kernels themselves are held
 against the same plain versions on the card by ``chip_smoke.py``.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -354,16 +356,31 @@ def test_plan_chunks_refuses_what_no_table_holds():
                                                 (32, 33, 32, 33))
 
 
+@functools.lru_cache(maxsize=None)
+def _norm_case(which: str):
+    """Leaves and ``optax.global_norm`` of them, drawn and computed once a
+    module for every block count: ``"table"`` 32 ragged leaves (a full
+    table), ``"resnet18"`` resnet18's 62 leaves (two tables),
+    ``"ragged140"`` 140 ragged leaves (five tables)."""
+    rng = np.random.default_rng({"table": 0, "resnet18": 100,
+                                 "ragged140": 101}[which])
+    if which == "table":
+        sizes = [int(n) for n in rng.integers(1, 30_000, 31)] + [70_001]
+    elif which == "resnet18":
+        sizes = RESNET18_SIZES
+    else:
+        sizes = [int(n) for n in rng.integers(0, 9_000, 140)]
+    leaves = [(rng.standard_normal(n) * rng.choice([1e-3, 1.0, 30.0])
+               ).astype(np.float32) for n in sizes]
+    return leaves, float(optax.global_norm([jnp.asarray(a) for a in leaves]))
+
+
 @pytest.mark.parametrize("nblocks", [1, 7, 1056])
 def test_global_norm_blocked_matches_optax(nblocks):
     """The kernel's blocked fp64 norm (chunks dealt to blocks, fp64
     partials, one rounding of the sqrt), over 32 ragged leaves (a full
     table), == ``optax.global_norm`` within rtol 2e-6."""
-    rng = np.random.default_rng(nblocks)
-    sizes = [int(n) for n in rng.integers(1, 30_000, 31)] + [70_001]
-    leaves = [(rng.standard_normal(n) * rng.choice([1e-3, 1.0, 30.0])
-               ).astype(np.float32) for n in sizes]
-    ref = float(optax.global_norm([jnp.asarray(a) for a in leaves]))
+    leaves, ref = _norm_case("table")
     port = PFU.global_norm_blocked([_t(a) for a in leaves], nblocks)
     assert port.dtype == torch.float32
     assert float(port) == pytest.approx(ref, rel=2e-6)
@@ -374,12 +391,8 @@ def test_global_norm_blocked_over_tables_matches_optax(nblocks):
     """The same over resnet18's 62 leaves (two tables, each launch's blocks
     writing their partials into one buffer) and over 140 ragged leaves
     (five tables): within rtol 2e-6 of ``optax.global_norm``."""
-    rng = np.random.default_rng(100 + nblocks)
-    for sizes in (RESNET18_SIZES, [int(n) for n in rng.integers(0, 9_000,
-                                                                140)]):
-        leaves = [(rng.standard_normal(n) * rng.choice([1e-3, 1.0, 30.0])
-                   ).astype(np.float32) for n in sizes]
-        ref = float(optax.global_norm([jnp.asarray(a) for a in leaves]))
+    for which in ("resnet18", "ragged140"):
+        leaves, ref = _norm_case(which)
         port = PFU.global_norm_blocked([_t(a) for a in leaves], nblocks)
         assert float(port) == pytest.approx(ref, rel=2e-6)
 

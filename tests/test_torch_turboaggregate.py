@@ -8,8 +8,10 @@ package.
   field and on NaN and infinities, whatever masks either side draws; the
   server's intermediates never equal a client's quantized update.
 - The whole run: both engines on the same federation, initial weights,
-  permutations and dropout keep-masks (AlexNet3D at 69^3, batch 3, 1
-  epoch, 2 rounds over 4 clients, ``--frac 0.75`` so 3 clients a round,
+  permutations and dropout keep-masks (Tiny3DCNN at 12x14x12:
+  test_torch_flagship_engines.py holds the engine against the reference
+  on the flagship model at 69^3; batch 3, 1 epoch, 2 rounds over 4
+  clients, ``--frac 0.75`` so 3 clients a round,
   then FedAvg's fine-tune), the reference's share stage on its device
   backend and the port's on each ``mpc_backend`` (the two reference
   backends differ by at most one fixed-point unit a client, far inside
@@ -45,7 +47,8 @@ from neuroimagedisttraining_tpu_torch.ops import mpc_device as PD
 
 from torch_port_support import (
     LOSS_RTOL, TRAJECTORY, assert_metrics_close, assert_state_close,
-    four_client_federation, run_engine_pair, torch_threads,
+    TINY_MODEL, TINY_SHAPE, four_client_federation, run_engine_pair,
+    torch_threads,
 )
 
 P = PM.P_DEFAULT
@@ -162,9 +165,10 @@ def run(tmp_path_factory):
         with torch_threads(2):
             before = sum(_cuda.counts().values())
             jres, pres, jeng, peng, init = run_engine_pair(
-                "turboaggregate", four_client_federation(), OPTIM,
+                "turboaggregate", four_client_federation(TINY_SHAPE), OPTIM,
                 dict(FED, mpc_backend="device"),
-                tmp_path_factory.mktemp("turbo"))
+                tmp_path_factory.mktemp("turbo"), shape=TINY_SHAPE,
+                model=TINY_MODEL)
             cfg = dataclasses.replace(peng.cfg, fed=dataclasses.replace(
                 peng.cfg.fed, mpc_backend="host"))
             host = type(peng)(cfg, peng.data, peng.trainer,

@@ -77,14 +77,21 @@ def model_dropout_masks(model: str, shape, batch: int, seed: int = 0):
     return dropout_masks(batch, flat_features(tuple(shape), width), seed)
 
 
-def four_client_federation():
-    """16 synthetic subjects at 69^3 over 4 clients of 2-3 training rows
-    and 1-2 test rows each: ``(X, y, train_map, test_map)``."""
+#: the engine pairs' model where another file holds the engine against the
+#: reference at the stem's width (test_torch_flagship_engines.py: Ditto,
+#: Local, DisPFL, D-PSGD, FedFomo, TurboAggregate and FedProx on the
+#: flagship model at 69^3)
+TINY_MODEL, TINY_SHAPE = "3dcnn_tiny", (12, 14, 12)
+
+
+def four_client_federation(shape=(69, 69, 69)):
+    """16 synthetic subjects of ``shape`` over 4 clients of 2-3 training
+    rows and 1-2 test rows each: ``(X, y, train_map, test_map)``."""
     from neuroimagedisttraining_tpu.data.synthetic import (
         generate_synthetic_abcd,
     )
 
-    c = generate_synthetic_abcd(num_subjects=16, shape=(69, 69, 69),
+    c = generate_synthetic_abcd(num_subjects=16, shape=tuple(shape),
                                 num_sites=4, seed=0)
     rows = [[0, 1, 2], [3, 4, 5], [6, 7], [8, 9, 10]]
     tests = [[11], [12], [13], [14, 15]]
@@ -217,7 +224,9 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
     Returns
     ``(reference result, port result, reference engine, port engine, port
     initial state)``; the port engine's ``rerun()`` runs it again with the
-    same inputs."""
+    same inputs, and ``rebuild(fed_over, mesh)`` makes a port engine of
+    the same inputs with the port's ``FedConfig`` fields ``fed_over``
+    replaced, on the device mesh ``mesh``."""
     from neuroimagedisttraining_tpu.config import (
         DataConfig as JData, ExperimentConfig as JExp, FedConfig as JFed,
         OptimConfig as JOptim, SparsityConfig as JSparsity,
@@ -297,22 +306,31 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
         train_kw["masks"] = masks_from_flax(jax.tree.map(np.asarray,
                                                          jres["masks"]))
 
-    def port_engine():
+    def port_engine(fed_over=None, mesh=None):
+        cfg = pcfg
+        if fed_over:
+            import dataclasses
+
+            cfg = dataclasses.replace(pcfg, fed=dataclasses.replace(
+                pcfg.fed, **fed_over))
         trainer = LocalTrainer(create_model(model, tuple(shape), num_classes,
                                             dtype=compute_dtype(precision)),
-                               pcfg.optim, cpu,
+                               cfg.optim, cpu,
                                torch.Generator().manual_seed(seed),
                                dropout_masks=pmasks, num_classes=num_classes)
-        peng = create_engine(name, pcfg, pfed, trainer,
+        peng = create_engine(name, cfg, pfed, trainer,
                              perms_for=reference_perms(
                                  jeng, nmax, epochs,
-                                 fed.get("local_epochs", 1)), **engine_kw)
-        peng.rerun = lambda: port_engine().train(init_state=init, **train_kw)
+                                 fed.get("local_epochs", 1)), mesh=mesh,
+                             **engine_kw)
+        peng.rerun = lambda: port_engine(fed_over, mesh).train(
+            init_state=init, **train_kw)
         if setup is not None:
             setup(jeng, peng)
         return peng
 
     peng = port_engine()
+    peng.rebuild = port_engine
     pres = peng.train(init_state=init, **train_kw)
     return jres, pres, jeng, peng, init
 
