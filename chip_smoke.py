@@ -8,6 +8,8 @@
     python3 chip_smoke.py --defense  # kernels, then step 10 (defended) alone
     python3 chip_smoke.py --secure   # kernels, then step 11 (secure) alone
     python3 chip_smoke.py --dispatch # kernels, then step 12 (dispatch) alone
+    python3 chip_smoke.py --ops      # kernels, then step 13 (checkpoints,
+                                     # telemetry) alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
@@ -186,7 +188,38 @@
    ``--mesh_shape 2 2`` aggregating silo first within 1e-6 of the flat
    mean, D-PSGD over a ring on 4 entries through ring shifts within 1e-6
    of its einsum.
-13. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+13. Checkpoints and the run's telemetry (``ops_phase``): SalientGrads and
+   FedAvg (``--frac 0.75``) on the flagship slice for 4 rounds with
+   ``--checkpoint_every 2``, then resumed in a fresh engine (fresh graphs)
+   from round 1's checkpoint alone: models, masks and per-round losses
+   bit-equal to the uninterrupted run, rounds 2-3's launches equal (no
+   ``kth_select`` on a SalientGrads resume), and again with
+   ``--rounds_per_dispatch 4`` (rounds 2-3 one window); a flagship
+   SalientGrads checkpoint's save (the encode from the card and the
+   write, as the engine makes it) and load seconds and bytes; FedAvg's
+   5-round windows with ``--health_stats`` against without, bit-equal, no
+   sync inside an armed window (sync debug mode) that captures its step
+   graphs nor in one that replays them, each window's seconds, round 0's
+   stats within 1e-5 of a float64 recomputation from the same uploads (of
+   each stat's scale, 1 for the cosines); FedAvg through the CLI's ``run`` in fp32 and
+   bf16_mixed with ``/metrics`` and ``/healthz`` scraped over localhost
+   during the run, the ``--trace_out`` file parsed as Chrome trace events,
+   the spans found as ``record_function`` ranges in the ``--profile_dir``
+   trace, and each run's sustained TFLOP/s and MFU beside its peak; the
+   FLOP counter's count of one flagship step (the plain stem) against the
+   analytic count; a ``byz:1@1:sign_flip`` run under the built-in rules
+   with ``--actions dry_run``, printing each boundary's snapshot of the
+   metrics the rules read and what fired (the witness that
+   ``tests/test_torch_health.py`` feeds to both packages' rule engines);
+   a ``freeze_rollback`` under ``--actions on`` dispatched by a rule
+   (the built-in ``update-norm-blowup`` at one round and a threshold of
+   10) when ``byz:1@1:scale:100`` blows up round 1's update norms,
+   restoring round 0's pin bit for bit, the next round's graph replays
+   bit-equal to the same round run eagerly; ``preempt:2@2`` on a
+   4-entry mesh (``--client_mesh 4 --virtual_devices 4
+   --checkpoint_every 1``) bit-equal to a fresh run
+   resumed from round 1's checkpoint on 2 entries, with its peak memory.
+14. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -199,7 +232,7 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-14. Prints the run's seconds, one JSON line per kernel, the
+15. Prints the run's seconds, one JSON line per kernel, the
    ``{"kernels": [...]}`` line (each kernel's launches on its main path,
    SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
    run), and last ``{"ok": true, "device": {...}}``.
@@ -686,8 +719,7 @@ def stream_phase(card, dev, flagship, build_experiment, synthetic,
             out = {"streamed": algorithm, "card": card,
                    "chunk_clients": STREAM_CHUNK,
                    "source": "memmap .npy",
-                   "round_seconds": result.get("round_seconds") or [
-                       h["round_seconds"] for h in result["history"]],
+                   "round_seconds": result["round_seconds"],
                    "round_seconds_resident": res["round_seconds"],
                    "train_seconds": train_s,
                    "train_seconds_resident": res["train_seconds"],
@@ -1042,8 +1074,7 @@ def zoo_precision_phase(card, dev, flagship, build_experiment,
         dtypes = sorted(str(d) for d in float_dtypes(res))
         out = {"engine": algorithm, "precision": "bf16_mixed", "card": card,
                "launches": got, "local_steps": steps,
-               "round_seconds": res.get("round_seconds") or [
-                   h["round_seconds"] for h in res["history"]],
+               "round_seconds": res["round_seconds"],
                "round_seconds_fp32": f32.get("round_seconds"),
                "phase1_seconds": res.get("phase1_seconds"),
                "phase1_seconds_fp32": f32.get("phase1_seconds"),
@@ -1416,7 +1447,7 @@ def vision_phase(card, dev, build_experiment, by_path: dict) -> None:
             sorted(set(info["train_counts"])), "data_gb": data_gb,
         "setup_seconds": setup_s, "train_seconds": train_s,
         "phase1_seconds": result["phase1_seconds"],
-        "round_seconds": [h["round_seconds"] for h in result["history"]],
+        "round_seconds": result["round_seconds"],
         "train_loss": losses, "mask_density": result["mask_density"],
         "final_global": result["final_global"],
         "final_personal": result["final_personal"], "launches": got,
@@ -1836,7 +1867,7 @@ def darts_phase(card, dev, build_experiment, by_path: dict) -> None:
         "clients": engine.num_clients, "leaves": len(result["params"]),
         "setup_seconds": setup_s, "train_seconds": train_s,
         "phase1_seconds": result["phase1_seconds"],
-        "round_seconds": [h["round_seconds"] for h in result["history"]],
+        "round_seconds": result["round_seconds"],
         "train_loss": losses, "mask_density": result["mask_density"],
         "final_global": result["final_global"],
         "final_personal": result["final_personal"], "launches": got,
@@ -2717,10 +2748,8 @@ def dispatch_phase(card, dev, flagship, build_experiment,
         out = {
             "engine": algorithm, "card": card, "bit_equal": equal,
             "train_loss_k1": l1, "train_loss_k4": l4,
-            "round_seconds_k1": r1.get("round_seconds") or [
-                h["round_seconds"] for h in r1["history"]],
-            "round_seconds_k4": r4.get("round_seconds") or [
-                h["round_seconds"] for h in r4["history"]],
+            "round_seconds_k1": r1["round_seconds"],
+            "round_seconds_k4": r4["round_seconds"],
             "train_seconds": {"k1_eager": s1, "k4": s4},
             "host_reads": {"k1": reads1, "k4": reads4},
             "graph_captures": e4.program.built,
@@ -2850,6 +2879,7 @@ def dispatch_phase(card, dev, flagship, build_experiment,
     if one_eng._cohort_on or not one_logged:
         fail("fedavg --client_mesh 1 did not log the one-device fallback")
     del sharded_eng, one_eng, sharded, plain
+    free_card()
     # silo first on a 2 x 2 mesh against the flat mean: one round of 4
     flat_eng, flat, _ = flag_run("fedavg_flat", "fedavg", "--comm_round",
                                  "1")
@@ -2863,6 +2893,7 @@ def dispatch_phase(card, dev, flagship, build_experiment,
         fail(f"--mesh_shape 2 2: the silo-first mean is {rel} relative from "
              "the flat mean")
     del flat_eng, two_eng, flat, two
+    free_card()
     # D-PSGD with ring gossip over 4 mesh entries against its einsum: every
     # round's mix of the meshed run held against the einsum of the same
     # inputs, the first round's states (trained from the first mix) and the
@@ -3008,6 +3039,606 @@ def streamed_bit_equal(a: dict, b: dict) -> bool:
 
 
 #: the run whose launches a kernel's row reports: its main path
+#: the resumed runs: 4 rounds, a checkpoint every 2 (rounds 1 and 3); the
+#: resumed run keeps round 1's alone and runs rounds 2-3
+RESUME_ROUNDS = ("--comm_round", "4", "--checkpoint_every", "2")
+#: the windows of a resume: evaluations at rounds 0 and 3, so K = 4 runs
+#: round 0, round 1 (a checkpoint round) and rounds 2-3 as one window
+RESUME_WINDOWS = ("--frequency_of_the_test", "4", "--rounds_per_dispatch",
+                  "4")
+#: the health cell: the dispatch phase's 5 rounds, rounds 1-4 one window
+HEALTH_ROUNDS = ("--comm_round", "5", "--frequency_of_the_test", "4",
+                 "--rounds_per_dispatch", "4")
+
+
+def health_f64(uploads: list, ref: dict, new_params: dict, w) -> dict:
+    """``health_update_stats`` recomputed on the host in float64 from the
+    same tensors (numpy): the witness of the card's float32 stats."""
+    import numpy as np
+
+    up = [{k: v.double().cpu().numpy() for k, v in u.items()}
+          for u in uploads]
+    rf = {k: v.double().cpu().numpy() for k, v in ref.items()}
+    nw = {k: v.double().cpu().numpy() for k, v in new_params.items()}
+    C = len(up)
+    sq, dots = np.zeros(C), np.zeros(C)
+    agg_sq = gsq = 0.0
+    for k in rf:
+        da = (nw[k] - rf[k]).ravel()
+        agg_sq += float(da @ da)
+        gsq += float(nw[k].ravel() @ nw[k].ravel())
+        for c in range(C):
+            du = (up[c][k] - rf[k]).ravel()
+            sq[c] += float(du @ du)
+            dots[c] += float(du @ da)
+    norms = np.sqrt(sq)
+    wf = w.double().cpu().numpy()
+    p = wf / max(wf.sum(), 1e-12)
+    loo = dots - p * sq
+    loo_sq = np.maximum(agg_sq - 2 * p * dots + p * p * sq, 0.0)
+    cos = loo / np.maximum(norms * np.sqrt(loo_sq), 1e-12)
+    med = float(np.median(norms))
+    return {"h_up_norms": norms, "h_up_max": norms.max(), "h_up_med": med,
+            "h_cos_min": cos.min(), "h_cos_mean": cos.mean(),
+            "h_disp": norms.max() / max(med, 1e-12),
+            "h_gnorm": np.sqrt(gsq), "h_agg_up": np.sqrt(agg_sq),
+            "h_cos": cos}
+
+
+def ops_phase(card, dev, flagship, build_experiment, by_path: dict) -> None:
+    """Checkpoints and the run's telemetry on the card
+    (``utils/checkpoint.py``, ``obs/``): flagship SalientGrads and FedAvg
+    resumed from round 1's checkpoint in a fresh engine (fresh graphs)
+    bit-equal to the uninterrupted run, with the same launches in rounds
+    2-3, and again in windows; a flagship checkpoint's save and load time
+    and bytes; health stats armed against disarmed bit-equal, no sync
+    inside an armed window, capturing or replaying, one round's stats
+    against a float64 recomputation; ``/metrics`` and ``/healthz`` scraped
+    during a run, the span trace parsed, the spans found as ranges in the
+    profiler's trace, MFU in fp32 and bf16_mixed, the FLOP counter's
+    ratio; the built-in rules' snapshots and verdicts on a sign-flip run;
+    a rule-driven rollback on the card and the next round's graphs against
+    eager steps; a preempted 4-entry mesh against a fresh resume on 2
+    entries."""
+    import argparse
+    import dataclasses
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.__main__ import (
+        add_args, config_from_args, run,
+    )
+    from neuroimagedisttraining_tpu_torch.obs import actions as obs_actions
+    from neuroimagedisttraining_tpu_torch.obs import compute as obs_compute
+    from neuroimagedisttraining_tpu_torch.obs import metrics as obs_metrics
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+    from neuroimagedisttraining_tpu_torch.utils import checkpoint as ckpt
+
+    tmp = Path(tempfile.mkdtemp(prefix="nidt_ops_"))
+
+    def built(cfg, capture: bool = True):
+        engine, info = build_experiment(cfg, "cuda")
+        engine.trainer.capture_steps = capture
+        return engine, info
+
+    def train(engine) -> tuple[dict, dict]:
+        """The run with the counters at 0 just before; the launches at
+        each round's boundary (``publish_stat_info``), by round."""
+        at = {}
+        pub = engine.publish_stat_info
+
+        def snap(r):
+            pub(r)
+            at[r] = _cuda.counts()
+        engine.publish_stat_info = snap
+        _cuda.reset_counts()
+        res = engine.train()
+        torch.cuda.synchronize()
+        return res, at
+
+    def between(at: dict, a: int, b: int) -> dict:
+        """Launches of rounds ``a + 1 .. b``."""
+        return {k: v - at[a].get(k, 0) for k, v in at[b].items()
+                if v != at[a].get(k, 0)}
+
+    # ---- flagship resume: uninterrupted against resumed from round 1 ----
+    resumes = []
+    for algorithm, extra in (("salientgrads", ()),
+                             ("fedavg", ("--frac", "0.75"))):
+        for windows in ((), RESUME_WINDOWS):
+            tag = f"{algorithm}{'_k4' if windows else ''}"
+            da, db = tmp / f"{tag}_a", tmp / f"{tag}_b"
+            cfg_a = flagship(algorithm, *extra, *RESUME_ROUNDS, *windows,
+                             "--checkpoint_dir", str(da))
+            ea, _ = built(cfg_a)
+            t0 = time.perf_counter()
+            ra, at_a = train(ea)
+            sa = time.perf_counter() - t0
+            by_path[f"{tag}_uninterrupted"] = _cuda.counts()
+            db.mkdir()
+            shutil.copy(da / "ckpt_00000001.msgpack", db)
+            cfg_b = flagship(algorithm, *extra, *RESUME_ROUNDS, *windows,
+                             "--checkpoint_dir", str(db))
+            eb, _ = built(cfg_b)  # a fresh engine: fresh graphs
+            t0 = time.perf_counter()
+            rb, at_b = train(eb)
+            sb = time.perf_counter() - t0
+            by_path[f"{tag}_resumed"] = _cuda.counts()
+            la = [h["train_loss"] for h in ra["history"]]
+            lb = [h["train_loss"] for h in rb["history"]]
+            equal = states_equal(run_states(ra), run_states(rb))
+            tail_a, tail_b = between(at_a, 1, 3), {
+                k: v for k, v in at_b[3].items() if v}
+            out = {"engine": algorithm, "card": card,
+                   "windows": bool(windows), "bit_equal": equal,
+                   "train_loss_uninterrupted": la, "train_loss_resumed": lb,
+                   "launches_rounds_2_3": {"uninterrupted": tail_a,
+                                           "resumed": tail_b},
+                   "launches_resumed_run": by_path[f"{tag}_resumed"],
+                   "graph_captures": {"uninterrupted": ea.program.built,
+                                      "resumed": eb.program.built},
+                   "graph_replays": {"uninterrupted": ea.program.dispatches,
+                                     "resumed": eb.program.dispatches},
+                   "train_seconds": {"uninterrupted": sa, "resumed": sb},
+                   "checkpoints": ckpt.list_checkpoints(str(da))}
+            print(json.dumps({"ops_resume": out}))
+            if not equal or la != lb:
+                fail(f"{tag}: the run resumed from round 1's checkpoint is "
+                     f"not bit-equal to the uninterrupted run ({la} vs {lb})")
+            if tail_a != tail_b or not (tail_b.get("stem_dw")
+                                        and tail_b.get("fused_sgd")):
+                fail(f"{tag}: rounds 2-3 launched {tail_b} resumed against "
+                     f"{tail_a} uninterrupted")
+            if algorithm == "salientgrads" and \
+                    by_path[f"{tag}_resumed"].get("kth_select"):
+                fail(f"{tag}: the resumed run launched kth_select (phase 1 "
+                     "ran again)")
+            if not (eb.program.built and eb.program.dispatches):
+                fail(f"{tag}: the resumed run captured or replayed no graph")
+            if not resumes:  # SalientGrads': its checkpoint is timed below
+                resumes.append((tag, ea, ra))
+            del ea, ra, eb, rb
+        free_card()
+
+    # ---- a flagship checkpoint's save and load ----
+    tag, ea, ra = resumes[0]  # SalientGrads
+    state = ea.ckpt_state((ra["params"], ra["batch_stats"],
+                           ra["per_params"], ra["per_bstats"]),
+                          ra["history"])
+    enc = ea._ckpt_encode(state)
+    enc["generator"] = ea.trainer.generator
+    d = tmp / "saveload"
+    times = {"save": [], "load": [], "encode": [], "write": []}
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = ea._ckpt_encode(state)
+        enc["generator"] = ea.trainer.generator
+        t1 = time.perf_counter()
+        path = ckpt.save_checkpoint(str(d), 3 + i, enc)
+        t2 = time.perf_counter()
+        # a save as the engine's maybe_checkpoint makes it: the encode
+        # (device to host, flax trees) and the write
+        times["save"].append(t2 - t0)
+        times["encode"].append(t1 - t0)
+        times["write"].append(t2 - t1)
+        t0 = time.perf_counter()
+        _, back = ckpt.load_checkpoint(str(d))
+        dec = ea._ckpt_decode({k: v for k, v in back.items()
+                               if k != "generator"})
+        torch.cuda.synchronize()
+        times["load"].append(time.perf_counter() - t0)
+    nbytes = os.path.getsize(path)
+    same = states_equal([state["params"], *state["per_params"]],
+                        [dec["params"], *dec["per_params"]])
+    print(json.dumps({"ops_checkpoint": {
+        "card": card, "engine": "salientgrads", "bytes": nbytes,
+        "seconds": times, "clients": len(state["per_params"]),
+        "roundtrip_bit_equal": same,
+        "note": "host clock; save = encode (device to host, flax trees) "
+                "+ write (msgpack, fsync, rename), load = read + decode + "
+                "upload; the reads are warm (page cache)"}}))
+    if not same:
+        fail("a flagship checkpoint does not load back bit for bit")
+    del resumes, ea, ra, state, enc, back, dec
+    free_card()
+
+    # ---- health stats armed against disarmed, no sync in a window ----
+    runs = {}
+    for armed in (False, True):
+        cfg = flagship("fedavg", "--frac", "0.75", *HEALTH_ROUNDS,
+                       *(("--health_stats",) if armed else ()))
+        eng, _ = built(cfg)
+        stash = []
+        if armed:
+            note = eng._note_update_health
+
+            def keep(uploads, ref, new_params, w, note=note):
+                stash.append(([{k: v.clone() for k, v in u.items()}
+                               for u in uploads],
+                              {k: v.clone() for k, v in ref.items()},
+                              {k: v.clone() for k, v in new_params.items()},
+                              w.clone()))
+                note(uploads, ref, new_params, w)
+            eng._note_update_health = keep
+        res, _ = train(eng)
+        runs[armed] = (eng, res, stash)
+    (e0, r0, _), (e1, r1, stash) = runs[False], runs[True]
+    equal = states_equal(run_states(r0), run_states(r1))
+    l0 = [h["train_loss"] for h in r0["history"]]
+    l1 = [h["train_loss"] for h in r1["history"]]
+    carry = (r1["params"], r1["batch_stats"])
+    # a window that captures its step graphs (a run's first window, and
+    # the first after a rollback, an escalation or a shrink), then one
+    # that only replays them; each timed to the end of its device work
+    window_s, captures, releases = {}, {}, {}
+    e1.trainer.drop_graphs()
+    syncs = {}
+    for label in ("capturing", "replaying"):
+        built0 = e1.trainer.graph_stats[0]
+        t0 = time.perf_counter()
+        syncs[label] = hidden_syncs(
+            lambda: e1.program.run_window(carry, 1, 4))
+        window_s[label] = time.perf_counter() - t0
+        captures[label] = e1.trainer.graph_stats[0] - built0
+        releases[label] = sum(g.cache_releases
+                              for g in e1.trainer._graphs.values())
+    from neuroimagedisttraining_tpu_torch.engines.program import (
+        health_update_stats,
+    )
+    got = health_update_stats(*stash[0])
+    ref64 = health_f64(*stash[0])
+    # each stat's error over its scale: its largest magnitude, and 1 for
+    # the cosines (their range; a mean cosine may sit near 0)
+    rel = max(float(np.max(np.abs(np.asarray(got[k].double().cpu())
+                                  - ref64[k])))
+              / max(float(np.max(np.abs(ref64[k]))),
+                    1.0 if "cos" in k else 1e-30) for k in got)
+    hsnap = obs_metrics.REGISTRY.snapshot()
+    print(json.dumps({"ops_health": {
+        "card": card, "bit_equal": equal, "train_loss_disarmed": l0,
+        "train_loss_armed": l1, "window_sync_warnings": syncs,
+        "window_seconds": window_s, "window_graph_captures": captures,
+        "window_cache_releases": releases,
+        "stats_round0": {k: (v.tolist() if v.dim() else float(v))
+                         for k, v in got.items()},
+        "max_rel_err_vs_float64": rel,
+        "published": sorted(k for k in hsnap if k.startswith(
+            "nidt_health_"))}}))
+    if not equal or l0 != l1:
+        fail("health stats armed changed training")
+    if any(syncs.values()):
+        fail(f"an armed window synchronized with the host at {syncs}")
+    if releases["capturing"]:
+        fail("a capture with the card nearly empty handed its cache back "
+             "(a device-wide sync inside the window)")
+    if not captures["capturing"] or captures["replaying"]:
+        fail(f"the capturing window captured {captures['capturing']} graphs "
+             f"and the replaying one {captures['replaying']}")
+    if not rel <= 1e-5:
+        fail(f"the card's health stats are {rel} relative from float64")
+    del runs, e0, e1, r0, r1, stash, carry
+    free_card()
+
+    # ---- telemetry through the CLI's run(): endpoint, trace, MFU ----
+    def cli_run(precision: str, port: int, extra=()):
+        tdir = tmp / f"tele_{precision}"
+        argv = ["--algorithm", "fedavg", "--dataset", "synthetic",
+                "--model", "3DCNN", "--synthetic_shape", "121", "145",
+                "121", "--synthetic_num_subjects", "48",
+                "--client_num_in_total", "4", "--batch_size", "16",
+                "--epochs", "1", "--comm_round", "3", "--fused_update",
+                "--precision", precision, "--health_stats",
+                "--metrics_port", str(port), "--metrics_host", "127.0.0.1",
+                "--trace_out", str(tdir / "trace.json"),
+                "--metrics_out", str(tdir / "metrics.jsonl"),
+                "--log_dir", str(tdir / "log"), *extra]
+        args = add_args(argparse.ArgumentParser()).parse_args(argv)
+        cfg = config_from_args(args)
+        engine, info = build_experiment(cfg, "cuda")
+        scraped = {}
+
+        def scrape():
+            for _ in range(600):
+                try:
+                    for ep in ("metrics", "healthz"):
+                        with urllib.request.urlopen(
+                                f"http://127.0.0.1:{port}/{ep}",
+                                timeout=2) as r:
+                            scraped[ep] = r.read().decode()
+                    health = json.loads(scraped["healthz"])
+                    if health.get("health", {}).get("rounds_evaluated"):
+                        return
+                except OSError:
+                    pass
+                time.sleep(0.05)
+        th = threading.Thread(target=scrape, daemon=True)
+        th.start()
+        obs_compute.PROFILER.reset()
+        code = run(engine, info, cfg, args)
+        th.join(timeout=30)
+        return engine, tdir, code, scraped, obs_compute.PROFILER.health()
+
+    import socket
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    from neuroimagedisttraining_tpu_torch.obs import flight as obs_flight
+
+    # the bf16_mixed run takes the CLI's other flags: a rule manifest that
+    # extends the built-ins, the gate, the bus's mode, a DP budget (no DP
+    # here: its rules see no samples), the table's own bf16 peak given as
+    # --peak_flops, the flight ring's size and checkpoints
+    manifest = tmp / "rules.json"
+    manifest.write_text(json.dumps([{
+        "name": "param-norm-runaway", "metric": "nidt_health_param_norm",
+        "op": ">", "threshold": 1e6, "severity": "warn"}]))
+    flags = ("--flight_events", "128", "--health_rules", str(manifest),
+             "--health_gate", "--actions", "dry_run", "--dp_epsilon_budget",
+             "8", "--peak_flops", "989.4e12", "--checkpoint_dir",
+             str(tmp / "tele_ckpt"), "--checkpoint_every", "2")
+    tele = {}
+    for precision in ("fp32", "bf16_mixed"):
+        extra = (("--profile_dir", str(tmp / "prof")) if precision == "fp32"
+                 else flags)
+        eng, tdir, code, scraped, comp = cli_run(precision, free_port(),
+                                                 extra)
+        tele[precision] = {
+            "exit": code, "peak_flops": comp["peak_flops"],
+            "mfu": comp["last_mfu"],
+            "sustained_tflops": comp["last_sustained_tflops"],
+            "compiles": comp["compiles"], "dispatches": comp["dispatches"]}
+        gate = precision != "fp32"
+        verdict = json.loads(next((tdir / "log").rglob(
+            "*.health.json")).read_text())
+        want = 1 if gate and verdict["worst_status"] != "ok" else 0
+        if code != want:
+            fail(f"the telemetry run ({precision}) exited {code}, its "
+                 f"verdict {verdict['worst_status']!r} wants {want}")
+        if gate:
+            names = {r["name"] for r in verdict["rules"]}
+            cks = ckpt.list_checkpoints(str(tmp / "tele_ckpt"))
+            tele[precision]["cli_flags"] = {
+                "worst_status": verdict["worst_status"],
+                "fired": [r["name"] for r in verdict["rules"]
+                          if r["fires"]],
+                "gate_exit": code, "actions_mode": verdict["actions"]["mode"],
+                "flight_capacity": obs_flight.FLIGHT.capacity,
+                "checkpoints": cks}
+            if not {"param-norm-runaway", "dp-budget-exceeded"} <= names \
+                    or verdict["actions"]["mode"] != "dry_run" \
+                    or obs_flight.FLIGHT.capacity != 128 \
+                    or comp["peak_flops"] != 989.4e12 or cks != [1, 2]:
+                fail(f"the CLI's flags did not all take: {verdict['rules']}"
+                     f" {tele[precision]}")
+        health = json.loads(scraped.get("healthz", "{}"))
+        if "nidt_engine_round" not in scraped.get("metrics", "") or \
+                not health.get("health", {}).get("rounds_evaluated"):
+            fail(f"/metrics or /healthz was not served during the "
+                 f"{precision} run: {sorted(scraped)}")
+        if comp["last_mfu"] is None:
+            fail(f"no MFU was published in the {precision} run")
+        doc = json.loads((tdir / "trace.json").read_text())
+        names = {e["name"] for e in doc["traceEvents"]}
+        if not {"round", "flush", "eval"} <= names or not all(
+                {"name", "ph", "ts", "pid", "tid"} <= set(e)
+                for e in doc["traceEvents"]):
+            fail(f"the span trace is not Chrome trace events of the spans: "
+                 f"{sorted(names)}")
+        tele[precision]["spans"] = sorted(names)
+        if precision == "fp32":
+            prof = next((tmp / "prof").glob("trace_*.json"))
+            pdoc = json.loads(prof.read_text())
+            ranges = {e.get("name") for e in pdoc.get("traceEvents", [])
+                      if e.get("cat") in ("user_annotation",
+                                          "gpu_user_annotation")}
+            tele[precision]["profiler_ranges"] = sorted(
+                ranges & {"round", "flush", "eval"})
+            if not {"round", "flush", "eval"} <= ranges:
+                fail(f"the spans are not ranges in the profiler's trace: "
+                     f"{sorted(ranges)[:20]}")
+            tele[precision]["metrics_jsonl_lines"] = len(
+                (tdir / "metrics.jsonl").read_text().splitlines())
+            tele[precision]["healthz"] = json.loads(scraped["healthz"])
+        del eng
+        free_card()
+    obs_compute.PROFILER.reset()  # --peak_flops is kept across arms
+    # the FLOP counter on one flagship step (the plain stem: the counter
+    # sees aten operators only)
+    os.environ["NIDT_FAST_STEM"] = "0"
+    try:
+        fe, _ = build_experiment(flagship("fedavg", fused=False), "cuda")
+    finally:
+        os.environ["NIDT_FAST_STEM"] = "1"
+    p0, b0 = fe.init_global_state()
+    rows = next(iter(fe.client_rows([0])))[1]
+    flop = obs_compute.analyze_train_step(fe.trainer, p0, b0,
+                                          rows.X[:16], rows.y[:16])
+    del fe, p0, b0, rows
+    free_card()
+    print(json.dumps({"ops_telemetry": {"card": card, **tele,
+                                        "flop_counter": flop}}))
+
+    # ---- the rules on the card's health stats: a sign-flip run with the
+    # built-in manifest armed (the bus in dry_run: logged, not acted on),
+    # each boundary's snapshot of the metrics the rules read, and what
+    # fired ----
+    from neuroimagedisttraining_tpu_torch.obs import rules as obs_rules
+
+    builtin = obs_rules.builtin_rules(comm_round=3)
+    watched = {r.metric for r in builtin}
+
+    def with_snapshots(eng, snaps: list) -> None:
+        """Keep each boundary's snapshot of the metrics the built-in
+        rules read, as the rules saw it (``publish_stat_info`` ends in
+        their evaluation)."""
+        pub = eng.publish_stat_info
+
+        def keep(r):
+            pub(r)
+            snap = obs_metrics.REGISTRY.snapshot()
+            snaps.append({"round": r, "snapshot": {
+                k: {"kind": v["kind"], "values": v["values"]}
+                for k, v in snap.items() if k in watched}})
+        eng.publish_stat_info = keep
+
+    bus = obs_actions.configure("dry_run")
+    rules_eng = obs_rules.configure(comm_round=3)
+    try:
+        eng, _ = built(flagship("fedavg", "--comm_round", "3",
+                                "--health_stats", "--fault_spec",
+                                "byz:1@1:sign_flip"))
+        flip_snaps = []
+        with_snapshots(eng, flip_snaps)
+        eng.train()
+        torch.cuda.synchronize()
+        flip_verdict = rules_eng.verdict()
+    finally:
+        obs_rules.disarm()
+        obs_actions.disarm()
+    flip_actions = bus.actions_block()["log"]
+    del eng, bus, rules_eng
+    free_card()
+    print(json.dumps({"ops_rules_sign_flip": {
+        "card": card, "fault_spec": "byz:1@1:sign_flip",
+        "rules": "built-in manifest (obs/rules.py builtin_rules)",
+        "snapshots": flip_snaps,
+        "timeline": flip_verdict.get("timeline"),
+        "worst": flip_verdict.get("worst_status"),
+        "actions_dry_run": flip_actions}}, default=float))
+
+    # ---- rollback on the card, then graphs against eager steps: round 1
+    # uploads client 0's update scaled 100x; a rule on the update-norm
+    # dispersion (the built-in update-norm-blowup at one round and a
+    # threshold of 10, since a single round's blowup is the fault here)
+    # fires at round 1's boundary and dispatches freeze_rollback through
+    # the bus, which the same boundary consumes, restoring round 0's pin
+    # ----
+    blowup = next(r for r in builtin if r.name == "update-norm-blowup")
+    rollback_rule = dataclasses.replace(
+        blowup, name="update-norm-blowup-1", threshold=10.0, for_rounds=1)
+    bus = obs_actions.configure("on")
+    rules_eng = obs_rules.configure([rollback_rule])
+    try:
+        cfg = flagship("fedavg", "--comm_round", "3", "--health_stats",
+                       "--fault_spec", "byz:1@1:scale:100")
+        eng, _ = built(cfg)
+        rb_snaps = []
+        with_snapshots(eng, rb_snaps)
+        seen = {}
+        reflex = eng._reflex_boundary
+
+        def watch(r, p, b):
+            pin = eng._healthy_pin
+            pend = eng._pending_rollback
+            p2, b2 = reflex(r, p, b)
+            if pend is not None:
+                seen.update(round=r, pin=pin, p=p2, b=b2,
+                            gen=eng.trainer.generator.get_state())
+            return p2, b2
+        eng._reflex_boundary = watch
+        ring = []
+        carry_of = eng.reflex_carry
+
+        def keep_carry(r, carry):
+            out = carry_of(r, carry)
+            ring.append((r, out))
+            return out
+        eng.reflex_carry = keep_carry
+        _cuda.reset_counts()
+        res = eng.train()
+        torch.cuda.synchronize()
+        by_path["fedavg_rollback"] = _cuda.counts()
+        rb_verdict = rules_eng.verdict()
+    finally:
+        obs_rules.disarm()
+        obs_actions.disarm()
+    log_ = bus.actions_block()["log"]
+    fired = [a for a in log_ if a["action"] == "freeze_rollback"
+             and a.get("rule") == rollback_rule.name]
+    if "pin" not in seen or not fired:
+        fail(f"the rule's freeze_rollback was not consumed on the card: "
+             f"{log_}")
+    pin = seen["pin"]
+    restored = (states_equal([pin["params"], pin["batch_stats"]],
+                             [seen["p"], seen["b"]]))
+    r_rb = seen["round"]
+    after = dict(ring)[r_rb + 1]
+    eager, _ = built(cfg, capture=False)
+    eager.trainer.generator.set_state(seen["gen"])
+    c2, _ = eager.window_round((seen["p"], seen["b"]), r_rb + 1,
+                               eager.client_sampling(r_rb + 1))
+    torch.cuda.synchronize()
+    graphs_eq = states_equal(list(after[:2]), list(c2[:2]))
+    print(json.dumps({"ops_rollback": {
+        "card": card, "fault_spec": "byz:1@1:scale:100",
+        "rule": dataclasses.asdict(rollback_rule),
+        "snapshots": rb_snaps, "timeline": rb_verdict.get("timeline"),
+        "actions": log_, "rollback_round": r_rb,
+        "pin_round": pin["round"], "restored_bit_equal": restored,
+        "next_round_graphs_vs_eager_bit_equal": graphs_eq,
+        "graph_captures": eng.program.built,
+        "train_loss": [h["train_loss"] for h in res["history"]]}},
+        default=float))
+    if not restored:
+        fail("the rollback did not restore the pinned state bit for bit")
+    if not graphs_eq:
+        fail("the round after the rollback, replaying graphs, differs from "
+             "the same round run eagerly")
+    # the bus holds the engine's handlers, and the engine its graphs
+    del eng, eager, res, seen, ring, pin, after, c2, bus, rules_eng
+    free_card()
+
+    # ---- preempt: a 4-entry mesh shrinks to 2 at round 2 ----
+    mesh_args = ("--comm_round", "4", "--checkpoint_every", "1")
+    pa, pb = tmp / "pre_a", tmp / "pre_b"
+    bus = obs_actions.configure("dry_run")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        ea, _ = built(flagship("fedavg", *mesh_args, "--client_mesh", "4",
+                               "--virtual_devices", "4", "--fault_spec",
+                               "preempt:2@2", "--checkpoint_dir", str(pa)))
+        ra, _ = train(ea)
+        by_path["fedavg_preempt"] = _cuda.counts()
+        peak = {"allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+    finally:
+        obs_actions.disarm()
+    shrinks = [e for e in bus.actions_block()["log"]
+               if e["action"] == "shrink_mesh"]
+    del bus
+    free_card()
+    pb.mkdir()
+    shutil.copy(pa / "ckpt_00000001.msgpack", pb)
+    eb, _ = built(flagship("fedavg", *mesh_args, "--client_mesh", "2",
+                           "--virtual_devices", "2", "--checkpoint_dir",
+                           str(pb)))
+    rb, _ = train(eb)
+    equal = states_equal(run_states(ra), run_states(rb))
+    tail_a = [h for h in ra["history"] if h["round"] >= 2]
+    tail_b = [h for h in rb["history"] if h["round"] >= 2]
+    print(json.dumps({"ops_preempt": {
+        "card": card, "shrinks": shrinks, "mesh_after": ea.mesh.devices.size,
+        "client_mesh_after": ea.cfg.fed.client_mesh, "bit_equal": equal,
+        "peak_memory_4_entries": peak,
+        "tail_equal": tail_a == tail_b,
+        "train_loss": [h["train_loss"] for h in ra["history"]]}}))
+    if not (equal and tail_a == tail_b) or ea.mesh.devices.size != 2 or \
+            [e["status"] for e in shrinks] != ["applied"]:
+        fail("the preempted run is not its fresh resume on a 2-entry mesh")
+    del ea, eb, ra, rb
+    free_card()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 MAIN_PATH = {"stem_dw_bf16": "salientgrads_bf16"}
 
 
@@ -3043,6 +3674,7 @@ def main(argv: list[str]) -> int:
     only_defense = "--defense" in argv
     only_secure = "--secure" in argv
     only_dispatch = "--dispatch" in argv
+    only_ops = "--ops" in argv
     import numpy as np
     import torch
 
@@ -3637,6 +4269,10 @@ def main(argv: list[str]) -> int:
             dispatch_phase(card, dev, flagship, build_experiment, by_path)
             lap("phase")
             return finish(rows, by_path, started, laps)
+        if only_ops:
+            ops_phase(card, dev, flagship, build_experiment, by_path)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
 
         cfg = flagship("salientgrads")
         t0 = time.perf_counter()
@@ -3659,7 +4295,7 @@ def main(argv: list[str]) -> int:
             "card": card, "partition": info["train_counts"],
             "setup_seconds": setup_s, "train_seconds": train_s,
             "phase1_seconds": result["phase1_seconds"],
-            "round_seconds": [h["round_seconds"] for h in result["history"]],
+            "round_seconds": result["round_seconds"],
             "train_loss": losses, "mask_density": result["mask_density"],
             "final_global": result["final_global"],
             "final_personal": result["final_personal"],
@@ -3697,7 +4333,7 @@ def main(argv: list[str]) -> int:
         by_path["salientgrads"] = launches
         # each resident run the streamed phase holds its streamed run against
         resident = {"salientgrads": {
-            "round_seconds": [h["round_seconds"] for h in result["history"]],
+            "round_seconds": result["round_seconds"],
             "phase1_seconds": result["phase1_seconds"],
             "train_seconds": train_s, "launches": launches,
             "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}}
@@ -4002,6 +4638,10 @@ def main(argv: list[str]) -> int:
         # ---- round programs and dispatch: windows, CUDA graphs, mesh ----
         dispatch_phase(card, dev, flagship, build_experiment, by_path)
         lap("dispatch")
+
+        # ---- checkpoints and the run's telemetry ----
+        ops_phase(card, dev, flagship, build_experiment, by_path)
+        lap("ops")
 
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",

@@ -23,7 +23,12 @@
         --wire_topk_ratio R] [--secure_quant --secure_quant_field_bits \\
         8|16|32 --secure_quant_frac_bits F] [--rounds_per_dispatch K] \\
         [--client_mesh N] [--mesh_shape S [C]] [--virtual_devices N] \\
-        [--cs random|ring|full --neighbor_num K] ...
+        [--cs random|ring|full --neighbor_num K] \\
+        [--checkpoint_dir DIR --checkpoint_every N] [--profile_dir DIR] \\
+        [--trace_out FILE] [--metrics_port P --metrics_host H] \\
+        [--metrics_out FILE] [--flight_events N] [--health_stats] \\
+        [--health_rules FILE] [--health_gate] [--actions off|dry_run|on] \\
+        [--dp_epsilon_budget E] [--peak_flops F] ...
 
 Flag names are the reference CLI's for the flags the port takes.
 ``--dataset ABCD`` / ``abcd_h5`` (the default) reads the X/y/site HDF5 file
@@ -59,6 +64,23 @@ mesh of N entries, ``--mesh_shape S C`` aggregates silo first, and
 ``--virtual_devices N`` makes the mesh's N entries on the run's device
 (``parallel/``). ``--neighbor_num`` is stored, as in the reference, and read
 by no engine.
+
+``--checkpoint_dir DIR --checkpoint_every N`` saves a checkpoint every N
+rounds and at the last (``utils/checkpoint.py``); a run started again with
+the same flags resumes from the newest at the next round, bit for bit the
+run that was not stopped. A ``preempt:NDEV@ROUND`` fault shrinks the mesh
+of a FedAvg-family run, which resumes from the newest checkpoint. The telemetry flags are the reference's (``obs/``):
+``--trace_out`` writes the host spans as Chrome trace JSON,
+``--profile_dir`` traces the run with ``torch.profiler`` (the spans as
+NVTX / ``record_function`` ranges), ``--metrics_port`` serves
+``/metrics`` and ``/healthz``, ``--metrics_out`` appends one registry
+record a round, ``--health_stats`` computes the round's health stats on
+the device, ``--health_rules`` adds rules, ``--actions`` sets what a
+firing rule's action does and ``--health_gate`` exits 1 when the run's
+worst health status was not ok; ``--peak_flops`` sets MFU's peak. With
+``--log_dir`` the run writes ``<identity>.stats.json``,
+``<identity>.health.json`` and, on a failure, ``<identity>.flight.json``
+beside its log. The result line carries the health verdict's summary.
 """
 
 from __future__ import annotations
@@ -309,6 +331,60 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--tag", type=str, default="exp",
                         help="the last part of the experiment's identity "
                              "(its log file name)")
+    parser.add_argument("--checkpoint_dir", type=str, default="",
+                        help="save checkpoints here and resume from the "
+                             "newest (utils/checkpoint.py)")
+    parser.add_argument("--checkpoint_every", type=int, default=0,
+                        help="rounds between checkpoints (and the last "
+                             "round); 0 = off")
+    parser.add_argument("--profile_dir", type=str, default="",
+                        help="trace the run with torch.profiler into this "
+                             "dir (Chrome trace; the host spans appear as "
+                             "NVTX / record_function ranges)")
+    parser.add_argument("--trace_out", type=str, default="",
+                        help="write the run's host spans (round, window, "
+                             "flush, eval, checkpoint) as Chrome trace-"
+                             "event JSON (obs/trace.py)")
+    parser.add_argument("--metrics_port", type=int, default=0,
+                        help="serve /metrics (Prometheus text) and "
+                             "/healthz during training (obs/http.py); 0 = "
+                             "off. Unauthenticated: bind with "
+                             "--metrics_host")
+    parser.add_argument("--metrics_host", type=str, default="0.0.0.0",
+                        help="interface the metrics endpoint binds")
+    parser.add_argument("--metrics_out", type=str, default="",
+                        help="append one metrics-registry JSONL record a "
+                             "round at the engine's host boundary")
+    parser.add_argument("--flight_events", type=int, default=256,
+                        help="flight-recorder ring capacity "
+                             "(obs/flight.py), dumped to "
+                             "<log_dir>/<dataset>/<identity>.flight.json "
+                             "on a fatal failure")
+    parser.add_argument("--health_stats", action="store_true",
+                        help="compute the round's health stats on the "
+                             "device (update norms, leave-one-out cosines, "
+                             "dispersion, model norms, mask health), read "
+                             "with the round's outputs: no sync added, "
+                             "training bit for bit unchanged")
+    parser.add_argument("--health_rules", type=str, default="",
+                        help="JSON manifest of anomaly rules extending the "
+                             "built-in set (obs/rules.py)")
+    parser.add_argument("--health_gate", action="store_true",
+                        help="exit 1 when the run's worst health status "
+                             "was not ok")
+    parser.add_argument("--actions", type=str, default="dry_run",
+                        choices=("off", "dry_run", "on"),
+                        help="what a firing rule's action does: off, "
+                             "dry_run (logged, nothing changes) or on "
+                             "(quarantine, escalate the defense, roll "
+                             "back) (obs/actions.py)")
+    parser.add_argument("--dp_epsilon_budget", type=float, default=0.0,
+                        help="epsilon budget of the built-in DP health "
+                             "rules; 0 = none")
+    parser.add_argument("--peak_flops", type=float, default=0.0,
+                        help="peak flop/s of nidt_mfu's denominator; 0 = "
+                             "the card's by obs/compute.py PEAK_FLOPS "
+                             "(NIDT_PEAK_FLOPS also overrides)")
     return parser
 
 
@@ -330,6 +406,12 @@ def config_from_args(args) -> ExperimentConfig:
         stream_chunk_clients=args.stream_chunk_clients, remat=args.remat,
         mesh_shape=tuple(args.mesh_shape),
         virtual_devices=args.virtual_devices,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        trace_out=args.trace_out, metrics_port=args.metrics_port,
+        flight_events=args.flight_events, health_stats=args.health_stats,
+        health_rules=args.health_rules, health_gate=args.health_gate,
+        metrics_out=args.metrics_out, actions=args.actions,
         data=DataConfig(dataset=args.dataset.lower(), data_dir=args.data_dir,
                         partition_method=args.partition_method,
                         partition_alpha=args.partition_alpha,
@@ -367,7 +449,8 @@ def config_from_args(args) -> ExperimentConfig:
                       dp_clip=args.dp_clip, dp_sigma=args.dp_sigma,
                       dp_delta=args.dp_delta, fault_spec=args.fault_spec,
                       wire_codec=args.wire_codec,
-                      wire_topk_ratio=args.wire_topk_ratio),
+                      wire_topk_ratio=args.wire_topk_ratio,
+                      dp_epsilon_budget=args.dp_epsilon_budget),
         sparsity=SparsityConfig(
             dense_ratio=args.dense_ratio, anneal_factor=args.anneal_factor,
             erk_power_scale=args.erk_power_scale, uniform=args.uniform,
@@ -577,15 +660,100 @@ def main(argv: list[str] | None = None) -> int:
     engine, info = build_experiment(cfg, args.device,
                                     streaming=args.streaming)
     logging.info("partition: %s", json.dumps(info["train_counts"]))
+    return run(engine, info, cfg, args)
+
+
+def run(engine, info: dict, cfg: ExperimentConfig, args) -> int:
+    """Train ``engine`` with the run's telemetry armed and written, as the
+    reference's CLI does: the flight ring's dump path, the span tracer,
+    the MFU peak, the rules and the action bus (disarmed on every exit
+    path), the metrics endpoint; then ``.stats.json`` and
+    ``.health.json`` (with ``--log_dir``) and the result line. Returns the
+    exit code (1 when ``--health_gate`` fails)."""
+    import os
+
+    from neuroimagedisttraining_tpu_torch.obs import actions as obs_actions
+    from neuroimagedisttraining_tpu_torch.obs import compute as obs_compute
+    from neuroimagedisttraining_tpu_torch.obs import flight as obs_flight
+    from neuroimagedisttraining_tpu_torch.obs import health as obs_health
+    from neuroimagedisttraining_tpu_torch.obs import rules as obs_rules
+    from neuroimagedisttraining_tpu_torch.obs import trace as obs_trace
+    from neuroimagedisttraining_tpu_torch.obs.http import (
+        start_metrics_server,
+    )
+    from neuroimagedisttraining_tpu_torch.utils.logging import _jsonable
+    from neuroimagedisttraining_tpu_torch.utils.profiling import (
+        failure_context, profile_trace,
+    )
+
+    log_dir = engine.log.dir if engine.log is not None else None
+    obs_flight.configure(
+        capacity=cfg.flight_events,
+        path=(os.path.join(log_dir, cfg.identity() + ".flight.json")
+              if log_dir else ""))
+    if cfg.trace_out:
+        obs_trace.arm(cfg.trace_out, annotate=bool(args.profile_dir),
+                      tags={"algorithm": cfg.algorithm, "seed": cfg.seed})
+    if args.peak_flops > 0:
+        obs_compute.PROFILER.set_peak_flops(args.peak_flops)
+    hrules = obs_rules.configure(
+        manifest_path=cfg.health_rules,
+        dp_epsilon_budget=cfg.fed.dp_epsilon_budget,
+        comm_round=cfg.fed.comm_round)
+    bus = obs_actions.configure(cfg.actions)
+    msrv = start_metrics_server(
+        cfg.metrics_port, host=args.metrics_host,
+        health_probe=lambda: {"compute": obs_compute.PROFILER.health(),
+                              "fallbacks": obs_health.fallback_block(),
+                              "health": obs_rules.health_block(),
+                              "actions": bus.actions_block()})
     try:
-        result = engine.train()
+        with failure_context(name=cfg.identity()), \
+                profile_trace(args.profile_dir,
+                              enabled=bool(args.profile_dir)):
+            result = engine.train()
     finally:
+        # the rules and the bus live as long as the run; their local
+        # handles still read the verdict and the log below
+        obs_rules.disarm()
+        obs_actions.disarm()
+        if cfg.trace_out:
+            out = obs_trace.dump()
+            obs_trace.disarm()
+            if out:
+                print(f"[obs] host-span trace written to {out}",
+                      flush=True)
+        if msrv is not None:
+            msrv.close()
         if engine.stream is not None:
             engine.stream.close()
         if info["file"] is not None:
             info["file"].close()
-    print(json.dumps({k: v for k, v in result.items()
-                      if not _holds_tensor(v)}))
+    verdict = hrules.verdict()
+    verdict["actions"] = bus.actions_block()
+    verdict_path = None
+    if log_dir:
+        stats_path = os.path.join(log_dir, cfg.identity() + ".stats.json")
+        with open(stats_path, "w") as f:
+            json.dump(_jsonable({k: v for k, v in engine.stat_info.items()
+                                 if not k.startswith("final_masks")}),
+                      f, default=str)
+        verdict_path = os.path.join(log_dir,
+                                    cfg.identity() + ".health.json")
+        with open(verdict_path, "w") as f:
+            json.dump(verdict, f, indent=1, default=str)
+    print(json.dumps({**{k: v for k, v in result.items()
+                         if not _holds_tensor(v)},
+                      "health": {k: verdict[k] for k in
+                                 ("status", "worst_status", "alerts_total",
+                                  "rounds_evaluated")},
+                      "health_verdict_path": verdict_path}))
+    if cfg.health_gate and verdict["worst_status"] != "ok":
+        # stderr: the last stdout line stays the result
+        print(f"[health] gate FAILED: worst status "
+              f"{verdict['worst_status']!r} ({verdict['alerts_total']} "
+              f"alert(s); see {verdict_path})", file=sys.stderr, flush=True)
+        return 1
     return 0
 
 

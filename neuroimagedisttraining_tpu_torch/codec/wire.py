@@ -56,9 +56,12 @@ _SP_SHARED = 2     # receiver holds the same mask (engine mask handoff)
 
 #: msgpack ext type of an ndarray (flax's ``_MsgpackExtType.ndarray``)
 _EXT_NDARRAY = 1
-#: arrays above this many bytes flax would split into chunks; no frame
-#: of the zoo comes near it
+#: an array above this many bytes, as a map's value or the whole tree, is
+#: split into chunks of at most this size (flax's ``MAX_CHUNK_SIZE`` and
+#: chunk layout); no frame of the zoo comes near it, a checkpoint may
 _MAX_CHUNK = 2 ** 30
+#: the key that marks a chunked array's map (flax's)
+_CHUNKED = "__msgpack_chunked_array__"
 
 
 @dataclass(frozen=True)
@@ -163,8 +166,10 @@ def _pack_int(out: list, v: int) -> None:
         raise OverflowError(v)
 
 
-def _pack_ext(out: list, code: int, data: bytes) -> None:
-    n = len(data)
+def _pack_ext(out: list, code: int, *parts) -> None:
+    """An ext record of ``code`` whose data is the bytes-like ``parts``
+    (appended as they are: an array's buffer is not copied)."""
+    n = sum(len(p) for p in parts)
     fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
     if n in fixed:
         out.append(bytes([fixed[n], code]))
@@ -174,7 +179,30 @@ def _pack_ext(out: list, code: int, data: bytes) -> None:
         out.append(struct.pack(">BHB", 0xc8, n, code))
     else:
         out.append(struct.pack(">BIB", 0xc9, n, code))
-    out.append(data)
+    out.extend(parts)
+
+
+def _pack_ndarray(out: list, obj: np.ndarray) -> None:
+    """Ext type 1 holding ``(shape, dtype name, buffer)``; the buffer is a
+    view of the array's bytes."""
+    a = np.ascontiguousarray(obj)
+    raw = memoryview(a.reshape(-1).view(np.uint8)) if a.size else b""
+    head: list = [b"\x93"]
+    _pack(head, list(a.shape), False)
+    _pack(head, a.dtype.name, False)
+    _pack_len(head, len(raw), None, 0, (0xc4, 0xc5, 0xc6))
+    _pack_ext(out, _EXT_NDARRAY, b"".join(head), raw)
+
+
+def _chunked(arr: np.ndarray) -> dict:
+    """flax's chunked form of an array above ``_MAX_CHUNK`` bytes: its
+    shape and its flat chunks, each a map keyed ``"0"``, ``"1"``, ..."""
+    size = max(1, int(_MAX_CHUNK / arr.dtype.itemsize))
+    flat = np.ascontiguousarray(arr).reshape(-1)
+    return {_CHUNKED: True,
+            "shape": {str(i): int(d) for i, d in enumerate(arr.shape)},
+            "chunks": {str(i): flat[j:j + size] for i, j in
+                       enumerate(range(0, flat.size, size))}}
 
 
 def _pack(out: list, obj, sort_maps: bool) -> None:
@@ -201,28 +229,43 @@ def _pack(out: list, obj, sort_maps: bool) -> None:
         _pack_len(out, len(obj), 0x80, 16, (0, 0xde, 0xdf))
         for k in (sorted(obj) if sort_maps else obj):
             _pack(out, k, sort_maps)
-            _pack(out, obj[k], sort_maps)
+            v = obj[k]
+            if isinstance(v, np.ndarray) and v.nbytes > _MAX_CHUNK:
+                # flax chunks after sorting the tree: the chunk maps keep
+                # their own order
+                _pack(out, _chunked(v), False)
+            else:
+                _pack(out, v, sort_maps)
     elif isinstance(obj, np.ndarray):
-        if obj.nbytes > _MAX_CHUNK:
-            raise ValueError("msgpack: an array above 1 GiB would be chunked")
-        inner: list = []
-        _pack(inner, (list(obj.shape), obj.dtype.name,
-                      np.ascontiguousarray(obj).tobytes()), False)
-        _pack_ext(out, _EXT_NDARRAY, b"".join(inner))
+        _pack_ndarray(out, obj)
     else:
         raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
+
+
+def msgpack_parts(tree) -> list:
+    """:func:`msgpack_dumps`'s bytes as a list of bytes-like parts, each
+    array's buffer a view of the array (a writer streams them out without
+    a copy of the whole tree)."""
+    out: list = []
+    if isinstance(tree, np.ndarray) and tree.nbytes > _MAX_CHUNK:
+        tree = _chunked(tree)
+        _pack(out, tree, False)
+    else:
+        _pack(out, tree, True)
+    return out
 
 
 def msgpack_dumps(tree) -> bytes:
     """``tree`` (dicts, lists, str, int, float, bytes, ndarrays) as the
     bytes ``flax.serialization.msgpack_serialize`` gives: every map in
-    sorted key order (flax rebuilds the tree first, which sorts them)."""
-    out: list = []
-    _pack(out, tree, True)
-    return b"".join(out)
+    sorted key order (flax rebuilds the tree first, which sorts them), an
+    array above 1 GiB chunked as flax chunks it."""
+    return b"".join(msgpack_parts(tree))
 
 
-def _unpack(buf: bytes, i: int):
+def _unpack(buf, i: int, view: bool = False):
+    """The object at ``buf[i]`` and the offset past it; ``view``: a bin
+    comes back as a view of ``buf`` instead of a copy."""
     b = buf[i]
     i += 1
     if b < 0x80:
@@ -235,7 +278,7 @@ def _unpack(buf: bytes, i: int):
         return _unpack_list(buf, i, b & 0x0f)
     if 0xa0 <= b <= 0xbf:
         n = b & 0x1f
-        return buf[i:i + n].decode("utf-8"), i + n
+        return str(buf[i:i + n], "utf-8"), i + n
     if b == 0xc0:
         return None, i
     if b in (0xc2, 0xc3):
@@ -259,17 +302,22 @@ def _unpack(buf: bytes, i: int):
     else:
         raise ValueError(f"msgpack: unsupported type byte 0x{b:02x}")
     if b in (0xd9, 0xda, 0xdb):
-        return buf[i:i + n].decode("utf-8"), i + n
+        return str(buf[i:i + n], "utf-8"), i + n
     if b in (0xc4, 0xc5, 0xc6):
-        return bytes(buf[i:i + n]), i + n
+        return (buf[i:i + n] if view else bytes(buf[i:i + n])), i + n
     if b in (0xdc, 0xdd):
         return _unpack_list(buf, i, n)
     if b in (0xde, 0xdf):
         return _unpack_map(buf, i, n)
-    code, data = buf[i], bytes(buf[i + 1:i + 1 + n])
+    code, data = buf[i], buf[i + 1:i + 1 + n]
     if code != _EXT_NDARRAY:
         raise ValueError(f"msgpack: unsupported ext type {code}")
-    (shape, dtype, raw), _ = _unpack(data, 0)
+    if data[0] != 0x93:
+        raise ValueError("msgpack: an ndarray ext is not (shape, dtype, "
+                         "buffer)")
+    shape, j = _unpack(data, 1)
+    dtype, j = _unpack(data, j)
+    raw, _ = _unpack(data, j, view=True)
     return (np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy(),
             i + 1 + n)
 
@@ -287,10 +335,17 @@ def _unpack_map(buf, i, n):
     for _ in range(n):
         k, i = _unpack(buf, i)
         out[k], i = _unpack(buf, i)
+    if _CHUNKED in out:  # a chunked array (flax's msgpack_restore)
+        shape = tuple(out["shape"][str(j)] for j in range(len(out["shape"])))
+        chunks = [out["chunks"][str(j)] for j in range(len(out["chunks"]))]
+        return np.concatenate(chunks).reshape(shape), i
     return out, i
 
 
-def msgpack_loads(buf: bytes):
+def msgpack_loads(buf) -> Any:
+    """The tree of :func:`msgpack_dumps`'s bytes (any bytes-like), chunked
+    arrays joined."""
+    buf = memoryview(buf)
     obj, end = _unpack(buf, 0)
     if end != len(buf):
         raise ValueError("msgpack: trailing bytes")

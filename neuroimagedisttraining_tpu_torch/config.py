@@ -162,6 +162,9 @@ class FedConfig:
     # split the sampled clients of a round over a client mesh of exactly
     # this many entries (parallel/cohort.py); 0: unsharded
     client_mesh: int = 0
+    # the epsilon budget of the built-in DP health rules (obs/rules.py;
+    # 0: no budget rules)
+    dp_epsilon_budget: float = 0.0
 
     @property
     def client_num_per_round(self) -> int:
@@ -194,6 +197,23 @@ class ExperimentConfig:
     virtual_devices: int = 0
     # the last part of the experiment's identity (its log file name)
     tag: str = "exp"
+    # checkpoints (utils/checkpoint.py): saved every checkpoint_every
+    # rounds and at the last round into checkpoint_dir; a run resumes from
+    # the newest there ("" or 0: off)
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 0
+    # the telemetry plane (obs/): the span trace's path, the /metrics
+    # port, the flight ring's capacity, the round's health stats, a rule
+    # manifest, the gate on the run's worst health status, the metrics
+    # JSONL path and the reflex actions' mode (off | dry_run | on)
+    trace_out: str = ""
+    metrics_port: int = 0
+    flight_events: int = 256
+    health_stats: bool = False
+    health_rules: str = ""
+    health_gate: bool = False
+    metrics_out: str = ""
+    actions: str = "dry_run"
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     fed: FedConfig = field(default_factory=FedConfig)

@@ -15,10 +15,15 @@ the ``fused_sgd`` workspace of that stream before anything is captured),
 the second is captured into a ``torch.cuda.CUDAGraph`` and replayed, and
 every later step is a replay. The trainer's generator is registered with
 the graph, so each replay draws the dropout keep-masks the eager step
-would have drawn. The kernel wrappers run on the capture stream and bake
-their tables (``fused_sgd``'s leaf descriptors, ``stem_dw``'s operands)
-into the graph by value, which holds because every buffer they name is a
-static buffer or the graph pool's. A wrapper counts its launches when it
+would have drawn. The graphs of one trainer share its stream and one
+memory pool (``LocalTrainer``) and run one after another on that stream:
+a capture reuses the pool's blocks that earlier captures freed, and an
+eager first step the blocks that earlier eager steps freed. The cache is
+handed back to the device (a ``cudaFree``, which synchronizes it) only
+where a capture would not find the memory its eager step took. The kernel wrappers run on the capture stream and bake their tables
+(``fused_sgd``'s leaf descriptors, ``stem_dw``'s operands) into the
+graph by value, which holds because every buffer they name is a static
+buffer or the graph pool's. A wrapper counts its launches when it
 is called, which during capture launches nothing, so a capture's counts
 are taken back and added again at each replay.
 
@@ -30,10 +35,15 @@ eager steps that the replays are held against. A capture or replay that
 fails raises; nothing gives way to eager steps.
 
 ``StepGraph.captures`` and ``replays`` feed ``RoundProgram.built`` and
-``dispatches`` (the reference's compile and dispatch counts).
+``dispatches`` (the reference's compile and dispatch counts); ``notify``,
+where set, hears each capture and replay with its host seconds (the
+compute profiler's ``nidt_compiles_total`` and ``nidt_dispatch_ms``,
+``obs/compute.py``).
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -45,8 +55,12 @@ class StepGraph:
     eager at the first call, captured at the second, replayed after."""
 
     def __init__(self, body, device: torch.device,
-                 generator: torch.Generator | None, capture: bool = True):
+                 generator: torch.Generator | None, capture: bool = True,
+                 notify=None, stream=None, pool=None):
         self.body = body
+        #: ``notify(phase, seconds)`` at each capture ("compile") and
+        #: replay ("execute")
+        self.notify = notify
         self.device = device
         self.generator = generator
         #: capture on a CUDA device; otherwise every call runs ``body()``
@@ -58,15 +72,30 @@ class StepGraph:
         self.graph = None
         #: the launches a replay makes, by kernel (counted at capture)
         self.launches: dict[str, int] = {}
-        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                       else None)
+        #: the stream the caller runs the step on and the memory pool the
+        #: capture allocates from (the trainer's; None on the CPU)
+        self.stream = stream
+        self.pool = pool
+        #: the bytes the eager first step allocated beyond what was held
+        #: before it: at most what its capture takes fresh from the device
+        self.need = 0
+        #: captures that found the device too full and emptied the cache
+        self.cache_releases = 0
 
     def __call__(self):
         self.calls += 1
         if self.calls == 1:
+            base = (torch.cuda.memory_allocated(self.device)
+                    if self.capture else 0)
             self.outputs = self.body()
+            if self.capture:  # host counters: no sync
+                self.need = torch.cuda.max_memory_allocated(self.device) \
+                    - base
         elif self.calls == 2:
+            t0 = time.perf_counter()
             self._capture()
+            if self.notify is not None:
+                self.notify("compile", time.perf_counter() - t0)
             self._replay()
         else:
             self._replay()
@@ -76,13 +105,21 @@ class StepGraph:
         self.captures += 1
         if not self.capture:
             return
+        # a capture that runs short of device memory fails rather than
+        # hand cached blocks back (the flagship's did with 53 GB cached):
+        # where the device's free memory is under what the eager step
+        # allocated, the cache goes back first, a device-wide sync that a
+        # card with room never takes
+        if torch.cuda.mem_get_info(self.device)[0] < self.need:
+            torch.cuda.empty_cache()
+            self.cache_releases += 1
         g = torch.cuda.CUDAGraph()
         if self.generator is not None:
             g.register_generator_state(self.generator)
         before = _cuda.counts()
         # the caller runs the step on ``self.stream``; capture_begin does
         # not synchronize the device (torch.cuda.graph's context would)
-        g.capture_begin(capture_error_mode="thread_local")
+        g.capture_begin(pool=self.pool, capture_error_mode="thread_local")
         try:
             self.outputs = self.body()
         finally:
@@ -96,9 +133,12 @@ class StepGraph:
 
     def _replay(self) -> None:
         self.replays += 1
+        t0 = time.perf_counter()
         if self.graph is None:
             self.outputs = self.body()
-            return
-        self.graph.replay()
-        for k, n in self.launches.items():
-            _cuda.counter(k).add(n)
+        else:
+            self.graph.replay()
+            for k, n in self.launches.items():
+                _cuda.counter(k).add(n)
+        if self.notify is not None:
+            self.notify("execute", time.perf_counter() - t0)

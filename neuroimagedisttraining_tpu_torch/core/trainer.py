@@ -110,7 +110,20 @@ class LocalTrainer:
         #: replays are held against)
         self.capture_steps = device.type == "cuda"
         self._graphs: dict[tuple, StepGraph] = {}
-        self._last_graph_stream = None
+        #: on a CUDA device every step graph runs on this one stream and
+        #: captures into one pool (made at first use): the graphs of one
+        #: generator read its offset from one device tensor that each
+        #: replay sets first, so they run one after another anyway, and
+        #: one stream lets each capture reuse the blocks that earlier
+        #: captures and eager steps freed
+        self._graph_stream = None
+        self._graph_pool = None
+        #: captures and replays of graphs since dropped, and the
+        #: configurations captured before (a capture again is a recapture)
+        self._dropped_stats = (0, 0)
+        self._captured: set = set()
+        #: the engine label of the compute profiler's step records
+        self.obs_engine = "trainer"
         #: the rank of the model's input (batch and channel included)
         self.input_rank = getattr(model, "input_rank", 5)
 
@@ -242,12 +255,6 @@ class LocalTrainer:
                    if g.stream is not None else None)
         if g.stream is not None:
             g.stream.wait_stream(ambient)
-            # the graphs of one generator read its offset from one device
-            # tensor that each replay sets first: one graph after another
-            last = self._last_graph_stream
-            if last is not None and last != g.stream:
-                g.stream.wait_stream(last)
-            self._last_graph_stream = g.stream
 
         def on_stream():
             return (torch.cuda.stream(g.stream) if g.stream is not None
@@ -357,7 +364,23 @@ class LocalTrainer:
             st["loss_sum"].add_(loss)
             return loss, grads
 
-        g = StepGraph(body, dev, self.generator, capture=self.capture_steps)
+        def notify(phase: str, seconds: float) -> None:
+            from neuroimagedisttraining_tpu_torch.obs import compute
+
+            if phase == "compile":
+                compute.note_compile(tr.obs_engine, "step",
+                                     recompile=key in tr._captured)
+                tr._captured.add(key)
+            compute.note_dispatch(tr.obs_engine, "step", seconds,
+                                  rounds=0, phase=phase)
+
+        if dev.type == "cuda" and self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(dev)
+        if dev.type == "cuda" and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        g = StepGraph(body, dev, self.generator, capture=self.capture_steps,
+                      notify=notify, stream=self._graph_stream,
+                      pool=self._graph_pool)
         g.static, g.names, g.p_list, g.m_list, g.ref_list = (
             st, names, p_list, m_list, ref_list)
         self._graphs[key] = g
@@ -365,9 +388,28 @@ class LocalTrainer:
 
     @property
     def graph_stats(self) -> tuple[int, int]:
-        """``(captures, replays)`` over every step configuration."""
-        return (sum(g.captures for g in self._graphs.values()),
-                sum(g.replays for g in self._graphs.values()))
+        """``(captures, replays)`` over every step configuration, those of
+        dropped graphs included."""
+        return (self._dropped_stats[0]
+                + sum(g.captures for g in self._graphs.values()),
+                self._dropped_stats[1]
+                + sum(g.replays for g in self._graphs.values()))
+
+    def drop_graphs(self) -> None:
+        """Drop every step graph and its static buffers (a rollback, an
+        escalated defense, a shrunk mesh): the next ``local_train`` of a
+        configuration runs its first step eagerly and captures again. The
+        device is synchronized first: no replay is in flight when its graph
+        and buffers go. The graphs' pool and the cached blocks then go back
+        to the device (a host boundary, already synchronized), so the
+        graphs captured next do not stand beside the dropped ones."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._dropped_stats = self.graph_stats
+        self._graphs.clear()
+        self._graph_pool = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def eval_grad(self, params: State, bstats: State, x: torch.Tensor,
                   y: torch.Tensor) -> State:

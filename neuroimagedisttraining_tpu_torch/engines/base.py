@@ -50,6 +50,36 @@ constructor refuses what an engine does not run, with the reference's
 messages. ``record_privacy`` charges the RDP accountant (``privacy/``) for
 every round of an armed noise path.
 
+Checkpoints (``--checkpoint_dir``, ``--checkpoint_every``;
+``utils/checkpoint.py``): after every ``checkpoint_every``-th round and
+the last, the engine saves the state dict the reference's saves, under
+its keys (the models as the reference's flax trees, per-client states
+stacked), with ``stat_info``'s numbers and lists, and the trainer's
+generator, whose state the later rounds' draws continue from; a run
+resumes from the newest at the next round, bit for bit the uninterrupted
+run (:meth:`FederatedEngine.restore_checkpoint`). The wire codec's
+error feedback is not saved, as in the reference: a resumed codec run
+restarts it at zero.
+
+The telemetry plane (``obs/``) reads the run at its host boundaries: a
+span a window or round, a flush and an evaluation
+(``obs/trace.py``); the dispatch time and the rounds of every window
+(``obs/compute.py``, MFU over the wall time between boundaries); the
+round's health stats under ``--health_stats`` (computed in the round's
+tail, ``engines/program.py``, read in the window's one host read and
+published by ``obs/health.py``); ``stat_info`` and the DP ledger as
+gauges; the rules (``obs/rules.py``) at each boundary, whose reflex
+actions (``obs/actions.py``) the engine realizes: ``quarantine_silo``
+(the client of the lowest leave-one-out cosine leaves the cohort for 5
+rounds), ``escalate_defense`` (none -> norm_diff_clipping ->
+trimmed_mean) and ``freeze_rollback`` (the next boundary restores the
+last healthy pinned model). A ``preempt:NDEV@ROUND`` fault shrinks the
+mesh of a FedAvg-family run to its first NDEV entries and resumes from
+the last checkpoint (or goes on from the live state), recorded as
+``shrink_mesh``; the other engines ignore it, as the reference's do. A rollback,
+an escalation and a shrink drop the trainer's step graphs, which the
+next round captures again.
+
 ``perms_for(round_idx, client, n_valid[, track])`` may supply a client's
 epoch permutations (the tests feed the reference's draws; ``track`` is
 ``"personal"`` for Ditto's personal track, ``"first"`` and ``"tail"`` for
@@ -64,6 +94,7 @@ reference's draws.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Iterator, NamedTuple
@@ -84,11 +115,25 @@ from neuroimagedisttraining_tpu_torch.faults.schedule import (
     FaultSchedule, parse_fault_spec,
 )
 from neuroimagedisttraining_tpu_torch.engines import program as round_program
+from neuroimagedisttraining_tpu_torch.obs import actions as obs_actions
+from neuroimagedisttraining_tpu_torch.obs import compute as obs_compute
+from neuroimagedisttraining_tpu_torch.obs import flight as obs_flight
+from neuroimagedisttraining_tpu_torch.obs import health as obs_health
+from neuroimagedisttraining_tpu_torch.obs import metrics as obs_metrics
+from neuroimagedisttraining_tpu_torch.obs import names as obs_names
+from neuroimagedisttraining_tpu_torch.obs import rules as obs_rules
+from neuroimagedisttraining_tpu_torch.obs import trace as obs_trace
 from neuroimagedisttraining_tpu_torch.ops import mpc_device
 from neuroimagedisttraining_tpu_torch.ops.masks import mask_nnz
 from neuroimagedisttraining_tpu_torch.parallel import cohort
-from neuroimagedisttraining_tpu_torch.utils.logging import ExperimentLogger
-from neuroimagedisttraining_tpu_torch.weights import flax_named_leaves
+from neuroimagedisttraining_tpu_torch.utils import checkpoint as ckpt
+from neuroimagedisttraining_tpu_torch.utils.logging import (
+    ExperimentLogger, publish_registry,
+)
+from neuroimagedisttraining_tpu_torch.utils.pytree import tree_clone
+from neuroimagedisttraining_tpu_torch.weights import (
+    flax_named_leaves, state_from_flax, state_to_flax,
+)
 
 State = dict[str, torch.Tensor]
 
@@ -140,6 +185,10 @@ class FederatedEngine:
     supports_fused_streaming = False
     #: a window's log line for an engine that trains every client
     cohort_label = "every client"
+    #: the checkpoint's keys of the carry's slots, in order (the
+    #: reference's state-dict keys); ``history`` and the engine's
+    #: ``ckpt_extra`` ride beside them
+    ckpt_slots: tuple[str, ...] = ()
 
     #: the round's training walk covers the sampled clients (else every
     #: client)
@@ -187,7 +236,26 @@ class FederatedEngine:
             "sum_comm_bytes": 0.0, "sum_comm_bytes_dense": 0.0,
             "nonfinite_uploads": 0.0,
             "global_test_acc": [], "person_test_acc": [],
+            "final_masks": [],
         }
+        # the reflex plane's state (obs/actions.py): quarantine windows
+        # (from_round, until_round) by client, the cohorts and health rows
+        # the handlers look back at, the escalated defense, the healthy
+        # pin and a rollback waiting for the next boundary
+        self._quarantine_windows: dict[int, list[tuple[int, int]]] = {}
+        self._sampled_by_round: dict[int, np.ndarray] = {}
+        self._last_health_rows: dict[int, dict] = {}
+        self._defense_override: str | None = None
+        self._healthy_pin: dict | None = None
+        self._pending_rollback: dict | None = None
+        self._preempts_done: set[int] = set()
+        #: the round's health stats, waiting for the round's outputs
+        self._health_out: dict = {}
+        #: the metrics JSONL sink's sequence and last round
+        self._metrics_seq = 0
+        self._metrics_last_round: int | None = None
+        self._compute_armed = False
+        trainer.obs_engine = self.name
         self._init_defended_round(stream)
         self._init_dispatch()
 
@@ -259,9 +327,106 @@ class FederatedEngine:
         ``--client_mesh``; engines with their own story override."""
         return "no-sharded-body"
 
+    # ---------- checkpoints (utils/checkpoint.py) ----------
+
     def _ckpt_active(self) -> bool:
-        """Checkpoints are not ported: no round is a checkpoint round."""
-        return False
+        return bool(self.cfg.checkpoint_dir) and self.cfg.checkpoint_every > 0
+
+    def _leaf_shapes(self) -> dict[str, tuple]:
+        model = self.trainer.model
+        return {k: tuple(v.shape) for k, v in
+                [*model.named_parameters(), *model.named_buffers()]}
+
+    def _ckpt_encode(self, state: dict) -> dict:
+        """The state with its model states as the reference's flax trees
+        (a list of one a client stacked), tensors as arrays."""
+        buffers = {k for k, _ in self.trainer.model.named_buffers()}
+        out = {}
+        for k, v in state.items():
+            st = v[0] if isinstance(v, list) and v and isinstance(
+                v[0], dict) else v
+            if isinstance(st, dict) and st and all(
+                    isinstance(x, torch.Tensor) for x in st.values()):
+                out[k] = state_to_flax(v, stats=set(st) <= buffers)
+            else:
+                out[k] = v
+        return out
+
+    def _ckpt_decode(self, state: dict) -> dict:
+        """:meth:`_ckpt_encode`'s inverse: flax trees back to the port's
+        states on the device, arrays to tensors."""
+        shapes = self._leaf_shapes()
+        out = {}
+        for k, v in state.items():
+            if isinstance(v, dict) and k != "stat_info":
+                out[k] = state_from_flax(v, shapes, self.device)
+            elif isinstance(v, np.ndarray):
+                out[k] = torch.from_numpy(v).to(self.device, copy=True)
+            else:
+                out[k] = v
+        return out
+
+    def maybe_checkpoint(self, round_idx: int, state: dict) -> None:
+        """Save the state after round ``round_idx`` every
+        ``checkpoint_every`` rounds and at the last round, with
+        ``stat_info``'s numbers and lists and the trainer's generator."""
+        if not self._ckpt_active():
+            return
+        last = round_idx == self.cfg.fed.comm_round - 1
+        if (round_idx + 1) % self.cfg.checkpoint_every == 0 or last:
+            state = self._ckpt_encode(state)
+            state["stat_info"] = {
+                k: v for k, v in self.stat_info.items()
+                if isinstance(v, (int, float, list))}
+            state["generator"] = self.trainer.generator
+            with obs_trace.span("checkpoint", round=round_idx):
+                path = ckpt.save_checkpoint(self.cfg.checkpoint_dir,
+                                            round_idx, state)
+            log.info("checkpoint saved: round %d -> %s", round_idx, path)
+
+    def restore_checkpoint(self) -> tuple[int, dict | None]:
+        """``(start_round, state)``: the round to resume at and the state
+        of the last completed round, or ``(0, None)``. ``stat_info`` and
+        the trainer's generator are restored here."""
+        if not self._ckpt_active():
+            return 0, None
+        loaded = ckpt.load_checkpoint(self.cfg.checkpoint_dir)
+        if loaded is None:
+            return 0, None
+        round_idx, state = loaded
+        self.stat_info.update(state.pop("stat_info", {}))
+        gen = state.pop("generator", None)
+        if gen is not None:
+            self.trainer.generator.set_state(gen)
+        log.info("resuming from checkpoint: round %d", round_idx + 1)
+        return round_idx + 1, self._ckpt_decode(state)
+
+    def ckpt_extra(self) -> dict:
+        """State beside the carry that a checkpoint holds (SalientGrads'
+        mask)."""
+        return {}
+
+    def restore_extra(self, state: dict) -> None:
+        """Take :meth:`ckpt_extra`'s entries back from a restored state."""
+
+    def ckpt_state(self, carry: tuple, history: list) -> dict:
+        return {**dict(zip(self.ckpt_slots, carry)), **self.ckpt_extra(),
+                "history": history}
+
+    def carry_from(self, state: dict) -> tuple:
+        """The carry of a restored state (and its extra entries taken)."""
+        self.restore_extra(state)
+        return tuple(state[k] for k in self.ckpt_slots)
+
+    def resume(self, start_carry: tuple, history: list
+               ) -> tuple[int, tuple]:
+        """``(start_round, carry)``: the newest checkpoint's, its history
+        put into ``history``, or ``(0, start_carry)``."""
+        start, restored = self.restore_checkpoint()
+        if restored is None:
+            return 0, start_carry
+        history[:] = restored["history"]
+        return start, self.carry_from(restored)
 
     def _fuse(self) -> bool:
         return (self.cfg.fed.rounds_per_dispatch > 1
@@ -304,36 +469,82 @@ class FederatedEngine:
         that declare ``round_stages`` implement it."""
         raise NotImplementedError
 
-    def run_rounds(self, carry: tuple, on_round) -> tuple:
-        """Every round from ``carry``: one at a time, or in windows under
-        ``--rounds_per_dispatch``. After each round's outputs are read,
-        ``on_round(r, carry, row, seconds, sampled)`` runs in round order
-        (``row``: the round's outputs as host floats; ``carry``: the state
-        after the window, which is the round's own for the window's last
-        round, the only one that can be hooked; ``seconds``: the window's
-        time shared by its rounds). Returns the last carry."""
+    def run_rounds(self, carry: tuple, on_round, history: list | None = None,
+                   start: int = 0) -> tuple:
+        """Every round from round ``start`` and ``carry``: one at a time,
+        or in windows under ``--rounds_per_dispatch``. After each round's
+        outputs are read, ``on_round(r, carry, row, seconds, sampled)``
+        runs in round order (``row``: the round's outputs as host floats;
+        ``carry``: the state after the window, which is the round's own
+        for the window's last round, the only one that can be hooked;
+        ``seconds``: the window's time shared by its rounds). Each
+        window's end is a host boundary: the stats, the rules and the
+        reflexes, then the checkpoint of the carry (under
+        :attr:`ckpt_slots`) with ``history``. A preemption resumes from
+        the last checkpoint (:attr:`takes_preempt`). Returns the last
+        carry."""
         f = self.cfg.fed
         fuse = self._fuse()
-        r = 0
+        self._arm_compute_profiler()
+        history = [] if history is None else history
+        r = start
         while r < f.comm_round:
+            pre = self._maybe_preempt(r) if self.takes_preempt else None
+            if pre is not None:
+                fuse = self._fuse()
+                if pre[1] is not None:
+                    r, restored = pre
+                    history[:] = restored["history"]
+                    carry = self.carry_from(restored)
+                    continue
             k = self.program.dispatch_window(r) if fuse else 1
+            label = "window" if k > 1 else "round"
+            built = self.program.built
             t0 = time.perf_counter()
-            if k > 1:
-                carry, outs, wi = self.program.run_window(carry, r, k)
-                k, sampled = wi.k, wi.sampled
-            else:
-                self.plan_walks(r)
-                s = self.round_sampling(r)
-                carry, o = self.window_round(carry, r, s)
-                outs, sampled = [o], [s]
-            rows = self.read_outs(r, outs)
+            with obs_trace.span(label, engine=self.name, round=r, rounds=k):
+                if k > 1:
+                    carry, outs, wi = self.program.run_window(carry, r, k)
+                    k, sampled = wi.k, wi.sampled
+                else:
+                    self.plan_walks(r)
+                    s = self.round_sampling(r)
+                    carry, o = self.window_round(carry, r, s)
+                    outs, sampled = [{**o, **self.take_health()}], [s]
+            obs_compute.note_dispatch(
+                self.name, label, time.perf_counter() - t0, rounds=k,
+                phase="compile" if self.program.built > built else "execute")
+            with obs_trace.span("flush", engine=self.name,
+                                round=r + k - 1):
+                rows = self.read_outs(r, outs)
             self._sync()
             dt = (time.perf_counter() - t0) / k
             for off, row in enumerate(rows):
                 on_round(r + off, carry, row, dt,
                          sampled[off] if sampled is not None else None)
+            last = r + k - 1
+            self.publish_stat_info(last)
+            carry = self.reflex_carry(last, carry)
+            self.maybe_checkpoint(last, self.ckpt_state(carry, history))
             r += k
         return carry
+
+    def take_health(self) -> dict:
+        """The round's health stats (device tensors) its tail left, taken
+        once."""
+        out, self._health_out = self._health_out, {}
+        return out
+
+    @property
+    def health_on(self) -> bool:
+        """``--health_stats`` on an engine with a declared round."""
+        return bool(self.cfg.health_stats) and \
+            self.program.stages is not None
+
+    def note_health(self, stats: dict) -> None:
+        """Queue health stats of the running round (read with its
+        outputs)."""
+        if self.health_on:
+            self._health_out.update(stats)
 
     def round_sampling(self, round_idx: int):
         """A single round's cohort, logged (None for an engine that trains
@@ -358,10 +569,14 @@ class FederatedEngine:
     def read_outs(self, round_idx: int, outs: list[dict]) -> list[dict]:
         """Rounds ``round_idx ..``'s outputs on the host in one read; each
         round's non-finite uploads go into ``stat_info`` with a warning,
-        and the privacy ledger is charged through the last round."""
+        the privacy ledger is charged through the last round, and each
+        round's health stats (``h_*``) are published (every round but the
+        last also gets its metrics record and rule evaluation here; the
+        last gets them at :meth:`publish_stat_info`)."""
         names = [list(o) for o in outs]
         flat = self.read_host([v for o in outs for v in o.values()])
         rows, i = [], 0
+        last = round_idx + len(outs) - 1
         for r, keys in enumerate(names):
             row = dict(zip(keys, flat[i:i + len(keys)]))
             i += len(keys)
@@ -372,8 +587,17 @@ class FederatedEngine:
                             round_idx + r, int(bad),
                             "dropped" if self.sq_spec is None else
                             "folded as the zero residue")
+            health = {k: row.pop(k) for k in keys if k.startswith("h_")}
+            if health:
+                obs_health.publish_round_stats(self.name, round_idx + r,
+                                               health)
+                self._stash_bounded(self._last_health_rows,
+                                    round_idx + r, health)
+                if round_idx + r < last:
+                    self._dump_metrics_jsonl(round_idx + r)
+                    obs_rules.observe_boundary(round_idx + r)
             rows.append(row)
-        self.record_privacy(round_idx + len(outs) - 1)
+        self.record_privacy(last)
         return rows
 
     def _init_defended_round(self, stream) -> None:
@@ -382,11 +606,6 @@ class FederatedEngine:
         flag) fails here, at startup, with the reference's messages."""
         f = self.cfg.fed
         spec = parse_fault_spec(f.fault_spec) if f.fault_spec else None
-        if spec is not None and spec.preempts:
-            raise ValueError(
-                "--fault_spec preempt: directives need the elastic device "
-                "plane (a training mesh that shrinks and resumes from a "
-                "checkpoint), which the port does not have")
         self.fault_schedule = (FaultSchedule(spec, self.cfg.seed)
                                if spec is not None and spec.any_faults
                                else None)
@@ -548,6 +767,15 @@ class FederatedEngine:
             # crashed clients (rank = index + 1) leave the cohort; the
             # weighted mean over the survivors re-weights by sample count
             sampled = self.fault_schedule.survivors(round_idx, sampled)
+        if self._quarantine_windows:
+            # quarantined clients leave the cohort as a crash does, unless
+            # none would be left
+            keep = np.asarray([not self._is_quarantined(int(c), round_idx)
+                               for c in np.asarray(sampled)], bool)
+            if keep.any():
+                sampled = np.asarray(sampled)[keep]
+        self._stash_bounded(self._sampled_by_round, int(round_idx),
+                            np.asarray(sampled))
         if len(sampled) == 0:
             raise ValueError(
                 f"round {round_idx}: the sampled client set is empty — "
@@ -705,6 +933,308 @@ class FederatedEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # ---------- the host boundary's telemetry (obs/) ----------
+
+    def _arm_compute_profiler(self) -> None:
+        """Arm the MFU accounting once: the analytic training FLOPs of a
+        nominal round (a sample's, times the expected sampled samples,
+        times the epochs) against the card's peak in the run's
+        precision. A model the counter cannot walk leaves MFU
+        unpublished."""
+        if self._compute_armed:
+            return
+        self._compute_armed = True
+        try:
+            per_sample = obs_compute.analytic_sample_flops(
+                self.trainer, self.sample_shape)
+            frac = (min(self.cfg.fed.client_num_per_round,
+                        self.real_clients) / max(1, self.real_clients))
+            per_round = (per_sample * float(np.sum(self.n_train)) * frac
+                         * max(1, self.cfg.optim.epochs))
+            obs_compute.arm_model(
+                self.name, per_round, precision=self.cfg.optim.precision,
+                device_name=None if self.device.type == "cuda" else "cpu")
+        except Exception as e:  # noqa: BLE001 — MFU is best-effort
+            log.info("compute profiler: analytic FLOPs unavailable for "
+                     "this model (%s); nidt_mfu stays unpublished", e)
+
+    def _dump_metrics_jsonl(self, round_idx: int) -> None:
+        """One registry record a round into ``--metrics_out``, with the
+        ``round`` and a monotonic ``seq``; a round already written is
+        not written again."""
+        path = self.cfg.metrics_out
+        if not path:
+            return
+        if self._metrics_last_round is not None \
+                and round_idx <= self._metrics_last_round:
+            return
+        self._metrics_seq += 1
+        self._metrics_last_round = int(round_idx)
+        obs_metrics.REGISTRY.dump_jsonl(
+            path, round=int(round_idx), seq=self._metrics_seq,
+            engine=self.name)
+
+    def publish_stat_info(self, round_idx: int) -> None:
+        """The host boundary after round ``round_idx``: ``stat_info``'s
+        numbers and the DP ledger's epsilon (and its last round's burn) as
+        gauges, the round gauge, the compute profiler's MFU window, the
+        metrics record and the rules' evaluation."""
+        g = obs_metrics.gauge(
+            obs_names.STAT, "engine stat_info accumulators "
+            "(engines/base.py), one series per key", labelnames=("key",))
+        for k, v in self.stat_info.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                g.labels(key=k).set(float(v))
+        for src in ("weak_dp", "dp"):
+            d = self.stat_info.get(src)
+            if isinstance(d, dict) and d.get("epsilon_per_round"):
+                obs_metrics.gauge(
+                    obs_names.DP_EPSILON,
+                    "running (epsilon, delta) privacy cost of the armed "
+                    "noise path (privacy/accountant.py)",
+                    labelnames=("source",)).labels(source=src).set(
+                    float(d["epsilon"]))
+                per = d["epsilon_per_round"]
+                burn = (per[-1] - per[-2]) if len(per) > 1 else per[-1]
+                obs_metrics.gauge(
+                    obs_names.DP_EPSILON_PER_ROUND,
+                    "epsilon spent by the last accounted round (the "
+                    "budget burn rate --dp_epsilon_budget is judged "
+                    "against)", labelnames=("source",)).labels(
+                    source=src).set(float(burn))
+        obs_metrics.gauge(
+            obs_names.ENGINE_ROUND,
+            "last round index flushed at an engine host boundary",
+        ).set(int(round_idx))
+        obs_compute.PROFILER.boundary(self.name)
+        self._dump_metrics_jsonl(round_idx)
+        obs_rules.observe_boundary(round_idx)
+
+    # ---------- the reflex plane (obs/actions.py) ----------
+
+    #: rounds of the host stashes the handlers look back at
+    _REFLEX_STASH_CAP = 64
+    #: rounds a quarantine lasts
+    _REFLEX_QUARANTINE_ROUNDS = 5
+    #: the escalation ladder, each rung stronger
+    _DEFENSE_LADDER = ("none", "norm_diff_clipping", "trimmed_mean")
+    #: the round's global model is the carry's first two slots, which a
+    #: rollback restores (the FedAvg family)
+    rollback_slots = False
+    #: ``preempt:`` faults shrink the mesh between this engine's rounds;
+    #: as in the reference, only the FedAvg family takes them (the other
+    #: engines run the spec's other faults and ignore ``preempt:``)
+    takes_preempt = False
+
+    @staticmethod
+    def _stash_bounded(d: dict, key: int, value) -> None:
+        d[key] = value
+        while len(d) > FederatedEngine._REFLEX_STASH_CAP:
+            d.pop(min(d))
+
+    def _is_quarantined(self, client: int, round_idx: int) -> bool:
+        return any(a <= round_idx < b
+                   for a, b in self._quarantine_windows.get(client, ()))
+
+    def active_defense(self) -> str:
+        """The defense the round runs now: the flag's, or the escalated
+        one."""
+        return self._defense_override or self.cfg.fed.defense_type
+
+    def _invalidate_round_programs(self) -> None:
+        """Drop the planner and the trainer's step graphs: the next round
+        plans and captures again against the engine's state now."""
+        self.__dict__.pop("_program", None)
+        self.trainer.drop_graphs()
+
+    def _register_reflexes(self) -> None:
+        """Register the engine's handlers on the armed action bus (none
+        armed: nothing)."""
+        bus = obs_actions.active()
+        if bus is None:
+            return
+        bus.register("quarantine_silo", self._act_quarantine)
+        bus.register("escalate_defense", self._act_escalate_defense)
+        bus.register("freeze_rollback", self._act_freeze_rollback)
+
+    def _act_quarantine(self, *, rule: str, round_idx: int | None,
+                        value=None) -> dict:
+        """quarantine_silo: the sampled client of the firing round with the
+        lowest leave-one-out cosine leaves the cohort for
+        ``_REFLEX_QUARANTINE_ROUNDS`` rounds from the next; at most
+        ``byz_f`` clients at once."""
+        r = -1 if round_idx is None else int(round_idx)
+        sampled = self._sampled_by_round.get(r)
+        row = self._last_health_rows.get(r)
+        cos = None if row is None else row.get("h_cos")
+        if sampled is None or cos is None:
+            return {"status": "skipped",
+                    "reason": "no per-client cosine row for the round "
+                              "(--health_stats off, or pre-health "
+                              "boundary)"}
+        cos = np.ravel(np.asarray(cos, np.float64))
+        n = min(len(sampled), cos.size)
+        if n == 0:
+            return {"status": "skipped", "reason": "empty cohort"}
+        offender = int(np.asarray(sampled)[int(np.argmin(cos[:n]))])
+        if self._is_quarantined(offender, r + 1):
+            return {"status": "skipped", "client": offender,
+                    "reason": "offender already quarantined"}
+        cap = max(1, int(self.cfg.fed.byz_f))
+        active_now = sum(1 for c in self._quarantine_windows
+                         if self._is_quarantined(c, r + 1))
+        if active_now >= cap:
+            return {"status": "skipped",
+                    "reason": f"quarantine cap {cap} (byz_f) reached"}
+        until = r + 1 + self._REFLEX_QUARANTINE_ROUNDS
+        self._quarantine_windows.setdefault(offender, []).append(
+            (r + 1, until))
+        log.warning("reflex: client %d quarantined rounds [%d, %d) (rule "
+                    "%s, min leave-one-out cosine %.3f)", offender, r + 1,
+                    until, rule, float(cos[:n].min()))
+        return {"client": offender, "from_round": r + 1, "until": until,
+                "cos": float(cos[:n].min())}
+
+    def _act_escalate_defense(self, *, rule: str, round_idx: int | None,
+                              value=None) -> dict:
+        """escalate_defense: one rung up the ladder; what cannot be
+        escalated is a skipped dispatch with its reason."""
+        cur = self.active_defense()
+        ladder = self._DEFENSE_LADDER
+        if self.cfg.fed.secure_quant:
+            return {"status": "skipped",
+                    "reason": "secure_quant rounds have no plaintext "
+                              "defend tail to escalate"}
+        if cur not in ladder:
+            return {"status": "skipped",
+                    "reason": f"operator defense {cur!r} is outside "
+                              "the escalation ladder"}
+        if cur == ladder[-1]:
+            return {"status": "skipped",
+                    "reason": f"already at the top rung {cur!r}"}
+        nxt = ladder[ladder.index(cur) + 1]
+        if nxt not in self.supported_defenses:
+            return {"status": "skipped",
+                    "reason": f"engine {self.name!r} does not support "
+                              f"{nxt!r}"}
+        if nxt in robust.ROBUST_AGGREGATORS:
+            try:
+                robust._check_f(self.cfg.fed.client_num_per_round,
+                                self.cfg.fed.byz_f, nxt)
+            except ValueError as e:
+                return {"status": "skipped", "reason": str(e)}
+        self._defense_override = nxt
+        self._invalidate_round_programs()
+        log.warning("reflex: defense escalated %s -> %s (rule %s); the "
+                    "step graphs are dropped", cur, nxt, rule)
+        return {"from": cur, "to": nxt}
+
+    def _act_freeze_rollback(self, *, rule: str, round_idx: int | None,
+                             value=None) -> dict:
+        """freeze_rollback: the next host boundary restores the last
+        healthy pin."""
+        if self._healthy_pin is None:
+            return {"status": "skipped",
+                    "reason": "no healthy pinned state yet"}
+        self._pending_rollback = {
+            "rule": rule,
+            "round": -1 if round_idx is None else int(round_idx)}
+        return {"pin_round": int(self._healthy_pin["round"])}
+
+    def _reflex_boundary(self, round_idx: int, params: State,
+                         bstats: State) -> tuple[State, State]:
+        """The boundary's reflex hook: a pending rollback restores copies
+        of the pin (and zeroes the codec's error feedback, measured
+        against the states it discards), else the state is pinned as
+        healthy while the bus acts and the rules read ok. Pin and restore
+        are copies, so neither can be changed by a later round."""
+        pend = self._pending_rollback
+        if pend is not None:
+            self._pending_rollback = None
+            pin = self._healthy_pin
+            if pin is not None:
+                params = tree_clone(pin["params"])
+                bstats = tree_clone(pin["batch_stats"])
+                self._wire_ef = {}
+                self.trainer.drop_graphs()
+                obs_flight.record("rollback", rule=pend.get("rule"),
+                                  round=int(round_idx),
+                                  pin_round=int(pin["round"]))
+                log.warning("reflex: rolled back to the healthy state of "
+                            "round %d at boundary %d (rule %s); codec EF "
+                            "reset", pin["round"], round_idx,
+                            pend.get("rule"))
+            return params, bstats
+        bus = obs_actions.active()
+        if bus is not None and bus.mode == "on":
+            rules_eng = obs_rules.active()
+            if rules_eng is None or rules_eng.status() == "ok":
+                self._healthy_pin = {"round": int(round_idx),
+                                     "params": tree_clone(params),
+                                     "batch_stats": tree_clone(bstats)}
+        return params, bstats
+
+    def reflex_carry(self, round_idx: int, carry: tuple) -> tuple:
+        """:meth:`_reflex_boundary` on the carry's global model, for the
+        engines whose rollback restores it."""
+        if not self.rollback_slots:
+            return carry
+        params, bstats = self._reflex_boundary(round_idx, *carry[:2])
+        return (params, bstats, *carry[2:])
+
+    def _maybe_preempt(self, round_idx: int):
+        """A ``preempt:NDEV@ROUND`` fault whose round has come: the mesh
+        shrinks to its first NDEV entries (``--client_mesh`` follows), the
+        step graphs (captured on the old entries' streams) are dropped,
+        and the run resumes from the last checkpoint:
+        ``(resume_round, state)``, or ``(round_idx, None)`` to go on from
+        the live state. None when nothing fires. Recorded as
+        ``shrink_mesh`` whatever ``--actions`` says."""
+        from neuroimagedisttraining_tpu_torch.parallel.mesh import make_mesh
+
+        if self.fault_schedule is None:
+            return None
+        hits = [(at, nd) for (at, nd) in self.fault_schedule.spec.preempts
+                if at <= round_idx and at not in self._preempts_done]
+        if not hits:
+            return None
+        at, ndev = hits[0]
+        self._preempts_done.add(at)
+        old = self.mesh.devices.size if self.mesh is not None else 0
+        if self.mesh is None or not 0 < ndev < old:
+            obs_actions.record_action(
+                "shrink_mesh", rule="device-loss", round_idx=round_idx,
+                status="skipped",
+                detail={"reason": ("no mesh to shrink" if self.mesh is None
+                                   else f"{ndev} survivors do not shrink "
+                                   f"the {old}-device mesh"),
+                        "scheduled_round": int(at)})
+            return None
+        self.mesh = make_mesh(num_devices=ndev, devices=self.mesh.entries)
+        if int(self.cfg.fed.client_mesh) > 0:
+            self.cfg = dataclasses.replace(
+                self.cfg, fed=dataclasses.replace(self.cfg.fed,
+                                                  client_mesh=ndev))
+        self._invalidate_round_programs()
+        if self._cohort_on:
+            self._cohort_on = self.program.cohort_fallback_key() is None
+        start, restored = self.restore_checkpoint()
+        if restored is not None:
+            self._wire_ef = {}  # as a fresh process's resume
+        log.warning("preemption at round %d (scheduled @%d): mesh shrunk "
+                    "%d -> %d entries; resuming from %s", round_idx, at,
+                    old, ndev, (f"checkpoint round {start}"
+                                if restored is not None else
+                                "live state (no checkpoint configured)"))
+        obs_actions.record_action(
+            "shrink_mesh", rule="device-loss", round_idx=round_idx,
+            detail={"devices_before": int(old), "devices_after": int(ndev),
+                    "scheduled_round": int(at),
+                    "resume_round": (int(start) if restored is not None
+                                     else int(round_idx))})
+        return (start, restored) if restored is not None \
+            else (round_idx, None)
+
     def read_round(self, round_idx: int, loss: torch.Tensor,
                    n_bad: torch.Tensor | None = None) -> float:
         """The round's loss on the host (one device read); non-finite
@@ -730,8 +1260,13 @@ class FederatedEngine:
                                 ) -> np.ndarray:
         """Each real client's count of kept entries over the maskable
         leaves (one device read), through :meth:`warn_collapsed`."""
-        return self.warn_collapsed(self.masks_nnz(masks).cpu().numpy(),
-                                   round_idx)
+        nnz = self.warn_collapsed(self.masks_nnz(masks).cpu().numpy(),
+                                  round_idx)
+        per_client = sum(v.numel() for v in masks[0].values())
+        if per_client > 0 and nnz.size:
+            obs_health.publish_mask_density(
+                self.name, round_idx, float(np.mean(nnz) / per_client))
+        return nnz
 
     @staticmethod
     def warn_collapsed(nnz, round_idx: int) -> np.ndarray:
@@ -746,9 +1281,14 @@ class FederatedEngine:
         return nnz
 
     def metrics(self, round_idx: int, **values) -> None:
-        """One metrics record in the experiment log, where there is one."""
+        """One metrics record in the experiment log, where there is one,
+        and in the metrics registry."""
         if self.log is not None:
             self.log.metrics(round_idx, **values)
+        else:
+            publish_registry(round_idx, {
+                k: v for k, v in values.items()
+                if isinstance(v, (int, float, dict))})
 
     def is_eval_round(self, round_idx: int) -> bool:
         f = self.cfg.fed
@@ -966,26 +1506,40 @@ class FederatedEngine:
             params_up = [{k: u[k] for k in ref_params} for u in uploads]
             bstats_up = [{k: u[k] for k in ref_bstats} for u in uploads]
         if self.sq_spec is not None:
-            return self.secure_quant_aggregate(round_idx, sampled, params_up,
-                                               bstats_up, ref_params, ns,
-                                               losses)
+            out = self.secure_quant_aggregate(round_idx, sampled, params_up,
+                                              bstats_up, ref_params, ns,
+                                              losses)
+            self._note_update_health(params_up, ref_params, out[0], ns)
+            return out
+        measured = params_up
         params_up, bstats_up, w, mean_loss, n_bad = self.guard_uploads(
             params_up, bstats_up, ref_params, ref_bstats, ns, losses)
-        defense = robust.effective_defense(f.defense_type, len(params_up),
-                                           f.byz_f, warn=self._warn_once)
+        defense = robust.effective_defense(self.active_defense(),
+                                           len(params_up), f.byz_f,
+                                           warn=self._warn_once)
         if defense in robust.ROBUST_AGGREGATORS:
             agg = robust.robust_aggregate(
                 [{**p, **b} for p, b in zip(params_up, bstats_up)], w,
                 defense=defense, byz_f=f.byz_f, geomed_iters=f.geomed_iters)
-            return ({k: agg[k] for k in ref_params},
-                    {k: agg[k] for k in ref_bstats}, mean_loss, n_bad)
+            new_p = {k: agg[k] for k in ref_params}
+            self._note_update_health(measured, ref_params, new_p, ns)
+            return new_p, {k: agg[k] for k in ref_bstats}, mean_loss, n_bad
         noises = ([self.noise_for("weak_dp", round_idx, int(c), ref_params)
                    for c in sampled] if defense == "weak_dp" else None)
         params_up = robust.defend_stacked(
             params_up, ref_params, defense=defense, norm_bound=f.norm_bound,
             stddev=f.stddev, noises=noises)
-        return (self.aggregate(params_up, w), self.aggregate(bstats_up, w),
-                mean_loss, n_bad)
+        new_p = self.aggregate(params_up, w)
+        self._note_update_health(measured, ref_params, new_p, ns)
+        return new_p, self.aggregate(bstats_up, w), mean_loss, n_bad
+
+    def _note_update_health(self, uploads: list[State], ref: State,
+                            new_params: State, w: torch.Tensor) -> None:
+        """The round's update stats (``program.health_update_stats``) on
+        the uploads the tail took, queued under ``--health_stats``."""
+        if self.health_on:
+            self.note_health(round_program.health_update_stats(
+                uploads, ref, new_params, w))
 
     def secure_quant_aggregate(self, round_idx: int, sampled,
                                params_up: list[State],
@@ -1095,6 +1649,11 @@ class FederatedEngine:
         rows, summarized (the reference package's ``eval_global_stream``
         and ``eval_personalized_stream`` too: the walk serves both
         paths)."""
+        with obs_trace.span("eval", engine=self.name):
+            return self._eval_rows(states)
+
+    def _eval_rows(self, states: list[tuple[State, State]]
+                   ) -> dict[str, float]:
         out, n = [], []
         for c, rows in self.client_rows(self.eval_ids(), "test"):
             params, bstats = states[c]

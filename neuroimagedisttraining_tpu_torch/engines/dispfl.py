@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.obs import compute as obs_compute
 from neuroimagedisttraining_tpu_torch.faults.schedule import activity_mask
 from neuroimagedisttraining_tpu_torch.ops import flops as flops_ops
 from neuroimagedisttraining_tpu_torch.ops import masks as M
@@ -271,7 +272,15 @@ class DisPFLEngine(FederatedEngine):
             dtype=np.float64) + n_dense
         flops_per_round = self.flops_per_round(params, w_spa)
         history, round_seconds = [], []
-        for r in range(cfg.fed.comm_round):
+        start, restored = self.restore_checkpoint()
+        if restored is not None:
+            per_params, per_bstats = (restored["per_params"],
+                                      restored["per_bstats"])
+            masks_local, masks_shared = (restored["masks_local"],
+                                         restored["masks_shared"])
+            history[:] = restored["history"]
+        self._arm_compute_profiler()
+        for r in range(start, cfg.fed.comm_round):
             self.plan_walks(r)
             active = self.active_draw(r)
             A = self.adjacency(r, active)
@@ -284,6 +293,8 @@ class DisPFLEngine(FederatedEngine):
             loss_h = self.read_round(r, loss)
             self._sync()
             round_seconds.append(time.perf_counter() - t0)
+            obs_compute.note_dispatch(self.name, "round", round_seconds[-1],
+                                      rounds=1)
             if not cfg.sparsity.static:
                 self.warn_if_masks_collapsed(masks_local, r)
             off = A[:real, :real].astype(np.float64)
@@ -301,6 +312,11 @@ class DisPFLEngine(FederatedEngine):
                                 "personal_acc": mp["acc"],
                                 "mask_change": change})
                 log.info("round %d: %s", r, history[-1])
+            self.publish_stat_info(r)
+            self.maybe_checkpoint(r, {
+                "per_params": per_params, "per_bstats": per_bstats,
+                "masks_local": masks_local, "masks_shared": masks_shared,
+                "history": history})
         dist_matrix = torch.stack([
             torch.stack([M.mask_hamming_distance(a, b)
                          for b in masks_local[:real]])

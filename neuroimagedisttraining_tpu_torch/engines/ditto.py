@@ -37,6 +37,7 @@ class DittoEngine(FederatedEngine):
     supports_secure_quant = True
     supported_defenses = robust.DEFENSES
     supports_cohort_sharding = True
+    ckpt_slots = ("params", "batch_stats", "per_params", "per_bstats")
 
     def round_stages(self):
         return RoundStages()
@@ -93,8 +94,10 @@ class DittoEngine(FederatedEngine):
                                 "global_acc": mg["acc"]})
                 log.info("round %d: %s", r, history[-1])
 
+        start, carry = self.resume(
+            (params, bstats, per_params, per_bstats), history)
         params, bstats, per_params, per_bstats = self.run_rounds(
-            (params, bstats, per_params, per_bstats), on_round)
+            carry, on_round, history, start)
         m = self.eval_personalized(per_params, per_bstats)
         return {"params": params, "batch_stats": bstats,
                 "personal_params": per_params,

@@ -77,6 +77,7 @@ class DPSGDEngine(FederatedEngine):
     eval_walks = 2
     supports_cohort_sharding = True
     cohort_label = "decentralized cohort"
+    ckpt_slots = ("per_params", "per_bstats", "g_params", "g_bstats")
 
     def round_stages(self):
         return RoundStages(gathers_cohort=False,
@@ -224,8 +225,10 @@ class DPSGDEngine(FederatedEngine):
                              finetune_personal=mft)
                 log.info("fine-tune after round %d: %s", r, mft)
 
+        start, carry = self.resume(
+            (per_params, per_bstats, g_params, g_bstats), history)
         per_params, per_bstats, g_params, g_bstats = self.run_rounds(
-            (per_params, per_bstats, g_params, g_bstats), on_round)
+            carry, on_round, history, start)
         return {"personal_params": per_params,
                 "personal_batch_stats": per_bstats,
                 "global_params": g_params, "global_batch_stats": g_bstats,

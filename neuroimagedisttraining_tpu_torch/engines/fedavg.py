@@ -1,5 +1,6 @@
 """FedAvg: classical federated averaging, with the reference's final
-fine-tune.
+fine-tune. Its checkpoint holds ``params``, ``batch_stats`` and
+``history``; a rollback restores its global model.
 
 A round samples clients (``np.random.seed(round)``, as the reference
 does; crashed clients of the fault schedule leave the cohort), trains each
@@ -44,6 +45,9 @@ class FedAvgEngine(FederatedEngine):
     supported_defenses = robust.DEFENSES
     supports_cohort_sharding = True
     supports_fused_streaming = True
+    ckpt_slots = ("params", "batch_stats")
+    rollback_slots = True
+    takes_preempt = True
 
     def round_stages(self):
         return RoundStages()
@@ -91,8 +95,9 @@ class FedAvgEngine(FederatedEngine):
                 history.append({"round": r, "train_loss": row["loss"], **m})
                 log.info("round %d: %s", r, history[-1])
 
-        params, bstats = self.run_rounds(self.start_state(init_state),
-                                         on_round)
+        self._register_reflexes()
+        start, carry = self.resume(self.start_state(init_state), history)
+        params, bstats = self.run_rounds(carry, on_round, history, start)
         t0 = time.perf_counter()
         per_params, per_bstats = self.finetune(params, bstats)
         self._sync()

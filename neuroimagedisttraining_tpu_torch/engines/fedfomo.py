@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.obs import compute as obs_compute
 from neuroimagedisttraining_tpu_torch.ops import flops as flops_ops
 
 log = logging.getLogger(__name__)
@@ -232,7 +233,14 @@ class FedFomoEngine(FederatedEngine):
         n_params = sum(v.numel() for v in params.values())
         n_samples = float(np.sum(self.n_train[:self.real_clients]))
         history, round_seconds = [], []
-        for r in range(cfg.fed.comm_round):
+        start, restored = self.restore_checkpoint()
+        if restored is not None:
+            per_params, per_bstats = (restored["per_params"],
+                                      restored["per_bstats"])
+            weights, p_choose = restored["weights"], restored["p_choose"]
+            history[:] = restored["history"]
+        self._arm_compute_profiler()
+        for r in range(start, cfg.fed.comm_round):
             self.plan_walks(r)
             t0 = time.perf_counter()
             (per_params, per_bstats, weights, p_choose, loss, transfers,
@@ -241,6 +249,8 @@ class FedFomoEngine(FederatedEngine):
             loss_h = self.read_round(r, loss)
             self._sync()
             round_seconds.append(time.perf_counter() - t0)
+            obs_compute.note_dispatch(self.name, "round", round_seconds[-1],
+                                      rounds=1)
             log.info("round %d: %d neighbour evaluations", r, n_pairs)
             self.stat_info["sum_training_flops"] += (
                 flops_per_sample * cfg.optim.epochs * n_samples)
@@ -252,6 +262,11 @@ class FedFomoEngine(FederatedEngine):
                 history.append({"round": r, "train_loss": loss_h,
                                 "personal_acc": mp["acc"]})
                 log.info("round %d: %s", r, history[-1])
+            self.publish_stat_info(r)
+            self.maybe_checkpoint(r, {
+                "per_params": per_params, "per_bstats": per_bstats,
+                "weights": weights, "p_choose": p_choose,
+                "history": history})
         m_person = self.eval_personalized(per_params, per_bstats)
         self.metrics(-1, personal=m_person)
         return {"personal_params": per_params,

@@ -26,6 +26,7 @@ class LocalEngine(FederatedEngine):
     trains_sampled = False
     supports_cohort_sharding = True
     cohort_label = "local-only cohort"
+    ckpt_slots = ("per_params", "per_bstats")
 
     def round_stages(self):
         return RoundStages(gathers_cohort=False)
@@ -77,8 +78,9 @@ class LocalEngine(FederatedEngine):
                 history.append({"round": r, "train_loss": row["loss"], **m})
                 log.info("round %d: %s", r, history[-1])
 
-        per_params, per_bstats = self.run_rounds((per_params, per_bstats),
-                                                 on_round)
+        start, carry = self.resume((per_params, per_bstats), history)
+        per_params, per_bstats = self.run_rounds(carry, on_round, history,
+                                                 start)
         m = self.eval_personalized(per_params, per_bstats)
         self.metrics(-1, personal=m)
         return {"personal_params": per_params,

@@ -9,9 +9,8 @@ jit, donate or scan.
 
 - :data:`REASONS` is the reference's table of fallback reasons (the same
   keys, planes and messages); :func:`report_fallback` logs an engine's
-  fallback line once and counts it in :data:`FALLBACKS` (the reference's
-  ``nidt_fallback_total`` counter belongs to the observability plane the
-  port does not have yet).
+  fallback line once and counts it in :data:`FALLBACKS` and in the
+  registry's ``nidt_fallback_total{plane, engine, reason}``.
 - :class:`RoundStages` is what an engine declares of its round: only the
   two facts the planner reads (whether the round gathers the sampled
   cohort, an engine's extra host hook). An engine without a declared
@@ -29,8 +28,15 @@ jit, donate or scan.
   ``dispatches`` their replays. On one device a window of K rounds is bit
   for bit K single rounds, the reference's own pin.
 
-Checkpoints are not ported yet: :meth:`FederatedEngine._ckpt_active` is
-False, as in a reference run without ``--checkpoint_dir``.
+Checkpoints (``--checkpoint_dir``, ``--checkpoint_every``): a checkpoint
+round ends its window, so a resumed run starts at a window's first round
+(:meth:`FederatedEngine._ckpt_active`).
+
+Under ``--health_stats`` the round's tail also computes its health stats
+on the device (:func:`health_update_stats`, :func:`mask_health_stats`,
+the reference's): they ride out with the round's outputs and are read in
+the window's one host read, so they add no sync and change no bit of
+training.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import logging
 from typing import Callable
 
 import numpy as np
+import torch
 
 log = logging.getLogger(__name__)
 
@@ -118,11 +125,100 @@ def reason(key: str) -> str:
 def report_fallback(engine_name: str, key: str, line: str, *args) -> str:
     """Log the fallback line ``line % args`` followed by ``key``'s message,
     count it by (plane, engine, key) and return the message."""
+    from neuroimagedisttraining_tpu_torch.obs import metrics as obs_metrics
+    from neuroimagedisttraining_tpu_torch.obs import names as obs_names
+
     plane, msg = REASONS[key]
     FALLBACKS[(plane, engine_name, key)] = FALLBACKS.get(
         (plane, engine_name, key), 0) + 1
+    obs_metrics.counter(
+        obs_names.FALLBACK_TOTAL,
+        "fast-path fallback announcements by plane, engine and reason "
+        "(engines/program.py REASONS)",
+        labelnames=("plane", "engine", "reason")).labels(
+        plane=plane, engine=engine_name, reason=key).inc()
     log.info(line + ": %s", *args, msg)
     return msg
+
+
+def health_update_stats(uploads: list[dict], ref: dict, new_params: dict,
+                        w: torch.Tensor) -> dict:
+    """The round's update stats (``obs/health.py`` ``UPDATE_STAT_NAMES``)
+    on the device, in float32, from the parameters of the uploads the
+    aggregation took (after the attack and the codec), the round's
+    broadcast parameters ``ref``, the new global parameters and the
+    clients' weights ``w``: each client's update L2 norm, the max, the
+    median and their dispersion, each client's leave-one-out cosine to the
+    aggregate update (against the aggregate less its own weighted share:
+    with its own share a sign-flipping client's cosine turns back toward
+    +1), their min and mean, and the norms of the new model and of the
+    aggregate update. Nothing is read on the host."""
+    C = len(uploads)
+    dev = w.device
+    sq = torch.zeros((C,), dtype=torch.float32, device=dev)
+    dots = torch.zeros((C,), dtype=torch.float32, device=dev)
+    agg_sq = torch.zeros((), dtype=torch.float32, device=dev)
+    gsq = torch.zeros((), dtype=torch.float32, device=dev)
+    for k, r in ref.items():
+        r = r.to(torch.float32)
+        n = new_params[k].to(torch.float32)
+        du = (torch.stack([u[k] for u in uploads]).to(torch.float32)
+              - r[None]).reshape(C, -1)
+        da = (n - r).reshape(-1)
+        sq = sq + torch.sum(du * du, dim=1)
+        dots = dots + du @ da
+        agg_sq = agg_sq + torch.sum(da * da)
+        gsq = gsq + torch.sum(n.reshape(-1) ** 2)
+    norms = torch.sqrt(sq)
+    wf = w.to(torch.float32)
+    p = wf / torch.clamp(torch.sum(wf), min=1e-12)
+    loo_dot = dots - p * sq
+    loo_sq = torch.clamp(agg_sq - 2.0 * p * dots + p * p * sq, min=0.0)
+    cos = loo_dot / torch.clamp(norms * torch.sqrt(loo_sq), min=1e-12)
+    s = torch.sort(norms).values  # the median of an even count: the mean
+    med = (s[(C - 1) // 2] + s[C // 2]) * 0.5 if C % 2 == 0 else s[C // 2]
+    top = torch.max(norms)
+    return {
+        "h_up_norms": norms, "h_up_max": top, "h_up_med": med,
+        "h_cos_min": torch.min(cos), "h_cos_mean": torch.mean(cos),
+        "h_disp": top / torch.clamp(med, min=1e-12),
+        "h_gnorm": torch.sqrt(gsq), "h_agg_up": torch.sqrt(agg_sq),
+        "h_cos": cos,
+    }
+
+
+def mask_health_stats(new_masks: list[dict], old_masks: list[dict] | None
+                      ) -> dict:
+    """The mask stats (``obs/health.py`` ``MASK_STAT_NAMES``) over the
+    clients' masks (one dict a client, or one dict for a global mask): the
+    kept fraction, the round-over-round overlap of the kept weights (1
+    without ``old_masks``: a fixed mask) and its churn, on the device."""
+    if isinstance(new_masks, dict):
+        new_masks = [new_masks]
+    if isinstance(old_masks, dict):
+        old_masks = [old_masks]
+    dev = next(iter(new_masks[0].values())).device
+    kept = torch.zeros((), dtype=torch.int64, device=dev)
+    both = torch.zeros((), dtype=torch.int64, device=dev)
+    was = torch.zeros((), dtype=torch.int64, device=dev)
+    total = 0.0
+    for i, m in enumerate(new_masks):
+        for k, v in m.items():
+            mb = v > 0
+            kept = kept + torch.sum(mb)
+            total += float(v.numel())
+            if old_masks is not None:
+                ob = old_masks[i][k] > 0
+                both = both + torch.sum(mb & ob)
+                was = was + torch.sum(ob)
+    density = kept.to(torch.float32) / max(total, 1.0)
+    if old_masks is None:
+        overlap = torch.ones((), dtype=torch.float32, device=dev)
+    else:
+        overlap = both.to(torch.float32) / torch.clamp(
+            was.to(torch.float32), min=1.0)
+    return {"h_mask_density": density, "h_mask_overlap": overlap,
+            "h_mask_churn": 1.0 - overlap}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,7 +372,7 @@ class RoundProgram:
                 else:
                     eng.plan_walks(r)
                 carry, o = eng.window_round(carry, r, sampled)
-                outs.append(o)
+                outs.append({**o, **eng.take_health()})
         finally:
             eng._round_rows = None
         return carry, outs, wi

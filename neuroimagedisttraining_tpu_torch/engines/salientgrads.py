@@ -38,6 +38,7 @@ import torch
 
 from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.engines import program as round_program
 from neuroimagedisttraining_tpu_torch.engines.program import RoundStages
 from neuroimagedisttraining_tpu_torch.ops import flops as flops_ops
 from neuroimagedisttraining_tpu_torch.ops.masks import mask_density, ones_mask
@@ -57,8 +58,15 @@ class SalientGradsEngine(FederatedEngine):
     supports_secure_quant = True
     supported_defenses = robust.DEFENSES
     supports_cohort_sharding = True
+    ckpt_slots = ("params", "batch_stats", "per_params", "per_bstats")
     #: the phase-1 mask once made (the codec's mask handoff)
     _masks = None
+
+    def ckpt_extra(self):
+        return {"masks": self._masks}
+
+    def restore_extra(self, state):
+        self._masks = state["masks"]
 
     def round_stages(self):
         return RoundStages()
@@ -115,6 +123,8 @@ class SalientGradsEngine(FederatedEngine):
         new_p, new_b, loss, n_bad, (ups_p, ups_b) = self.train_and_aggregate(
             round_idx, params, bstats, sampled, self.round_lr(round_idx),
             mask=masks)
+        if self.health_on:  # a fixed mask: its density, overlap 1
+            self.note_health(round_program.mask_health_stats(masks, None))
         real = self.n_train[sampled] > 0
         per_params = self.scatter_sampled_rows(per_params, ups_p, sampled, real)
         per_bstats = self.scatter_sampled_rows(per_bstats, ups_b, sampled, real)
@@ -128,11 +138,16 @@ class SalientGradsEngine(FederatedEngine):
     def train(self, init_state=None, masks=None) -> dict:
         """The whole run. ``init_state``: initial ``(params, bstats)``
         (default: :meth:`init_global_state`); ``masks``: a phase-1 mask to
-        train under instead of computing one (as a resumed run does)."""
+        train under instead of computing one. A run resumed from a
+        checkpoint takes its mask from it: phase 1 is not run again."""
         cfg = self.cfg
         params, bstats = self.start_state(init_state)
+        start, restored = self.restore_checkpoint()
+        if restored is not None:
+            masks = restored["masks"]
         t0 = time.perf_counter()
-        self.plan_walks(0, before=[("train", tuple(range(self.num_clients)))]
+        self.plan_walks(start,
+                        before=[("train", tuple(range(self.num_clients)))]
                         if masks is None else [])
         if masks is None:
             masks, thr = self.generate_global_mask(params, bstats)
@@ -153,11 +168,15 @@ class SalientGradsEngine(FederatedEngine):
         comm_per_client = flops_ops.count_communication_params(masks)
         per_params, per_bstats = self.broadcast_states(params, bstats,
                                                        self.num_clients)
-        history = []
+        history, round_seconds = [], []
+        carry = (params, bstats, per_params, per_bstats)
+        if restored is not None:
+            history[:] = restored["history"]
+            carry = self.carry_from(restored)
 
         def on_round(r, carry, row, seconds, sampled):
-            entry = {"round": r, "train_loss": row["loss"],
-                     "round_seconds": seconds}
+            round_seconds.append(seconds)
+            entry = {"round": r, "train_loss": row["loss"]}
             n_samples = float(np.sum(self.n_train[sampled]))
             self.stat_info["sum_training_flops"] += (
                 flops_per_sample * cfg.optim.epochs * n_samples)
@@ -174,12 +193,13 @@ class SalientGradsEngine(FederatedEngine):
             history.append(entry)
 
         params, bstats, per_params, per_bstats = self.run_rounds(
-            (params, bstats, per_params, per_bstats), on_round)
+            carry, on_round, history, start)
         m_global = self.eval_global(params, bstats)
         m_person = self.eval_personalized(per_params, per_bstats)
         self.metrics(-1, global_=m_global, personal=m_person)
         return {"params": params, "batch_stats": bstats, "masks": masks,
                 "threshold": thr, "mask_density": density,
                 "phase1_seconds": phase1_seconds, "history": history,
+                "round_seconds": round_seconds,
                 "per_params": per_params, "per_bstats": per_bstats,
                 "final_global": m_global, "final_personal": m_person}

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
+from neuroimagedisttraining_tpu_torch.engines import program as round_program
 from neuroimagedisttraining_tpu_torch.engines.program import RoundStages
 from neuroimagedisttraining_tpu_torch.ops import flops as flops_ops
 from neuroimagedisttraining_tpu_torch.ops.masks import ones_mask
@@ -58,6 +59,7 @@ def _f32(x: float) -> torch.Tensor:
 class SubFedAvgEngine(FederatedEngine):
     name = "subavg"
     supports_cohort_sharding = True
+    ckpt_slots = ("params", "batch_stats", "mask_pers")
 
     def round_stages(self):
         return RoundStages()
@@ -137,6 +139,13 @@ class SubFedAvgEngine(FederatedEngine):
             torch.sum(torch.stack(accepts).to(torch.float32) * r),
         ]).to(torch.float64)
         outs = torch.cat([outs, torch.sum(up_nnz * r.to(torch.float64))[None]])
+        if self.health_on:
+            # the uploads against the broadcast model at the mean's
+            # weights, and the accepted masks against those they replace
+            self.note_health(round_program.health_update_stats(
+                ups_p, params, new_params, r))
+            self.note_health(round_program.mask_health_stats(
+                new_m, [mask_pers[c] for c in sampled]))
         mask_pers = self.scatter_sampled_rows(mask_pers, new_m, sampled, real)
         return new_params, new_bstats, mask_pers, outs
 
@@ -186,8 +195,9 @@ class SubFedAvgEngine(FederatedEngine):
                                 "prunes_accepted": int(n_accept)})
                 log.info("round %d: %s", r, history[-1])
 
-        params, bstats, mask_pers = self.run_rounds(
-            (params, bstats, mask_pers), on_round)
+        start, carry = self.resume((params, bstats, mask_pers), history)
+        params, bstats, mask_pers = self.run_rounds(carry, on_round,
+                                                    history, start)
         m_person = self.eval_masked_global(params, bstats, mask_pers)
         self.metrics(-1, personal=m_person)
         densities = torch.stack([density_all_leaves(_times(params, m))

@@ -1,7 +1,10 @@
 """Experiment logging: the reference's per-experiment log file
 ``LOG/<dataset>/<identity>.log`` (message-only lines) beside a JSONL
 stream ``<identity>.metrics.jsonl`` with one record per ``metrics`` call
-(``round``, seconds since the logger started, and the values)."""
+(``round``, seconds since the logger started, and the values). Every
+numeric value of a record is also set in the metrics registry
+(``obs/metrics.py``, ``nidt_exp_metric{key}``), so a ``/metrics`` scrape
+sees what the JSONL file records."""
 
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ class ExperimentLogger:
             rec[k] = _jsonable(v)
         with open(self.jsonl_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        publish_registry(round_idx, rec)
         self._log.info("round %d metrics: %s", round_idx,
                        {k: rec[k] for k in values})
 
@@ -47,6 +51,34 @@ class ExperimentLogger:
         for h in list(self._log.handlers):
             h.close()
             self._log.removeHandler(h)
+
+
+def publish_registry(round_idx: int, rec: Mapping[str, Any]) -> None:
+    """A metrics record's numbers as gauges (the last value wins) keyed
+    by name, nested dicts flattened with ``_``, and the round in
+    ``nidt_exp_round``."""
+    from neuroimagedisttraining_tpu_torch.obs import metrics as obs_metrics
+    from neuroimagedisttraining_tpu_torch.obs import names as obs_names
+
+    g = obs_metrics.gauge(
+        obs_names.EXP_METRIC,
+        "per-round experiment metrics (ExperimentLogger.metrics)",
+        labelnames=("key",))
+    obs_metrics.gauge(
+        obs_names.EXP_ROUND,
+        "last round index ExperimentLogger.metrics recorded",
+    ).set(int(round_idx))
+
+    def put(prefix: str, v: Any) -> None:
+        if isinstance(v, Mapping):
+            for k2, v2 in v.items():
+                put(f"{prefix}_{k2}", v2)
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            g.labels(key=prefix).set(float(v))
+
+    for k, v in rec.items():
+        if k not in ("round", "t"):
+            put(k, v)
 
 
 def _jsonable(v: Any) -> Any:

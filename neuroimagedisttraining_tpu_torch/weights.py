@@ -159,3 +159,78 @@ def flax_named_leaves(params: Mapping[str, torch.Tensor],
             out[(top, *path)] = np.ascontiguousarray(
                 _to_flax_layout(path[-1], a))
     return {"/".join(p): out[p] for p in sorted(out)}
+
+
+def _nest(flat: dict[tuple, Any]) -> dict:
+    out: dict = {}
+    for path in sorted(flat):
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = flat[path]
+    return out
+
+
+def state_to_flax(state, stats: bool) -> dict:
+    """A state (``params`` or, with ``stats``, ``batch_stats``; a mask is
+    params-like) or a list of one a client as the reference's nested
+    tree of numpy leaves in flax's layout; a list becomes the
+    client-stacked tree (a leading client axis on every leaf), as the
+    reference's per-client stacks are."""
+    stacked = isinstance(state, list)
+    names = list(state[0]) if stacked else list(state)
+    flat = {}
+    for name in names:
+        if stacked:
+            a = np.stack([s[name].detach().cpu().numpy() for s in state])
+            lead, rank = (0,), a.ndim - 1
+        else:
+            a = state[name].detach().cpu().numpy()
+            lead, rank = (), a.ndim
+        path = _flax_path(name, rank, stats)
+        if path[-1].endswith("kernel") and rank in _TO_FLAX:
+            a = np.transpose(a, lead + tuple(len(lead) + i
+                                             for i in _TO_FLAX[rank]))
+        flat[path] = np.ascontiguousarray(a)
+    return _nest(flat)
+
+
+def state_from_flax(tree: Mapping, shapes: Mapping[str, tuple],
+                    device=None):
+    """:func:`state_to_flax`'s inverse: a nested flax tree -> a state, or
+    a list of one a client where its leaves carry a leading client axis
+    over the port's ``shapes`` (name -> shape, the model's leaves, in
+    the model's order, which the state's keys keep). ``batch_stats``
+    trees (``mean`` / ``var`` leaves) map to the buffers. Tensors go to
+    ``device``."""
+    flat = _flatten(tree)
+    if not flat:
+        return {}
+    stats = all(p[-1] in _STAT_NAMES for p in flat)
+    names = _STAT_NAMES if stats else _PARAM_NAMES
+    out, stacked = {}, None
+    for path, a in flat.items():
+        *mods, leaf = path
+        name = _port_name(mods, leaf, names)
+        a = np.asarray(a)
+        rank = len(shapes[name])
+        lead = a.ndim - rank
+        if stacked is None:
+            stacked = lead == 1
+        if lead != int(stacked):
+            raise ValueError(f"checkpoint leaf {'/'.join(path)} of shape "
+                             f"{a.shape} against the model's {name} "
+                             f"{tuple(shapes[name])}")
+        if leaf.endswith("kernel") and rank in _TO_TORCH:
+            a = np.transpose(a, tuple(range(lead)) + tuple(
+                lead + i for i in _TO_TORCH[rank]))
+        # a copy in the allocator's memory: a reduction over numpy's
+        # buffer (another alignment) may round differently
+        out[name] = torch.from_numpy(np.ascontiguousarray(a)).to(
+            device, copy=True)
+    # the model's leaf order (a sum over leaves runs in dict order)
+    out = {k: out[k] for k in shapes if k in out}
+    if not stacked:
+        return out
+    n = next(iter(out.values())).shape[0]
+    return [{k: v[c].clone() for k, v in out.items()} for c in range(n)]

@@ -350,9 +350,24 @@ def test_startup_refusals_match_reference(name, fed, tmp_path):
 
 
 def test_preempt_refused_at_startup():
-    with pytest.raises(ValueError, match="elastic device plane"):
-        _port_engine("fedavg", dict(client_num_in_total=5,
-                                    fault_spec="preempt:1@1"))
+    """``preempt:`` faults are no longer refused at startup (the elastic
+    mesh is ported, ``tests/test_torch_actions.py``): the engine builds,
+    and with no mesh to shrink the preemption is recorded as a skipped
+    ``shrink_mesh``, as the reference records it."""
+    from neuroimagedisttraining_tpu_torch.obs import actions
+
+    eng = _port_engine("fedavg", dict(client_num_in_total=5,
+                                      fault_spec="preempt:1@1"))
+    try:
+        bus = actions.configure("dry_run")
+        assert eng._maybe_preempt(0) is None
+        assert eng._maybe_preempt(1) is None
+    finally:
+        actions.disarm()
+    (e,) = bus.actions_block()["log"]
+    assert e["action"] == "shrink_mesh" and e["status"] == "skipped"
+    assert e["detail"] == {"reason": "no mesh to shrink",
+                           "scheduled_round": 1}
 
 
 CLI = ["--model", MODEL, "--device", "cpu", "--dataset", "synthetic",

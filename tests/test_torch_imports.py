@@ -79,11 +79,15 @@ def test_port_imports_without_jax_or_cuda():
     "ops/masks.py", "engines/program.py", "core/graphs.py",
     "parallel/__init__.py", "parallel/mesh.py", "parallel/topology.py",
     "parallel/cohort.py", "parallel/hierarchical.py", "parallel/gossip.py",
-    "parallel/spatial.py"])
+    "parallel/spatial.py", "utils/checkpoint.py", "utils/profiling.py",
+    "utils/pytree.py", "obs/__init__.py", "obs/names.py", "obs/metrics.py",
+    "obs/flight.py", "obs/trace.py", "obs/http.py", "obs/compute.py",
+    "obs/health.py", "obs/rules.py", "obs/actions.py"])
 def test_engine_slice_modules_are_checked(module):
     """The engines', the data planes', the model zoo's (the 2D one with its
     vision data included), the precision contract's and the defended
-    round's (faults, defenses, accountant, wire codec) modules are among
+    round's (faults, defenses, accountant, wire codec) modules, the
+    checkpoints' and the telemetry plane's (``utils/``, ``obs/``) are among
     the sources checked above (none imports JAX or the reference
     package)."""
     path = PORT / module

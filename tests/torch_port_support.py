@@ -207,7 +207,8 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
                     shape=(69, 69, 69), seed: int = 0,
                     sparsity: dict | None = None, val_map: dict | None = None,
                     model: str = "3DCNN", num_classes: int = 1,
-                    eval_pool: tuple | None = None, setup=None):
+                    eval_pool: tuple | None = None, setup=None,
+                    exp: dict | None = None):
     """The reference's engine ``name`` and the port's on the same federation,
     model (``model`` with ``num_classes`` outputs, in ``optim``'s
     precision), initial weights, epoch permutations and dropout keep-masks
@@ -220,8 +221,9 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
     (FedFomo's), where given; the reference evaluates in one chunk a
     client (``evaluate_in_one_chunk``) unless the model normalises by the
     batch in evaluation; ``setup(jeng, peng)`` runs on each port
-    engine before it trains (e.g. to give it the reference's noise draws).
-    Returns
+    engine before it trains (e.g. to give it the reference's noise draws);
+    ``exp`` holds fields of both packages' ``ExperimentConfig`` (the
+    telemetry's, e.g. ``health_stats``). Returns
     ``(reference result, port result, reference engine, port engine, port
     initial state)``; the port engine's ``rerun()`` runs it again with the
     same inputs, and ``rebuild(fed_over, mesh)`` makes a port engine of
@@ -264,7 +266,8 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
     jcfg = JExp(model=model, num_classes=num_classes, algorithm=name,
                 data=JData(dataset="synthetic", partition_method="site"),
                 optim=JOptim(**optim), fed=JFed(**fed),
-                sparsity=JSparsity(**sparsity), log_dir=str(tmp / "ref"))
+                sparsity=JSparsity(**sparsity), log_dir=str(tmp / "ref"),
+                **(exp or {}))
     jfed = jbuild(X, y, train_map, test_map, val_map=val_map, X_eval=X_eval,
                   y_eval=y_eval)
     jtrainer = JTrainer(jmodel(model, num_classes=num_classes, remat=False,
@@ -287,7 +290,8 @@ def run_engine_pair(name: str, data, optim: dict, fed: dict, tmp,
         model=model, num_classes=num_classes, algorithm=name,
         data=DataConfig(dataset="synthetic", synthetic_shape=tuple(shape)),
         optim=OptimConfig(**optim), fed=FedConfig(**fed),
-        sparsity=SparsityConfig(**sparsity), log_dir=str(tmp / "port"))
+        sparsity=SparsityConfig(**sparsity), log_dir=str(tmp / "port"),
+        **(exp or {}))
     cpu = torch.device("cpu")
     pfed = build_federated_data(X, y, train_map, test_map, cpu,
                                 val_map=val_map, X_eval=X_eval,
