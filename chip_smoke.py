@@ -10,6 +10,8 @@
     python3 chip_smoke.py --dispatch # kernels, then step 12 (dispatch) alone
     python3 chip_smoke.py --ops      # kernels, then step 13 (checkpoints,
                                      # telemetry) alone
+    python3 chip_smoke.py --probe    # kernels, then step 14 (the profile
+                                     # session) alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
@@ -219,7 +221,22 @@
    4-entry mesh (``--client_mesh 4 --virtual_devices 4
    --checkpoint_every 1``) bit-equal to a fresh run
    resumed from round 1's checkpoint on 2 entries, with its peak memory.
-14. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+   Each CLI run starts with the metrics registry and the flight ring
+   empty and must be clean (no alert but its rule manifest's own, an ok
+   verdict); the bf16_mixed run's metrics JSONL, flight ring and verdict
+   are joined by the port's run report (``analysis/run_report.py``),
+   whose status must be ok and whose rounds must be the run's history.
+14. The profile session (``probe_phase``): the CLI's ``--profile_session``
+   over 8 flagship FedAvg cells (fp32 / bf16_mixed x ``fused_update`` off
+   / on x ``rounds_per_dispatch`` 1 / 4; 4 clients of 32 rows, batch 16,
+   5 rounds, the fast stem) with the counters at 0 just before and read
+   just after, then ``python -m neuroimagedisttraining_tpu_torch.obs.probe``
+   with the default manifest at its tiny default shape. Both sessions
+   must pass ``session_ok``; each flagship probe prints its dispatches,
+   captures, launches, MFU, TFLOP/s and the memory reserved before it, at
+   its peak and after the engine's release (back within 1 GiB of before),
+   and its launches must be those its cell implies.
+15. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -232,7 +249,7 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-15. Prints the run's seconds, one JSON line per kernel, the
+16. Prints the run's seconds, one JSON line per kernel, the
    ``{"kernels": [...]}`` line (each kernel's launches on its main path,
    SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
    run), and last ``{"ok": true, "device": {...}}``.
@@ -3326,6 +3343,11 @@ def ops_phase(card, dev, flagship, build_experiment, by_path: dict) -> None:
     free_card()
 
     # ---- telemetry through the CLI's run(): endpoint, trace, MFU ----
+    import contextlib
+    import io
+
+    from neuroimagedisttraining_tpu_torch.obs import flight as obs_flight
+
     def cli_run(precision: str, port: int, extra=()):
         tdir = tmp / f"tele_{precision}"
         argv = ["--algorithm", "fedavg", "--dataset", "synthetic",
@@ -3340,6 +3362,11 @@ def ops_phase(card, dev, flagship, build_experiment, by_path: dict) -> None:
                 "--log_dir", str(tdir / "log"), *extra]
         args = add_args(argparse.ArgumentParser()).parse_args(argv)
         cfg = config_from_args(args)
+        # each run is judged on its own gauges and events: the registry
+        # and the flight ring start empty (the earlier phases' DP gauges
+        # would fire this run's DP rules)
+        obs_metrics.REGISTRY.reset()
+        obs_flight.FLIGHT.clear()
         engine, info = build_experiment(cfg, "cuda")
         scraped = {}
 
@@ -3360,9 +3387,14 @@ def ops_phase(card, dev, flagship, build_experiment, by_path: dict) -> None:
         th = threading.Thread(target=scrape, daemon=True)
         th.start()
         obs_compute.PROFILER.reset()
-        code = run(engine, info, cfg, args)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = run(engine, info, cfg, args)
+        sys.stdout.write(out.getvalue())
+        result = json.loads(out.getvalue().strip().splitlines()[-1])
         th.join(timeout=30)
-        return engine, tdir, code, scraped, obs_compute.PROFILER.health()
+        return (engine, tdir, code, scraped, obs_compute.PROFILER.health(),
+                result)
 
     import socket
 
@@ -3371,38 +3403,86 @@ def ops_phase(card, dev, flagship, build_experiment, by_path: dict) -> None:
             s.bind(("127.0.0.1", 0))
             return s.getsockname()[1]
 
-    from neuroimagedisttraining_tpu_torch.obs import flight as obs_flight
-
     # the bf16_mixed run takes the CLI's other flags: a rule manifest that
     # extends the built-ins, the gate, the bus's mode, a DP budget (no DP
     # here: its rules see no samples), the table's own bf16 peak given as
-    # --peak_flops, the flight ring's size and checkpoints
+    # --peak_flops, the flight ring's size and checkpoints. The manifest
+    # also overrides the built-in mfu-floor (2% of the peak over 3
+    # boundaries), which every bf16_mixed flagship run on this card
+    # crosses: its steps are bound by the BatchNorm's elementwise ops, and
+    # this run (one step a client, an evaluation every round) measured
+    # 0.37-0.67% of the tensor cores' 989.4 TFLOP/s; its floor here, 0.1%,
+    # still fires where the card idles at a third of that
     manifest = tmp / "rules.json"
-    manifest.write_text(json.dumps([{
-        "name": "param-norm-runaway", "metric": "nidt_health_param_norm",
-        "op": ">", "threshold": 1e6, "severity": "warn"}]))
+    manifest.write_text(json.dumps([
+        {"name": "param-norm-runaway", "metric": "nidt_health_param_norm",
+         "op": ">", "threshold": 1e6, "severity": "warn"},
+        {"name": "mfu-floor", "metric": "nidt_mfu", "op": "<",
+         "threshold": 0.001, "for_rounds": 3, "severity": "warn"}]))
     flags = ("--flight_events", "128", "--health_rules", str(manifest),
              "--health_gate", "--actions", "dry_run", "--dp_epsilon_budget",
              "8", "--peak_flops", "989.4e12", "--checkpoint_dir",
              str(tmp / "tele_ckpt"), "--checkpoint_every", "2")
+    def report_of(tdir: Path, verdict_path: Path, result: dict) -> dict:
+        """The port's run report of a CLI run: its metrics JSONL, the
+        flight ring dumped after it and its verdict, through the report's
+        CLI; the report's status must be ok and its rounds the run's
+        history."""
+        from neuroimagedisttraining_tpu_torch.analysis import run_report
+
+        flight = obs_flight.FLIGHT.dump(str(tdir / "flight.json"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = run_report.main([
+                "--metrics", str(tdir / "metrics.jsonl"), "--flight",
+                str(flight), "--verdict", str(verdict_path), "--out",
+                str(tdir / "report")])
+        rep = json.loads((tdir / "report" / "run_report.json").read_text())
+        got = [(r["round"], r.get("train_loss")) for r in rep["rounds"]]
+        want = [(h["round"], h["train_loss"]) for h in result["history"]]
+        s = rep["summary"]
+        out = {"status": s["status"], "rounds": len(got),
+               "joined": s["joined"], "alerts": s["alerts_total"],
+               "dispatches": rep["dispatch"]["dispatches"],
+               "markdown_lines": len((tdir / "report" / "run_report.md")
+                                     .read_text().splitlines())}
+        if rc != 0 or s["status"] != "ok" or not all(s["joined"].values()) \
+                or [g[0] for g in got] != [w[0] for w in want] or not all(
+                    math.isclose(g[1], w[1], rel_tol=1e-6)
+                    for g, w in zip(got, want)):
+            fail(f"the run report does not read the run: {out}, rounds "
+                 f"{got} against the history's {want}")
+        return out
+
     tele = {}
     for precision in ("fp32", "bf16_mixed"):
         extra = (("--profile_dir", str(tmp / "prof")) if precision == "fp32"
                  else flags)
-        eng, tdir, code, scraped, comp = cli_run(precision, free_port(),
-                                                 extra)
+        eng, tdir, code, scraped, comp, result = cli_run(
+            precision, free_port(), extra)
         tele[precision] = {
             "exit": code, "peak_flops": comp["peak_flops"],
             "mfu": comp["last_mfu"],
             "sustained_tflops": comp["last_sustained_tflops"],
             "compiles": comp["compiles"], "dispatches": comp["dispatches"]}
         gate = precision != "fp32"
-        verdict = json.loads(next((tdir / "log").rglob(
-            "*.health.json")).read_text())
+        verdict_path = next((tdir / "log").rglob("*.health.json"))
+        verdict = json.loads(verdict_path.read_text())
+        # a clean run: no rule but the manifest's own alerts, an ok verdict
+        own = {"param-norm-runaway", "mfu-floor"} if gate else set()
+        alerted = {e.get("rule") for e in verdict.get("timeline", ())
+                   if e.get("kind") == "alert"}
+        if alerted - own or (not alerted
+                             and verdict["worst_status"] != "ok"):
+            fail(f"the telemetry run ({precision}) is not clean: alerts "
+                 f"{sorted(alerted)}, worst {verdict['worst_status']!r}")
         want = 1 if gate and verdict["worst_status"] != "ok" else 0
         if code != want:
             fail(f"the telemetry run ({precision}) exited {code}, its "
                  f"verdict {verdict['worst_status']!r} wants {want}")
+        tele[precision]["verdict"] = verdict["worst_status"]
+        if gate:
+            tele[precision]["run_report"] = report_of(
+                tdir, verdict_path, result)
         if gate:
             names = {r["name"] for r in verdict["rules"]}
             cks = ckpt.list_checkpoints(str(tmp / "tele_ckpt"))
@@ -3413,7 +3493,10 @@ def ops_phase(card, dev, flagship, build_experiment, by_path: dict) -> None:
                 "gate_exit": code, "actions_mode": verdict["actions"]["mode"],
                 "flight_capacity": obs_flight.FLIGHT.capacity,
                 "checkpoints": cks}
+            floor = next(r for r in verdict["rules"]
+                         if r["name"] == "mfu-floor")
             if not {"param-norm-runaway", "dp-budget-exceeded"} <= names \
+                    or floor.get("threshold") != 0.001 \
                     or verdict["actions"]["mode"] != "dry_run" \
                     or obs_flight.FLIGHT.capacity != 128 \
                     or comp["peak_flops"] != 989.4e12 or cks != [1, 2]:
@@ -3639,6 +3722,136 @@ def ops_phase(card, dev, flagship, build_experiment, by_path: dict) -> None:
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: the flagship profile session's cells: fp32 / bf16_mixed x the fused
+#: update off / on x one round or 4 rounds a dispatch
+PROBE_CELLS = [
+    {"name": f"{p}_{'fused' if f else 'plain'}_k{k}",
+     "cell": {"precision": p, "fused_update": f, "rounds_per_dispatch": k}}
+    for p in ("fp32", "bf16_mixed") for f in (False, True) for k in (1, 4)]
+#: the session's flagship shape (obs/probe.py's PROFILE_* knobs): 4 clients
+#: of 32 rows (2 steps of 16 each) for 5 rounds
+PROBE_ENV = {"PROFILE_MODEL": "3DCNN", "PROFILE_SHAPE": "121,145,121",
+             "PROFILE_BATCH": "16", "PROFILE_LOCAL": "32",
+             "PROFILE_CLIENTS": "4", "PROFILE_ROUNDS": "5"}
+
+
+def probe_phase(card, dev, by_path: dict) -> None:
+    """The profile session on the card (``obs/probe.py``): the CLI's
+    ``--profile_session`` over :data:`PROBE_CELLS` at the flagship shape
+    with the fast stem, the counters at 0 just before and read just after
+    (``by_path["probe_flagship"]``); then the default manifest through
+    ``python -m neuroimagedisttraining_tpu_torch.obs.probe`` at its tiny
+    default shape (the remat cell among them). Both must pass
+    ``session_ok`` and exit 0. Each probe prints its dispatches, captures,
+    the kernels' launches, MFU, TFLOP/s and the memory reserved before it,
+    at its peak and after the engine's release, which must be back within
+    1 GiB of the level before; its launches must be those its cell
+    implies: ``fused_sgd`` 2 a local step with the fused update and none
+    without, the f32 ``stem_dw`` 3 a step in fp32 and the bf16 one 2 a step
+    in bf16_mixed, never the other."""
+    import tempfile
+
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.__main__ import main as cli_main
+    from neuroimagedisttraining_tpu_torch.obs import probe as obs_probe
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+
+    tmp = Path(tempfile.mkdtemp(prefix="nidt_probe_"))
+    manifest = tmp / "manifest.json"
+    manifest.write_text(json.dumps(PROBE_CELLS))
+    out = tmp / "flagship.json"
+    saved = {k: os.environ.get(k) for k in PROBE_ENV}
+    os.environ.update(PROBE_ENV)
+    os.environ["NIDT_FAST_STEM"] = "1"
+    try:
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        code = cli_main(["--device", "cuda", "--profile_session", str(out),
+                         "--profile_manifest", str(manifest)])
+        torch.cuda.synchronize()
+        flagship_s = time.perf_counter() - t0
+        by_path["probe_flagship"] = _cuda.counts()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    doc = json.loads(out.read_text())
+    rows, bad = {}, []
+    for name, p in doc["probes"].items():
+        if not p["ran"]:
+            bad.append(f"{name}: {p['skip_reason']}")
+            continue
+        cell = p["config"]
+        steps = p["step_replays"] + p["compiles"]
+        bf16 = cell["precision"] == "bf16_mixed"
+        want = {"fused_sgd": 2 * steps if cell["fused_update"] else 0,
+                "stem_dw": 0 if bf16 else 3 * steps,
+                "stem_dw_bf16": 2 * steps if bf16 else 0,
+                "kth_select": 0, "count_ge": 0}
+        got = {k: p["launches"].get(k, 0) for k in want}
+        mem = p["memory"]
+        back = mem["reserved_after_release_bytes"] - \
+            mem["reserved_before_bytes"]
+        rows[name] = {
+            "ran": p["ran"], "dispatches": p["dispatches"],
+            "compiles": p["compiles"], "step_replays": p["step_replays"],
+            "local_steps": steps, "launches": got, "mfu": p["mfu"],
+            "sustained_tflops": p["sustained_tflops"],
+            "round_ms": p["round_ms"], "wall_s": p["wall_s"],
+            "train_loss_final": p["train_loss_final"],
+            "reserved_before_gb": mem["reserved_before_bytes"] / 1e9,
+            "peak_reserved_gb": mem["peak_reserved_bytes"] / 1e9,
+            "reserved_after_release_gb":
+                mem["reserved_after_release_bytes"] / 1e9}
+        if got != want:
+            bad.append(f"{name}: launches {got}, its cell implies {want}")
+        if back > 1 << 30:
+            bad.append(f"{name}: {back / 1e9:.3f} GB more reserved after "
+                       "the release than before the probe")
+        if p["dispatches"] != (5 if cell["rounds_per_dispatch"] == 1 else 2):
+            bad.append(f"{name}: {p['dispatches']} dispatches")
+        if p["mfu"] is None or not math.isfinite(p["train_loss_final"]):
+            bad.append(f"{name}: MFU {p['mfu']}, loss "
+                       f"{p['train_loss_final']}")
+    print(json.dumps({"probe_session": {
+        "card": card, "cells": len(PROBE_CELLS), "seconds": flagship_s,
+        "exit": code, "session_ok": obs_probe.session_ok(doc),
+        "session": doc["session"], "train_step": doc["xla"]["train_step"],
+        "probes": rows}}))
+    if code != 0 or not obs_probe.session_ok(doc) or bad:
+        fail(f"the flagship profile session: exit {code}, {bad}")
+    free_card()
+
+    # the default manifest at its tiny default shape, through the module's
+    # own entry point in a process of its own
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PROFILE_")}
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "neuroimagedisttraining_tpu_torch.obs.probe",
+         "--device", "cuda", "--out", str(tmp / "default.json")],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    default_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"the default profile session exited {r.returncode}: "
+             f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    ddoc = json.loads((tmp / "default.json").read_text())
+    names = [p.name for p in obs_probe.default_manifest(1)]
+    drows = {n: {k: ddoc["probes"][n].get(k) for k in (
+        "ran", "dispatches", "compiles", "step_replays", "launches",
+        "round_ms", "sustained_tflops", "mfu")} for n in ddoc["probes"]}
+    print(json.dumps({"probe_default_session": {
+        "card": card, "seconds": default_s, "meta": ddoc["meta"],
+        "session": ddoc["session"], "probes": drows}}))
+    if sorted(ddoc["probes"]) != sorted(names) or \
+            not obs_probe.session_ok(ddoc) or \
+            not ddoc["probes"]["bf16_fused"]["launches"].get("fused_sgd"):
+        fail(f"the default profile session: {ddoc['session']} {drows}")
+
+
 MAIN_PATH = {"stem_dw_bf16": "salientgrads_bf16"}
 
 
@@ -3675,6 +3888,7 @@ def main(argv: list[str]) -> int:
     only_secure = "--secure" in argv
     only_dispatch = "--dispatch" in argv
     only_ops = "--ops" in argv
+    only_probe = "--probe" in argv
     import numpy as np
     import torch
 
@@ -4273,6 +4487,10 @@ def main(argv: list[str]) -> int:
             ops_phase(card, dev, flagship, build_experiment, by_path)
             lap("phase")
             return finish(rows, by_path, started, laps)
+        if only_probe:
+            probe_phase(card, dev, by_path)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
 
         cfg = flagship("salientgrads")
         t0 = time.perf_counter()
@@ -4642,6 +4860,10 @@ def main(argv: list[str]) -> int:
         # ---- checkpoints and the run's telemetry ----
         ops_phase(card, dev, flagship, build_experiment, by_path)
         lap("ops")
+
+        # ---- the profile session: the flagship cells, the default list ----
+        probe_phase(card, dev, by_path)
+        lap("probe")
 
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",

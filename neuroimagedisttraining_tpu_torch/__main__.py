@@ -28,7 +28,9 @@
         [--trace_out FILE] [--metrics_port P --metrics_host H] \\
         [--metrics_out FILE] [--flight_events N] [--health_stats] \\
         [--health_rules FILE] [--health_gate] [--actions off|dry_run|on] \\
-        [--dp_epsilon_budget E] [--peak_flops F] ...
+        [--dp_epsilon_budget E] [--peak_flops F] \\
+        [--profile_session OUT.json [--profile_manifest M.json]] \\
+        [--compile_cache DIR] ...
 
 Flag names are the reference CLI's for the flags the port takes.
 ``--dataset ABCD`` / ``abcd_h5`` (the default) reads the X/y/site HDF5 file
@@ -81,6 +83,11 @@ worst health status was not ok; ``--peak_flops`` sets MFU's peak. With
 ``--log_dir`` the run writes ``<identity>.stats.json``,
 ``<identity>.health.json`` and, on a failure, ``<identity>.flight.json``
 beside its log. The result line carries the health verdict's summary.
+
+``--profile_session OUT`` runs the profile session (``obs/probe.py``)
+instead of training and exits 0 only when every probe ran and the live
+scrapes held. ``--compile_cache`` is taken and does nothing: the port
+compiles no XLA programs.
 """
 
 from __future__ import annotations
@@ -385,6 +392,22 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         help="peak flop/s of nidt_mfu's denominator; 0 = "
                              "the card's by obs/compute.py PEAK_FLOPS "
                              "(NIDT_PEAK_FLOPS also overrides)")
+    parser.add_argument("--profile_session", type=str, default="",
+                        help="run the profile session (obs/probe.py: a "
+                             "manifest of FedAvg cells through "
+                             "engine.train() with the dispatch-boundary "
+                             "profiler armed) and write its artifact "
+                             "here instead of training; the PROFILE_* "
+                             "environment sizes the cells")
+    parser.add_argument("--profile_manifest", type=str, default="",
+                        help="JSON probe manifest for --profile_session "
+                             "(a [{name, cell}] array; default: "
+                             "obs/probe.py's list)")
+    parser.add_argument("--compile_cache", "--compile_cache_dir",
+                        dest="compile_cache_dir", type=str, default=None,
+                        help="the reference's persistent XLA compile "
+                             "cache; the port compiles no XLA programs, "
+                             "so it is taken and does nothing")
     return parser
 
 
@@ -657,10 +680,37 @@ def main(argv: list[str] | None = None) -> int:
     check_privacy_flags(parser, args)
     logging.basicConfig(level=logging.INFO, format="%(message)s",
                         stream=sys.stdout)
+    if args.compile_cache_dir is not None:
+        logging.info("--compile_cache: the port has no XLA compile cache; "
+                     "the flag does nothing")
+    if args.profile_session:
+        return profile_session(args)
     engine, info = build_experiment(cfg, args.device,
                                     streaming=args.streaming)
     logging.info("partition: %s", json.dumps(info["train_counts"]))
     return run(engine, info, cfg, args)
+
+
+def profile_session(args) -> int:
+    """``--profile_session``: the probe manifest (``--profile_manifest``,
+    else the default list for the run's mesh entries) through
+    ``obs/probe.py`` on ``--device``, with ``--peak_flops`` and
+    ``--trace_out``; exit 0 when every probe ran and the scrapes held."""
+    from neuroimagedisttraining_tpu_torch.device import resolve_device
+    from neuroimagedisttraining_tpu_torch.obs import compute as obs_compute
+    from neuroimagedisttraining_tpu_torch.obs import probe as obs_probe
+
+    if args.peak_flops > 0:
+        obs_compute.PROFILER.set_peak_flops(args.peak_flops)
+    dev = resolve_device(args.device)
+    manifest = (obs_probe.load_manifest(args.profile_manifest)
+                if args.profile_manifest
+                else obs_probe.default_manifest(len(obs_probe.mesh_entries(
+                    dev, args.virtual_devices))))
+    doc = obs_probe.run_session(manifest, args.profile_session,
+                                trace_out=args.trace_out, device=dev,
+                                virtual_devices=args.virtual_devices)
+    return 0 if obs_probe.session_ok(doc) else 1
 
 
 def run(engine, info: dict, cfg: ExperimentConfig, args) -> int:

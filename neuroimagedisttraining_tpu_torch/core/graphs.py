@@ -15,10 +15,12 @@ the ``fused_sgd`` workspace of that stream before anything is captured),
 the second is captured into a ``torch.cuda.CUDAGraph`` and replayed, and
 every later step is a replay. The trainer's generator is registered with
 the graph, so each replay draws the dropout keep-masks the eager step
-would have drawn. The graphs of one trainer share its stream and one
-memory pool (``LocalTrainer``) and run one after another on that stream:
-a capture reuses the pool's blocks that earlier captures freed, and an
-eager first step the blocks that earlier eager steps freed. The cache is
+would have drawn. The graphs of one trainer share one memory pool
+(``LocalTrainer``), and every trainer's graphs run on the process's graph
+stream of the device (:func:`graph_stream`), one after another: a capture
+reuses the pool's blocks that earlier captures freed, and an eager first
+step the blocks that earlier eager steps, of this run or an earlier one,
+freed. The cache is
 handed back to the device (a ``cudaFree``, which synchronizes it) only
 where a capture would not find the memory its eager step took. The kernel wrappers run on the capture stream and bake their tables
 (``fused_sgd``'s leaf descriptors, ``stem_dw``'s operands) into the
@@ -48,6 +50,34 @@ import time
 import torch
 
 from neuroimagedisttraining_tpu_torch.ops import _cuda
+
+
+#: the graph stream of each device (:func:`graph_stream`), by index
+_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def graph_stream(device: torch.device) -> torch.cuda.Stream:
+    """The process's stream for the step graphs of ``device``, made at
+    first use. Made anew for every trainer, a stream would keep the
+    buffers that live as long as it does (cuBLAS's workspaces) inside a
+    block that the run's activations freed, and that block (1 GB at the
+    flagship) after the run's release; one stream keeps them once. At its
+    making, products in float32 and bfloat16 make those workspaces while
+    its pool is empty, so each takes a segment of its own."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    s = _STREAMS.get(idx)
+    if s is None:
+        dev = torch.device("cuda", idx)
+        s = _STREAMS[idx] = torch.cuda.Stream(dev)
+        s.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(s):
+            for dt in (torch.float32, torch.bfloat16):
+                a = torch.ones((16, 16), dtype=dt, device=dev,
+                               requires_grad=True)
+                torch.nn.functional.linear(a, a, a[0]).sum().backward()
+        torch.cuda.current_stream(dev).wait_stream(s)
+    return s
 
 
 class StepGraph:

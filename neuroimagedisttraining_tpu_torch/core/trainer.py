@@ -54,7 +54,9 @@ from neuroimagedisttraining_tpu_torch.core.losses import (
 from neuroimagedisttraining_tpu_torch.core.optim import (
     AdamState, LocalOptimizer, validate_precision,
 )
-from neuroimagedisttraining_tpu_torch.core.graphs import StepGraph
+from neuroimagedisttraining_tpu_torch.core.graphs import (
+    StepGraph, graph_stream,
+)
 from neuroimagedisttraining_tpu_torch.device import resolve_device
 from neuroimagedisttraining_tpu_torch.models import primary_logits
 
@@ -110,12 +112,13 @@ class LocalTrainer:
         #: replays are held against)
         self.capture_steps = device.type == "cuda"
         self._graphs: dict[tuple, StepGraph] = {}
-        #: on a CUDA device every step graph runs on this one stream and
-        #: captures into one pool (made at first use): the graphs of one
-        #: generator read its offset from one device tensor that each
-        #: replay sets first, so they run one after another anyway, and
-        #: one stream lets each capture reuse the blocks that earlier
-        #: captures and eager steps freed
+        #: on a CUDA device every step graph runs on the device's graph
+        #: stream (``core/graphs.py`` ``graph_stream``) and captures into
+        #: one pool (made at first use): the graphs of one generator read
+        #: its offset from one device tensor that each replay sets first,
+        #: so they run one after another anyway, and one stream lets each
+        #: capture reuse the blocks that earlier captures and eager steps
+        #: freed
         self._graph_stream = None
         self._graph_pool = None
         #: captures and replays of graphs since dropped, and the
@@ -213,10 +216,12 @@ class LocalTrainer:
         n_valid = int(n_valid)
         my_steps = math.ceil(n_valid / batch_size)
         shuffle = self.optim_cfg.batch_order == "shuffle"
-        if shuffle and perms is None:
+        # a client of no rows (a mesh's padding client) takes no step and
+        # draws nothing, so padding moves no real client's draws
+        if shuffle and perms is None and n_valid > 0:
             perms = epoch_permutations(self.generator, epochs, max_samples,
                                        n_valid, self.device)
-        if shuffle:
+        if shuffle and perms is not None:
             perms = perms.to(self.device)
         elif batch_idx is not None:
             batch_idx = batch_idx.to(self.device)
@@ -375,7 +380,7 @@ class LocalTrainer:
                                   rounds=0, phase=phase)
 
         if dev.type == "cuda" and self._graph_stream is None:
-            self._graph_stream = torch.cuda.Stream(dev)
+            self._graph_stream = graph_stream(dev)
         if dev.type == "cuda" and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         g = StepGraph(body, dev, self.generator, capture=self.capture_steps,
@@ -410,6 +415,14 @@ class LocalTrainer:
         self._graph_pool = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+
+    def release_graphs(self) -> None:
+        """The end of a run (``FederatedEngine.release``): drop every step
+        graph, its static buffers and the pool (:meth:`drop_graphs`), and
+        forget which configurations were captured, so that a later run's
+        captures are first captures, not recaptures."""
+        self.drop_graphs()
+        self._captured.clear()
 
     def eval_grad(self, params: State, bstats: State, x: torch.Tensor,
                   y: torch.Tensor) -> State:

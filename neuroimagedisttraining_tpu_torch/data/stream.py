@@ -53,10 +53,14 @@ reads its K rounds' training rows as one fetch, ``[K, S, nmax, ...]``
 the current compute, through the same two slots (a slot then holds K
 rounds' rows).
 
+Each fetch's totals (``transfer_stats``) are also published as the
+``nidt_stream_transfer`` gauge of the metrics registry, one series a key,
+set under the stats lock, so ``/metrics`` shows the feed mid-run and each
+series equals the dict's entry.
+
 Left out of the port: the mesh sharding of the reference's ``_put`` (a
 streamed run under ``--client_mesh`` runs unsharded with the reference's
-``streaming-sharded-feed`` reason) and the ``nidt_stream_transfer``
-gauge, which goes with its ``obs/``.
+``streaming-sharded-feed`` reason).
 """
 
 from __future__ import annotations
@@ -71,6 +75,8 @@ import numpy as np
 import torch
 
 from neuroimagedisttraining_tpu_torch.data.hdf5 import fetch_rows
+from neuroimagedisttraining_tpu_torch.obs import metrics as obs_metrics
+from neuroimagedisttraining_tpu_torch.obs import names as obs_names
 from neuroimagedisttraining_tpu_torch.utils import native
 
 
@@ -266,12 +272,19 @@ class StreamingFederation:
                 put_ms = (time.perf_counter() - t1) * 1e3
         nbytes = (int(data.sum()) * int(np.prod(self.sample_shape))
                   * self.dtype.itemsize)
+        g = obs_metrics.gauge(
+            obs_names.STREAM_TRANSFER,
+            "cumulative streaming-feed totals (data/stream.py "
+            "transfer_stats), one series per key", labelnames=("key",))
         with self._stats_lock:
             st = self.transfer_stats
             st["host_gather_ms"] += (t1 - t0) * 1e3
             st["device_put_ms"] += put_ms
             st["bytes"] += float(nbytes + 4 * (rows + S))
             st["fetches"] += 1
+            # inside the lock: two fetches' sets do not interleave
+            for k, v in st.items():
+                g.labels(key=k).set(float(v))
         X = slot.dev_X[:rows].view((S, nmax) + self.sample_shape)
         return (X, slot.dev_i[:rows].view(S, nmax),
                 slot.dev_i[rows:rows + S], slot_i)

@@ -78,7 +78,9 @@ mesh of a FedAvg-family run to its first NDEV entries and resumes from
 the last checkpoint (or goes on from the live state), recorded as
 ``shrink_mesh``; the other engines ignore it, as the reference's do. A rollback,
 an escalation and a shrink drop the trainer's step graphs, which the
-next round captures again.
+next round captures again. Every engine's ``train()`` ends in
+:meth:`FederatedEngine.release`: the graphs and their pool go back to the
+card at the run's end, not when Python collects the trainer.
 
 ``perms_for(round_idx, client, n_valid[, track])`` may supply a client's
 epoch permutations (the tests feed the reference's draws; ``track`` is
@@ -95,6 +97,7 @@ reference's draws.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from typing import Iterator, NamedTuple
@@ -189,6 +192,28 @@ class FederatedEngine:
     #: reference's state-dict keys); ``history`` and the engine's
     #: ``ckpt_extra`` ride beside them
     ckpt_slots: tuple[str, ...] = ()
+
+    def __init_subclass__(cls, **kw):
+        """Every engine's ``train`` ends in :meth:`release`."""
+        super().__init_subclass__(**kw)
+        run = cls.__dict__.get("train")
+        if run is None:
+            return
+
+        @functools.wraps(run)
+        def train(self, *args, **kwargs):
+            out = run(self, *args, **kwargs)
+            self.release()
+            return out
+        cls.train = train
+
+    def release(self) -> None:
+        """The end of a run: the trainer's step graphs, their static
+        buffers and their capture pool go, and the cache goes back to the
+        card (``LocalTrainer.release_graphs``, after a device sync). The
+        engine stays usable: a later ``train()`` or resume captures
+        again."""
+        self.trainer.release_graphs()
 
     #: the round's training walk covers the sampled clients (else every
     #: client)
@@ -1328,7 +1353,8 @@ class FederatedEngine:
         """The consensus ``x -> einsum("cj,j...->c...", M, x)`` of a stacked
         client leaf: ring shifts or the routed exchange over the mesh
         where ``M``'s pattern allows (``parallel/gossip.py`` ``make_plan``),
-        else the dense einsum."""
+        else the dense einsum (over the real clients' block where the
+        padding clients weigh nothing in it)."""
         from neuroimagedisttraining_tpu_torch.parallel import gossip
 
         plan, arrays = (gossip.make_plan(M, self.mesh, self.num_clients)
@@ -1339,6 +1365,15 @@ class FederatedEngine:
         if plan is not None:
             return lambda x: gossip.gossip_apply({"x": x}, plan,
                                                  self.mesh)["x"]
+        R = self.real_clients
+        if 0 < R < M.shape[0] and not M[:R, R:].any():
+            # the padding clients (rows R on) give no real client weight:
+            # the real clients mix over the real block alone, so their sums
+            # are the unpadded run's, bit for bit
+            Mr, Mp = self.to_device(M[:R, :R]), self.to_device(M[R:])
+            return lambda x: torch.cat([
+                torch.einsum("cj,j...->c...", Mr, x[:R]),
+                torch.einsum("cj,j...->c...", Mp, x)])
         Mt = self.to_device(M)
         return lambda x: torch.einsum("cj,j...->c...", Mt, x)
 

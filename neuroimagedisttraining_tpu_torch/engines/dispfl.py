@@ -177,29 +177,42 @@ class DisPFLEngine(FederatedEngine):
                 b_mixed[c][k] = b[c]
         return w_local, b_mixed
 
-    def probe_rows(self, round_idx: int, c: int, n: int) -> torch.Tensor:
-        """The gradient probe's ``batch_size`` rows of client ``c``."""
+    def client_generator(self, round_idx: int, c: int, n: int):
+        """The generator of client ``c``'s probe rows and regrowth: the
+        trainer's, but for a client of no rows (a mesh's padding client) a
+        generator of its own, seeded by the run's seed, the round and the
+        client, so padding moves no real client's draws."""
+        if n > 0:
+            return self.trainer.generator
+        return torch.Generator(device=self.device).manual_seed(
+            (self.cfg.seed * 1_000_003 + round_idx * 1_009 + c) % 2 ** 63)
+
+    def probe_rows(self, round_idx: int, c: int, n: int,
+                   generator=None) -> torch.Tensor:
+        """The gradient probe's ``batch_size`` rows of client ``c``, drawn
+        from ``generator`` (default: :meth:`client_generator`'s)."""
         if self.screen_idx_for is not None:
             return self.screen_idx_for(round_idx, c, n).to(self.device)
+        if generator is None:
+            generator = self.client_generator(round_idx, c, n)
         return torch.randint(0, max(n, 1), (self.cfg.optim.batch_size,),
-                             generator=self.trainer.generator,
-                             device=self.device)
+                             generator=generator, device=self.device)
 
     def evolve(self, round_idx: int, c: int, rows, params, bstats, mask):
         """Fire and regrow ``mask`` from client ``c``'s trained model and a
         one-batch dense gradient in evaluation mode on its training
         ``rows``."""
         s = self.cfg.sparsity
+        gen = self.client_generator(round_idx, c, rows.n)
         grad = None
         if not s.dis_gradient_check:
-            idx = self.probe_rows(round_idx, c, rows.n)
+            idx = self.probe_rows(round_idx, c, rows.n, gen)
             grad = self.trainer.eval_grad(params, bstats, rows.X[idx],
                                           rows.y[idx])
         fired, num_remove = M.fire_mask(mask, params, round_idx,
                                         self.cfg.fed.comm_round,
                                         anneal_factor=s.anneal_factor)
-        return M.regrow_mask(fired, num_remove, grad,
-                             generator=self.trainer.generator,
+        return M.regrow_mask(fired, num_remove, grad, generator=gen,
                              dis_gradient_check=s.dis_gradient_check)
 
     def run_round(self, round_idx: int, per_params, per_bstats, masks_local,

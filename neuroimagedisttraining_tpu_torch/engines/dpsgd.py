@@ -128,13 +128,15 @@ class DPSGDEngine(FederatedEngine):
 
     def global_mean(self, per_params, per_bstats):
         """``w_global``: the plain mean over the real clients of the
-        personal ``(params, bstats)``."""
+        personal ``(params, bstats)`` (the padding clients, last, are left
+        out of the sum: the unpadded run's, bit for bit)."""
+        R = len(np.trim_zeros(self.n_train, "b"))
         real = (self.n_train > 0).astype(np.float32)
-        w = self.to_device(real / max(np.float32(real.sum()), 1.0))
+        w = self.to_device((real / max(np.float32(real.sum()), 1.0))[:R])
 
         def mean(states):
             return {k: torch.einsum("c,c...->...", w,
-                                    torch.stack([st[k] for st in states]))
+                                    torch.stack([st[k] for st in states[:R]]))
                     for k in states[0]}
 
         return mean(per_params), mean(per_bstats)
@@ -162,8 +164,9 @@ class DPSGDEngine(FederatedEngine):
 
         new_p, new_b, losses = map(list, zip(*self.map_clients(
             train, range(self.num_clients))))
-        real = self.to_device((self.n_train > 0).astype(np.float32))
-        loss = (torch.sum(torch.stack(losses) * real)
+        R = len(np.trim_zeros(self.n_train, "b"))
+        real = self.to_device((self.n_train[:R] > 0).astype(np.float32))
+        loss = (torch.sum(torch.stack(losses[:R]) * real)
                 / torch.clamp(real.sum(), min=1.0))
         return new_p, new_b, loss
 

@@ -1,5 +1,5 @@
 """``obs/``: the run's telemetry plane (the reference package's ``obs/``,
-without its cross-process fan-in and profile-session driver).
+without its cross-process fan-in).
 
 - :mod:`obs.trace`: a thread-safe span tracer writing Chrome trace-event
   JSON (``--trace_out``); under ``--profile_dir`` each span also opens an
@@ -18,6 +18,9 @@ without its cross-process fan-in and profile-session driver).
   (``--health_rules``, ``--health_gate``).
 - :mod:`obs.actions`: the reflex actions that firing rules dispatch
   (``--actions``).
+- :mod:`obs.probe`: the profile session, a manifest of FedAvg cells run
+  through ``engine.train()`` into one artifact (``--profile_session``;
+  not imported here: it builds engines).
 
 Everything here runs on the host, at host boundaries (a round's or a
 window's end, an evaluation), never inside a local step, and none of it

@@ -157,6 +157,14 @@ class ComputeProfiler:
             self._last_mfu = None
             self._last_tflops = None
 
+    def clear_samples(self) -> None:
+        """Drop the last MFU and TFLOP/s samples without disarming: the
+        profile session calls it before each probe, so a probe that closes
+        no boundary reports None, not its predecessor's numbers."""
+        with self._lock:
+            self._last_mfu = None
+            self._last_tflops = None
+
     def set_peak_flops(self, peak_flops: float) -> None:
         """``--peak_flops``: kept across later arms; 0 keeps the table's."""
         if peak_flops and peak_flops > 0:
@@ -284,6 +292,13 @@ class ComputeProfiler:
                 "peak_flops": self._peak_flops or None,
                 "armed_engine": self._armed_engine,
             }
+
+    def snapshot(self) -> dict:
+        """:meth:`health` without the dispatch's age: what the profile
+        session records of each probe."""
+        h = self.health()
+        h.pop("last_dispatch_age_s", None)
+        return h
 
 
 #: the process-global profiler

@@ -8,7 +8,11 @@ on a 4-entry mesh, the same again; then FedAvg on a 4-entry mesh with
 ``preempt:2@2`` and a checkpoint every round. After each run it prints
 one JSON line: the bytes reserved and allocated in the regular pool and
 in the graph pools (``torch.cuda.memory_snapshot()``), by pool and
-stream, and the peak reserved.
+stream, and the peak reserved. Every engine's ``train()`` ends in its
+release (``FederatedEngine.release``: the trainer's step graphs and
+their pool go, and the cache goes back to the card), so the line also
+holds the bytes reserved, by pool, just before the release and just
+after it: what a finished run gives back while its engine stays alive.
 
 ``--layout shared`` is the trainer's own (one stream and one capture pool
 for all of a trainer's step graphs); ``--layout per_graph`` gives each
@@ -107,14 +111,28 @@ def main(argv: list[str]) -> int:
         for tag, cfg in runs:
             torch.cuda.reset_peak_memory_stats()
             engine, _ = build_experiment(cfg, "cuda")
+            at_release = {}
+            release = engine.trainer.release_graphs
+
+            def measured_release(release=release, at=at_release):
+                torch.cuda.synchronize()
+                at["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+                at["by_pool"] = by_pool()
+                release()
+            engine.trainer.release_graphs = measured_release
             engine.train()
             torch.cuda.synchronize()
             alive.append(engine)
+            after = torch.cuda.memory_reserved() / 1e9
             print(json.dumps({"graph_memory": {
                 "card": card, "layout": args.layout, "run": tag,
                 "engines_alive": len(alive),
                 "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
                 "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "reserved_before_release_gb": at_release["reserved_gb"],
+                "reserved_after_release_gb": after,
+                "given_back_gb": at_release["reserved_gb"] - after,
+                "by_pool_before_release": at_release["by_pool"],
                 "by_pool": by_pool()}}), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -73,6 +73,45 @@ def test_boundary_math_matches_the_reference(monkeypatch):
     assert p[1]["compiles"] == 2 and p[1]["recompiles"] == 1
 
 
+def _samples(mod, metrics_mod, clock, monkeypatch):
+    """A boundary's sample, then ``clear_samples`` and the next boundary,
+    each read through ``snapshot``."""
+    monkeypatch.setattr(mod.time, "monotonic", clock)
+    metrics_mod.REGISTRY.reset()
+    prof = mod.ComputeProfiler()
+    prof.arm_model("fedavg", 2.5e12, peak_flops=1e14)
+    prof.note_compile("fedavg", "step")
+    prof.note_dispatch("fedavg", "round", 0.02, rounds=2, phase="compile")
+    clock.t += 0.5
+    prof.boundary("fedavg")
+    out = [prof.snapshot()]
+    prof.clear_samples()
+    out.append(prof.snapshot())
+    prof.note_dispatch("fedavg", "round", 0.01, rounds=1)
+    clock.t += 0.25
+    prof.boundary("fedavg")
+    out.append(prof.snapshot())
+    return out
+
+
+def test_clear_samples_and_snapshot_match_the_reference(monkeypatch):
+    """``clear_samples`` drops the last MFU and TFLOP/s samples and keeps
+    the arm and the counts; ``snapshot`` is ``health`` without the
+    dispatch's age: both as the reference's."""
+    p = _samples(pcompute, pmetrics, Clock(), monkeypatch)
+    j = _samples(jcompute, jmetrics, Clock(), monkeypatch)
+    assert p == j
+    first, cleared, after = p
+    assert "last_dispatch_age_s" not in first
+    assert first["last_mfu"] == pytest.approx(2 * 2.5e12 / 0.5 / 1e14)
+    assert cleared["last_mfu"] is None
+    assert cleared["last_sustained_tflops"] is None
+    assert {k: v for k, v in cleared.items() if not k.startswith("last_")} \
+        == {k: v for k, v in first.items() if not k.startswith("last_")}
+    assert after["last_mfu"] == pytest.approx(2.5e12 / 0.25 / 1e14)
+    assert after["armed_engine"] == "fedavg" and after["compiles"] == 1
+
+
 def test_peak_table_and_overrides(monkeypatch):
     monkeypatch.delenv("NIDT_PEAK_FLOPS", raising=False)
     est = pcompute.peak_flops_estimate

@@ -215,6 +215,44 @@ def test_sharded_window_is_the_unsharded_single_round(name):
     assert _losses(r1) == _losses(r3)
 
 
+def _padding_engine(name: str, virtual_devices: int, client_mesh: int):
+    """``name`` on the 4 site clients of the synthetic cohort; a mesh of 3
+    entries pads the federation with 2 clients of no rows."""
+    from neuroimagedisttraining_tpu_torch.__main__ import build_experiment
+    from neuroimagedisttraining_tpu_torch.config import (
+        DataConfig, ExperimentConfig, FedConfig, OptimConfig,
+    )
+
+    cfg = ExperimentConfig(
+        model=MODEL, algorithm=name,
+        data=DataConfig(dataset="synthetic", synthetic_shape=SHAPE,
+                        synthetic_num_subjects=32,
+                        val_fraction=0.25 if name == "fedfomo" else 0.0),
+        optim=OptimConfig(batch_size=4, epochs=1),
+        fed=FedConfig(client_num_in_total=4, comm_round=3, frac=0.5,
+                      frequency_of_the_test=1, client_mesh=client_mesh),
+        virtual_devices=virtual_devices)
+    return build_experiment(cfg, "cpu")[0]
+
+
+@pytest.mark.parametrize("name", ["dpsgd", "fedfomo", "dispfl"])
+def test_mesh_padding_moves_no_real_clients_draws(name):
+    """A client of no rows draws nothing from the trainer's generator, so
+    a run on a 3-entry mesh (the 4 site clients padded with 2 empty ones)
+    is bit for bit the unmeshed run of the 4 clients alone, as the
+    reference's per-client keys make its own."""
+    plain = _padding_engine(name, 0, 0)
+    meshed = _padding_engine(name, 3, 3)
+    assert (plain.num_clients, meshed.num_clients) == (4, 6)
+    assert meshed.mesh.devices.size == 3
+    assert meshed._cohort_on == (name == "dpsgd")   # the others: unsharded
+    a, b = plain.train(), meshed.train()
+    for pa, pb in zip(a["personal_params"], b["personal_params"][:4]):
+        for k in pa:
+            assert torch.equal(pa[k], pb[k]), k
+    assert a["history"] == b["history"]
+
+
 def test_cohort_map_keeps_client_order_and_pads():
     from neuroimagedisttraining_tpu_torch.parallel import cohort
 

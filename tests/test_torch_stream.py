@@ -216,6 +216,40 @@ def test_stream_buffers_match_the_reference(h5_files, lazy):
         f.close()
 
 
+def test_stream_transfer_gauge_equals_transfer_stats(h5_files):
+    """Each fetch publishes ``transfer_stats`` as ``nidt_stream_transfer``,
+    one series a key: after a prefetched and a cold fetch every series
+    equals its dict entry, with the reference's keys (its own pin:
+    ``tests/test_stream.py``, the two-level put test)."""
+    from neuroimagedisttraining_tpu.obs import metrics as JO
+    from neuroimagedisttraining_tpu_torch.obs import metrics as PO
+
+    port_path, _, data = h5_files
+    port, ref, f = _feeds(port_path, data, lazy=True)
+    PO.reset()
+    JO.reset()
+    try:
+        for feed in (port, ref):
+            feed.prefetch_train(np.array([0, 1]))
+            feed.get_train(np.array([0, 1]))
+            feed.get_train(np.array([2, 3]))
+        port.sync()
+        got = {}
+        for mod, feed in ((PO, port), (JO, ref)):
+            cells = mod.snapshot()["nidt_stream_transfer"]["values"]
+            got[mod] = {c["labels"]["key"]: c["value"] for c in cells}
+            assert feed.transfer_stats["fetches"] == 2
+            assert got[mod] == {k: float(v) for k, v in
+                                feed.transfer_stats.items()}
+        assert set(got[PO]) == set(got[JO])
+    finally:
+        port.close()
+        ref.close()
+        f.close()
+        PO.reset()
+        JO.reset()
+
+
 def test_stream_walks_match_the_resident_stacks(h5_files):
     """A walk over a given id list (the engines' rounds) serves the rows of
     the resident ``_stack_pad``; the walk's ``then`` prefetch is served to

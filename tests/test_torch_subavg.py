@@ -4,9 +4,14 @@ permutations (the first epoch's from each client's round key, the tail's
 from the rng the reference's first ``local_train`` call leaves behind),
 with both switches of the flagship path on (``--fused_update``,
 ``NIDT_FAST_STEM=1``; on the CPU both sides take their plain paths).
-AlexNet3D at 69^3, batch 3 (one step an epoch), 2 epochs (so the two candidate masks differ
-and prunes are accepted: ``dist_thresh`` and ``acc_thresh`` 0), 2 rounds
-of 3 of 4 clients.
+Tiny3DCNN at 12x14x12, batch 3 (one step an epoch), 2 epochs (so the two
+candidate masks differ and prunes are accepted: ``dist_thresh`` and
+``acc_thresh`` 0), 2 rounds of 3 of 4 clients. The two packages take the
+same accept decisions on this model (1 prune in round 0, 2 in round 1: a
+client is refused where its pruned model gets none of its 2-3 training
+rows right, every logit of those rows at least 0.6 from 0: no near-tie); the
+flagship's engines run at 69^3 in ``test_torch_flagship_engines.py`` and on
+the card.
 
 The runs take several SGD steps, so states are held at
 ``torch_port_support.TRAJECTORY``; the personal masks are compared entry by
@@ -38,14 +43,17 @@ OPTIM = dict(batch_size=3, epochs=2, fused_update=True)
 FED = dict(client_num_in_total=4, frac=0.75, comm_round=2,
            frequency_of_the_test=1)
 SPARSITY = dict(dist_thresh=0.0, acc_thresh=0.0)
+MODEL, SHAPE = "3dcnn_tiny", (12, 14, 12)
 #: the share of personal-mask entries allowed to differ between the two
 #: runs: a weight whose |w| sits within the runs' trajectory difference of
-#: a layer's prune threshold lands on either side of it (measured on this
-#: run: 2.0e-4 of the entries, 2000 of 10.2 M, after two rounds).
+#: a layer's prune threshold lands on either side of it (measured at 69^3:
+#: 2.0e-4 of the entries, 2000 of 10.2 M, after two rounds; on this model
+#: none of 19,332).
 MASK_DIFF_SHARE = 1e-3
 #: the train loss of a round after the first: a flipped entry is 0 on one
 #: side and a weight of about the prune threshold on the other, so the next
-#: round starts from models that differ there (measured: 3.6e-3 relative)
+#: round starts from models that differ there (measured at 69^3: 3.6e-3
+#: relative; on this model 1.9e-5)
 LATER_LOSS_RTOL = 2e-2
 
 
@@ -58,9 +66,10 @@ def run(tmp_path_factory):
     try:
         with torch_threads(2):
             before = sum(_cuda.counts().values())
-            out = run_engine_pair("subavg", four_client_federation(),
+            out = run_engine_pair("subavg", four_client_federation(SHAPE),
                                   OPTIM, FED,
                                   tmp_path_factory.mktemp("subavg"),
+                                  shape=SHAPE, model=MODEL,
                                   sparsity=SPARSITY)
             # CPU tensors: plain paths only, no kernel launched
             assert sum(_cuda.counts().values()) == before
@@ -132,7 +141,8 @@ def test_history_and_stat_info_match(run):
         assert got["train_loss"] == pytest.approx(ref["train_loss"],
                                                   rel=rtol)
         assert got["personal_acc"] == ref["personal_acc"]
-        assert got["prunes_accepted"] == ref["prunes_accepted"] == 3
+        assert got["prunes_accepted"] == ref["prunes_accepted"]
+        assert got["prunes_accepted"] >= 1
         assert abs(got["mean_mask_dist"] - ref["mean_mask_dist"]) \
             <= MASK_DIFF_SHARE
     assert_metrics_close(pres["final_personal"], jres["final_personal"],
