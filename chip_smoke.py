@@ -12,6 +12,8 @@
                                      # telemetry) alone
     python3 chip_smoke.py --probe    # kernels, then step 14 (the profile
                                      # session) alone
+    python3 chip_smoke.py --tune     # kernels, then step 15 (the
+                                     # autotuner) alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
@@ -134,7 +136,7 @@
    ``build_experiment`` must have switched TF32 and cuDNN's default
    algorithms off (the fp32 contract lives in ``LocalTrainer``); the CIFAR
    sweep on ``darts`` at full width (``DARTS_SWEEP``: DARTS_V2, C=36, 20
-   cells, 919 leaves, 1 epoch, 1 round of 5 clients; its evaluations
+   cells, 919 leaves, 1 epoch, 1 round of 3 clients; its evaluations
    take client 0 alone, ``--ci 1``) on the synthetic cohort at CIFAR-10's size (``kth_select`` launched for the one mask over
    3,308,940 scores, ``fused_sgd`` 2 launches a table a step over its 29
    tables, no ``stem_dw``, density within 0.01), with one client's local
@@ -236,7 +238,21 @@
    captures, launches, MFU, TFLOP/s and the memory reserved before it, at
    its peak and after the engine's release (back within 1 GiB of before),
    and its launches must be those its cell implies.
-15. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+15. The autotuner (``tune_phase``): a ``driver`` search of ``tune/`` over 8
+   flagship FedAvg cells (fp32 / bf16_mixed x ``fused_update`` off / on x
+   ``rounds_per_dispatch`` 1 / 4; batch 16, no remat, 4 clients of 32
+   rows, the fast stem), screened at 2 rounds with 2 survivors refined at
+   3, seed 20, every cell's MFU against the session's one peak; each
+   measurement's launches must be those its cell implies, and the search
+   again on its journal measures nothing. Its recipe then drives a
+   flagship FedAvg run of the CLI (``--recipe PATH`` with one knob spelled
+   against it: the winner's other knobs reach the config, the spelled one
+   wins and counts ``recipe-override``, the ``mfu-below-recipe`` drift rule
+   is armed and, where it fires, records ``retune_recommended``; the run
+   ends ok on its own gauges); a truncated recipe dies at argparse, and
+   ``--recipe auto`` resolves the committed recipe of the card
+   (``recipes/nvidia_h100_80gb_hbm3.json``) and runs.
+16. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -249,7 +265,7 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-16. Prints the run's seconds, one JSON line per kernel, the
+17. Prints the run's seconds, one JSON line per kernel, the
    ``{"kernels": [...]}`` line (each kernel's launches on its main path,
    SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
    run), and last ``{"ok": true, "device": {...}}``.
@@ -1572,13 +1588,13 @@ def vision_phase(card, dev, build_experiment, by_path: dict) -> None:
 
 #: the DARTS path's main run: the CIFAR sweep (``CIFAR_SWEEP``) on the
 #: DARTS_V2 network at full width (C=36, 20 cells, 919 leaves: 29 of
-#: fused_sgd's 32-leaf tables), 1 epoch and 1 round of 5 clients (the
-#: sweep's frac 0.1 halved: a step is ~0.25-0.5 s of host dispatch, and
-#: the whole smoke must stay well inside its limit on a slow host)
+#: fused_sgd's 32-leaf tables), 1 epoch and 1 round of 3 clients (the
+#: sweep's frac 0.1 cut to 0.03: the whole smoke must stay well inside
+#: its limit on a slow host, and the sweep was its heaviest part)
 DARTS_SWEEP = ("--algorithm", "salientgrads", "--dataset", "cifar10",
                "--model", "darts", "--partition_method", "dir",
                "--partition_alpha", "0.3", "--client_num_in_total", "100",
-               "--frac", "0.05", "--comm_round", "1", "--batch_size", "16",
+               "--frac", "0.03", "--comm_round", "1", "--batch_size", "16",
                "--epochs", "1", "--lr", "0.01", "--dense_ratio", "0.5",
                "--itersnip_iteration", "1", "--fused_update", "--ci", "1")
 #: the DARTS models' maskable scores (conv and dense kernels) at 10
@@ -1814,7 +1830,7 @@ def darts_phase(card, dev, build_experiment, by_path: dict) -> None:
       off before its first step;
     - the main path, the CIFAR sweep on ``darts`` at full width
       (``DARTS_SWEEP``: DARTS_V2, C=36, 20 cells, SalientGrads, 100 clients
-      at Dirichlet 0.3, frac 0.05, batch 16, 1 epoch, 1 round, dense ratio
+      at Dirichlet 0.3, frac 0.03, batch 16, 1 epoch, 1 round, dense ratio
       0.5) on the synthetic cohort at CIFAR-10's size: ``kth_select``
       launched for the one global mask over 3,308,940 scores, ``fused_sgd``
       2 launches a table a local step (29 tables: 58), no ``stem_dw``, the
@@ -3852,6 +3868,239 @@ def probe_phase(card, dev, by_path: dict) -> None:
         fail(f"the default profile session: {ddoc['session']} {drows}")
 
 
+#: the tuner's flagship search on the card (``tune_phase``): precision x
+#: the fused update x rounds a dispatch at batch 16 without remat, the
+#: profile session's flagship shape (4 clients of 32 rows)
+TUNE_AXES = (("precision", ("fp32", "bf16_mixed")),
+             ("fused_update", (False, True)),
+             ("rounds_per_dispatch", (1, 4)),
+             ("batch", (16,)), ("remat", ("none",)))
+TUNE_ENV = {"PROFILE_MODEL": "3DCNN", "PROFILE_SHAPE": "121,145,121",
+            "PROFILE_BATCH": "16", "PROFILE_LOCAL": "32",
+            "PROFILE_CLIENTS": "4"}
+
+
+def cell_launches(cell: dict, steps: int) -> dict:
+    """The launches a FedAvg cell of ``steps`` local steps implies:
+    ``fused_sgd`` 2 a step with the fused update, the f32 ``stem_dw`` 3 a
+    step in fp32 and the bf16 one 2 a step in bf16_mixed, no select."""
+    bf16 = cell["precision"] == "bf16_mixed"
+    return {"fused_sgd": 2 * steps if cell["fused_update"] else 0,
+            "stem_dw": 0 if bf16 else 3 * steps,
+            "stem_dw_bf16": 2 * steps if bf16 else 0,
+            "kth_select": 0, "count_ge": 0}
+
+
+def tune_phase(card, dev, by_path: dict) -> None:
+    """The autotuner on the card (``tune/``): a ``driver`` search over
+    :data:`TUNE_AXES` at the flagship width (AlexNet3D_Dropout at
+    121x145x121, the fast stem), screened at 2 rounds, 2 survivors refined
+    at 3, seed 20, every cell's MFU against the session's one peak, the
+    counters at 0 just before and read just after
+    (``by_path["tune_search"]``). Each measurement's launches must be
+    those its cell implies; the search again on its journal must measure
+    nothing. Its recipe, written to a temporary directory, then drives a
+    flagship FedAvg run of the CLI (``--recipe PATH``, one knob spelled
+    against it, ``by_path["tune_cli"]``): the winner's other knobs reach
+    the config, the spelled one wins and counts ``recipe-override``, the
+    ``mfu-below-recipe`` drift rule is armed (where it fires, the flight
+    ring holds ``retune_recommended``) and the run ends ok on its own
+    gauges. A truncated recipe dies at argparse, and ``--recipe auto``
+    resolves the committed recipe of the card and runs."""
+    import argparse
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.__main__ import (
+        add_args, build_experiment, main as cli_main, parse, run,
+    )
+    from neuroimagedisttraining_tpu_torch.obs import compute as obs_compute
+    from neuroimagedisttraining_tpu_torch.obs import flight as obs_flight
+    from neuroimagedisttraining_tpu_torch.obs import metrics as obs_metrics
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+    from neuroimagedisttraining_tpu_torch.tune import recipe as tune_recipe
+    from neuroimagedisttraining_tpu_torch.tune import search as tune_search
+    from neuroimagedisttraining_tpu_torch.tune import space as tune_space
+
+    tmp = Path(tempfile.mkdtemp(prefix="nidt_tune_"))
+    os.environ.update(TUNE_ENV)
+    os.environ["NIDT_FAST_STEM"] = "1"
+    kind = torch.cuda.get_device_name(dev)
+    space = tune_space.Space(axes=TUNE_AXES, device_kind=kind, n_devices=1,
+                             shape=(121, 145, 121),
+                             hbm_bytes=tune_space.HBM_BYTES_BY_KIND.get(kind))
+    journal_path = str(tmp / "journal.jsonl")
+    obs_compute.PROFILER.reset()
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    measure = tune_search.make_driver_measure(device=dev)
+    res = tune_search.run_search(
+        space, 20, measure, tune_search.Journal(journal_path),
+        screen_fidelity=2, commit_fidelity=3, survivors=2)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    by_path["tune_search"] = _cuda.counts()
+    bad, cells = [], []
+    for m in res["screened"] + res["refined"]:
+        met = m["metrics"]
+        if m["status"] != "ok":
+            bad.append(f"{m['cell']} at {m['fidelity']}: {m['reason']}")
+            continue
+        want = cell_launches(m["cell"], met["local_steps"])
+        got = {k: met["launches"].get(k, 0) for k in want}
+        if got != want:
+            bad.append(f"{m['cell']}: launches {got}, its cell implies "
+                       f"{want}")
+        cells.append({"cell": m["cell"], "fidelity": m["fidelity"],
+                      "score": m["score"], "metric": m["score_metric"],
+                      "mfu": met["mfu"],
+                      "sustained_tflops": met["sustained_tflops"],
+                      "round_ms": met["round_ms"],
+                      "local_steps": met["local_steps"], "launches": got,
+                      "recompiles": met["recompiles"],
+                      "peak_reserved_gb": (met["peak_reserved_bytes"] or 0)
+                      / 1e9})
+    summed = {k: sum(c["launches"][k] for c in cells)
+              for k in ("fused_sgd", "stem_dw", "stem_dw_bf16")}
+    if any(by_path["tune_search"].get(k, 0) != n for k, n in summed.items()):
+        bad.append(f"the search's launches {by_path['tune_search']} are "
+                   f"not its cells' {summed}")
+    again = tune_search.run_search(
+        space, 20, measure, tune_search.Journal(journal_path),
+        screen_fidelity=2, commit_fidelity=3, survivors=2,
+        log=lambda *a: None)
+    if again["fresh_measurements"] != 0 or \
+            again["winner"]["fingerprint"] != res["winner"]["fingerprint"]:
+        bad.append(f"the journal's rerun measured "
+                   f"{again['fresh_measurements']} cells")
+    doc = tune_recipe.recipe_doc_from_search(res, kind)
+    recipe_path = tmp / "recipe.json"
+    tune_recipe.write_recipe(doc, str(recipe_path))
+    winner = doc["cell"]
+    print(json.dumps({"tune_search": {
+        "card": card, "seconds": search_s, "peak_flops": measure.peak_flops,
+        "est_step_bytes": tune_space.est_step_bytes(
+            (121, 145, 121), 16, "fp32", "none"),
+        "winner": winner, "score": doc["score"],
+        "score_metric": doc["score_metric"],
+        "journal_rerun_fresh": again["fresh_measurements"],
+        "launches": by_path["tune_search"], "cells": cells}}))
+    if bad:
+        fail(f"the tuner's flagship search: {bad}")
+    obs_compute.PROFILER.reset()
+    free_card()
+
+    # the recipe through the CLI, one knob spelled against it
+    k_spelled = 1 if winner["rounds_per_dispatch"] != 1 else 4
+    manifest = tmp / "rules.json"
+    manifest.write_text(json.dumps([
+        {"name": "mfu-floor", "metric": "nidt_mfu", "op": "<",
+         "threshold": 0.001, "for_rounds": 3, "severity": "warn"}]))
+    flags = ["--algorithm", "fedavg", "--dataset", "synthetic", "--model",
+             "3DCNN", "--synthetic_shape", "121", "145", "121",
+             "--synthetic_num_subjects", "48", "--client_num_in_total", "4",
+             "--epochs", "1", "--comm_round", "3", "--health_rules",
+             str(manifest), "--peak_flops", str(measure.peak_flops or 0)]
+    argv = [*flags, "--recipe", str(recipe_path), "--rounds_per_dispatch",
+            str(k_spelled), "--log_dir", str(tmp / "log")]
+    before = sum(v["value"] for v in obs_metrics.REGISTRY.snapshot().get(
+        "nidt_fallback_total", {}).get("values", ())
+        if v["labels"].get("reason") == "recipe-override")
+    with contextlib.redirect_stderr(io.StringIO()):
+        args, cfg, loaded = parse(argv)
+    counted = sum(v["value"] for v in obs_metrics.REGISTRY.snapshot().get(
+        "nidt_fallback_total", {}).get("values", ())
+        if v["labels"].get("reason") == "recipe-override") - before
+    knobs = {"precision": cfg.optim.precision,
+             "fused_update": cfg.optim.fused_update, "remat": cfg.remat,
+             "client_mesh": cfg.fed.client_mesh,
+             "rounds_per_dispatch": cfg.fed.rounds_per_dispatch,
+             "batch": cfg.optim.batch_size}
+    got = {k: knobs[k] for k in winner}
+    want = dict(winner, rounds_per_dispatch=k_spelled)
+    if got != want or counted != 1 or cfg.recipe != str(recipe_path):
+        fail(f"--recipe: config {got}, want {want}; {counted} overrides "
+             "counted")
+    obs_metrics.REGISTRY.reset()
+    obs_flight.FLIGHT.clear()
+    obs_compute.PROFILER.reset()
+    engine, info = build_experiment(cfg, "cuda")
+    _cuda.reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = run(engine, info, cfg, args, loaded)
+    cli_s = time.perf_counter() - t0
+    by_path["tune_cli"] = _cuda.counts()
+    sys.stdout.write(out.getvalue())
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    verdict = json.loads(Path(result["health_verdict_path"]).read_text())
+    drift = [r for r in verdict["rules"] if r["name"] == "mfu-below-recipe"]
+    alerts = {r["name"] for r in verdict["rules"] if r["fires"]}
+    retune = [e for e in obs_flight.events()
+              if e["kind"] == "retune_recommended"]
+    steps = local_steps(engine)
+    want_l = cell_launches(got, steps)
+    got_l = {k: by_path["tune_cli"].get(k, 0) for k in want_l}
+    print(json.dumps({"tune_cli": {
+        "card": card, "seconds": cli_s, "config": got, "overrides": counted,
+        "exit": code, "health": result["health"],
+        "drift_rule": drift[0] if drift else None,
+        "drift_fired": bool(drift and drift[0]["fires"]),
+        "retune_events": len(retune), "alerts": sorted(alerts),
+        "mfu": obs_compute.PROFILER.health()["last_mfu"],
+        "local_steps": steps, "launches": got_l}}))
+    if code != 0 or not drift or alerts - {"mfu-below-recipe"} or \
+            (drift[0]["fires"] and not retune) or got_l != want_l or \
+            abs(drift[0]["threshold"] - 0.8 * doc["score"]) > 1e-12 * abs(
+                doc["score"]):
+        fail(f"the recipe's CLI run: exit {code}, alerts {sorted(alerts)}, "
+             f"drift rule {drift}, retune events {len(retune)}, launches "
+             f"{got_l} against {want_l}")
+    del engine
+    free_card()
+
+    # a truncated recipe dies at argparse
+    trunc = tmp / "truncated.json"
+    trunc.write_text(recipe_path.read_text()[:64])
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            parse([*flags, "--recipe", str(trunc)])
+        fail("a truncated recipe was not refused")
+    except SystemExit as e:
+        if e.code != 2 or "invalid JSON" not in err.getvalue():
+            fail(f"a truncated recipe: exit {e.code}, {err.getvalue()}")
+
+    # --recipe auto: the committed recipe of this card
+    committed = Path(tune_recipe.recipes_dir()) / (
+        tune_recipe.device_slug(kind) + ".json")
+    auto_doc = tune_recipe.resolve_and_load("auto", "cuda")
+    obs_metrics.REGISTRY.reset()
+    obs_flight.FLIGHT.clear()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = cli_main([*flags, "--comm_round", "2", "--recipe", "auto"])
+    auto_s = time.perf_counter() - t0
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    losses = [h["train_loss"] for h in result["history"]]
+    print(json.dumps({"tune_auto": {
+        "card": card, "seconds": auto_s,
+        "recipe": os.path.relpath(committed, HERE),
+        "cell": auto_doc["cell"], "score": auto_doc["score"],
+        "exit": code, "train_losses": losses,
+        "health": result["health"]}}))
+    if code != 0 or auto_doc["_path"] != str(committed) or \
+            not all(math.isfinite(x) for x in losses):
+        fail(f"--recipe auto: exit {code}, {auto_doc['_path']}, {losses}")
+    obs_compute.PROFILER.reset()
+    free_card()
+
+
 MAIN_PATH = {"stem_dw_bf16": "salientgrads_bf16"}
 
 
@@ -3889,6 +4138,7 @@ def main(argv: list[str]) -> int:
     only_dispatch = "--dispatch" in argv
     only_ops = "--ops" in argv
     only_probe = "--probe" in argv
+    only_tune = "--tune" in argv
     import numpy as np
     import torch
 
@@ -4491,6 +4741,10 @@ def main(argv: list[str]) -> int:
             probe_phase(card, dev, by_path)
             lap("phase")
             return finish(rows, by_path, started, laps)
+        if only_tune:
+            tune_phase(card, dev, by_path)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
 
         cfg = flagship("salientgrads")
         t0 = time.perf_counter()
@@ -4864,6 +5118,10 @@ def main(argv: list[str]) -> int:
         # ---- the profile session: the flagship cells, the default list ----
         probe_phase(card, dev, by_path)
         lap("probe")
+
+        # ---- the autotuner: a flagship search, its recipe via the CLI ----
+        tune_phase(card, dev, by_path)
+        lap("tune")
 
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",

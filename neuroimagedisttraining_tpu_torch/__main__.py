@@ -30,7 +30,7 @@
         [--health_rules FILE] [--health_gate] [--actions off|dry_run|on] \\
         [--dp_epsilon_budget E] [--peak_flops F] \\
         [--profile_session OUT.json [--profile_manifest M.json]] \\
-        [--compile_cache DIR] ...
+        [--compile_cache DIR] [--recipe FILE|auto] ...
 
 Flag names are the reference CLI's for the flags the port takes.
 ``--dataset ABCD`` / ``abcd_h5`` (the default) reads the X/y/site HDF5 file
@@ -57,7 +57,11 @@ are the reference's, with its defaults and refusals (TurboAggregate and
 ``--secure_quant`` only an engine with the default aggregation tail and a
 field with the headroom; the engines refuse what their round does not run,
 and ``preempt:`` faults). An in-process ``--secure_quant`` cohort of 2 or
-more clients needs ``--secure_quant_field_bits 32``.
+more clients needs ``--secure_quant_field_bits 32``. ``--dp_epsilon_budget``
+must be >= 0 and, above 0, needs a noise path (``--dp_sigma`` or
+``--defense weak_dp``). ``--recipe`` applies an autotuner recipe
+(``tune/recipe.py``) as defaults before those checks; the flags spelled
+on the command line win.
 
 ``--rounds_per_dispatch K`` runs windows of up to K rounds
 (``engines/program.py``: one host read a window); on a card the local
@@ -408,6 +412,19 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         help="the reference's persistent XLA compile "
                              "cache; the port compiles no XLA programs, "
                              "so it is taken and does nothing")
+    parser.add_argument("--recipe", type=str, default="",
+                        help="apply an autotuner recipe (tune/recipe.py) "
+                             "as config DEFAULTS before any conflict "
+                             "check: a recipe file, or 'auto' for the "
+                             "committed recipe of the run's device "
+                             "(recipes/<device_kind>.json). Explicit "
+                             "flags win over recipe values (each "
+                             "override is logged and counted in "
+                             "nidt_fallback_total{plane='recipe'}); a "
+                             "truncated, tampered or mismatched recipe "
+                             "dies at argparse. Loading a recipe also "
+                             "arms the mfu-below-recipe drift rule "
+                             "(obs/rules.py) against its recorded score")
     return parser
 
 
@@ -427,6 +444,7 @@ def config_from_args(args) -> ExperimentConfig:
         algorithm=args.algorithm, seed=args.seed, tag=args.tag,
         log_dir=args.log_dir,
         stream_chunk_clients=args.stream_chunk_clients, remat=args.remat,
+        recipe=args.recipe,
         mesh_shape=tuple(args.mesh_shape),
         virtual_devices=args.virtual_devices,
         checkpoint_dir=args.checkpoint_dir,
@@ -621,6 +639,16 @@ def check_privacy_flags(parser: argparse.ArgumentParser, args) -> None:
         parser.error("--dp_sigma needs --dp_clip > 0 (the clip bound is "
                      "the sensitivity the noise multiplier is stated "
                      "against)")
+    if args.dp_epsilon_budget < 0:
+        parser.error(f"--dp_epsilon_budget must be >= 0 (got "
+                     f"{args.dp_epsilon_budget})")
+    if args.dp_epsilon_budget > 0 and args.dp_sigma <= 0 \
+            and args.defense_type != "weak_dp":
+        parser.error(
+            "--dp_epsilon_budget needs an armed noise path to budget "
+            "(--dp_sigma/--dp_clip on a DP engine, or --defense "
+            "weak_dp): without one the accountant records nothing and "
+            "the budget rules can never fire")
     if args.dp_sigma > 0 or args.dp_clip > 0:
         cls = ENGINES.get(args.algorithm.lower())
         if cls is None or not cls.supports_dp:
@@ -665,10 +693,27 @@ def check_privacy_flags(parser: argparse.ArgumentParser, args) -> None:
             parser.error(str(e))
 
 
-def main(argv: list[str] | None = None) -> int:
+def parse(argv: list[str] | None = None):
+    """The command line as the run takes it: parsed; a ``--recipe``
+    applied as defaults (the flags spelled in ``argv`` win) before the
+    conflict checks, so a recipe knob that conflicts dies at argparse like
+    a spelled one; the config and the startup refusals. Returns ``(args,
+    cfg, recipe_doc)`` (``recipe_doc`` None without ``--recipe``)."""
     parser = add_args(argparse.ArgumentParser(
         prog="neuroimagedisttraining_tpu_torch"))
     args = parser.parse_args(argv)
+    recipe_doc = None
+    if args.recipe:
+        from neuroimagedisttraining_tpu_torch.tune import recipe as tune_recipe
+
+        try:
+            recipe_doc = tune_recipe.resolve_and_load(args.recipe,
+                                                      args.device)
+            tune_recipe.apply_recipe(
+                args, recipe_doc,
+                argv if argv is not None else sys.argv[1:])
+        except (OSError, ValueError) as e:
+            parser.error(f"--recipe: {e}")
     cfg = config_from_args(args)
     try:  # the precision contract (--loss_scale, Adam's --fused_update)
         validate_precision(cfg.optim)
@@ -678,6 +723,11 @@ def main(argv: list[str] | None = None) -> int:
         parser.error("--algorithm fedfomo needs a validation split: give "
                      "--val_fraction > 0")
     check_privacy_flags(parser, args)
+    return args, cfg, recipe_doc
+
+
+def main(argv: list[str] | None = None) -> int:
+    args, cfg, recipe_doc = parse(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s",
                         stream=sys.stdout)
     if args.compile_cache_dir is not None:
@@ -688,7 +738,7 @@ def main(argv: list[str] | None = None) -> int:
     engine, info = build_experiment(cfg, args.device,
                                     streaming=args.streaming)
     logging.info("partition: %s", json.dumps(info["train_counts"]))
-    return run(engine, info, cfg, args)
+    return run(engine, info, cfg, args, recipe_doc)
 
 
 def profile_session(args) -> int:
@@ -713,13 +763,15 @@ def profile_session(args) -> int:
     return 0 if obs_probe.session_ok(doc) else 1
 
 
-def run(engine, info: dict, cfg: ExperimentConfig, args) -> int:
+def run(engine, info: dict, cfg: ExperimentConfig, args,
+        recipe_doc: dict | None = None) -> int:
     """Train ``engine`` with the run's telemetry armed and written, as the
     reference's CLI does: the flight ring's dump path, the span tracer,
-    the MFU peak, the rules and the action bus (disarmed on every exit
-    path), the metrics endpoint; then ``.stats.json`` and
-    ``.health.json`` (with ``--log_dir``) and the result line. Returns the
-    exit code (1 when ``--health_gate`` fails)."""
+    the MFU peak, the rules (with a loaded recipe's drift rule) and the
+    action bus (disarmed on every exit path), the metrics endpoint; then
+    ``.stats.json`` and ``.health.json`` (with ``--log_dir``) and the
+    result line. Returns the exit code (1 when ``--health_gate``
+    fails)."""
     import os
 
     from neuroimagedisttraining_tpu_torch.obs import actions as obs_actions
@@ -746,10 +798,15 @@ def run(engine, info: dict, cfg: ExperimentConfig, args) -> int:
                       tags={"algorithm": cfg.algorithm, "seed": cfg.seed})
     if args.peak_flops > 0:
         obs_compute.PROFILER.set_peak_flops(args.peak_flops)
+    extra_rules = ()
+    if recipe_doc is not None:
+        from neuroimagedisttraining_tpu_torch.tune import recipe as tune_recipe
+
+        extra_rules = tune_recipe.drift_rules(recipe_doc)
     hrules = obs_rules.configure(
         manifest_path=cfg.health_rules,
         dp_epsilon_budget=cfg.fed.dp_epsilon_budget,
-        comm_round=cfg.fed.comm_round)
+        comm_round=cfg.fed.comm_round, extra_rules=extra_rules)
     bus = obs_actions.configure(cfg.actions)
     msrv = start_metrics_server(
         cfg.metrics_port, host=args.metrics_host,

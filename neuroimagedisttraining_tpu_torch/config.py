@@ -13,6 +13,16 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+#: the functions that refuse a configuration at startup beyond the CLI's
+#: ``parser.error`` and the constructors' ``raise ValueError`` (the
+#: compatibility-matrix extractor, ``analysis/project.py``, reads their
+#: guards too): ``"<relpath in the package>:<function>"``
+STARTUP_VALIDATORS = (
+    "core/optim.py:validate_precision",
+    "engines/base.py:_init_defended_round",
+    "engines/base.py:_init_secure_quant",
+)
+
 
 @dataclass(frozen=True)
 class OptimConfig:
@@ -188,6 +198,9 @@ class ExperimentConfig:
     # the AlexNet family's rematerialisation: auto | none | stem | all
     # (core/optim.py resolve_remat)
     remat: str = "auto"
+    # the autotuner recipe that defaulted the run's knobs (tune/recipe.py):
+    # a recipe file, "auto" (the committed recipe of the run's card) or ""
+    recipe: str = ""
     # the device mesh (parallel/mesh.py): () => every visible device on
     # one "clients" axis; one value: the first N; two (silos, clients):
     # the two-level mesh of silo-first aggregation

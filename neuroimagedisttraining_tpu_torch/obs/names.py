@@ -13,48 +13,48 @@ declared so that a manifest written for the reference validates here.
 from __future__ import annotations
 
 # -- control-plane transports (distributed/comm.py) --
-COMM_BYTES_SENT = "nidt_comm_bytes_sent_total"
-COMM_BYTES_RECV = "nidt_comm_bytes_recv_total"
-COMM_FRAMES_SENT = "nidt_comm_frames_sent_total"
-COMM_FRAMES_RECV = "nidt_comm_frames_recv_total"
+COMM_BYTES_SENT = "nidt_comm_bytes_sent_total"  # nidt: allow[metric-orphan] -- distributed/comm.py publishes it (ROADMAP Queue 1 item 4)
+COMM_BYTES_RECV = "nidt_comm_bytes_recv_total"  # nidt: allow[metric-orphan] -- distributed/comm.py publishes it (ROADMAP Queue 1 item 4)
+COMM_FRAMES_SENT = "nidt_comm_frames_sent_total"  # nidt: allow[metric-orphan] -- distributed/comm.py publishes it (ROADMAP Queue 1 item 4)
+COMM_FRAMES_RECV = "nidt_comm_frames_recv_total"  # nidt: allow[metric-orphan] -- distributed/comm.py publishes it (ROADMAP Queue 1 item 4)
 
 # -- synchronous cross-silo server (distributed/cross_silo.py) --
-SYNC_UPLOADS = "nidt_sync_uploads_total"
-SYNC_ROUND_WALL = "nidt_sync_round_wall_seconds"
-SYNC_QUORUM_WAIT = "nidt_sync_quorum_wait_seconds"
-SERVER_ROUND = "nidt_server_round"
-SERVER_SUSPECTS = "nidt_server_suspects"
-BYZ_STRIKES = "nidt_byz_strikes_total"
+SYNC_UPLOADS = "nidt_sync_uploads_total"  # nidt: allow[metric-orphan] -- distributed/cross_silo.py publishes it (ROADMAP Queue 1 item 4)
+SYNC_ROUND_WALL = "nidt_sync_round_wall_seconds"  # nidt: allow[metric-orphan] -- distributed/cross_silo.py publishes it (ROADMAP Queue 1 item 4)
+SYNC_QUORUM_WAIT = "nidt_sync_quorum_wait_seconds"  # nidt: allow[metric-orphan] -- distributed/cross_silo.py publishes it (ROADMAP Queue 1 item 4)
+SERVER_ROUND = "nidt_server_round"  # nidt: allow[metric-orphan] -- distributed/cross_silo.py publishes it (ROADMAP Queue 1 item 4)
+SERVER_SUSPECTS = "nidt_server_suspects"  # nidt: allow[metric-orphan] -- distributed/cross_silo.py publishes it (ROADMAP Queue 1 item 4)
+BYZ_STRIKES = "nidt_byz_strikes_total"  # nidt: allow[metric-orphan] -- distributed/cross_silo.py publishes it (ROADMAP Queue 1 item 4)
 BYZ_QUARANTINES = "nidt_byz_quarantines_total"
 DP_EPSILON_SILO = "nidt_dp_epsilon_silo"
 
 # -- async buffered server (asyncfl/server.py) --
-ASYNC_UPLOADS = "nidt_async_uploads_total"
+ASYNC_UPLOADS = "nidt_async_uploads_total"  # nidt: allow[metric-orphan] -- asyncfl/server.py publishes it (ROADMAP Queue 1 item 4)
 ASYNC_STALENESS = "nidt_async_staleness"
-ASYNC_BUFFER_OCCUPANCY = "nidt_async_buffer_occupancy"
-ASYNC_BUFFER_K_EFF = "nidt_async_buffer_k_eff"
+ASYNC_BUFFER_OCCUPANCY = "nidt_async_buffer_occupancy"  # nidt: allow[metric-orphan] -- asyncfl/server.py publishes it (ROADMAP Queue 1 item 4)
+ASYNC_BUFFER_K_EFF = "nidt_async_buffer_k_eff"  # nidt: allow[metric-orphan] -- asyncfl/server.py publishes it (ROADMAP Queue 1 item 4)
 
 # -- selector socket core (asyncfl/loop.py) --
-SELECTOR_CONNECTIONS = "nidt_selector_connections"
-SELECTOR_WRITE_QUEUE = "nidt_selector_write_queue_frames"
-BACKPRESSURE_STALLS = "nidt_backpressure_stalls_total"
+SELECTOR_CONNECTIONS = "nidt_selector_connections"  # nidt: allow[metric-orphan] -- asyncfl/loop.py publishes it (ROADMAP Queue 1 item 4)
+SELECTOR_WRITE_QUEUE = "nidt_selector_write_queue_frames"  # nidt: allow[metric-orphan] -- asyncfl/loop.py publishes it (ROADMAP Queue 1 item 4)
+BACKPRESSURE_STALLS = "nidt_backpressure_stalls_total"  # nidt: allow[metric-orphan] -- asyncfl/loop.py publishes it (ROADMAP Queue 1 item 4)
 
 # -- sharded ingest plane (asyncfl/ingest.py) --
-INGEST_HEARTBEATS_SUPPRESSED = "nidt_ingest_heartbeats_suppressed"
-INGEST_PENDING_UPLOADS = "nidt_ingest_pending_uploads"
-INGEST_WORKERS_LIVE = "nidt_ingest_workers_live"
-INGEST_PARTIALS = "nidt_ingest_partials_total"
-INGEST_WORKER_UPLOADS = "nidt_ingest_worker_uploads_total"
+INGEST_HEARTBEATS_SUPPRESSED = "nidt_ingest_heartbeats_suppressed"  # nidt: allow[metric-orphan] -- asyncfl/ingest.py publishes it (ROADMAP Queue 1 item 4)
+INGEST_PENDING_UPLOADS = "nidt_ingest_pending_uploads"  # nidt: allow[metric-orphan] -- asyncfl/ingest.py publishes it (ROADMAP Queue 1 item 4)
+INGEST_WORKERS_LIVE = "nidt_ingest_workers_live"  # nidt: allow[metric-orphan] -- asyncfl/ingest.py publishes it (ROADMAP Queue 1 item 4)
+INGEST_PARTIALS = "nidt_ingest_partials_total"  # nidt: allow[metric-orphan] -- asyncfl/ingest.py publishes it (ROADMAP Queue 1 item 4)
+INGEST_WORKER_UPLOADS = "nidt_ingest_worker_uploads_total"  # nidt: allow[metric-orphan] -- asyncfl/ingest.py publishes it (ROADMAP Queue 1 item 4)
 
 # -- hierarchical aggregation tier (asyncfl/region.py) --
 REGION_STALENESS = "nidt_region_staleness"
-REGION_PARTIAL_AGE = "nidt_region_partial_age_s"
+REGION_PARTIAL_AGE = "nidt_region_partial_age_s"  # nidt: allow[metric-orphan] -- asyncfl/region.py publishes it (ROADMAP Queue 1 item 4)
 
 # -- telemetry fan-in (obs/fanin.py) --
-UPLOAD_STAGE_MS = "nidt_upload_stage_ms"
-CLIENT_RTT_MS = "nidt_client_rtt_ms"
-OBS_WORKER_SNAPSHOT_AGE = "nidt_obs_worker_snapshot_age_s"
-OBS_WORKER_ALIVE = "nidt_obs_worker_alive"
+UPLOAD_STAGE_MS = "nidt_upload_stage_ms"  # nidt: allow[metric-orphan] -- obs/fanin.py publishes it (ROADMAP Queue 1 item 3)
+CLIENT_RTT_MS = "nidt_client_rtt_ms"  # nidt: allow[metric-orphan] -- obs/fanin.py publishes it (ROADMAP Queue 1 item 3)
+OBS_WORKER_SNAPSHOT_AGE = "nidt_obs_worker_snapshot_age_s"  # nidt: allow[metric-orphan] -- obs/fanin.py publishes it (ROADMAP Queue 1 item 3)
+OBS_WORKER_ALIVE = "nidt_obs_worker_alive"  # nidt: allow[metric-orphan] -- obs/fanin.py publishes it (ROADMAP Queue 1 item 3)
 
 # -- compute-plane profiler (obs/compute.py); XLA_FLOPS is the
 #    reference's cost_analysis count, the port's FlopCounterMode count --
@@ -98,11 +98,11 @@ HEALTH_ROUND = "nidt_health_round"
 
 # -- serving plane (serve/engine.py, serve/worker.py, serve/server.py) --
 SERVE_LATENCY_MS = "nidt_serve_latency_ms"
-SERVE_BATCH_OCCUPANCY = "nidt_serve_batch_occupancy"
+SERVE_BATCH_OCCUPANCY = "nidt_serve_batch_occupancy"  # nidt: allow[metric-orphan] -- serve/engine.py publishes it (ROADMAP Queue 1 item 3)
 SERVE_QUEUE_DEPTH = "nidt_serve_queue_depth"
-SERVE_REQUESTS = "nidt_serve_requests_total"
-SERVE_WORKERS_LIVE = "nidt_serve_workers_live"
-SERVE_WORKER_REQUESTS = "nidt_serve_worker_requests_total"
+SERVE_REQUESTS = "nidt_serve_requests_total"  # nidt: allow[metric-orphan] -- serve/worker.py publishes it (ROADMAP Queue 1 item 3)
+SERVE_WORKERS_LIVE = "nidt_serve_workers_live"  # nidt: allow[metric-orphan] -- serve/server.py publishes it (ROADMAP Queue 1 item 3)
+SERVE_WORKER_REQUESTS = "nidt_serve_worker_requests_total"  # nidt: allow[metric-orphan] -- serve/server.py publishes it (ROADMAP Queue 1 item 3)
 
 # -- anomaly-rule engine (obs/rules.py) --
 ALERT = "nidt_alert"

@@ -169,7 +169,7 @@ def _env_meta() -> dict:
 
 def default_out() -> str:
     """The artifact's default path, in the temporary directory."""
-    return os.path.join(tempfile.gettempdir(), "nidt_profile",
+    return os.path.join(tempfile.gettempdir(), "nidt_profile",  # nidt: allow[metric-undeclared] -- a directory name, not a metric
                         "profile_session.json")
 
 
