@@ -14,6 +14,8 @@
                                      # session) alone
     python3 chip_smoke.py --tune     # kernels, then step 15 (the
                                      # autotuner) alone
+    python3 chip_smoke.py --serve    # kernels, then step 16 (serving)
+                                     # alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
@@ -136,7 +138,7 @@
    ``build_experiment`` must have switched TF32 and cuDNN's default
    algorithms off (the fp32 contract lives in ``LocalTrainer``); the CIFAR
    sweep on ``darts`` at full width (``DARTS_SWEEP``: DARTS_V2, C=36, 20
-   cells, 919 leaves, 1 epoch, 1 round of 3 clients; its evaluations
+   cells, 919 leaves, 1 epoch, 1 round of 2 clients; its evaluations
    take client 0 alone, ``--ci 1``) on the synthetic cohort at CIFAR-10's size (``kth_select`` launched for the one mask over
    3,308,940 scores, ``fused_sgd`` 2 launches a table a step over its 29
    tables, no ``stem_dw``, density within 0.01), with one client's local
@@ -252,7 +254,24 @@
    ends ok on its own gauges); a truncated recipe dies at argparse, and
    ``--recipe auto`` resolves the committed recipe of the card
    (``recipes/nvidia_h100_80gb_hbm3.json``) and runs.
-16. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+16. Serving (``serve_phase``): a flagship Ditto checkpoint (1 round, 4
+   sites), its bf16 and fp32 bundles through ``python -m
+   neuroimagedisttraining_tpu_torch.serve --build_only`` (bytes and
+   seconds), one ``ServeEngine`` on the card over each (the global model
+   and the 4 sites at buckets 1, 2, 4 and 8, 3 and 5 rows padded into the
+   last two): every (model, bucket) captured once as a CUDA graph and then
+   replayed, the fp32 logits within 1e-5 of the logit scale of the
+   trainer's eager eval forward on the checkpoint's weights and a padded
+   row within the same of its bucket-1 answer, the bf16 logits within 0.1
+   of the fp32 ones (the reference's bf16 pin), each bucket's replay in
+   device ms; then
+   ``ShardedServeServer`` with 2 workers on the card answering raw 8.49 MB
+   bodies for sites 0-3 and an unknown site (p50 / p99 latency, each
+   worker's captures): the audit must reconcile and the merged
+   ``/metrics`` carry both workers' ``nidt_serve_latency_ms``. The launch
+   counters are 0 just before and read just after: serving launches none
+   of the kernels.
+17. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -265,7 +284,7 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-17. Prints the run's seconds, one JSON line per kernel, the
+18. Prints the run's seconds, one JSON line per kernel, the
    ``{"kernels": [...]}`` line (each kernel's launches on its main path,
    SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
    run), and last ``{"ok": true, "device": {...}}``.
@@ -1588,13 +1607,13 @@ def vision_phase(card, dev, build_experiment, by_path: dict) -> None:
 
 #: the DARTS path's main run: the CIFAR sweep (``CIFAR_SWEEP``) on the
 #: DARTS_V2 network at full width (C=36, 20 cells, 919 leaves: 29 of
-#: fused_sgd's 32-leaf tables), 1 epoch and 1 round of 3 clients (the
-#: sweep's frac 0.1 cut to 0.03: the whole smoke must stay well inside
+#: fused_sgd's 32-leaf tables), 1 epoch and 1 round of 2 clients (the
+#: sweep's frac 0.1 cut to 0.02: the whole smoke must stay well inside
 #: its limit on a slow host, and the sweep was its heaviest part)
 DARTS_SWEEP = ("--algorithm", "salientgrads", "--dataset", "cifar10",
                "--model", "darts", "--partition_method", "dir",
                "--partition_alpha", "0.3", "--client_num_in_total", "100",
-               "--frac", "0.03", "--comm_round", "1", "--batch_size", "16",
+               "--frac", "0.02", "--comm_round", "1", "--batch_size", "16",
                "--epochs", "1", "--lr", "0.01", "--dense_ratio", "0.5",
                "--itersnip_iteration", "1", "--fused_update", "--ci", "1")
 #: the DARTS models' maskable scores (conv and dense kernels) at 10
@@ -1830,7 +1849,7 @@ def darts_phase(card, dev, build_experiment, by_path: dict) -> None:
       off before its first step;
     - the main path, the CIFAR sweep on ``darts`` at full width
       (``DARTS_SWEEP``: DARTS_V2, C=36, 20 cells, SalientGrads, 100 clients
-      at Dirichlet 0.3, frac 0.03, batch 16, 1 epoch, 1 round, dense ratio
+      at Dirichlet 0.3, frac 0.02, batch 16, 1 epoch, 1 round, dense ratio
       0.5) on the synthetic cohort at CIFAR-10's size: ``kth_select``
       launched for the one global mask over 3,308,940 scores, ``fused_sgd``
       2 launches a table a local step (29 tables: 58), no ``stem_dw``, the
@@ -4101,6 +4120,249 @@ def tune_phase(card, dev, by_path: dict) -> None:
     free_card()
 
 
+
+#: the serving phase's buckets, each with the rows sent to it together
+#: (3 and 5 rows are padded into buckets 4 and 8), and the HTTP fleet's
+#: sites and requests a site
+SERVE_ROWS = {1: 1, 2: 2, 4: 3, 8: 5}
+SERVE_BUCKETS = tuple(SERVE_ROWS)
+SERVE_FLEET_SITES = ("0", "1", "2", "3", "9")  # "9": an unknown site
+SERVE_FLEET_REPEATS = 8
+
+
+def serve_phase(card, dev, flagship, build_experiment, by_path: dict) -> None:
+    """Serving on the card (``serve/``): a flagship Ditto checkpoint
+    (AlexNet3D_Dropout at 121x145x121, 4 sites, 1 round), its bf16 and
+    fp32 bundles through the serve CLI's ``--build_only``, one
+    :class:`ServeEngine` on ``cuda`` over the fp32 bundle (the global model
+    and the 4 sites at buckets 1, 2, 4 and 8: each pair captured once, then
+    replayed; 3 and 5 rows padded into buckets 4 and 8; the logits against
+    the trainer's eager eval forward on the checkpoint's weights within
+    1e-5 of the logit scale, a padded row against its bucket-1 answer
+    within the same, the bf16 bundle's logits within the reference's bf16
+    pin of 0.1 of the fp32 ones), each bucket's replay in device ms, and
+    the HTTP fleet (``ShardedServeServer``, 2 workers on the card) on raw
+    8.49 MB bodies for sites 0-3 and an unknown one: the audit reconciles
+    and the merged ``/metrics`` has both workers' latency samples. The
+    launch counters are 0 just before the serving part and read just after
+    (``by_path["serve"]``): serving runs none of the kernels."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.obs import compute as obs_compute
+    from neuroimagedisttraining_tpu_torch.obs import metrics as obs_metrics
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+    from neuroimagedisttraining_tpu_torch.serve import (
+        ServeEngine, load_bundle,
+    )
+    from neuroimagedisttraining_tpu_torch.serve.server import (
+        ShardedServeServer,
+    )
+    from neuroimagedisttraining_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+    from neuroimagedisttraining_tpu_torch.weights import state_from_flax
+
+    shape = (121, 145, 121)
+    work = Path(tempfile.mkdtemp(prefix="nidt_serve_"))
+    try:
+        # ---- a flagship checkpoint and its two bundles ----
+        ck = work / "ckpt"
+        t0 = time.perf_counter()
+        engine, _ = build_experiment(flagship(
+            "ditto", "--comm_round", "1", "--checkpoint_dir", str(ck),
+            "--checkpoint_every", "1"), "cuda")
+        engine.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        trainer, shapes = engine.trainer, engine._leaf_shapes()
+        X_test = engine.data.X_test
+        requests = [X_test[c, j].float().cpu().numpy()
+                    for c in range(X_test.shape[0]) for j in range(2)]
+        del engine
+        free_card()
+        builds, t0 = {}, time.perf_counter()
+        procs = {prec: subprocess.Popen(
+            [sys.executable, "-m", "neuroimagedisttraining_tpu_torch.serve",
+             "--bundle", str(work / prec), "--from_checkpoint", str(ck),
+             "--model", "3DCNN", "--input_shape",
+             ",".join(map(str, shape)), "--bundle_precision", prec,
+             "--build_only"], cwd=HERE, stdout=subprocess.PIPE, text=True,
+            env={**os.environ, "PYTHONPATH": str(HERE)})
+            for prec in ("bf16", "fp32")}
+        for prec, proc in procs.items():
+            out, _ = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                fail(f"serve --build_only ({prec}) exited {proc.returncode}")
+            builds[prec] = {
+                "seconds": time.perf_counter() - t0,
+                "manifest": json.loads(out),
+                "weights_bytes": (work / prec / "weights.msgpack"
+                                  ).stat().st_size}
+        print(json.dumps({"serve_bundles": {
+            "card": card, "train_seconds": train_s, **builds}}))
+
+        # ---- one engine on the card: captures, replays, logits ----
+        round_idx, state = load_checkpoint(str(ck))
+        per_p = state_from_flax(state["per_params"], shapes, dev)
+        per_b = state_from_flax(state["per_bstats"], shapes, dev)
+        weights = {"global": (state_from_flax(state["params"], shapes, dev),
+                              state_from_flax(state["batch_stats"], shapes,
+                                              dev))}
+        for c in range(len(per_p)):
+            weights[f"site:{c}"] = (per_p[c], per_b[c])
+        _cuda.reset_counts()
+        served = {}
+        for prec in ("fp32", "bf16"):
+            obs_metrics.reset()
+            eng = ServeEngine(load_bundle(str(work / prec)),
+                              batch_buckets=SERVE_BUCKETS,
+                              max_queue_ms=50.0, device="cuda")
+            got = {}
+            try:
+                for rnd in range(2):  # captures, then replays
+                    for key in weights:
+                        site = None if key == "global" else key[5:]
+                        for b, n in SERVE_ROWS.items():
+                            pends = [eng.submit(site, requests[i])[0]
+                                     for i in range(n)]
+                            for p in pends:
+                                if not p.event.wait(120.0) or p.error:
+                                    fail(f"serve {prec} {key} b{b}: "
+                                         f"{p.error or 'timeout'}")
+                            got[(key, b, rnd)] = np.stack(
+                                [p.result for p in pends])
+                stats = eng.stats()
+                replay_ms = {}
+                for b in SERVE_ROWS:  # the batcher is idle here
+                    prog = eng._programs[("global", b)]
+                    ms = []
+                    for _ in range(10):
+                        s_ev = torch.cuda.Event(enable_timing=True)
+                        e_ev = torch.cuda.Event(enable_timing=True)
+                        s_ev.record()
+                        prog.graph.replay()
+                        e_ev.record()
+                        e_ev.synchronize()
+                        ms.append(s_ev.elapsed_time(e_ev))
+                    replay_ms[str(b)] = sum(ms) / len(ms)
+            finally:
+                eng.close()
+            want = len(weights) * len(SERVE_ROWS)
+            if stats["compiles"] != want or stats["recompiles"] != 0 or \
+                    stats["dispatches"] != 2 * want or \
+                    stats["batches"] != {str(b): 2 * len(weights)
+                                         for b in SERVE_ROWS}:
+                fail(f"serve {prec}: {stats}, not {want} captures each "
+                     "replayed once")
+            if not all(np.isfinite(v).all() for v in got.values()):
+                fail(f"serve {prec}: nonfinite logits")
+            cells = obs_metrics.REGISTRY.snapshot()["nidt_dispatch_ms"]
+            capture_s = sum(
+                c["value"]["sum"] for c in cells["values"]
+                if c["labels"]["engine"] == "serve"
+                and c["labels"]["phase"] == "compile") / 1e3
+            served[prec] = got
+            print(json.dumps({"serve_engine": {
+                "card": card, "precision": prec, **stats,
+                "capture_and_first_replay_s": capture_s,
+                "replay_device_ms_global": replay_ms}}))
+        # the trainer's eager eval forward on the checkpoint's weights
+        scale, err, pad_err, bf_err = 0.0, 0.0, 0.0, 0.0
+        with torch.no_grad():
+            xb = torch.from_numpy(np.stack(requests[:max(
+                SERVE_ROWS.values())])).to(dev)
+            for key, (p, b_) in weights.items():
+                eager = trainer.apply(p, b_, trainer._prep(
+                    xb, trainer.input_rank), train=False).float().cpu().numpy()
+                scale = max(scale, float(np.abs(eager).max()))
+                for (k, b, rnd), y in served["fp32"].items():
+                    if k != key:
+                        continue
+                    err = max(err, float(np.abs(y - eager[:len(y)]).max()))
+                    # row 0, padded into bucket b, against its bucket-1 answer
+                    pad_err = max(pad_err, float(np.abs(
+                        y[0] - served["fp32"][(key, 1, rnd)][0]).max()))
+                    bf_err = max(bf_err, float(np.abs(
+                        served["bf16"][(k, b, rnd)] - y).max()))
+        print(json.dumps({"serve_logits": {
+            "card": card, "source_round": round_idx, "logit_scale": scale,
+            "fp32_vs_eager_max_abs": err, "tolerance": 1e-5 * scale,
+            "padded_vs_bucket1_max_abs": pad_err,
+            "bf16_vs_fp32_max_abs": bf_err, "bf16_pin": 0.1}}))
+        if not err <= 1e-5 * scale or not pad_err <= 1e-5 * scale:
+            fail(f"served fp32 logits {err} (padded {pad_err}) from the "
+                 f"trainer's eager forward, over 1e-5 x {scale}")
+        if not bf_err < 0.1:
+            fail(f"served bf16 logits {bf_err} from the fp32 ones, over the "
+                 "bf16 pin 0.1")
+
+        # ---- the HTTP fleet: 2 workers on the card, raw 8.49 MB bodies ----
+        t0 = time.perf_counter()
+        srv = ShardedServeServer(str(work / "bf16"), serve_workers=2,
+                                 batch_buckets=SERVE_BUCKETS,
+                                 max_queue_ms=2.0, device="cuda")
+        spawn_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{srv.port}/predict"
+        bodies = [requests[i].astype("<f4").tobytes()
+                  for i in range(len(SERVE_FLEET_SITES))]
+
+        def post(i: int) -> tuple[float, dict]:
+            site = SERVE_FLEET_SITES[i % len(SERVE_FLEET_SITES)]
+            req = urllib.request.Request(url, data=bodies[i % len(bodies)],
+                                         method="POST", headers={
+                "Content-Type": "application/octet-stream",
+                "X-NIDT-Shape": ",".join(map(str, shape)),
+                "X-NIDT-Site": site})
+            t = time.perf_counter()
+            r = json.loads(urllib.request.urlopen(req, timeout=300).read())
+            return (time.perf_counter() - t) * 1e3, r
+
+        n_req = len(SERVE_FLEET_SITES) * SERVE_FLEET_REPEATS
+        try:
+            with concurrent.futures.ThreadPoolExecutor(4) as pool:
+                results = list(pool.map(post, range(n_req)))
+        finally:
+            audit = srv.stop()
+        text = srv.metrics_view().prometheus_text()
+        lat = sorted(ms for ms, _ in results)
+        workers = {str(r["worker"]) for _, r in results}
+        per_worker = {w: {"captures": v["engine"]["compiles"],
+                          "recompiles": v["engine"]["recompiles"],
+                          "dispatches": v["engine"]["dispatches"]}
+                      for w, v in audit["per_worker"].items()
+                      if v["engine"]}
+        print(json.dumps({"serve_fleet": {
+            "card": card, "body_bytes": len(bodies[0]), "requests": n_req,
+            "spawn_s": spawn_s,
+            "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "workers_seen": sorted(workers), "per_worker": per_worker,
+            "audit": {k: audit[k] for k in ("received", "served",
+                                            "rejected", "errors",
+                                            "unknown_site", "reconciled")}}}))
+        if not audit["reconciled"] or audit["served"] != n_req or \
+                audit["unknown_site"] != SERVE_FLEET_REPEATS:
+            fail(f"serve fleet audit: {audit}")
+        for w in ("0", "1"):
+            if f'nidt_serve_latency_ms_count{{stage="dispatch",worker="{w}"}}' \
+                    not in text:
+                fail(f"merged /metrics has no nidt_serve_latency_ms sample "
+                     f"of worker {w}")
+        by_path["serve"] = _cuda.counts()
+        if any(by_path["serve"].values()):
+            fail(f"serving launched kernels: {by_path['serve']}")
+        obs_compute.PROFILER.reset()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        free_card()
+
+
 MAIN_PATH = {"stem_dw_bf16": "salientgrads_bf16"}
 
 
@@ -4139,6 +4401,7 @@ def main(argv: list[str]) -> int:
     only_ops = "--ops" in argv
     only_probe = "--probe" in argv
     only_tune = "--tune" in argv
+    only_serve = "--serve" in argv
     import numpy as np
     import torch
 
@@ -4745,6 +5008,10 @@ def main(argv: list[str]) -> int:
             tune_phase(card, dev, by_path)
             lap("phase")
             return finish(rows, by_path, started, laps)
+        if only_serve:
+            serve_phase(card, dev, flagship, build_experiment, by_path)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
 
         cfg = flagship("salientgrads")
         t0 = time.perf_counter()
@@ -5122,6 +5389,10 @@ def main(argv: list[str]) -> int:
         # ---- the autotuner: a flagship search, its recipe via the CLI ----
         tune_phase(card, dev, by_path)
         lap("tune")
+
+        # ---- serving: a flagship bundle, captured graphs, the fleet ----
+        serve_phase(card, dev, flagship, build_experiment, by_path)
+        lap("serve")
 
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",

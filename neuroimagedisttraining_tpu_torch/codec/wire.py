@@ -28,6 +28,12 @@ reference's. The msgpack encoding is this module's own (the subset the
 frames use, as ``flax.serialization.msgpack_serialize`` lays it out: maps
 in sorted key order, an ndarray as ext type 1 holding ``(shape, dtype
 name, buffer)``); nothing here imports flax or msgpack.
+
+numpy has no bfloat16 without ``ml_dtypes``, which the port does not use.
+An ndarray ext whose dtype name is ``"bfloat16"`` (a serving bundle's
+weights, ``serve/bundle.py``) decodes to a CPU ``torch.bfloat16`` tensor
+holding the stored bits, and a ``torch.bfloat16`` tensor encodes back under
+that name with the same bytes; any other tensor encodes as its numpy array.
 """
 
 from __future__ import annotations
@@ -182,16 +188,35 @@ def _pack_ext(out: list, code: int, *parts) -> None:
     out.extend(parts)
 
 
-def _pack_ndarray(out: list, obj: np.ndarray) -> None:
+def _pack_ndarray(out: list, obj: np.ndarray, dtype: str = "") -> None:
     """Ext type 1 holding ``(shape, dtype name, buffer)``; the buffer is a
-    view of the array's bytes."""
+    view of the array's bytes, named ``dtype`` where given (bfloat16 bits
+    held as int16)."""
     a = np.ascontiguousarray(obj)
     raw = memoryview(a.reshape(-1).view(np.uint8)) if a.size else b""
     head: list = [b"\x93"]
     _pack(head, list(a.shape), False)
-    _pack(head, a.dtype.name, False)
+    _pack(head, dtype or a.dtype.name, False)
     _pack_len(head, len(raw), None, 0, (0xc4, 0xc5, 0xc6))
     _pack_ext(out, _EXT_NDARRAY, b"".join(head), raw)
+
+
+def _pack_tensor(out: list, obj: torch.Tensor) -> None:
+    """A tensor as the ndarray ext of its values; a bfloat16 one under the
+    dtype name ``"bfloat16"`` with its raw bits, as flax writes an
+    ``ml_dtypes.bfloat16`` array."""
+    t = obj.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        _pack_ndarray(out, t.view(torch.int16).numpy(), "bfloat16")
+    else:
+        _pack_ndarray(out, t.numpy())
+
+
+def _bf16_tensor(raw, shape) -> torch.Tensor:
+    """The stored bits of a ``"bfloat16"`` ndarray ext as a CPU
+    ``torch.bfloat16`` tensor."""
+    bits = np.frombuffer(raw, dtype="<i2").reshape(shape).copy()
+    return torch.from_numpy(bits).view(torch.bfloat16)
 
 
 def _chunked(arr: np.ndarray) -> dict:
@@ -238,6 +263,11 @@ def _pack(out: list, obj, sort_maps: bool) -> None:
                 _pack(out, v, sort_maps)
     elif isinstance(obj, np.ndarray):
         _pack_ndarray(out, obj)
+    elif isinstance(obj, torch.Tensor):
+        if obj.nbytes > _MAX_CHUNK:
+            raise ValueError("msgpack: a tensor above 1 GiB is not chunked; "
+                             "pass its numpy array")
+        _pack_tensor(out, obj)
     else:
         raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
 
@@ -318,6 +348,8 @@ def _unpack(buf, i: int, view: bool = False):
     shape, j = _unpack(data, 1)
     dtype, j = _unpack(data, j)
     raw, _ = _unpack(data, j, view=True)
+    if dtype == "bfloat16":
+        return _bf16_tensor(raw, shape), i + 1 + n
     return (np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy(),
             i + 1 + n)
 

@@ -83,6 +83,15 @@ class FlightRecorder:
         with self._lock:
             return list(self._ring)
 
+    def events_from(self, after_seq: int) -> tuple[list[dict], int]:
+        """Incremental read for periodic shipping (``obs/fanin.py``): ring
+        events with ``seq > after_seq`` plus the new watermark. Events the
+        bounded ring evicted between reads are gone (``evicted`` counts
+        them in the dump)."""
+        with self._lock:
+            evs = [e for e in self._ring if e["seq"] > int(after_seq)]
+            return evs, self._seq
+
     def clear(self) -> None:
         with self._lock:
             self._ring.clear()

@@ -5,8 +5,8 @@ The anomaly-rule engine (``obs/rules.py``) turns metric names into
 verdicts, so a mistyped name in a rule manifest fails at startup against
 this list. Each name is declared once; instrumentation sites spell the
 constant. Registration (kind, labels, help) stays at the site. The port
-publishes the engine, health, compute, rule and action series; the
-others (the reference's cross-silo, async and serving planes) stay
+publishes the engine, health, compute, rule, action, fan-in and serving
+series; the others (the reference's cross-silo and async planes) stay
 declared so that a manifest written for the reference validates here.
 """
 
@@ -51,10 +51,10 @@ REGION_STALENESS = "nidt_region_staleness"
 REGION_PARTIAL_AGE = "nidt_region_partial_age_s"  # nidt: allow[metric-orphan] -- asyncfl/region.py publishes it (ROADMAP Queue 1 item 4)
 
 # -- telemetry fan-in (obs/fanin.py) --
-UPLOAD_STAGE_MS = "nidt_upload_stage_ms"  # nidt: allow[metric-orphan] -- obs/fanin.py publishes it (ROADMAP Queue 1 item 3)
-CLIENT_RTT_MS = "nidt_client_rtt_ms"  # nidt: allow[metric-orphan] -- obs/fanin.py publishes it (ROADMAP Queue 1 item 3)
-OBS_WORKER_SNAPSHOT_AGE = "nidt_obs_worker_snapshot_age_s"  # nidt: allow[metric-orphan] -- obs/fanin.py publishes it (ROADMAP Queue 1 item 3)
-OBS_WORKER_ALIVE = "nidt_obs_worker_alive"  # nidt: allow[metric-orphan] -- obs/fanin.py publishes it (ROADMAP Queue 1 item 3)
+UPLOAD_STAGE_MS = "nidt_upload_stage_ms"
+CLIENT_RTT_MS = "nidt_client_rtt_ms"
+OBS_WORKER_SNAPSHOT_AGE = "nidt_obs_worker_snapshot_age_s"
+OBS_WORKER_ALIVE = "nidt_obs_worker_alive"
 
 # -- compute-plane profiler (obs/compute.py); XLA_FLOPS is the
 #    reference's cost_analysis count, the port's FlopCounterMode count --
@@ -98,11 +98,11 @@ HEALTH_ROUND = "nidt_health_round"
 
 # -- serving plane (serve/engine.py, serve/worker.py, serve/server.py) --
 SERVE_LATENCY_MS = "nidt_serve_latency_ms"
-SERVE_BATCH_OCCUPANCY = "nidt_serve_batch_occupancy"  # nidt: allow[metric-orphan] -- serve/engine.py publishes it (ROADMAP Queue 1 item 3)
+SERVE_BATCH_OCCUPANCY = "nidt_serve_batch_occupancy"
 SERVE_QUEUE_DEPTH = "nidt_serve_queue_depth"
-SERVE_REQUESTS = "nidt_serve_requests_total"  # nidt: allow[metric-orphan] -- serve/worker.py publishes it (ROADMAP Queue 1 item 3)
-SERVE_WORKERS_LIVE = "nidt_serve_workers_live"  # nidt: allow[metric-orphan] -- serve/server.py publishes it (ROADMAP Queue 1 item 3)
-SERVE_WORKER_REQUESTS = "nidt_serve_worker_requests_total"  # nidt: allow[metric-orphan] -- serve/server.py publishes it (ROADMAP Queue 1 item 3)
+SERVE_REQUESTS = "nidt_serve_requests_total"
+SERVE_WORKERS_LIVE = "nidt_serve_workers_live"
+SERVE_WORKER_REQUESTS = "nidt_serve_worker_requests_total"
 
 # -- anomaly-rule engine (obs/rules.py) --
 ALERT = "nidt_alert"

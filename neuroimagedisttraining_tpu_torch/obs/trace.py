@@ -212,6 +212,15 @@ class SpanTracer:
         with self._lock:
             return list(self._events)
 
+    def events_from(self, start: int) -> tuple[list[dict], int]:
+        """Incremental read for periodic shipping (``obs/fanin.py``):
+        events recorded since index ``start`` plus the new watermark.
+        ``arm()`` clears the buffer, so a shipper resets its watermark
+        when it re-arms."""
+        with self._lock:
+            evs = list(self._events[start:])
+            return evs, start + len(evs)
+
     def dump(self, path: str | None = None) -> str | None:
         """Write the Chrome trace JSON; returns the path written (None
         when no path was armed or given, OR when the write failed —

@@ -302,7 +302,7 @@ def test_port_tree_project_pass_is_clean_and_every_pragma_justified():
 
 
 def test_port_tree_suppressions_are_the_documented_ones():
-    """What the pragmas hide, read before suppression: the 30 metric names
+    """What the pragmas hide, read before suppression: the 22 metric names
     of the producers still to port (each on a line of its own pragma), the
     two distributed REASONS keys (a pragma on a line of the REASONS
     statement covers the whole table, so the keys are pinned here) and the
@@ -322,7 +322,7 @@ def test_port_tree_suppressions_are_the_documented_ones():
     assert [f.message.split("'")[1] for f in by_rule["metric-undeclared"]
             ] == ["nidt_profile"]
     names = model.module(f"{PORT}/obs/names.py").source.splitlines()
-    assert len(by_rule["metric-orphan"]) == 30
+    assert len(by_rule["metric-orphan"]) == 22
     for f in by_rule["metric-orphan"]:
         assert "# nidt: allow[metric-orphan] -- " in names[f.line - 1], f
 
