@@ -16,6 +16,8 @@
                                      # autotuner) alone
     python3 chip_smoke.py --serve    # kernels, then step 16 (serving)
                                      # alone
+    python3 chip_smoke.py --cross-silo  # kernels, then step 17 (the
+                                     # cross-silo control plane) alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
@@ -271,7 +273,26 @@
    ``/metrics`` carry both workers' ``nidt_serve_latency_ms``. The launch
    counters are 0 just before and read just after: serving launches none
    of the kernels.
-17. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+17. The synchronous cross-silo control plane (``cross_silo_phase``): the
+   flagship AlexNet3D over 3 silos of the flagship cohort (48 subjects, 3
+   sites, batch 16). (a) The server and the silos as threads of this
+   process over sockets, fp32, ``--fused_update``, ``--wire_codec
+   delta+sparse+quant``, 2 rounds, with the launch counters 0 just before
+   and read just after (``stem_dw``, ``fused_sgd``, ``kth_select``
+   launched): every upload's frame byte for byte the host's
+   ``np.partition`` encode, each round's aggregate bit for bit the
+   weighted mean of the decoded uploads; a silo round's seconds on its
+   clock, the server's aggregation seconds, an upload's bytes dense and
+   encoded. (b) The same through ``python -m
+   neuroimagedisttraining_tpu_torch.distributed.run``, 4 OS processes on
+   the card: 2 rounds, (a)'s ``final_param_norm`` to 6 digits. (c) The
+   broker, ``bf16_mixed``, ``crash:3@1``, a deadline, a quorum of 2 and
+   heartbeats, 3 rounds through the CLI: silo 3 a suspect, the survivors'
+   rounds complete, the bf16 ``stem_dw`` launched. (d) ``--secure
+   --n_aggregators 2``, 2 rounds in this process: the aggregate within
+   1e-3 of the plain weighted mean and no aggregator and not the server
+   holding a silo's quantized update.
+18. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -284,7 +305,7 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-18. Prints the run's seconds, one JSON line per kernel, the
+19. Prints the run's seconds, one JSON line per kernel, the
    ``{"kernels": [...]}`` line (each kernel's launches on its main path,
    SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
    run), and last ``{"ok": true, "device": {...}}``.
@@ -2663,16 +2684,32 @@ TRACE_COUNTERS = (("stem_dw_bf16_", "stem_dw_bf16"), ("stem_dw_", "stem_dw"),
                   ("count_ge_kernel", "count_ge"))
 
 
-def kernel_trace(fn) -> tuple[float, dict]:
+def kernel_trace(fn, span: dict | None = None) -> tuple[float, dict]:
     """``fn`` once under ``torch.profiler``: the device ms of its kernels
     and the launches of each ported kernel in the trace, by counter name
-    (kernels inside CUDA graph replays included)."""
+    (kernels inside CUDA graph replays included). ``span`` (a dict)
+    receives the trace's kernel events and how many ported-kernel events
+    start in the first and the last 5% of their span: where a trace came
+    up short, whether the records it lacks sat at an end of the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    if span is not None:
+        starts, ported = [], []
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                starts.append(e.time_range.start)
+                if any(part in e.name for part, _ in TRACE_COUNTERS):
+                    ported.append(e.time_range.start)
+        if starts:
+            lo, hi = min(starts), max(starts)
+            edge = 0.05 * max(hi - lo, 1)
+            span.update(kernel_events=len(starts), span_us=hi - lo,
+                        ported_first_5pct=sum(t < lo + edge for t in ported),
+                        ported_last_5pct=sum(t > hi - edge for t in ported))
     total, traced = 0.0, {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -2704,13 +2741,14 @@ def busy_share(fn) -> dict:
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t) * 1e3
     before = _cuda.counts()
-    total, traced = kernel_trace(fn)
+    span: dict = {}
+    total, traced = kernel_trace(fn, span)
     after = _cuda.counts()
     counted = {k: n - before.get(k, 0) for k, n in after.items()
                if n != before.get(k, 0)}
     return {"wall_ms": wall, "device_ms": total,
             "busy": total / max(wall, 1e-9), "traced": traced,
-            "counted": counted}
+            "counted": counted, "trace_span": span}
 
 
 def traced_as_counted(busy: dict, kernels: tuple) -> bool:
@@ -4363,6 +4401,365 @@ def serve_phase(card, dev, flagship, build_experiment, by_path: dict) -> None:
         free_card()
 
 
+#: the cross-silo phase's federation: 3 silos of the flagship cohort (48
+#: subjects over 3 sites), AlexNet3D at 121x145x121, batch 16, 1 epoch
+CS_ARGV = ("--num_clients", "3", "--model", "3DCNN", "--dataset",
+           "synthetic", "--synthetic_num_subjects", "48",
+           "--synthetic_shape", "121", "145", "121", "--batch_size", "16",
+           "--epochs", "1", "--seed", "1024")
+#: run (a) and (b): fp32, the fused step, the codec, 2 rounds
+CS_CODEC = ("--comm_round", "2", "--fused_update", "--wire_codec",
+            "delta+sparse+quant")
+#: run (c): the broker, bf16, silo 3 crashing at round 1, 3 rounds
+CS_CHAOS = ("--comm_round", "3", "--fused_update", "--transport", "broker",
+            "--precision", "bf16_mixed", "--fault_spec", "crash:3@1",
+            "--round_deadline", "60", "--quorum", "2",
+            "--heartbeat_interval", "0.5", "--heartbeat_timeout", "5")
+
+
+def cs_cli(tag: str, extra: tuple, n_aggregators: int = 0,
+           timeout: float = 240.0) -> dict:
+    """The cross-silo federation through ``python -m
+    neuroimagedisttraining_tpu_torch.distributed.run``: one OS process a
+    rank on the card (server, 3 silos, ``n_aggregators`` aggregators).
+    Returns each rank's JSON lines and seconds; fails on a non-zero exit."""
+    from neuroimagedisttraining_tpu_torch.distributed.ports import (
+        free_port_block,
+    )
+
+    bp = free_port_block(8)
+    cmd = [sys.executable, "-m",
+           "neuroimagedisttraining_tpu_torch.distributed.run"]
+    common = [*CS_ARGV, *extra, "--base_port", str(bp)]
+    env = {**os.environ, "PYTHONPATH": str(HERE), "NIDT_FAST_STEM": "1"}
+    roles = [("server", ["--role", "server"])]
+    roles += [(f"aggregator{j}", ["--role", "aggregator", "--slot_index",
+                                  str(j)]) for j in range(n_aggregators)]
+    roles += [(f"silo{r}", ["--role", "client", "--rank", str(r)])
+              for r in (1, 2, 3)]
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd + argv + common, cwd=HERE, env=env,
+                                    stdout=subprocess.PIPE, text=True)
+             for name, argv in roles}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name], _ = p.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        fail(f"cross-silo {tag}: the federation did not finish in "
+             f"{timeout} s")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for name, p in procs.items():
+        if p.returncode != 0:
+            fail(f"cross-silo {tag}: {name} exited {p.returncode}: "
+                 f"{outs[name][-800:]}")
+    lines = {name: [json.loads(ln) for ln in out.splitlines()
+                    if ln.startswith("{")] for name, out in outs.items()}
+    return {"lines": lines, "seconds": seconds}
+
+
+def cs_silo_launches(res: dict) -> dict:
+    """The silos' kernel launches (each prints its counters on the line
+    before its last), summed."""
+    total: dict = {}
+    for name, lines in res["lines"].items():
+        if name.startswith("silo"):
+            for k, v in lines[-2]["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def cross_silo_phase(card, dev, by_path: dict) -> None:
+    """The synchronous cross-silo control plane on the card
+    (``distributed/``, ``faults/chaos.py``), the flagship AlexNet3D over 3
+    silos of the flagship cohort:
+
+    (a) in one process: the server and 3 silos as threads over sockets,
+        fp32, ``--fused_update``, ``--wire_codec delta+sparse+quant``, 2
+        rounds, the launch counters 0 just before and read just after
+        (``stem_dw``, ``fused_sgd`` and ``kth_select`` launched); every
+        upload's frame byte for byte the host's ``np.partition`` encode of
+        the same upload, and each round's aggregate bit for bit the
+        in-process weighted mean of the silos' decoded uploads; each silo
+        round's seconds on its own clock inside the training lock (its
+        wait for the lock apart), each upload's encode timed again with
+        the host's threshold and with the kernel's, the server's
+        aggregation seconds, the bytes of an upload dense and encoded;
+    (b) the same federation through ``python -m
+        neuroimagedisttraining_tpu_torch.distributed.run``, 4 OS processes
+        on the card: 2 rounds and (a)'s ``final_param_norm`` to its 6
+        printed digits;
+    (c) the broker, ``bf16_mixed``, ``crash:3@1`` with a deadline, a
+        quorum of 2 and heartbeats, 3 rounds through the CLI: the rounds
+        complete over the survivors, silo 3 is a suspect, and the bf16
+        ``stem_dw`` launched on the surviving silos;
+    (d) ``--secure --n_aggregators 2`` in one process, 2 rounds: the
+        aggregate within the fixed-point step times the silos of the plain
+        weighted mean of the silos' uploads, a mean without silo 3 beyond
+        that limit, no aggregator and not the server received a silo's
+        quantized update."""
+    import numpy as np
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.codec import wire as codec
+    from neuroimagedisttraining_tpu_torch.distributed import message as M
+    from neuroimagedisttraining_tpu_torch.distributed import run as R
+    from neuroimagedisttraining_tpu_torch.distributed.cross_silo import (
+        CodecThreshold, FedAvgClientProc, FedAvgServer,
+        SecureFedAvgClientProc, SecureFedAvgServer, SlotAggregatorProc,
+        named_leaves, survivor_weighted_mean,
+    )
+    from neuroimagedisttraining_tpu_torch.distributed.ports import (
+        free_port_block,
+    )
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+    from neuroimagedisttraining_tpu_torch.ops import mpc
+
+    import threading
+
+    def norm_of(tree) -> float:
+        return round(float(np.sqrt(sum(
+            float(np.sum(np.asarray(v, np.float64) ** 2))
+            for v in named_leaves(tree).values()))), 6)
+
+    def federation(extra: tuple, secure: bool = False,
+                   record: bool = False):
+        """Server, 3 silos (and 2 aggregators when ``secure``) as threads
+        of this process on the card."""
+        bp = free_port_block(8)
+        argv = [*CS_ARGV, *extra, "--base_port", str(bp)]
+        sargs = R.parse(["--role", "server", *argv])[0]
+        params, bstats = R._seed_init_state(sargs)
+        init = R._init_tree(params, bstats)
+        fns, uploads, trained = {}, {}, {1: [], 2: [], 3: []}
+        for r in (1, 2, 3):
+            cargs = R.parse(["--role", "client", "--rank", str(r),
+                             *argv])[0]
+            fn, _ = R._make_train_fn(cargs, dev)
+
+            def rec(tree, round_idx, fn=fn, r=r):
+                out = fn(tree, round_idx)
+                trained[r].append(out)
+                return out
+            fns[r] = rec
+        if secure:
+            server = SecureFedAvgServer(init, sargs.comm_round, 3,
+                                        frac_bits=sargs.mpc_frac_bits,
+                                        n_aggregators=2, base_port=bp,
+                                        record_trace=True, device=dev)
+            aggs = [SlotAggregatorProc(j, 3, 2, base_port=bp,
+                                       record_trace=True) for j in (0, 1)]
+            silos = [SecureFedAvgClientProc(
+                r, 3, fns[r], n_shares=2, frac_bits=sargs.mpc_frac_bits,
+                n_aggregators=2, mpc_seed=sargs.seed, base_port=bp,
+                device=dev)
+                for r in (1, 2, 3)]
+        else:
+            server = FedAvgServer(init, sargs.comm_round, 3, base_port=bp,
+                                  device=dev)
+            aggs = []
+            silos = [FedAvgClientProc(
+                r, 3, fns[r], wire_codec=sargs.wire_codec, base_port=bp,
+                device=dev, record_uploads=uploads.setdefault(r, []))
+                for r in (1, 2, 3)]
+        threads = [threading.Thread(target=m.run, daemon=True)
+                   for m in [server, *aggs, *silos]]
+        torch.cuda.synchronize()
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        if not server._done.wait(timeout=300):
+            fail(f"cross-silo in-process run stalled: {server.history}")
+        for t in threads:
+            t.join(timeout=30)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return (server, silos, aggs, init, uploads, trained,
+                _cuda.counts(), seconds)
+
+    free_card()
+    # ---- (a) in one process: threads over sockets, the codec ----
+    server, silos, _, init, uploads, trained, got, secs = federation(
+        CS_CODEC)
+    by_path["cs_inproc"] = got
+    rounds = len(server.history)
+    if rounds != 2 or any(e["survivors"] != [1, 2, 3]
+                          for e in server.history):
+        fail(f"cross-silo (a): history {server.history}")
+    for k in ("stem_dw", "fused_sgd", "kth_select"):
+        if not got.get(k):
+            fail(f"cross-silo (a): {k} was not launched ({got})")
+    # each frame against the host's np.partition encode of its upload, and
+    # each round's aggregate against the weighted mean of the decoded
+    # uploads (the next round's references, then the final model)
+    # each encode timed twice on the same upload, after the counts were
+    # read: the host's np.partition threshold and the kernel's route
+    spec = codec.parse_wire_spec("delta+sparse+quant", 0.25)
+    frames_equal, enc_bytes, dense_bytes = 0, [], []
+    enc_host_s, enc_kernel_s = [], []
+    route = CodecThreshold(dev)
+    decoded = {0: [], 1: []}
+    refs = {}
+    for r, recs in sorted(uploads.items()):
+        for round_idx, named, ref, ef, frame in recs:
+            t_enc = time.perf_counter()
+            host, _ = codec.encode_update(spec, named, reference=ref, ef=ef,
+                                          mask_on_wire=False)
+            enc_host_s.append(time.perf_counter() - t_enc)
+            t_enc = time.perf_counter()
+            again, _ = codec.encode_update(spec, named, reference=ref,
+                                           ef=ef, mask_on_wire=False,
+                                           threshold_fn=route)
+            enc_kernel_s.append(time.perf_counter() - t_enc)
+            if codec.msgpack_dumps(host) != codec.msgpack_dumps(frame) or \
+                    codec.msgpack_dumps(again) != codec.msgpack_dumps(frame):
+                fail(f"cross-silo (a): silo {r} round {round_idx}: the "
+                     "frame differs from the host encode")
+            frames_equal += 1
+            enc = M.Message(M.MSG_TYPE_C2S_SEND_MODEL, r, 0)
+            enc.add(M.ARG_MODEL_PARAMS, frame)
+            dense = M.Message(M.MSG_TYPE_C2S_SEND_MODEL, r, 0)
+            dense.add(M.ARG_MODEL_PARAMS, codec.nest(named))
+            enc_bytes.append(len(M.frame_bytes(enc)))
+            dense_bytes.append(len(M.frame_bytes(dense)))
+            refs[round_idx] = ref
+            decoded[round_idx].append(codec.nest(codec.decode_update(
+                frame, like=ref, reference=ref)))
+    if frames_equal != 6:
+        fail(f"cross-silo (a): {frames_equal} uploads recorded, not 6")
+    ns = [float(trained[r][0][1]) for r in (1, 2, 3)]
+    agg_equal = True
+    for rd, want_named in ((0, refs[1]), (1, named_leaves(server.params))):
+        mean = named_leaves(survivor_weighted_mean(decoded[rd], ns, dev))
+        agg_equal &= all(np.array_equal(mean[k], np.asarray(want_named[k]))
+                         for k in mean)
+    if not agg_equal:
+        fail("cross-silo (a): an aggregate differs from the weighted mean "
+             "of the decoded uploads")
+    norm_a = norm_of(server.params)
+    out_a = {"card": card, "seconds": secs, "launches": got,
+             "silo_round_seconds": {r: s.train_seconds for r, s in
+                                    zip((1, 2, 3), silos)},
+             "silo_lock_wait_seconds": {r: s.lock_wait_seconds for r, s in
+                                        zip((1, 2, 3), silos)},
+             "encode_seconds": {r: s.encode_seconds for r, s in
+                                zip((1, 2, 3), silos)},
+             "encode_seconds_host_partition": enc_host_s,
+             "encode_seconds_kernel_route": enc_kernel_s,
+             "threshold_refined": sum(s.threshold.refined for s in silos),
+             "threshold_extra_kept": sum(s.threshold.extra_kept
+                                         for s in silos),
+             "aggregate_seconds": server.aggregate_seconds,
+             "upload_bytes_dense": dense_bytes,
+             "upload_bytes_encoded": enc_bytes,
+             "encoded_over_dense": sum(enc_bytes) / sum(dense_bytes),
+             "frames_byte_equal": frames_equal,
+             "aggregates_bit_equal": agg_equal,
+             "final_param_norm": norm_a, "n": ns}
+    print(json.dumps({"cross_silo_inproc": out_a}))
+    del server, silos, uploads, trained, decoded, refs
+    free_card()
+
+    # ---- (b) the same federation, 4 OS processes through the CLI ----
+    res = cs_cli("(b)", CS_CODEC)
+    srv = res["lines"]["server"][-1]
+    by_path["cs_cli"] = cs_silo_launches(res)
+    print(json.dumps({"cross_silo_cli": {
+        "card": card, "seconds": res["seconds"], "result": srv,
+        "aggregate_seconds": res["lines"]["server"][-2],
+        "silos": {k: v[-2] for k, v in res["lines"].items()
+                  if k.startswith("silo")}}}))
+    if srv["rounds_completed"] != 2 or srv["final_param_norm"] != norm_a:
+        fail(f"cross-silo (b): {srv['rounds_completed']} rounds, norm "
+             f"{srv['final_param_norm']} against the in-process {norm_a}")
+    for k in ("stem_dw", "fused_sgd", "kth_select"):
+        if not by_path["cs_cli"].get(k):
+            fail(f"cross-silo (b): {k} was not launched "
+                 f"({by_path['cs_cli']})")
+    free_card()
+
+    # ---- (c) chaos: the broker, bf16, a crashed silo ----
+    res = cs_cli("(c)", CS_CHAOS)
+    srv = res["lines"]["server"][-1]
+    by_path["cs_chaos_bf16"] = got = cs_silo_launches(res)
+    print(json.dumps({"cross_silo_chaos": {
+        "card": card, "seconds": res["seconds"], "result": srv,
+        "aggregate_seconds": res["lines"]["server"][-2],
+        "silos": {k: v[-2] for k, v in res["lines"].items()
+                  if k.startswith("silo")}}}))
+    if srv["rounds_completed"] != 3 or srv["suspects"] != [3]:
+        fail(f"cross-silo (c): {srv['rounds_completed']} rounds, suspects "
+             f"{srv['suspects']}")
+    if not got.get("stem_dw_bf16") or got.get("stem_dw"):
+        fail(f"cross-silo (c): bf16 launches {got}")
+    if res["lines"]["silo3"][-1]["rounds_trained"] != 1:
+        fail(f"cross-silo (c): silo 3 trained "
+             f"{res['lines']['silo3'][-1]['rounds_trained']} rounds")
+    free_card()
+
+    # ---- (d) grouped secure aggregation, 2 aggregators ----
+    frac_bits = 16
+    server, _, aggs, _, _, trained, got, secs = federation(
+        ("--comm_round", "2", "--secure", "--n_aggregators", "2",
+         "--mpc_n_shares", "2", "--mpc_frac_bits", str(frac_bits)),
+        secure=True)
+    by_path["cs_secure"] = got
+    if len(server.history) != 2:
+        fail(f"cross-silo (d): history {server.history}")
+    ns = np.asarray([trained[r][0][1] for r in (1, 2, 3)], np.float64)
+    w = ns / ns.sum()
+    last = [named_leaves(trained[r][1][0]) for r in (1, 2, 3)]
+    got_p = named_leaves(server.params)
+    plain = {k: sum(wi * np.asarray(t[k], np.float64)
+                    for wi, t in zip(w, last)) for k in got_p}
+    err = max(float(np.max(np.abs(got_p[k] - plain[k]))) for k in got_p)
+    # a planted fault the limit must see: silo 3's shares dropped, the
+    # survivors' sum re-weighted (the server's deadline path)
+    w12 = ns[:2] / ns[:2].sum()
+    planted = max(float(np.max(np.abs(sum(
+        wi * np.asarray(t[k], np.float64) for wi, t in zip(w12, last[:2]))
+        - plain[k]))) for k in got_p)
+    # each silo's share rounds to half the fixed-point step; the full step
+    # a silo covers the weight's and the float32 result's roundings
+    limit = 3 * 2.0 ** -frac_bits
+    # every silo's quantized update, as aggregator and server would see it
+    q_updates = [{k: mpc.quantize(wi * np.asarray(v, np.float64),
+                                  frac_bits=frac_bits) %
+                  mpc.P_DEFAULT for k, v in named_leaves(tr[0]).items()}
+                 for r, wi in zip((1, 2, 3), w) for tr in trained[r]]
+    seen = [named_leaves(slot) for a in aggs
+            for slots in a.received.values() for slot in slots]
+    seen += [named_leaves(t) for t in server.received_totals]
+    leaked = sum(all(np.array_equal(np.asarray(s[k], np.int64)
+                                    % mpc.P_DEFAULT, q[k]) for k in q)
+                 for s in seen for q in q_updates)
+    print(json.dumps({"cross_silo_secure": {
+        "card": card, "seconds": secs, "launches": got,
+        "max_abs_err_vs_plain_mean": err,
+        "max_abs_err_planted_silo_dropped": planted, "limit": limit,
+        "slots_received": [sum(len(v) for v in a.received.values())
+                           for a in aggs],
+        "server_totals": len(server.received_totals),
+        "plaintext_seen": leaked,
+        "aggregate_seconds": server.aggregate_seconds}}))
+    if not planted > limit:
+        fail(f"cross-silo (d): a dropped silo moves the mean {planted}, "
+             f"within the limit {limit}")
+    if leaked or not err <= limit or \
+            [sum(len(v) for v in a.received.values()) for a in aggs] \
+            != [6, 6] or len(server.received_totals) != 4:
+        fail(f"cross-silo (d): error {err}, plaintext seen {leaked}")
+    del server, aggs, trained
+    free_card()
+
+
 MAIN_PATH = {"stem_dw_bf16": "salientgrads_bf16"}
 
 
@@ -4402,6 +4799,7 @@ def main(argv: list[str]) -> int:
     only_probe = "--probe" in argv
     only_tune = "--tune" in argv
     only_serve = "--serve" in argv
+    only_cross = "--cross-silo" in argv
     import numpy as np
     import torch
 
@@ -5012,6 +5410,10 @@ def main(argv: list[str]) -> int:
             serve_phase(card, dev, flagship, build_experiment, by_path)
             lap("phase")
             return finish(rows, by_path, started, laps)
+        if only_cross:
+            cross_silo_phase(card, dev, by_path)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
 
         cfg = flagship("salientgrads")
         t0 = time.perf_counter()
@@ -5393,6 +5795,10 @@ def main(argv: list[str]) -> int:
         # ---- serving: a flagship bundle, captured graphs, the fleet ----
         serve_phase(card, dev, flagship, build_experiment, by_path)
         lap("serve")
+
+        # ---- the cross-silo control plane: silos as threads, as processes
+        cross_silo_phase(card, dev, by_path)
+        lap("cross_silo")
 
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",

@@ -30,7 +30,10 @@
         [--health_rules FILE] [--health_gate] [--actions off|dry_run|on] \\
         [--dp_epsilon_budget E] [--peak_flops F] \\
         [--profile_session OUT.json [--profile_manifest M.json]] \\
-        [--compile_cache DIR] [--recipe FILE|auto] ...
+        [--compile_cache DIR] [--recipe FILE|auto] \\
+        [--round_deadline S --quorum N --heartbeat_interval S \\
+        --heartbeat_timeout S] [--async_server --buffer_k K \\
+        --staleness_alpha A --max_staleness N] ...
 
 Flag names are the reference CLI's for the flags the port takes.
 ``--dataset ABCD`` / ``abcd_h5`` (the default) reads the X/y/site HDF5 file
@@ -61,7 +64,12 @@ more clients needs ``--secure_quant_field_bits 32``. ``--dp_epsilon_budget``
 must be >= 0 and, above 0, needs a noise path (``--dp_sigma`` or
 ``--defense weak_dp``). ``--recipe`` applies an autotuner recipe
 (``tune/recipe.py``) as defaults before those checks; the flags spelled
-on the command line win.
+on the command line win. The control plane's flags (``--round_deadline``,
+``--quorum``, ``--heartbeat_interval``, ``--heartbeat_timeout``,
+``--async_server``, ``--buffer_k``, ``--staleness_alpha``,
+``--max_staleness``) are recorded in the config, as the reference's CLI
+records them, for the cross-silo runner (``distributed/run.py``); the
+built-in staleness rule reads ``--max_staleness``.
 
 ``--rounds_per_dispatch K`` runs windows of up to K rounds
 (``engines/program.py``: one host read a window); on a card the local
@@ -229,6 +237,43 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                              "error feedback re-injects dropped mass "
                              "next round); masked engines use their own "
                              "mask instead")
+    parser.add_argument("--round_deadline", type=float, default=0.0,
+                        help="cross-silo per-round deadline seconds "
+                             "(distributed.run); recorded in the config "
+                             "for parity with the multiprocess runner")
+    parser.add_argument("--quorum", type=int, default=0,
+                        help="min survivor uploads for a deadline round "
+                             "to aggregate (0 = all clients)")
+    parser.add_argument("--heartbeat_interval", type=float, default=0.0,
+                        help="cross-silo clients: liveness beat period "
+                             "seconds (0 = off); recorded in the config "
+                             "for parity with distributed.run")
+    parser.add_argument("--heartbeat_timeout", type=float, default=0.0,
+                        help="cross-silo server: mark clients suspect "
+                             "once their heartbeat is older than this "
+                             "(0 = off)")
+    parser.add_argument("--async_server", action="store_true",
+                        help="cross-silo server runs the FedBuff-style "
+                             "buffered asynchronous control plane "
+                             "(asyncfl/, distributed.run): uploads "
+                             "aggregate every --buffer_k arrivals with "
+                             "staleness weighting instead of a round "
+                             "barrier; recorded in the config for "
+                             "parity with the multiprocess runner")
+    parser.add_argument("--buffer_k", type=int, default=0,
+                        help="async server: aggregate every K accepted "
+                             "uploads (0 = cohort size, which with zero "
+                             "staleness reproduces the synchronous "
+                             "server bitwise)")
+    parser.add_argument("--staleness_alpha", type=float, default=0.5,
+                        help="async server: polynomial staleness weight "
+                             "(1 + tau)^-alpha on upload sample counts "
+                             "(0 disables down-weighting)")
+    parser.add_argument("--max_staleness", type=int, default=20,
+                        help="async server: drop uploads based on a "
+                             "version more than this many aggregations "
+                             "old (also bounds the codec delta-"
+                             "reference ring)")
     parser.add_argument("--dp_clip", type=float, default=0.0,
                         help="dpsgd round-level DP: clip each client's "
                              "update delta (vs its consensus point) to "
@@ -491,6 +536,14 @@ def config_from_args(args) -> ExperimentConfig:
                       dp_delta=args.dp_delta, fault_spec=args.fault_spec,
                       wire_codec=args.wire_codec,
                       wire_topk_ratio=args.wire_topk_ratio,
+                      round_deadline=args.round_deadline,
+                      quorum=args.quorum,
+                      heartbeat_interval=args.heartbeat_interval,
+                      heartbeat_timeout=args.heartbeat_timeout,
+                      async_server=args.async_server,
+                      buffer_k=args.buffer_k,
+                      staleness_alpha=args.staleness_alpha,
+                      max_staleness=args.max_staleness,
                       dp_epsilon_budget=args.dp_epsilon_budget),
         sparsity=SparsityConfig(
             dense_ratio=args.dense_ratio, anneal_factor=args.anneal_factor,
@@ -806,7 +859,8 @@ def run(engine, info: dict, cfg: ExperimentConfig, args,
     hrules = obs_rules.configure(
         manifest_path=cfg.health_rules,
         dp_epsilon_budget=cfg.fed.dp_epsilon_budget,
-        comm_round=cfg.fed.comm_round, extra_rules=extra_rules)
+        comm_round=cfg.fed.comm_round,
+        max_staleness=cfg.fed.max_staleness, extra_rules=extra_rules)
     bus = obs_actions.configure(cfg.actions)
     msrv = start_metrics_server(
         cfg.metrics_port, host=args.metrics_host,

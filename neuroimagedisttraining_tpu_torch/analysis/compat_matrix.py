@@ -101,6 +101,155 @@ MATRIX: tuple[dict[str, Any], ...] = (
             'ise-f32 contract'),
     },
     {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('async_server', 'buffer_k', 'max_staleness', 'staleness_alpha'),
+        "message": (
+            '--buffer_k/--max_staleness/--staleness_alpha must be >= 0'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('async_server', 'ingest_workers'),
+        "message": (
+            '--ingest_workers shards the ASYNC ingest plane (asyncfl/inge'
+            'st.py) — add --async_server'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('async_server', 'quorum', 'round_deadline'),
+        "message": (
+            '--async_server has no round barrier: --round_deadline/--quor'
+            'um do not apply (uploads aggregate every --buffer_k arrivals'
+            '; staleness is bound'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('async_server', 'secure', 'secure_quant'),
+        "message": (
+            '--async_server is incompatible with dense --secure: the two-'
+            "phase secure weight exchange (every client's normalized weig"
+            'ht depends on every '),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('async_server', 'transport'),
+        "message": (
+            '--async_server pairs with the selector socket core (asyncfl/'
+            'loop.py); the broker daemon is a thread-per-connection trans'
+            'port with its own sc'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('defense', 'ingest_workers', 'quarantine_rounds'),
+        "message": (
+            '--ingest_workers supports neither server-side defenses nor q'
+            'uarantine: workers fold uploads into partial aggregates, so '
+            'the root never sees '),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('defense', 'secure', 'secure_quant'),
+        "message": (
+            '--defense is incompatible with secure aggregation (quantized'
+            ' included): order statistics have no per-silo plaintext to s'
+            'elect over; only the'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('defense', 'secure', 'secure_quant'),
+        "message": (
+            '--secure (dense) is incompatible with --defense: additive-sh'
+            'are aggregation never reveals per-silo updates to defend ove'
+            'r. The clip-family d'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('fault_spec', 'secure'),
+        "message": (
+            '--secure cannot simulate byz: value faults (the share algebr'
+            'a hides the very values the attack would corrupt; see cross_'
+            'silo)'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('heartbeat_interval', 'heartbeat_timeout'),
+        "message": (
+            '--heartbeat_timeout requires 0 < --heartbeat_interval < time'
+            'out (got interval= , timeout= )'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('ingest_shm', 'ingest_workers', 'sync_delta'),
+        "message": (
+            '--ingest_shm/--sync_delta are sharded-ingest-plane transport'
+            's (asyncfl/ingest.py) — add --ingest_workers N'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('ingest_workers', 'regions'),
+        "message": (
+            '--regions interposes regional sub-aggregators in the SHARDED'
+            ' ingest plane — pass --ingest_workers N (workers per region)'
+            ' too'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('mpc_n_shares', 'n_aggregators'),
+        "message": (
+            '--n_aggregators ( ) must equal --mpc_n_shares ( ): slot j ro'
+            'utes to aggregator j'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('n_aggregators', 'role'),
+        "message": (
+            '--role aggregator requires --n_aggregators > 0 (same value o'
+            'n every rank)'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('n_aggregators', 'role', 'slot_index'),
+        "message": (
+            '--slot_index ( ) must be in [0, )'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('n_aggregators', 'secure'),
+        "message": (
+            '--n_aggregators requires --secure'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('n_aggregators', 'secure_quant'),
+        "message": (
+            '--secure_quant does not compose with --n_aggregators: mask s'
+            "lots ride as PRG seeds, and any node holding a client's seed"
+            's can expand every n'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('n_aggregators', 'transport'),
+        "message": (
+            '--transport broker routes messages through the MQTT topic sc'
+            'heme (server <-> client only); the grouped multi-aggregator '
+            'deployment needs --t'),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('quarantine_rounds', 'secure'),
+        "message": (
+            'secure aggregation is incompatible with --quarantine_rounds:'
+            ' the outlier scorer has no per-silo plaintext to score (see '
+            "ARCHITECTURE.md 'Pri"),
+    },
+    {
+        "where": 'neuroimagedisttraining_tpu_torch/distributed/run.py',
+        "knobs": ('secure', 'wire_codec', 'wire_mask_density'),
+        "message": (
+            '--secure uploads must ride the wire as field elements: the c'
+            'odec would break the GF(p) share algebra or leak mask suppor'
+            't. The COMPRESSED se'),
+    },
+    {
         "where": 'neuroimagedisttraining_tpu_torch/engines/base.py',
         "knobs": ('defense_type', 'fed'),
         "message": (

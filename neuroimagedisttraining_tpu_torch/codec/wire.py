@@ -62,6 +62,7 @@ _SP_SHARED = 2     # receiver holds the same mask (engine mask handoff)
 
 #: msgpack ext type of an ndarray (flax's ``_MsgpackExtType.ndarray``)
 _EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3  # a numpy scalar: an ndarray ext of shape () (flax's)
 #: an array above this many bytes, as a map's value or the whole tree, is
 #: split into chunks of at most this size (flax's ``MAX_CHUNK_SIZE`` and
 #: chunk layout); no frame of the zoo comes near it, a checkpoint may
@@ -188,17 +189,18 @@ def _pack_ext(out: list, code: int, *parts) -> None:
     out.extend(parts)
 
 
-def _pack_ndarray(out: list, obj: np.ndarray, dtype: str = "") -> None:
+def _pack_ndarray(out: list, obj: np.ndarray, dtype: str = "",
+                  code: int = _EXT_NDARRAY) -> None:
     """Ext type 1 holding ``(shape, dtype name, buffer)``; the buffer is a
     view of the array's bytes, named ``dtype`` where given (bfloat16 bits
-    held as int16)."""
-    a = np.ascontiguousarray(obj)
+    held as int16). A numpy scalar is the same record under ext type 3."""
+    a = np.ascontiguousarray(obj)  # at least 1-d: the shape is obj's
     raw = memoryview(a.reshape(-1).view(np.uint8)) if a.size else b""
     head: list = [b"\x93"]
-    _pack(head, list(a.shape), False)
+    _pack(head, list(np.shape(obj)), False)
     _pack(head, dtype or a.dtype.name, False)
     _pack_len(head, len(raw), None, 0, (0xc4, 0xc5, 0xc6))
-    _pack_ext(out, _EXT_NDARRAY, b"".join(head), raw)
+    _pack_ext(out, code, b"".join(head), raw)
 
 
 def _pack_tensor(out: list, obj: torch.Tensor) -> None:
@@ -263,6 +265,8 @@ def _pack(out: list, obj, sort_maps: bool) -> None:
                 _pack(out, v, sort_maps)
     elif isinstance(obj, np.ndarray):
         _pack_ndarray(out, obj)
+    elif isinstance(obj, np.generic):
+        _pack_ndarray(out, np.asarray(obj), code=_EXT_NPSCALAR)
     elif isinstance(obj, torch.Tensor):
         if obj.nbytes > _MAX_CHUNK:
             raise ValueError("msgpack: a tensor above 1 GiB is not chunked; "
@@ -286,7 +290,8 @@ def msgpack_parts(tree) -> list:
 
 
 def msgpack_dumps(tree) -> bytes:
-    """``tree`` (dicts, lists, str, int, float, bytes, ndarrays) as the
+    """``tree`` (dicts, lists, str, int, float, bytes, ndarrays, numpy
+    scalars) as the
     bytes ``flax.serialization.msgpack_serialize`` gives: every map in
     sorted key order (flax rebuilds the tree first, which sorts them), an
     array above 1 GiB chunked as flax chunks it."""
@@ -340,7 +345,7 @@ def _unpack(buf, i: int, view: bool = False):
     if b in (0xde, 0xdf):
         return _unpack_map(buf, i, n)
     code, data = buf[i], buf[i + 1:i + 1 + n]
-    if code != _EXT_NDARRAY:
+    if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
         raise ValueError(f"msgpack: unsupported ext type {code}")
     if data[0] != 0x93:
         raise ValueError("msgpack: an ndarray ext is not (shape, dtype, "
@@ -350,8 +355,8 @@ def _unpack(buf, i: int, view: bool = False):
     raw, _ = _unpack(data, j, view=True)
     if dtype == "bfloat16":
         return _bf16_tensor(raw, shape), i + 1 + n
-    return (np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy(),
-            i + 1 + n)
+    arr = np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy()
+    return (arr[()] if code == _EXT_NPSCALAR else arr), i + 1 + n
 
 
 def _unpack_list(buf, i, n):
@@ -437,13 +442,17 @@ def encode_update(spec: WireSpec, update: dict[str, np.ndarray], *,
                   masks: dict[str, np.ndarray] | None = None,
                   ef: dict[str, np.ndarray] | None = None,
                   mask_on_wire: bool = True,
-                  zlib_level: int = 6) -> tuple[dict, dict | None]:
+                  zlib_level: int = 6,
+                  threshold_fn=None) -> tuple[dict, dict | None]:
     """Encode one model update (flax-named numpy leaves, in order) into a
     wire frame. Returns ``(frame, new_ef)``: ``new_ef`` is the next
     round's error-feedback accumulator (top-k mode; None otherwise).
     ``reference`` is required when ``spec.delta``; ``masks`` switches the
     sparse stage to mask mode; ``mask_on_wire=False`` leaves the bitmap
-    out for a mask the receiver holds."""
+    out for a mask the receiver holds. ``threshold_fn(absflat, k)`` gives
+    the top-k stage's threshold, the exact k-th largest of the float32
+    vector (default: ``np.partition``; a cross-silo silo's device select,
+    ``distributed/cross_silo.CodecThreshold``)."""
     if spec.delta and reference is None:
         raise ValueError("wire codec: delta stage needs the round's "
                          "broadcast reference tree")
@@ -464,7 +473,7 @@ def encode_update(spec: WireSpec, update: dict[str, np.ndarray], *,
             flat = np.concatenate([np.abs(v).reshape(-1)
                                    for v in residuals.values()])
             k = max(1, int(np.ceil(spec.topk_ratio * flat.size)))
-            thr = _topk_threshold_np(flat, k)
+            thr = (threshold_fn or _topk_threshold_np)(flat, k)
             keep_by = {name: np.abs(v) >= thr
                        for name, v in residuals.items()}
 

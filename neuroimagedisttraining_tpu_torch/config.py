@@ -163,6 +163,19 @@ class FedConfig:
     # the wire codec's stages (codec/wire.py) and the top-k keep fraction
     wire_codec: str = "none"
     wire_topk_ratio: float = 0.25
+    # the cross-silo control plane's knobs (distributed/run.py): the
+    # main CLI records them, as the reference's does; the round deadline
+    # (s) and the uploads a deadline round needs (0 = all), the
+    # asynchronous server's buffer (0 = the cohort), staleness exponent and
+    # admission bound, and the silos' beat period and the server's timeout
+    round_deadline: float = 0.0
+    quorum: int = 0
+    async_server: bool = False
+    buffer_k: int = 0
+    staleness_alpha: float = 0.5
+    max_staleness: int = 20
+    heartbeat_interval: float = 0.0
+    heartbeat_timeout: float = 0.0
     # up to K rounds a window (engines/program.py): their host reads wait
     # for the window's end, hooks (evaluation, the last round, an engine's
     # extra hook) land on a window's last round, and on a card the local

@@ -31,9 +31,33 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 State = dict[str, torch.Tensor]
+
+#: the noise streams of :func:`noise_draws`
+NOISE_STREAMS = {"attack": 1, "weak_dp": 2, "dp": 3}
+
+
+def noise_draws(seed: int, stream: str, round_idx: int, client: int,
+                like: State) -> State:
+    """Standard normal draws shaped like each leaf of ``like``, for the
+    noise ``stream`` (``NOISE_STREAMS``: the Gaussian attack, the weak-DP
+    defense, D-PSGD's DP) of client ``client`` (rank ``client + 1``) in
+    round ``round_idx``: each leaf from a generator on ``like``'s device
+    keyed by (seed, stream, round, rank, leaf). The engines and the
+    cross-silo silos and server draw them alike."""
+    out = {}
+    for i, (k, v) in enumerate(like.items()):
+        key = np.random.SeedSequence(
+            [int(seed), NOISE_STREAMS[stream], int(round_idx) + 1,
+             int(client) + 1, i]).generate_state(2, np.uint32)
+        gen = torch.Generator(device=v.device).manual_seed(
+            (int(key[0]) | int(key[1]) << 32) & (2 ** 63 - 1))
+        out[k] = torch.randn(v.shape, generator=gen, device=v.device,
+                             dtype=torch.float32)
+    return out
 
 #: clip-family defenses: per-client transforms BEFORE the weighted mean
 CLIP_DEFENSES = ("none", "norm_diff_clipping", "weak_dp")

@@ -143,7 +143,7 @@ State = dict[str, torch.Tensor]
 log = logging.getLogger(__name__)
 
 #: the noise streams of ``noise_for``
-NOISE_STREAMS = {"attack": 1, "weak_dp": 2, "dp": 3}
+NOISE_STREAMS = robust.NOISE_STREAMS
 
 
 def _capable(flag: str) -> list[str]:
@@ -1416,17 +1416,10 @@ class FederatedEngine:
         """Standard normal draws shaped like each leaf of ``like``, for the
         noise ``stream`` (``NOISE_STREAMS``) of client ``client`` in round
         ``round_idx``: each leaf from a generator on ``like``'s device
-        keyed by (seed, stream, round, rank, leaf)."""
-        out = {}
-        for i, (k, v) in enumerate(like.items()):
-            key = np.random.SeedSequence(
-                [self.cfg.seed, NOISE_STREAMS[stream], round_idx + 1,
-                 client + 1, i]).generate_state(2, np.uint32)
-            gen = torch.Generator(device=v.device).manual_seed(
-                (int(key[0]) | int(key[1]) << 32) & (2 ** 63 - 1))
-            out[k] = torch.randn(v.shape, generator=gen, device=v.device,
-                                 dtype=torch.float32)
-        return out
+        keyed by (seed, stream, round, rank, leaf) (``core/robust.py``
+        ``noise_draws``)."""
+        return robust.noise_draws(self.cfg.seed, stream, round_idx, client,
+                                  like)
 
     def byz_round_plan(self, round_idx: int, sampled):
         """The round's attack plan over the sampled clients (client ``c`` is

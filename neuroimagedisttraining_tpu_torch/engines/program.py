@@ -97,11 +97,11 @@ REASONS: dict[str, tuple[str, str]] = {
         "layer pads resident cohorts to a device multiple; this one is "
         "not)")),
     # -- the distributed transport (distributed/run.py startup notes) --
-    "distributed-control-plane": ("fused", (  # nidt: allow[reason-orphan] -- distributed/run.py reports it (ROADMAP Queue 1 item 4)
+    "distributed-control-plane": ("fused", (
         "the distributed transport dispatches one round at a time "
         "(every round crosses the control plane: broadcast/upload/"
         "aggregate over sockets)")),
-    "distributed-no-client-axis": ("sharding", (  # nidt: allow[reason-orphan] -- distributed/run.py reports it (ROADMAP Queue 1 item 4)
+    "distributed-no-client-axis": ("sharding", (
         "the distributed transport has no in-process client axis to "
         "shard (each rank trains its own silo) — flag accepted for "
         "config parity with the main CLI only")),

@@ -5,26 +5,27 @@ The anomaly-rule engine (``obs/rules.py``) turns metric names into
 verdicts, so a mistyped name in a rule manifest fails at startup against
 this list. Each name is declared once; instrumentation sites spell the
 constant. Registration (kind, labels, help) stays at the site. The port
-publishes the engine, health, compute, rule, action, fan-in and serving
-series; the others (the reference's cross-silo and async planes) stay
-declared so that a manifest written for the reference validates here.
+publishes the engine, health, compute, rule, action, fan-in, serving,
+transport and synchronous cross-silo series; the others (the reference's
+asynchronous plane) stay declared so that a manifest written for the
+reference validates here.
 """
 
 from __future__ import annotations
 
 # -- control-plane transports (distributed/comm.py) --
-COMM_BYTES_SENT = "nidt_comm_bytes_sent_total"  # nidt: allow[metric-orphan] -- distributed/comm.py publishes it (ROADMAP Queue 1 item 4)
-COMM_BYTES_RECV = "nidt_comm_bytes_recv_total"  # nidt: allow[metric-orphan] -- distributed/comm.py publishes it (ROADMAP Queue 1 item 4)
-COMM_FRAMES_SENT = "nidt_comm_frames_sent_total"  # nidt: allow[metric-orphan] -- distributed/comm.py publishes it (ROADMAP Queue 1 item 4)
-COMM_FRAMES_RECV = "nidt_comm_frames_recv_total"  # nidt: allow[metric-orphan] -- distributed/comm.py publishes it (ROADMAP Queue 1 item 4)
+COMM_BYTES_SENT = "nidt_comm_bytes_sent_total"
+COMM_BYTES_RECV = "nidt_comm_bytes_recv_total"
+COMM_FRAMES_SENT = "nidt_comm_frames_sent_total"
+COMM_FRAMES_RECV = "nidt_comm_frames_recv_total"
 
 # -- synchronous cross-silo server (distributed/cross_silo.py) --
-SYNC_UPLOADS = "nidt_sync_uploads_total"  # nidt: allow[metric-orphan] -- distributed/cross_silo.py publishes it (ROADMAP Queue 1 item 4)
-SYNC_ROUND_WALL = "nidt_sync_round_wall_seconds"  # nidt: allow[metric-orphan] -- distributed/cross_silo.py publishes it (ROADMAP Queue 1 item 4)
-SYNC_QUORUM_WAIT = "nidt_sync_quorum_wait_seconds"  # nidt: allow[metric-orphan] -- distributed/cross_silo.py publishes it (ROADMAP Queue 1 item 4)
-SERVER_ROUND = "nidt_server_round"  # nidt: allow[metric-orphan] -- distributed/cross_silo.py publishes it (ROADMAP Queue 1 item 4)
-SERVER_SUSPECTS = "nidt_server_suspects"  # nidt: allow[metric-orphan] -- distributed/cross_silo.py publishes it (ROADMAP Queue 1 item 4)
-BYZ_STRIKES = "nidt_byz_strikes_total"  # nidt: allow[metric-orphan] -- distributed/cross_silo.py publishes it (ROADMAP Queue 1 item 4)
+SYNC_UPLOADS = "nidt_sync_uploads_total"
+SYNC_ROUND_WALL = "nidt_sync_round_wall_seconds"
+SYNC_QUORUM_WAIT = "nidt_sync_quorum_wait_seconds"
+SERVER_ROUND = "nidt_server_round"
+SERVER_SUSPECTS = "nidt_server_suspects"
+BYZ_STRIKES = "nidt_byz_strikes_total"
 BYZ_QUARANTINES = "nidt_byz_quarantines_total"
 DP_EPSILON_SILO = "nidt_dp_epsilon_silo"
 

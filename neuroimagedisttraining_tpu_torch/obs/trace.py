@@ -32,8 +32,33 @@ import threading
 import time
 from typing import Any
 
-__all__ = ["SpanTracer", "TRACER", "span", "instant", "arm", "disarm",
-           "dump"]
+__all__ = ["SpanTracer", "TRACER", "span", "instant", "flow", "arm",
+           "disarm", "dump", "make_trace_ctx", "flow_id_of"]
+
+#: flow-event phases (Chrome trace-event format): start / step / end;
+#: Perfetto draws an arrow chain through the slices that enclose them
+FLOW_PHASES = ("s", "t", "f")
+
+
+def make_trace_ctx(rank: int, seq: int) -> dict:
+    """The wire trace context a silo stamps on every upload
+    (``distributed.message.ARG_TRACE_CTX``): ``trace_id`` is unique by
+    (sender, upload), ``span_id`` names the sender. Each hop that handles
+    the upload emits a flow event carrying the same id, so one upload
+    reads as one linked track in the merged trace."""
+    return {"trace_id": (int(rank) << 24) | (int(seq) & 0xFFFFFF),
+            "span_id": int(rank)}
+
+
+def flow_id_of(ctx) -> int | None:
+    """The flow id of a wire trace context; None for a missing or
+    malformed one (a telemetry path never raises on a peer's frame)."""
+    if not isinstance(ctx, dict):
+        return None
+    tid = ctx.get("trace_id")
+    if isinstance(tid, bool) or not hasattr(tid, "__index__"):
+        return None  # ints only (msgpack may hand back numpy scalars)
+    return int(tid)
 
 
 class _NullSpan:
@@ -188,6 +213,33 @@ class SpanTracer:
                 "tid": threading.get_ident(),
                 "args": {**self._tags, **args}})
 
+    def flow(self, name: str, flow_id: int, phase: str,
+             **args: Any) -> None:
+        """One flow event: ``phase`` "s" (start), "t" (step) or "f" (end).
+        Perfetto binds each to the "X" slice enclosing its timestamp on
+        its thread and draws the arrows through the slices that share
+        ``flow_id``, so emit it inside a live span. An end carries
+        ``bp: "e"`` (bind to the enclosing slice)."""
+        if not self._armed:
+            return
+        if phase not in FLOW_PHASES:
+            raise ValueError(f"flow phase must be one of {FLOW_PHASES}, "
+                             f"got {phase!r}")
+        ts = (time.perf_counter_ns() - self._epoch_ns) / 1e3
+        ev = {"name": name, "ph": phase, "cat": "flow",
+              "id": int(flow_id), "ts": ts, "pid": os.getpid(),
+              "tid": threading.get_ident(),
+              "args": {**self._tags, **args}}
+        if phase == "f":
+            ev["bp"] = "e"
+        with self._lock:
+            if not self._armed:
+                return
+            if len(self._events) >= self._max_events:
+                self._dropped += 1
+                return
+            self._events.append(ev)
+
     def _record(self, name: str, t0_ns: int, t1_ns: int,
                 args: dict) -> None:
         ev = {
@@ -258,6 +310,7 @@ TRACER = SpanTracer()
 #: ``with trace.span("eval", round=r): ...``)
 span = TRACER.span
 instant = TRACER.instant
+flow = TRACER.flow
 arm = TRACER.arm
 disarm = TRACER.disarm
 dump = TRACER.dump

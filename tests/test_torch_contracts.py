@@ -11,10 +11,15 @@
   committed ``MATRIX`` row for row.
 - The port's own tree: ``--project`` clean, every pragma justified, the
   committed matrix a fresh extraction, ``--regen-compat`` a no-op, and
-  the reference's 17 startup refusals outside ``distributed/run.py``
-  held, each matched by its knobs and the first words of its message.
+  the reference's 17 startup refusals outside ``distributed/run.py`` and
+  its 20 in ``distributed/run.py`` held, each matched by its knobs and the
+  first words of its message.
 - ``--check-manifest`` and ``--dp_epsilon_budget``'s refusals equal the
-  reference's.
+  reference's; both main CLIs take the control plane's eight flags into
+  equal config fields and refuse the same bad values with the same
+  messages; both ``distributed/run.py`` parsers refuse the same argv with
+  the same messages and accept the same argv, but for the asynchronous
+  plane's flags, which the port refuses.
 """
 
 import json
@@ -302,11 +307,12 @@ def test_port_tree_project_pass_is_clean_and_every_pragma_justified():
 
 
 def test_port_tree_suppressions_are_the_documented_ones():
-    """What the pragmas hide, read before suppression: the 22 metric names
-    of the producers still to port (each on a line of its own pragma), the
-    two distributed REASONS keys (a pragma on a line of the REASONS
-    statement covers the whole table, so the keys are pinned here) and the
-    probe's directory name."""
+    """What the pragmas hide, read before suppression: the 12 metric names
+    of the asynchronous plane's producers still to port (each on a line of
+    its own pragma), the cross-silo runner's smoke-scale defaults (the
+    reference's own pragmas) and the probe's directory name. The transport
+    and synchronous cross-silo series and the two distributed REASONS keys
+    have their producers (``distributed/``) and no pragma."""
     model = PP.build_model(REPO, PORT)
     raw = [f for cls in RULE_REGISTRY.values()
            if issubclass(cls, PP.ProjectRule)
@@ -314,15 +320,23 @@ def test_port_tree_suppressions_are_the_documented_ones():
     by_rule = {}
     for f in raw:
         by_rule.setdefault(f.rule, []).append(f)
-    assert sorted(by_rule) == ["metric-orphan", "metric-undeclared",
-                               "reason-orphan"]
-    assert sorted(f.message.split("'")[1] for f in by_rule["reason-orphan"]
-                  ) == ["distributed-control-plane",
-                        "distributed-no-client-axis"]
+    assert sorted(by_rule) == ["flag-config-cross-cli-drift",
+                               "metric-orphan", "metric-undeclared"]
+    assert sorted(f.message.split()[0] for f in
+                  by_rule["flag-config-cross-cli-drift"]) == [
+        "--batch_size", "--comm_round", "--data_dir", "--dataset",
+        "--epochs", "--model", "--synthetic_num_subjects",
+        "--synthetic_shape"]
+    run_py = model.module(f"{PORT}/distributed/run.py").source.splitlines()
+    for f in by_rule["flag-config-cross-cli-drift"]:
+        # the pragma stands on a line of the flag's add_argument call
+        assert f.path.endswith("distributed/run.py")
+        assert any("# nidt: allow[flag-config-cross-cli-drift] -- " in ln
+                   for ln in run_py[f.line - 1:f.line + 2]), f
     assert [f.message.split("'")[1] for f in by_rule["metric-undeclared"]
             ] == ["nidt_profile"]
     names = model.module(f"{PORT}/obs/names.py").source.splitlines()
-    assert len(by_rule["metric-orphan"]) == 22
+    assert len(by_rule["metric-orphan"]) == 12
     for f in by_rule["metric-orphan"]:
         assert "# nidt: allow[metric-orphan] -- " in names[f.line - 1], f
 
@@ -381,10 +395,29 @@ def test_port_matrix_holds_the_reference_row(row):
                         if set(r["knobs"]) - {"fed"} == knobs])
 
 
+RUN_ROWS = [r for r in RMATRIX if r["where"].endswith("distributed/run.py")]
+
+
+def test_reference_has_20_rows_in_distributed_run():
+    assert len(RUN_ROWS) == 20
+
+
+@pytest.mark.parametrize("row", RUN_ROWS, ids=[
+    f"run:{'+'.join(r['knobs'])}:{'_'.join(_words(r['message'], 4))}"
+    for r in RUN_ROWS])
+def test_port_run_py_holds_the_reference_row(row):
+    """Each startup refusal of the reference's cross-silo runner stands in
+    the port's ``distributed/run.py`` with the same knobs and message."""
+    hits = [r for r in PMATRIX if r["where"].endswith("distributed/run.py")
+            and tuple(r["knobs"]) == tuple(row["knobs"])
+            and r["message"] == row["message"]]
+    assert len(hits) == 1, row
+
+
 def test_port_extra_rows_are_the_documented_two():
     extra = [r for r in PMATRIX if not any(
         set(r["knobs"]) - {"fed"} == set(x["knobs"]) - {"fed"}
-        and _words(r["message"]) == _words(x["message"]) for x in REF_ROWS)]
+        and _words(r["message"]) == _words(x["message"]) for x in RMATRIX)]
     assert sorted(r["knobs"] for r in extra) == [
         ("algorithm", "val_fraction"), ("fed", "mpc_backend")]
     twin = open(os.path.join(REPO, PORT, PP.TWIN)).read()
@@ -572,3 +605,144 @@ def test_dp_epsilon_budget_refusals_equal_the_reference(case, capsys,
         outcome.append(result)
     assert outcome[0] == outcome[1]
     assert (outcome[0] == "accepted") == (case in ("dp_sigma", "weak_dp"))
+
+
+# ---------------- the control plane's flags on the main CLI ----------------
+
+CONTROL_ARGV = {
+    "defaults": [],
+    "deadline": ["--round_deadline", "2.5", "--quorum", "3"],
+    "heartbeat": ["--heartbeat_interval", "0.5", "--heartbeat_timeout",
+                  "2"],
+    "async": ["--async_server", "--buffer_k", "4", "--staleness_alpha",
+              "0.25", "--max_staleness", "7"],
+    "bad_quorum": ["--quorum", "two"],
+    "bad_deadline": ["--round_deadline", "soon"],
+    "bad_buffer_k": ["--buffer_k", "1.5"],
+}
+CONTROL_FIELDS = ("round_deadline", "quorum", "heartbeat_interval",
+                  "heartbeat_timeout", "async_server", "buffer_k",
+                  "staleness_alpha", "max_staleness")
+
+
+@pytest.mark.parametrize("case", sorted(CONTROL_ARGV))
+def test_main_cli_control_plane_flags_equal_the_reference(case, capsys):
+    """The eight flags through both main CLIs' parsers: the same config
+    fields (the reference's names and defaults), or the same refusal."""
+    import argparse
+
+    from neuroimagedisttraining_tpu import __main__ as RM
+    from neuroimagedisttraining_tpu_torch import __main__ as PM
+
+    argv = ["--dataset", "synthetic", *CONTROL_ARGV[case]]
+    outcome = []
+    for mod in (RM, PM):
+        try:
+            args = mod.add_args(argparse.ArgumentParser()).parse_args(argv)
+            fed = mod.config_from_args(args).fed
+            outcome.append({f: getattr(fed, f) for f in CONTROL_FIELDS})
+        except SystemExit as e:
+            err = capsys.readouterr().err
+            outcome.append((e.code, err.strip().splitlines()[-1].split(
+                "error: ", 1)[1]))
+    assert outcome[0] == outcome[1]
+    assert isinstance(outcome[0], dict) == (not case.startswith("bad"))
+
+
+# ---------------- the cross-silo runner's parsers ----------------
+
+_SRV = ["--role", "server", "--num_clients", "2"]
+RUN_ARGV = {
+    "accept_plain": _SRV,
+    "accept_tolerant": _SRV + ["--round_deadline", "2",
+                               "--heartbeat_interval", "0.5",
+                               "--heartbeat_timeout", "2"],
+    "accept_grouped": _SRV + ["--secure", "--n_aggregators", "3"],
+    "accept_sq_weak_dp": _SRV + ["--secure_quant", "--defense", "weak_dp"],
+    "accept_broker_chaos": _SRV + ["--transport", "broker", "--fault_spec",
+                                   "crash:2@1", "--wire_codec",
+                                   "delta+sparse+quant"],
+    "aggregator_without_n": ["--role", "aggregator", "--num_clients", "2"],
+    "slot_out_of_range": ["--role", "aggregator", "--num_clients", "2",
+                          "--secure", "--n_aggregators", "3",
+                          "--slot_index", "5"],
+    "n_aggregators_plain": _SRV + ["--n_aggregators", "3"],
+    "n_aggregators_shares": _SRV + ["--secure", "--n_aggregators", "2"],
+    "broker_grouped": _SRV + ["--secure", "--n_aggregators", "3",
+                              "--transport", "broker"],
+    "secure_codec": _SRV + ["--secure", "--wire_codec", "delta"],
+    "secure_mask": _SRV + ["--secure", "--wire_mask_density", "0.5"],
+    "sq_grouped": _SRV + ["--secure_quant", "--n_aggregators", "3"],
+    "mask_density": _SRV + ["--wire_mask_density", "1.5"],
+    "bad_codec": _SRV + ["--wire_codec", "bogus"],
+    "bad_defense": _SRV + ["--defense", "bogus"],
+    "krum_small": _SRV + ["--defense", "krum"],
+    "rejoin": _SRV + ["--fault_spec", "crash:2@1,rejoin:2@3"],
+    "secure_quarantine": _SRV + ["--secure", "--quarantine_rounds", "2"],
+    "secure_defense": _SRV + ["--secure", "--defense", "weak_dp"],
+    "sq_order_stat": ["--role", "server", "--num_clients", "3",
+                      "--secure_quant", "--defense", "median"],
+    "secure_byz": _SRV + ["--secure", "--fault_spec", "byz:1@0:sign_flip"],
+    "async_dense_secure": _SRV + ["--async_server", "--secure"],
+    "async_broker": _SRV + ["--async_server", "--transport", "broker"],
+    "async_deadline": _SRV + ["--async_server", "--round_deadline", "2"],
+    "async_negative": _SRV + ["--async_server", "--buffer_k", "-1"],
+    "async_sq_capacity": _SRV + ["--async_server", "--secure_quant",
+                                 "--secure_quant_field_bits", "8"],
+    "ingest_without_async": _SRV + ["--ingest_workers", "2"],
+    "ingest_defense": ["--role", "server", "--num_clients", "3",
+                       "--async_server", "--ingest_workers", "2",
+                       "--defense", "median"],
+    "regions_without_ingest": _SRV + ["--regions", "2"],
+    "shm_without_ingest": _SRV + ["--ingest_shm"],
+    "sync_delta_without_ingest": _SRV + ["--sync_delta"],
+    "heartbeat_order": _SRV + ["--heartbeat_timeout", "1",
+                               "--heartbeat_interval", "2"],
+    "sq_headroom": ["--role", "server", "--num_clients", "64",
+                    "--secure_quant", "--secure_quant_field_bits", "8"],
+    "dp_budget": _SRV + ["--dp_epsilon_budget", "-1"],
+    "bad_role": ["--role", "observer", "--num_clients", "2"],
+    "async_accepted": _SRV + ["--async_server"],
+    "async_ingest_accepted": _SRV + ["--async_server", "--ingest_workers",
+                                     "2", "--regions", "2", "--ingest_shm",
+                                     "--sync_delta"],
+}
+#: argv the reference accepts and the port refuses: its asynchronous plane
+NOT_PORTED = ("async_accepted", "async_ingest_accepted")
+
+
+@pytest.mark.parametrize("case", sorted(RUN_ARGV))
+def test_run_py_parsers_equal_the_reference(case, capsys, monkeypatch):
+    """The same argv through both ``distributed/run.py`` parsers: refused
+    with equal messages, or accepted by both (the reference's ``main``
+    stops, by a stub, at its first step past the checks); the
+    asynchronous plane's accepted argv is refused by the port alone."""
+    from neuroimagedisttraining_tpu.distributed import run as RR
+    from neuroimagedisttraining_tpu.utils import compile_cache
+    from neuroimagedisttraining_tpu_torch.distributed import run as PR
+
+    def accept(*a, **k):
+        raise _Accepted
+
+    monkeypatch.setattr(compile_cache, "enable_compile_cache", accept)
+    outcome = []
+    for run in (lambda: RR.main(RUN_ARGV[case]),
+                lambda: PR.parse(RUN_ARGV[case])):
+        try:
+            run()
+            result = "accepted"
+        except _Accepted:
+            result = "accepted"
+        except SystemExit as e:
+            err = capsys.readouterr().err
+            result = (e.code, err.strip().splitlines()[-1].split(
+                "error: ", 1)[1])
+        outcome.append(result)
+    if case in NOT_PORTED:
+        assert outcome[0] == "accepted"
+        assert outcome[1][0] == 2
+        assert "asynchronous plane (asyncfl/) is not yet ported" \
+            in outcome[1][1]
+        return
+    assert outcome[0] == outcome[1]
+    assert (outcome[0] == "accepted") == case.startswith("accept")
