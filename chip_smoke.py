@@ -18,6 +18,8 @@
                                      # alone
     python3 chip_smoke.py --cross-silo  # kernels, then step 17 (the
                                      # cross-silo control plane) alone
+    python3 chip_smoke.py --async    # kernels, then step 18 (the
+                                     # asynchronous plane) alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
@@ -140,7 +142,7 @@
    ``build_experiment`` must have switched TF32 and cuDNN's default
    algorithms off (the fp32 contract lives in ``LocalTrainer``); the CIFAR
    sweep on ``darts`` at full width (``DARTS_SWEEP``: DARTS_V2, C=36, 20
-   cells, 919 leaves, 1 epoch, 1 round of 2 clients; its evaluations
+   cells, 919 leaves, 1 epoch, 1 round of 1 client; its evaluations
    take client 0 alone, ``--ci 1``) on the synthetic cohort at CIFAR-10's size (``kth_select`` launched for the one mask over
    3,308,940 scores, ``fused_sgd`` 2 launches a table a step over its 29
    tables, no ``stem_dw``, density within 0.01), with one client's local
@@ -292,7 +294,22 @@
    --n_aggregators 2``, 2 rounds in this process: the aggregate within
    1e-3 of the plain weighted mean and no aggregator and not the server
    holding a silo's quantized update.
-18. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+18. The asynchronous buffered plane (``async_phase``): the same 3
+   flagship silos, fp32 with the fused step, training on the card against
+   (a) ``BufferedFedAvgServer`` (``buffer_k 3``, silos as threads): the
+   first version bit for bit ``survivor_weighted_mean`` of its three
+   buffered uploads; (b) ``--async_server --buffer_k 2 --max_staleness 4``
+   with the codec and a seeded ``straggle:`` through the CLI, 4 OS
+   processes: uploads accepted stale, none undecodable, the audit
+   reconciled, ``kth_select`` launched; (c) the sharded ingest root with 2
+   worker processes, ``--ingest_shm --sync_delta``: each version bit for
+   bit ``single_process_fold`` of its uploads, every delta sync the
+   version's model bit for bit, its bytes against a dense reply's; (d) 2
+   regions of 2 workers, ``--secure_quant``, ``bf16_mixed`` silos (the bf16
+   ``stem_dw``): the audit green, each version within the fold's step
+   2^-10 of the plain weighted mean, a mean without silo 3 beyond it. Each
+   part's launch counters are 0 just before and read just after.
+19. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -305,7 +322,7 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-19. Prints the run's seconds, one JSON line per kernel, the
+20. Prints the run's seconds, one JSON line per kernel, the
    ``{"kernels": [...]}`` line (each kernel's launches on its main path,
    SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
    run), and last ``{"ok": true, "device": {...}}``.
@@ -1628,13 +1645,13 @@ def vision_phase(card, dev, build_experiment, by_path: dict) -> None:
 
 #: the DARTS path's main run: the CIFAR sweep (``CIFAR_SWEEP``) on the
 #: DARTS_V2 network at full width (C=36, 20 cells, 919 leaves: 29 of
-#: fused_sgd's 32-leaf tables), 1 epoch and 1 round of 2 clients (the
-#: sweep's frac 0.1 cut to 0.02: the whole smoke must stay well inside
+#: fused_sgd's 32-leaf tables), 1 epoch and 1 round of 1 client (the
+#: sweep's frac 0.1 cut to 0.01: the whole smoke must stay well inside
 #: its limit on a slow host, and the sweep was its heaviest part)
 DARTS_SWEEP = ("--algorithm", "salientgrads", "--dataset", "cifar10",
                "--model", "darts", "--partition_method", "dir",
                "--partition_alpha", "0.3", "--client_num_in_total", "100",
-               "--frac", "0.02", "--comm_round", "1", "--batch_size", "16",
+               "--frac", "0.01", "--comm_round", "1", "--batch_size", "16",
                "--epochs", "1", "--lr", "0.01", "--dense_ratio", "0.5",
                "--itersnip_iteration", "1", "--fused_update", "--ci", "1")
 #: the DARTS models' maskable scores (conv and dense kernels) at 10
@@ -1870,7 +1887,7 @@ def darts_phase(card, dev, build_experiment, by_path: dict) -> None:
       off before its first step;
     - the main path, the CIFAR sweep on ``darts`` at full width
       (``DARTS_SWEEP``: DARTS_V2, C=36, 20 cells, SalientGrads, 100 clients
-      at Dirichlet 0.3, frac 0.02, batch 16, 1 epoch, 1 round, dense ratio
+      at Dirichlet 0.3, frac 0.01, batch 16, 1 epoch, 1 round, dense ratio
       0.5) on the synthetic cohort at CIFAR-10's size: ``kth_select``
       launched for the one global mask over 3,308,940 scores, ``fused_sgd``
       2 launches a table a local step (29 tables: 58), no ``stem_dw``, the
@@ -4760,6 +4777,488 @@ def cross_silo_phase(card, dev, by_path: dict) -> None:
     free_card()
 
 
+#: the asynchronous plane's silos: the cross-silo phase's 3 flagship silos,
+#: fp32 with the fused step (NIDT_FAST_STEM=1 from the environment)
+AS_ARGV = (*CS_ARGV, "--fused_update", "--async_server")
+#: run (b): buffer 2 of 3, staleness bounded at 4, the codec, and a seeded
+#: straggle (half the uploads wait up to 0.6 s), so some arrive stale
+AS_CLI = ("--comm_round", "6", "--buffer_k", "2", "--max_staleness", "4",
+          "--wire_codec", "delta+sparse+quant", "--fault_spec",
+          "straggle:0.5:0.6")
+
+
+def as_cli(tag: str, extra: tuple, timeout: float = 240.0) -> dict:
+    """The asynchronous federation through ``python -m
+    neuroimagedisttraining_tpu_torch.distributed.run``: 3 silo processes
+    started first, the server once each has built its shard and model (a
+    federation with no registration barrier starts at its first silo).
+    Returns each rank's JSON lines and seconds; fails on a non-zero
+    exit."""
+    import threading
+
+    from neuroimagedisttraining_tpu_torch.distributed.ports import (
+        free_port_block,
+    )
+
+    bp = free_port_block(8)
+    cmd = [sys.executable, "-m",
+           "neuroimagedisttraining_tpu_torch.distributed.run"]
+    common = [*AS_ARGV, *extra, "--base_port", str(bp)]
+    env = {**os.environ, "PYTHONPATH": str(HERE), "NIDT_FAST_STEM": "1"}
+    t0 = time.perf_counter()
+    procs, outs, joined = {}, {}, {}
+
+    def start(name, argv):
+        p = subprocess.Popen(cmd + argv + common, cwd=HERE, env=env,
+                             stdout=subprocess.PIPE, text=True)
+        outs[name], joined[name] = [], threading.Event()
+
+        def read():
+            for line in p.stdout:
+                outs[name].append(line)
+                if "joining server" in line:
+                    joined[name].set()
+            joined[name].set()
+        threading.Thread(target=read, daemon=True).start()
+        procs[name] = p
+
+    try:
+        for r in (1, 2, 3):
+            start(f"silo{r}", ["--role", "client", "--rank", str(r)])
+        for name in list(procs):
+            if not joined[name].wait(timeout / 2):
+                fail(f"async {tag}: {name} did not reach its server")
+        silos_ready = time.perf_counter() - t0
+        start("server", ["--role", "server"])
+        for name, p in procs.items():
+            p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        fail(f"async {tag}: the federation did not finish in {timeout} s")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    time.sleep(0.2)  # the readers drain the closed pipes
+    for name, p in procs.items():
+        if p.returncode != 0:
+            fail(f"async {tag}: {name} exited {p.returncode}: "
+                 f"{''.join(outs[name])[-800:]}")
+    lines = {name: [json.loads(ln) for ln in out
+                    if ln.startswith("{")] for name, out in outs.items()}
+    return {"lines": lines, "seconds": seconds,
+            "silos_ready_seconds": silos_ready}
+
+
+def async_phase(card, dev, by_path: dict) -> None:
+    """The asynchronous buffered plane on the card (``asyncfl/``): the
+    flagship AlexNet3D over 3 silos of the flagship cohort, fp32 with the
+    fused step, each silo training on the card through ``LocalTrainer``,
+    each part with the launch counters 0 just before and read just after:
+
+    (a) ``BufferedFedAvgServer`` on ``cuda``, ``buffer_k 3``, the silos as
+        threads (one kept connection each), 2 versions: the first version
+        bit for bit ``survivor_weighted_mean`` of the three buffered
+        uploads, each one of its silo's recorded ``train_fn`` outputs (the
+        equivalence pin, on the card);
+    (b) ``--buffer_k 2 --max_staleness 4``, the codec and a seeded
+        ``straggle:`` through the CLI, 4 OS processes, 6 versions: some
+        uploads accepted stale (staleness above 0, each a codec delta
+        decoded against its version's ring entry: none undecodable), the
+        audit reconciled;
+    (c) the sharded ingest root in this process with 2 worker processes,
+        ``--ingest_shm --sync_delta``, dense, 4 versions: each version bit
+        for bit ``single_process_fold`` of its accepted uploads (carried to
+        their fold-time base), every delta sync decoded bit for bit the
+        version's model, the delta replies' bytes against a dense reply's,
+        the workers' host ms a folded upload;
+    (d) 2 regions of 2 workers, ``--secure_quant`` (32-bit field), the
+        silos in ``bf16_mixed`` (the bf16 ``stem_dw`` on the path), 3
+        versions: the audit green, each version within the fold's
+        quantization step of the plain weighted mean of its uploads, a mean
+        without silo 3 beyond it."""
+    import threading
+    from collections import deque
+
+    import numpy as np
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.asyncfl import ingest as ING
+    from neuroimagedisttraining_tpu_torch.asyncfl.loop import (
+        PersistentClientCommManager,
+    )
+    from neuroimagedisttraining_tpu_torch.asyncfl.region import (
+        HierarchicalIngestServer,
+    )
+    from neuroimagedisttraining_tpu_torch.asyncfl.server import (
+        BufferedFedAvgServer, carry_to_base,
+    )
+    from neuroimagedisttraining_tpu_torch.codec import wire as codec
+    from neuroimagedisttraining_tpu_torch.distributed import message as M
+    from neuroimagedisttraining_tpu_torch.distributed import run as R
+    from neuroimagedisttraining_tpu_torch.distributed.cross_silo import (
+        FedAvgClientProc, SecureFedAvgClientProc, named_leaves,
+        survivor_weighted_mean,
+    )
+    from neuroimagedisttraining_tpu_torch.distributed.ports import (
+        free_port_block,
+    )
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+
+    def bits_equal(a, b) -> bool:
+        la, lb = named_leaves(a), named_leaves(b)
+        return la.keys() == lb.keys() and all(
+            np.asarray(la[k]).dtype == np.asarray(lb[k]).dtype
+            and np.asarray(la[k]).tobytes() == np.asarray(lb[k]).tobytes()
+            for k in la)
+
+    # the flagship cohort, drawn once for every silo of the phase
+    cohorts = {}
+    cohort_of = R._cohort
+
+    def cached_cohort(args):
+        key = (args.synthetic_num_subjects, tuple(args.synthetic_shape),
+               args.num_clients, args.seed, args.synthetic_signal)
+        if key not in cohorts:
+            cohorts[key] = cohort_of(args)
+        return cohorts[key]
+
+    def silo_fns(extra: tuple):
+        """Each silo's ``train_fn`` (``run._make_train_fn`` on the card),
+        recording ``(version, trained tree)`` of every call."""
+        fns, trained = {}, {1: [], 2: [], 3: []}
+        for r in (1, 2, 3):
+            cargs = R.parse(["--role", "client", "--rank", str(r),
+                             *AS_ARGV, *extra])[0]
+            fn, _ = R._make_train_fn(cargs, dev)
+
+            def rec(tree, version, fn=fn, r=r):
+                out = fn(tree, version)
+                trained[r].append((version, out[0]))
+                return out
+            fns[r] = rec
+        return fns, trained
+
+    def run_federation(server, silos, timeout=240.0):
+        threads = [threading.Thread(target=s.run, daemon=True)
+                   for s in silos]
+        torch.cuda.synchronize()
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        st = threading.Thread(target=server.run, daemon=True)
+        st.start()
+        for t in threads:
+            t.start()
+        st.join(timeout)
+        if not server._done.is_set():
+            fail(f"async run stalled: {server.history}")
+        for t in threads:
+            t.join(timeout=30)
+        torch.cuda.synchronize()
+        return _cuda.counts(), time.perf_counter() - t0
+
+    def versions_per_s(server) -> float:
+        ts = [h["t"] for h in server.history]
+        return (len(ts) - 1) / (ts[-1] - ts[0]) if len(ts) > 1 else 0.0
+
+    def uploads_by_entry(trained) -> dict:
+        return {(c, v): deque(t for vv, t in recs if vv == v)
+                for c, recs in trained.items() for v, _ in recs}
+
+    spent, mark = {}, [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        spent[part] = now - mark[0]
+        mark[0] = now
+
+    os.environ["NIDT_FAST_STEM"] = "1"
+    R._cohort = cached_cohort
+    #: the ingest roots of this process: their worker and region processes
+    #: are stopped on every way out (a region is not a daemon)
+    roots = []
+    try:
+        # (b) first: its 4 processes need the card's memory, and this
+        # process holds no trainer yet
+        free_card()
+        # ---- (b) the CLI: buffer 2, stragglers, the codec ----
+        res = as_cli("(b)", AS_CLI)
+        srv = res["lines"]["server"][-1]
+        by_path["as_cli"] = got = cs_silo_launches(res)
+        audit = srv["upload_audit"]
+        timing = res["lines"]["server"][-2]
+        ts = [v["t"] for v in timing["versions"]]
+        print(json.dumps({"async_cli": {
+            "card": card, "seconds": res["seconds"], "launches": got,
+            "silos_ready_seconds": res["silos_ready_seconds"],
+            "staleness_taus": srv["staleness_taus"],
+            "tau_histogram": {str(t): sum(v["taus"].count(t)
+                                          for v in timing["versions"])
+                              for t in srv["staleness_taus"]},
+            "upload_audit": audit,
+            "aggregate_seconds": timing["aggregate_seconds"],
+            "versions_per_s": (len(ts) - 1) / (ts[-1] - ts[0]),
+            "silos": {k: v[-2] for k, v in res["lines"].items()
+                      if k.startswith("silo")}}}))
+        if srv["rounds_completed"] != 6 or not (
+                audit["received_accounted"] and audit["accepted_accounted"]):
+            fail(f"async (b): {srv['rounds_completed']} versions, audit "
+                 f"{audit}")
+        if not max(srv["staleness_taus"]) > 0 or \
+                audit["dropped_undecodable"]:
+            fail(f"async (b): staleness {srv['staleness_taus']}, "
+                 f"{audit['dropped_undecodable']} undecodable")
+        for k in ("stem_dw", "fused_sgd", "kth_select"):
+            if not got.get(k):
+                fail(f"async (b): {k} was not launched ({got})")
+        free_card()
+        lap("(b)")
+
+        init = R._init_tree(*R._seed_init_state(
+            R.parse(["--role", "server", *AS_ARGV])[0]))
+        fns, trained = silo_fns(())
+        free_card()
+        lap("setup: cohort, init, 3 fp32 silos")
+
+        # ---- (a) the buffered server and 3 silo threads ----
+        bp = free_port_block(8)
+        server = BufferedFedAvgServer(init, 2, 3, buffer_k=3, base_port=bp,
+                                      device=dev)
+        buffered = []
+        aggregate = server._aggregate_buffer
+
+        def capture():
+            if not buffered:
+                buffered.extend((e["client"], e["tree"], e["weight"])
+                                for e in sorted(server._buffer,
+                                                key=lambda e: e["client"]))
+            aggregate()
+        server._aggregate_buffer = capture
+        silos = [FedAvgClientProc(r, 3, fns[r], device=dev,
+                                  comm=PersistentClientCommManager(
+                                      r, 4, base_port=bp))
+                 for r in (1, 2, 3)]
+        got, secs = run_federation(server, silos)
+        by_path["as_inproc"] = got
+        h0 = server.history[0]
+        if h0["contributors"] != [1, 2, 3] or h0["taus"] != [0, 0, 0]:
+            fail(f"async (a): first version {h0}")
+        want = survivor_weighted_mean([t for _, t, _ in buffered],
+                                      [w for _, _, w in buffered], dev)
+        pin = bits_equal(server._ring[1], want) and all(
+            any(bits_equal(t, u) for _, u in trained[c])
+            for c, t, _ in buffered)
+        if not pin:
+            fail("async (a): the first version is not the weighted mean of "
+                 "its buffered uploads bit for bit")
+        for k in ("stem_dw", "fused_sgd"):
+            if not got.get(k):
+                fail(f"async (a): {k} was not launched ({got})")
+        print(json.dumps({"async_inproc": {
+            "card": card, "seconds": secs, "launches": got,
+            "versions": len(server.history),
+            "versions_per_s": versions_per_s(server),
+            "silo_round_seconds": {r: s.train_seconds for r, s in
+                                   zip((1, 2, 3), silos)},
+            "silo_lock_wait_seconds": {r: s.lock_wait_seconds for r, s in
+                                       zip((1, 2, 3), silos)},
+            "aggregate_seconds": server.aggregate_seconds,
+            "history": [{k: h[k] for k in ("contributors", "taus",
+                                           "weights")}
+                        for h in server.history],
+            "upload_audit": server.upload_audit(),
+            "first_version_bit_equal": pin}}))
+        del server, silos, buffered
+        free_card()
+        lap("(a)")
+
+        # ---- (c) sharded ingest: 2 workers, shm, delta syncs ----
+        for recs in trained.values():
+            recs.clear()
+        bp = free_port_block(8)
+        server = ING.ShardedIngestServer(init, 4, 3, ingest_workers=2,
+                                         buffer_k=3, base_port=bp,
+                                         use_shm=True, sync_delta=True,
+                                         device=dev)
+        roots.append(server)
+        lap("(c) root and 2 workers up")
+        deltas = []
+        silos = []
+        for r in (1, 2, 3):
+            silo = FedAvgClientProc(r, 3, fns[r], device=dev,
+                                    sync_delta=True,
+                                    comm=PersistentClientCommManager(
+                                        r, 4, base_port=bp))
+
+            def resolve(msg, version, orig=silo._resolve_sync_params):
+                body = msg.get(M.ARG_MODEL_PARAMS)
+                out = orig(msg, version)
+                if out is not None and codec.is_sync_delta_frame(body):
+                    deltas.append((version, out, codec.frame_nbytes(body)))
+                return out
+            silo._resolve_sync_params = resolve
+            silos.append(silo)
+        got, secs = run_federation(server, silos)
+        lap("(c) federation")
+        by_path["as_ingest"] = got
+        audit = server.upload_audit()
+        if not (audit["received_accounted"]
+                and audit["accepted_accounted"]) or any(
+                v for k, v in audit.items() if k.startswith("dropped_")
+                and k != "dropped_after_done"):
+            fail(f"async (c): audit {audit}")
+        ring, queues, folds_equal = server._ring, uploads_by_entry(trained), 0
+        # what the fold's lattice keeps of the learning: each version's
+        # share of weights (the params leaves) that moved from the one
+        # before, beside the uploads' median step from their base
+        moved, steps = [], []
+        for h in server.history:
+            entries = []
+            for c, v, anchor, n, w_int, tau, _ in h["entries"]:
+                u = queues[(c, v)].popleft()
+                steps.append(float(np.median(np.concatenate([
+                    np.abs(np.asarray(x, np.float64)
+                           - named_leaves(ring[v])[k]).ravel()
+                    for k, x in named_leaves(u).items()
+                    if k.startswith("params")]))))
+                entries.append((carry_to_base(u, ring[anchor], ring[v])
+                                if tau else u, w_int))
+            prev = ring[h["version"] - 1]
+            acc = ING.single_process_fold(entries, server.fold_spec, prev)
+            folds_equal += bits_equal(acc.finalize(prev), ring[h["version"]])
+            a, b = named_leaves(prev), named_leaves(ring[h["version"]])
+            weights = [k for k in a if k.startswith("params")]
+            moved.append(sum(int(np.count_nonzero(a[k] != b[k]))
+                             for k in weights)
+                         / sum(a[k].size for k in weights))
+        if folds_equal != len(server.history):
+            fail(f"async (c): {folds_equal} of {len(server.history)} "
+                 "versions the single-process fold of their uploads")
+        if not deltas or not all(bits_equal(d, ring[v])
+                                 for v, d, _ in deltas):
+            fail(f"async (c): {len(deltas)} delta syncs, not all the "
+                 "version's model bit for bit")
+        dense_bytes = codec.frame_nbytes(ring[1])
+        stages = R._stage_summary(server.fanin.merged_snapshot())
+        print(json.dumps({"async_ingest": {
+            "card": card, "seconds": secs, "launches": got,
+            "versions": len(server.history),
+            "versions_per_s": versions_per_s(server),
+            "folds_bit_equal": folds_equal,
+            "weights_moved_share_by_version": moved,
+            "entries_by_version": [
+                [[int(e[0]), int(e[1]), e[2], int(e[5])]
+                 for e in h["entries"]] for h in server.history],
+            "upload_step_median_abs": steps,
+            "fold_half_step": 2.0 ** -(server.fold_spec.frac_bits + 1),
+            "delta_syncs_bit_equal": len(deltas),
+            "delta_reply_bytes": [b for _, _, b in deltas],
+            "dense_reply_bytes": dense_bytes,
+            "delta_over_dense": (sum(b for _, _, b in deltas)
+                                 / (len(deltas) * dense_bytes)),
+            "upload_stage_ms": stages,
+            "host_ms_per_folded_upload": {
+                s: stages[s]["sum_ms"] / max(1, stages[s]["count"])
+                for s in ("queue", "decode", "admit", "fold")
+                if s in stages},
+            "worker_xstats": server.worker_xstats(),
+            "upload_audit": audit,
+            "silo_round_seconds": {r: s.train_seconds for r, s in
+                                   zip((1, 2, 3), silos)}}}))
+        for k in ("stem_dw", "fused_sgd"):
+            if not got.get(k):
+                fail(f"async (c): {k} was not launched ({got})")
+        del server, silos, deltas, fns, trained, queues
+        free_card()
+        lap("(c) checks")
+
+        # ---- (d) regions, secure_quant, bf16 silos ----
+        from neuroimagedisttraining_tpu_torch.privacy import QuantSpec
+
+        quant = QuantSpec.from_bits(32, 10, 3)
+        fns, trained = silo_fns(("--precision", "bf16_mixed"))
+        lap("(d) 3 bf16 silos")
+        bp = free_port_block(8)
+        server = HierarchicalIngestServer(init, 3, 3, regions=2,
+                                          workers_per_region=2, buffer_k=3,
+                                          base_port=bp, secure_quant=quant,
+                                          device=dev)
+        roots.append(server)
+        lap("(d) root, 2 regions and 4 workers up")
+        silos = [SecureFedAvgClientProc(r, 3, fns[r], quant_spec=quant,
+                                        one_phase=True, mpc_seed=1024,
+                                        device=dev,
+                                        comm=PersistentClientCommManager(
+                                            r, 4, base_port=bp))
+                 for r in (1, 2, 3)]
+        got, secs = run_federation(server, silos)
+        lap("(d) federation")
+        by_path["as_region_bf16"] = got
+        audit = server.upload_audit()
+        if not (audit["received_accounted"] and audit["accepted_accounted"]):
+            fail(f"async (d): audit {audit}")
+        if not got.get("stem_dw_bf16") or got.get("stem_dw"):
+            fail(f"async (d): bf16 launches {got}")
+        # the fold's statement: each upload quantized at 2^-frac_bits
+        # (half a step of rounding), the weighted mean of those errors,
+        # for coordinates inside the fold's value bound
+        limit = 2.0 ** -quant.frac_bits
+        bound = server.fold_spec.value_bound
+        queues = uploads_by_entry(trained)
+        err = planted = 0.0
+        outside = checked = 0
+        for h in server.history:
+            ups = [(c, named_leaves(queues[(c, v)].popleft()), w)
+                   for c, v, _, _, w, _, _ in h["entries"]]
+            agg = named_leaves(server._ring[h["version"]])
+            for k in agg:
+                xs = np.stack([np.asarray(u[k], np.float64) for _, u, _ in
+                               ups])
+                w = np.asarray([wi for _, _, wi in ups], np.float64)
+                inside = (np.abs(xs) <= bound).all(axis=0)
+                outside += int((~inside).sum())
+                checked += int(inside.sum())
+                mean = np.tensordot(w, xs, 1) / w.sum()
+                err = max(err, float(np.max(
+                    np.abs(agg[k] - mean)[inside], initial=0.0)))
+                keep = np.asarray([c != 3 for c, _, _ in ups])
+                if keep.any() and not keep.all():
+                    without = (np.tensordot(w[keep], xs[keep], 1)
+                               / w[keep].sum())
+                    planted = max(planted, float(np.max(
+                        np.abs(without - mean)[inside], initial=0.0)))
+        bn = max(float(np.max(np.abs(np.asarray(x)))) for k, x in
+                 named_leaves(server.params).items()
+                 if k.startswith("batch_stats"))
+        print(json.dumps({"async_region_secure_bf16": {
+            "card": card, "seconds": secs, "launches": got,
+            "versions": len(server.history),
+            "versions_per_s": versions_per_s(server),
+            "max_abs_err_vs_plain_mean": err, "limit": limit,
+            "max_abs_err_planted_silo3_dropped": planted,
+            "coordinates_checked": checked,
+            "coordinates_beyond_value_bound": outside,
+            "value_bound": bound, "batch_stats_max_abs": bn,
+            "upload_audit": audit,
+            "upload_stage_ms": R._stage_summary(
+                server.fanin.merged_snapshot())}}))
+        if not err <= limit:
+            fail(f"async (d): the secure fold is {err} from the plain mean, "
+                 f"beyond {limit}")
+        if not planted > limit:
+            fail(f"async (d): dropping silo 3 moves the mean {planted}, "
+                 f"within the limit {limit}")
+        del server, silos, fns, trained, queues
+        lap("(d) checks")
+        print(json.dumps({"async_part_seconds": spent}))
+    finally:
+        R._cohort = cohort_of
+        for root in roots:
+            root._kill_workers()
+        free_card()
+
+
 MAIN_PATH = {"stem_dw_bf16": "salientgrads_bf16"}
 
 
@@ -4800,6 +5299,7 @@ def main(argv: list[str]) -> int:
     only_tune = "--tune" in argv
     only_serve = "--serve" in argv
     only_cross = "--cross-silo" in argv
+    only_async = "--async" in argv
     import numpy as np
     import torch
 
@@ -5414,6 +5914,10 @@ def main(argv: list[str]) -> int:
             cross_silo_phase(card, dev, by_path)
             lap("phase")
             return finish(rows, by_path, started, laps)
+        if only_async:
+            async_phase(card, dev, by_path)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
 
         cfg = flagship("salientgrads")
         t0 = time.perf_counter()
@@ -5799,6 +6303,10 @@ def main(argv: list[str]) -> int:
         # ---- the cross-silo control plane: silos as threads, as processes
         cross_silo_phase(card, dev, by_path)
         lap("cross_silo")
+
+        # ---- the asynchronous plane: buffered, sharded, regions ----
+        async_phase(card, dev, by_path)
+        lap("async")
 
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",

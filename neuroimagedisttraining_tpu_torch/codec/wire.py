@@ -19,6 +19,10 @@ Three composable stages, each optional (``parse_wire_spec``):
 - **quant**: per-leaf ``int8`` (symmetric, scale = amax / 127, round half
   to even) or ``bf16`` (round to nearest even).
 
+The downlink has a frame of its own (``encode_sync_delta``): a sync reply
+of the asynchronous plane as the lossless byte delta between two versions
+of the model, ``{SYNC_DELTA_KEY, "base", "z", "body"}``.
+
 A frame is ``{FRAME_KEY, "spec", "delta", "z", "body"}``; ``body`` is the
 per-leaf record table as msgpack, deflated when that shrinks it. An update
 here is a dict of numpy leaves named by their flax paths
@@ -39,12 +43,12 @@ that name with the same bytes; any other tensor encodes as its numpy array.
 from __future__ import annotations
 
 import struct
+import sys
 import zlib
 from dataclasses import dataclass, replace
 from typing import Any
 
 import numpy as np
-import torch
 
 #: frame magic + version; decoders refuse other versions
 FRAME_KEY = "__nidt_codec__"
@@ -54,6 +58,14 @@ FRAME_VERSION = 1
 #: field-element frame (privacy/secure_quant.py): defined here so that the
 #: plain decode path can refuse one, without an import of privacy/
 SECURE_QUANT_KEY = "__nidt_secure_quant__"
+
+#: magic + version of the downlink delta-sync frame: a changed-version sync
+#: reply shipped as the lossless byte delta against the version the
+#: receiver last synced (the asynchronous plane's broadcast ring). The
+#: receiver trains on the decoded tree, so the delta is a raw-byte XOR
+#: against the base, exactly invertible for every dtype.
+SYNC_DELTA_KEY = "__nidt_sync_delta__"
+SYNC_DELTA_VERSION = 1
 
 # sparse-record modes: how the receiver learns the support
 _SP_DENSE = 0      # all values shipped
@@ -203,10 +215,20 @@ def _pack_ndarray(out: list, obj: np.ndarray, dtype: str = "",
     _pack_ext(out, code, b"".join(head), raw)
 
 
+def _is_tensor(obj) -> bool:
+    """A torch tensor. torch is imported where a process first needs it, not
+    here (the ingest workers never do); a process that has not imported it
+    holds no tensor."""
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(obj, torch.Tensor)
+
+
 def _pack_tensor(out: list, obj: torch.Tensor) -> None:
     """A tensor as the ndarray ext of its values; a bfloat16 one under the
     dtype name ``"bfloat16"`` with its raw bits, as flax writes an
     ``ml_dtypes.bfloat16`` array."""
+    import torch
+
     t = obj.detach().cpu()
     if t.dtype == torch.bfloat16:
         _pack_ndarray(out, t.view(torch.int16).numpy(), "bfloat16")
@@ -217,6 +239,8 @@ def _pack_tensor(out: list, obj: torch.Tensor) -> None:
 def _bf16_tensor(raw, shape) -> torch.Tensor:
     """The stored bits of a ``"bfloat16"`` ndarray ext as a CPU
     ``torch.bfloat16`` tensor."""
+    import torch
+
     bits = np.frombuffer(raw, dtype="<i2").reshape(shape).copy()
     return torch.from_numpy(bits).view(torch.bfloat16)
 
@@ -267,7 +291,7 @@ def _pack(out: list, obj, sort_maps: bool) -> None:
         _pack_ndarray(out, obj)
     elif isinstance(obj, np.generic):
         _pack_ndarray(out, np.asarray(obj), code=_EXT_NPSCALAR)
-    elif isinstance(obj, torch.Tensor):
+    elif _is_tensor(obj):
         if obj.nbytes > _MAX_CHUNK:
             raise ValueError("msgpack: a tensor above 1 GiB is not chunked; "
                              "pass its numpy array")
@@ -402,11 +426,15 @@ def _topk_threshold_np(absflat: np.ndarray, k: int) -> np.float32:
 
 def _to_bf16_bits(vals: np.ndarray) -> np.ndarray:
     """float32 -> bfloat16 (round to nearest even) as its uint16 bits."""
+    import torch
+
     t = torch.from_numpy(np.ascontiguousarray(vals, np.float32))
     return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
 
 
 def _from_bf16_bits(bits: np.ndarray) -> np.ndarray:
+    import torch
+
     t = torch.from_numpy(np.ascontiguousarray(bits, np.uint16).view(np.int16))
     return t.view(torch.bfloat16).to(torch.float32).numpy()
 
@@ -604,6 +632,105 @@ def nest(named: dict[str, np.ndarray]) -> dict:
             node = node.setdefault(m, {})
         node[leaf] = v
     return tree
+
+
+# ---------------------------------------------------------------------------
+# the downlink delta sync: a lossless byte delta between two versions of one
+# model tree
+# ---------------------------------------------------------------------------
+
+def _tree_leaves(tree, prefix: str = "") -> list[tuple[str, Any]]:
+    """``(path, leaf)`` of a nested dict tree, keys sorted at every level
+    (the reference's ``jax.tree`` leaf order)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.extend(_tree_leaves(v, path))
+        else:
+            out.append((path, v))
+    return out
+
+
+def is_sync_delta_frame(obj: Any) -> bool:
+    return isinstance(obj, dict) and SYNC_DELTA_KEY in obj
+
+
+def _tree_bytes(tree) -> bytes:
+    """The tree's raw leaf bytes in leaf order: the byte image both ends of
+    a delta agree on (two versions of one model)."""
+    return b"".join(np.ascontiguousarray(np.asarray(x)).tobytes()
+                    for _, x in _tree_leaves(tree))
+
+
+def _byte_shuffle(x: np.ndarray) -> np.ndarray:
+    """Stride-4 byte-plane transpose (HDF5's shuffle filter): the XOR of
+    two float32 versions has near-zero sign and exponent bytes and noisy
+    low mantissa bytes, interleaved; grouped by plane they deflate to long
+    zero runs. A permutation (``_byte_unshuffle`` inverts it); the
+    trailing ``len % 4`` bytes pass through."""
+    n4 = (x.size // 4) * 4
+    if n4 == 0:
+        return x
+    return np.concatenate([x[:n4].reshape(-1, 4).T.ravel(), x[n4:]])
+
+
+def _byte_unshuffle(x: np.ndarray) -> np.ndarray:
+    n4 = (x.size // 4) * 4
+    if n4 == 0:
+        return x
+    return np.concatenate([x[:n4].reshape(4, -1).T.ravel(), x[n4:]])
+
+
+def encode_sync_delta(new, base, *, base_version: int,
+                      zlib_level: int = 6) -> dict:
+    """``new`` as the lossless delta against ``base``: ``bytes(new) XOR
+    bytes(base)``, byte-plane shuffled, deflated where that shrinks it.
+    ``decode_sync_delta(frame, base)`` is ``new`` bit for bit for every
+    leaf dtype, NaN and Inf included."""
+    nb = _tree_bytes(new)
+    bb = _tree_bytes(base)
+    if len(nb) != len(bb):
+        raise ValueError(
+            "sync delta: base and new trees have different byte sizes "
+            f"({len(bb)} vs {len(nb)}) — not two versions of one model")
+    x = _byte_shuffle(
+        np.frombuffer(nb, np.uint8) ^ np.frombuffer(bb, np.uint8))
+    packed = zlib.compress(x.tobytes(), zlib_level)
+    z = 1 if len(packed) < x.size else 0
+    return {SYNC_DELTA_KEY: SYNC_DELTA_VERSION,
+            "base": int(base_version), "z": z,
+            "body": np.frombuffer(packed, np.uint8) if z else x}
+
+
+def decode_sync_delta(frame: dict, base) -> dict:
+    """Invert :func:`encode_sync_delta` against the receiver's base tree,
+    which must be the version ``frame["base"]`` names (the caller checks
+    that against its own sync record)."""
+    ver = frame[SYNC_DELTA_KEY]
+    if int(ver) != SYNC_DELTA_VERSION:
+        raise ValueError(f"sync delta frame version {ver} != supported "
+                         f"{SYNC_DELTA_VERSION}")
+    raw = np.asarray(frame["body"], np.uint8).tobytes()
+    if int(frame.get("z", 0)):
+        raw = zlib.decompress(raw)
+    bb = _tree_bytes(base)
+    if len(raw) != len(bb):
+        raise ValueError(
+            f"sync delta: body is {len(raw)} bytes but the base tree "
+            f"is {len(bb)} — receiver base differs from the encoder's")
+    nb = (_byte_unshuffle(np.frombuffer(raw, np.uint8))
+          ^ np.frombuffer(bb, np.uint8)).tobytes()
+    out: dict[str, np.ndarray] = {}
+    off = 0
+    for name, leaf in _tree_leaves(base):
+        arr = np.asarray(leaf)
+        n = arr.nbytes
+        out[name] = np.frombuffer(
+            nb[off:off + n], arr.dtype).reshape(arr.shape)
+        off += n
+    return nest(out)
 
 
 def frame_nbytes(frame: dict) -> int:

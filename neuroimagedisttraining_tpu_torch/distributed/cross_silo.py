@@ -32,11 +32,9 @@ import time
 from typing import Any, Callable, Mapping
 
 import numpy as np
-import torch
 
 from neuroimagedisttraining_tpu_torch.codec import wire as codec
 from neuroimagedisttraining_tpu_torch.distributed import message as M
-from neuroimagedisttraining_tpu_torch.device import resolve_device
 from neuroimagedisttraining_tpu_torch.distributed.managers import (
     ClientManager, ServerManager,
 )
@@ -45,7 +43,6 @@ from neuroimagedisttraining_tpu_torch.obs import metrics as obs_metrics
 from neuroimagedisttraining_tpu_torch.obs import names as obs_names
 from neuroimagedisttraining_tpu_torch.obs import rules as obs_rules
 from neuroimagedisttraining_tpu_torch.obs import trace as obs_trace
-from neuroimagedisttraining_tpu_torch.utils.pytree import tree_weighted_mean
 
 log = logging.getLogger("neuroimagedisttraining_tpu_torch.cross_silo")
 
@@ -80,7 +77,7 @@ def tree_map(fn: Callable, *trees: Mapping) -> dict:
 def to_numpy_tree(tree: Mapping) -> dict:
     """Every leaf as a numpy array on the host (a tensor's values)."""
     def leaf(x):
-        if isinstance(x, torch.Tensor):
+        if codec._is_tensor(x):
             return x.detach().cpu().numpy()
         return np.asarray(x)
     return tree_map(leaf, tree)
@@ -88,11 +85,15 @@ def to_numpy_tree(tree: Mapping) -> dict:
 
 def _named_tensors(tree: Mapping, device) -> dict[str, torch.Tensor]:
     """A tree's named leaves as tensors on ``device`` (copies)."""
+    import torch
+
     return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device, copy=True)
             for k, v in named_leaves(tree).items()}
 
 
 def _stack_named(trees: list, device) -> dict[str, torch.Tensor]:
+    import torch
+
     named = [named_leaves(t) for t in trees]
     return {k: torch.as_tensor(np.stack([np.asarray(n[k]) for n in named]))
             .to(device) for k in named[0]}
@@ -102,6 +103,10 @@ def silo_device(device="cuda") -> torch.device:
     """The device a server or silo runs on: ``cuda`` unless the caller asks
     for the CPU (a CUDA device that does not exist raises), with its index
     resolved, so the threads of one process name one device alike."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.device import resolve_device
+
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -118,6 +123,12 @@ def survivor_weighted_mean(trees: list, ns: list[float],
     ``utils/pytree.tree_weighted_mean`` (the engines' FedAvg aggregation)
     on ``device`` (:func:`silo_device`): a deadline-truncated round is the
     engine's round over the same survivors, bit for bit."""
+    import torch
+
+    from neuroimagedisttraining_tpu_torch.utils.pytree import (
+        tree_weighted_mean,
+    )
+
     device = silo_device(device)
     stacked = _stack_named(trees, device)
     out = tree_weighted_mean(stacked, torch.tensor(
@@ -147,6 +158,8 @@ def survivor_defended_mean(trees: list, ns: list[float], reference, *,
     the mean). ``reference`` is the round's broadcast model; ``weak_dp``
     also needs ``noises``, one dict of standard normal draws a reporting
     silo (:func:`silo_noise`)."""
+    import torch
+
     from neuroimagedisttraining_tpu_torch.core import robust
 
     if defense == "weak_dp" and noises is None:
@@ -211,6 +224,8 @@ _TRAIN_LOCKS_GUARD = threading.Lock()
 
 
 def train_lock(device) -> threading.Lock:
+    import torch
+
     key = str(torch.device(device))
     with _TRAIN_LOCKS_GUARD:
         return _TRAIN_LOCKS.setdefault(key, threading.Lock())
@@ -241,6 +256,8 @@ def make_silo_train_fn(trainer, X: torch.Tensor, y: torch.Tensor, n: int, *,
     permutations instead (tests feed the reference's). The steps run as
     the trainer's CUDA graph replays on a card. Trees in and out are the
     wire's (flax layout, numpy)."""
+    import torch
+
     from neuroimagedisttraining_tpu_torch.weights import (
         state_from_flax, state_to_flax,
     )
@@ -283,12 +300,16 @@ class CodecThreshold:
     ``extra_kept`` the entries beyond k the select's kept."""
 
     def __init__(self, device):
+        import torch
+
         self.device = torch.device(device)
         self.calls = 0
         self.refined = 0
         self.extra_kept = 0
 
     def __call__(self, absflat: np.ndarray, k: int) -> np.float32:
+        import torch
+
         from neuroimagedisttraining_tpu_torch.ops.topk import kth_largest
 
         k = min(max(int(k), 1), absflat.size)
@@ -646,15 +667,16 @@ class FedAvgServer(ServerManager):
             return False
         return True
 
-    def _decode(self, payload) -> dict:
+    def _decode(self, payload, reference=None) -> dict:
         """An upload as a tree: a dense tree as it is, a codec frame
-        decoded against the round's broadcast (``decode_update`` refuses
-        a secure-quant frame)."""
+        decoded against ``reference``, by default the round's broadcast
+        (``decode_update`` refuses a secure-quant frame)."""
         like = named_leaves(self.params)
         masks = (named_leaves(self.wire_masks)
                  if self.wire_masks is not None else None)
-        out = codec.decode_update(payload, like=like, reference=like,
-                                  masks=masks)
+        out = codec.decode_update(
+            payload, like=like, masks=masks,
+            reference=like if reference is None else named_leaves(reference))
         return payload if out is payload else codec.nest(out)
 
     def _on_model(self, msg: M.Message) -> None:
@@ -1312,6 +1334,11 @@ class FedAvgClientProc(ClientManager):
     frame is packed on the host. A sync with ``ARG_EF_RESET`` clears the
     error feedback first.
 
+    ``sync_delta``: the silo registers with ``ARG_SYNC_DELTA_OK`` and takes
+    a sync body that is the byte delta against the model it holds
+    (``codec/wire.encode_sync_delta``); a sync with no body reuses the
+    model it holds (:meth:`_resolve_sync_params`).
+
     ``fault_schedule`` + ``seed``: a silo the schedule makes Byzantine
     transforms its own upload (``faults/adversary.py``) before encoding,
     its Gaussian draws ``core/robust.noise_draws``'s.
@@ -1331,10 +1358,6 @@ class FedAvgClientProc(ClientManager):
                  fault_schedule=None, seed: int = 0,
                  sync_delta: bool = False, device="cuda",
                  record_uploads: list | None = None, **kw):
-        if sync_delta:
-            raise ValueError(
-                "sync_delta (delta sync bodies) belongs to the "
-                "asynchronous plane, which is not yet ported")
         device = silo_device(device)
         super().__init__(rank=rank, world_size=world_size or num_clients + 1,
                          **kw)
@@ -1357,6 +1380,14 @@ class FedAvgClientProc(ClientManager):
         self.encode_seconds: list[float] = []
         self.fault_schedule = fault_schedule
         self.seed = int(seed)
+        #: the last full model synced, reused when a sync at an unchanged
+        #: version comes without a body (the ingest workers' replies)
+        self._last_sync_params = None
+        #: take lossless delta sync bodies (asynchronous plane): a
+        #: changed-version reply may then ship the byte delta against the
+        #: version named in ``_last_sync_version``
+        self.sync_delta = bool(sync_delta)
+        self._last_sync_version = -1
 
     def register_message_receive_handlers(self) -> None:
         self.register_message_receive_handler(
@@ -1371,6 +1402,8 @@ class FedAvgClientProc(ClientManager):
         reg = M.Message(M.MSG_TYPE_C2S_REGISTER, self.rank, 0)
         # this process's lifetime is the incarnation
         reg.add(M.ARG_CLIENT_INCARNATION, os.getpid())
+        if self.sync_delta:
+            reg.add(M.ARG_SYNC_DELTA_OK, True)
         # the server may still be building its model: the first contact
         # gets a long retry window where the transport has one
         try:
@@ -1408,6 +1441,8 @@ class FedAvgClientProc(ClientManager):
         """The value-fault hook, before any encoding: the schedule's attack
         of this rank and round on its upload (an honest plan returns the
         upload as it is)."""
+        import torch
+
         from neuroimagedisttraining_tpu_torch.core import robust
         from neuroimagedisttraining_tpu_torch.faults import adversary
 
@@ -1425,12 +1460,42 @@ class FedAvgClientProc(ClientManager):
         out = adversary.apply_attack(up, ref, mult, std, nan, noise)
         return codec.nest({k: v.numpy() for k, v in out.items()})
 
-    def _on_sync(self, msg: M.Message) -> None:
-        round_idx = int(msg.get(M.ARG_ROUND_IDX))
+    def _resolve_sync_params(self, msg: M.Message, round_idx: int):
+        """The sync's model. A sync at an unchanged version may come
+        without a body (an ingest worker's reply): this silo holds that
+        tree from its previous sync; with none held it is a protocol error
+        and the sync is dropped (None). Under ``sync_delta`` a changed
+        version may come as the byte delta against the version this silo
+        last synced, decoded against the held tree bit for bit; a delta
+        naming any other base is dropped loudly, never applied."""
         params = msg.get(M.ARG_MODEL_PARAMS)
         if params is None:
-            log.error("silo %d: sync at round %d without a model - "
-                      "dropping the sync", self.rank, round_idx)
+            if self._last_sync_params is None:
+                log.error("silo %d: body-less sync at version %d with no "
+                          "cached model - dropping the sync", self.rank,
+                          round_idx)
+                return None
+            return self._last_sync_params
+        if codec.is_sync_delta_frame(params):
+            base_v = int(params.get("base", -1))
+            if (self._last_sync_params is None
+                    or base_v != self._last_sync_version):
+                log.error(
+                    "silo %d: sync delta at version %d names base %d "
+                    "but this silo holds %d - dropping the sync",
+                    self.rank, round_idx, base_v,
+                    self._last_sync_version)
+                return None
+            params = codec.decode_sync_delta(params,
+                                             self._last_sync_params)
+        self._last_sync_params = params
+        self._last_sync_version = int(round_idx)
+        return params
+
+    def _on_sync(self, msg: M.Message) -> None:
+        round_idx = int(msg.get(M.ARG_ROUND_IDX))
+        params = self._resolve_sync_params(msg, round_idx)
+        if params is None:
             return
         if msg.get(M.ARG_EF_RESET):
             log.info("silo %d: server requested ef_reset (round %d) - "
@@ -1494,7 +1559,9 @@ class SecureFedAvgClientProc(FedAvgClientProc):
     (``defense``, with ``quant_spec`` only) runs on its own update before
     it shares: ``core/robust.norm_diff_clip`` against the sync, then
     ``add_weak_dp_noise`` with draws keyed by (defense_seed, round, rank,
-    leaf) (:func:`silo_noise`)."""
+    leaf) (:func:`silo_noise`). ``one_phase`` (the asynchronous plane,
+    ``quant_spec`` only): no weight exchange; the silo ships the frame of
+    its unweighted update and ``n`` in the clear at once."""
 
     def __init__(self, rank: int, num_clients: int, train_fn: Callable,
                  n_shares: int = 3, frac_bits: int = 16, mpc_seed: int = 0,
@@ -1528,10 +1595,11 @@ class SecureFedAvgClientProc(FedAvgClientProc):
                 "value hook could run, and the server has no plaintext "
                 "updates to defend — the attack would go both "
                 "uninjected and undefended (see ARCHITECTURE.md)")
-        if one_phase:
+        if one_phase and quant_spec is None:
             raise ValueError(
-                "one_phase secure frames belong to the asynchronous "
-                "plane, which is not yet ported")
+                "one_phase (the async buffered protocol) requires a "
+                "quant_spec: the dense two-phase weight exchange IS a "
+                "round barrier (see asyncfl/server.py)")
         if defense != "none":
             robust.validate_defense(defense)
             if quant_spec is None or defense not in robust.CLIP_DEFENSES:
@@ -1547,6 +1615,7 @@ class SecureFedAvgClientProc(FedAvgClientProc):
         self.frac_bits = frac_bits
         self.n_aggregators = n_aggregators
         self.quant_spec = quant_spec
+        self.one_phase = bool(one_phase)
         self.defense = defense
         self.norm_bound = float(norm_bound)
         self.stddev = float(stddev)
@@ -1565,6 +1634,8 @@ class SecureFedAvgClientProc(FedAvgClientProc):
         quantized and shared."""
         if self.defense == "none" or self._sync_ref is None:
             return trained
+        import torch
+
         from neuroimagedisttraining_tpu_torch.core import robust
 
         up = {k: torch.as_tensor(np.asarray(v, np.float32))
@@ -1602,14 +1673,32 @@ class SecureFedAvgClientProc(FedAvgClientProc):
 
     def _on_sync(self, msg: M.Message) -> None:
         round_idx = int(msg.get(M.ARG_ROUND_IDX))
-        params = msg.get(M.ARG_MODEL_PARAMS)
+        params = self._resolve_sync_params(msg, round_idx)
         if params is None:
-            log.error("silo %d: sync at round %d without a model - "
-                      "dropping the sync", self.rank, round_idx)
             return
         new_params, n = self._train(params, round_idx)
         self._sync_ref = to_numpy_tree(params)
-        self._trained = self._client_side_defense(new_params, round_idx)
+        trained = self._client_side_defense(new_params, round_idx)
+        if self.one_phase:
+            # the asynchronous plane: no weight exchange (a round
+            # barrier); the unweighted quantized update and n in the
+            # clear, the server folding the staleness weights inside the
+            # field (asyncfl/server.py)
+            from neuroimagedisttraining_tpu_torch.privacy import (
+                encode_secure_quant,
+            )
+
+            frame = encode_secure_quant(trained, 1.0, self.quant_spec,
+                                        self._rng)
+            out = M.Message(M.MSG_TYPE_C2S_SEND_MODEL, self.rank, 0)
+            out.add(M.ARG_MODEL_PARAMS, frame)
+            out.add(M.ARG_NUM_SAMPLES, float(n))
+            out.add(M.ARG_ROUND_IDX, round_idx)
+            out.add(M.ARG_UPLOAD_SEQ, self._upload_seq)
+            self._upload_seq += 1
+            self.send_message(out)
+            return
+        self._trained = trained
         out = M.Message(M.MSG_TYPE_C2S_NUM_SAMPLES, self.rank, 0)
         out.add(M.ARG_NUM_SAMPLES, float(n))
         out.add(M.ARG_ROUND_IDX, round_idx)

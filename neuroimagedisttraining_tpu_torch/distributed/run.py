@@ -40,9 +40,18 @@ suspicion. ``--wire_codec delta+sparse+quant`` encodes every upload
 card; ``--wire_mask_density`` trains the silos masked and ships
 bitmap-free frames.
 
-The asynchronous plane (``--async_server``, ``--ingest_workers``,
-``--regions``, ``--ingest_shm``, ``--sync_delta``) is not yet ported: those
-flags are refused at startup.
+The asynchronous plane: ``--async_server`` runs the buffered FedBuff
+server (``asyncfl/server.py``) on the selector core, aggregating every
+``--buffer_k`` uploads with no round barrier (``--comm_round`` counts
+aggregations); the silos keep one connection open to it
+(``asyncfl/loop.PersistentClientCommManager``). ``--ingest_workers N``
+shards its ingest over N worker processes on one ``SO_REUSEPORT`` port
+(``asyncfl/ingest.py``), ``--regions R`` puts R regional sub-aggregators
+of N workers each between them and the root (``asyncfl/region.py``),
+``--ingest_shm`` hands the workers' partials over shared memory and
+``--sync_delta`` ships a changed model to the silos as the byte delta
+against the version each holds. ``--secure_quant`` composes as the
+one-phase protocol; dense ``--secure`` does not (a round barrier).
 """
 
 from __future__ import annotations
@@ -52,11 +61,6 @@ import json
 import sys
 
 import numpy as np
-
-#: flags of the reference's asynchronous plane, refused here
-ASYNC_FLAGS = ("async_server", "ingest_workers", "regions", "ingest_shm",
-               "sync_delta")
-
 
 def dispatch_fallback_note(k: int) -> str | None:
     """Why ``--rounds_per_dispatch`` is 1 on the distributed transport
@@ -281,6 +285,17 @@ def _make_comm(args, rank: int, host_map):
                         raise
                     time.sleep(delay)
                     delay = min(2.0, delay * 2)
+    elif args.async_server and rank != 0:
+        # one connection kept open to the asynchronous server: under
+        # --ingest_workers it keeps the silo on one worker, whose ring its
+        # sync record (body-less and delta syncs) is kept against
+        from neuroimagedisttraining_tpu_torch.asyncfl.loop import (
+            PersistentClientCommManager,
+        )
+
+        comm = PersistentClientCommManager(rank, world_size,
+                                           host_map=host_map,
+                                           base_port=args.base_port)
     elif args.fault_spec and rank != 0:
         from neuroimagedisttraining_tpu_torch.distributed.comm import (
             SocketCommManager,
@@ -378,8 +393,15 @@ def add_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
                          "quarantined (clean rounds forgive one strike "
                          "each)")
     ap.add_argument("--async_server", action="store_true",
-                    help="the reference's buffered asynchronous server; "
-                         "not yet ported: refused at startup")
+                    help="server runs the FedBuff-style buffered "
+                         "asynchronous control plane (asyncfl/): the "
+                         "selector comm core holds every connection in "
+                         "one event loop, uploads are accepted "
+                         "continuously and aggregated every --buffer_k "
+                         "arrivals with (1+tau)^-alpha staleness "
+                         "weighting, broadcasts are version-tagged, and "
+                         "there is NO round barrier (comm_round counts "
+                         "aggregations). Clients run unchanged")
     ap.add_argument("--buffer_k", type=int, default=0,
                     help="async server: aggregate every K accepted "
                          "uploads (0 = num_clients)")
@@ -388,17 +410,37 @@ def add_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
                          "an upload tau versions stale weighs "
                          "n * (1+tau)^-alpha")
     ap.add_argument("--ingest_workers", type=int, default=0,
-                    help="async server: the sharded ingest plane; not "
-                         "yet ported: refused at startup")
+                    help="async server: shard the ingest plane across N "
+                         "selector worker PROCESSES on one SO_REUSEPORT "
+                         "port (asyncfl/ingest.py) — each worker runs "
+                         "the admission gates and folds accepted "
+                         "uploads into an exact int64 partial "
+                         "aggregate; the root merges partials in "
+                         "worker-id order, bitwise-equal to the "
+                         "single-process fold. 0 = the single-process "
+                         "BufferedFedAvgServer")
     ap.add_argument("--regions", type=int, default=0,
-                    help="async server: regional sub-aggregators; not "
-                         "yet ported: refused at startup")
+                    help="async server: interpose N regional "
+                         "sub-aggregator PROCESSES between the ingest "
+                         "workers and the root (asyncfl/region.py) — "
+                         "each region owns --ingest_workers workers on "
+                         "the shared SO_REUSEPORT port, folds their "
+                         "partials locally and ships ONE merged partial "
+                         "upstream per flush interval; the root merges "
+                         "region partials in region-id order, "
+                         "bitwise-equal to the flat fold. 0 = flat root")
     ap.add_argument("--ingest_shm", action="store_true",
-                    help="ingest workers' shared-memory hand-off; not "
-                         "yet ported: refused at startup")
+                    help="ingest workers hand partials to their parent "
+                         "over double-buffered shared-memory slabs "
+                         "instead of the pickled pipe (same-host "
+                         "fast path; the pipe remains the cross-host "
+                         "fallback)")
     ap.add_argument("--sync_delta", action="store_true",
-                    help="delta sync replies of the sharded ingest "
-                         "plane; not yet ported: refused at startup")
+                    help="changed-version sync replies to opted-in "
+                         "clients ship the lossless byte delta against "
+                         "the client's last-synced version from the "
+                         "broadcast ring (dense fallback when the base "
+                         "left the ring)")
     ap.add_argument("--max_staleness", type=int, default=20,
                     help="async server: uploads staler than this many "
                          "versions are dropped at admission; the "
@@ -576,9 +618,8 @@ def add_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 def parse(argv=None):
     """The parsed flags after the reference's startup refusals (each an
-    argparse error with the reference's message), then the refusal of the
-    asynchronous plane's flags. Returns ``(args, quant_spec, fault_spec,
-    recipe_doc)``."""
+    argparse error with the reference's message). Returns ``(args,
+    quant_spec, fault_spec, recipe_doc)``."""
     ap = add_args(argparse.ArgumentParser(
         prog="neuroimagedisttraining_tpu_torch.distributed.run",
         description=__doc__.split("\n\n")[0]))
@@ -803,11 +844,6 @@ def parse(argv=None):
         ap.error("--heartbeat_timeout requires 0 < --heartbeat_interval "
                  f"< timeout (got interval={args.heartbeat_interval}, "
                  f"timeout={args.heartbeat_timeout})")
-    spelled = [f"--{f}" for f in ASYNC_FLAGS if getattr(args, f)]
-    if spelled:
-        ap.error(f"{'/'.join(spelled)}: the asynchronous plane (asyncfl/) "
-                 "is not yet ported; the port runs the synchronous "
-                 "cross-silo protocol only")
     return args, quant_spec, fault_spec, recipe_doc
 
 
@@ -858,14 +894,18 @@ def main(argv=None) -> int:
         kw = {"n_shares": args.mpc_n_shares,
               "frac_bits": args.mpc_frac_bits, "mpc_seed": args.seed,
               "n_aggregators": args.n_aggregators,
-              "quant_spec": quant_spec}
+              "quant_spec": quant_spec,
+              # the asynchronous plane: one-phase frames (no weight
+              # exchange); the clip family runs here, before the share
+              "one_phase": bool(args.async_server)}
         if args.secure_quant and args.defense != "none":
             kw.update(defense=args.defense, norm_bound=args.norm_bound,
                       stddev=args.stddev, defense_seed=args.seed)
     else:
         kw = {"wire_codec": args.wire_codec,
               "wire_masks": wire_masks,
-              "wire_topk_ratio": args.wire_topk_ratio}
+              "wire_topk_ratio": args.wire_topk_ratio,
+              "sync_delta": args.sync_delta}
     if not args.secure and fault_spec is not None \
             and fault_spec.any_value_faults:
         # value faults live in the silo: it attacks its own upload before
@@ -958,16 +998,21 @@ def _serve(args, device, host_map, quant_spec, recipe_doc, FedAvgServer,
               "quarantine_rounds": args.quarantine_rounds,
               "outlier_threshold": args.outlier_threshold,
               "dp_delta": args.dp_delta}
-    comm, broker = _make_comm(args, 0, host_map)
-    server = cls(init, args.comm_round, args.num_clients,
-                 base_port=args.base_port, host_map=host_map,
-                 comm=comm, round_deadline=args.round_deadline,
-                 quorum=args.quorum,
-                 heartbeat_timeout=args.heartbeat_timeout, device=device,
-                 **kw)
-    print(f"[server] {args.transport} control plane on port "
-          f"{args.broker_port or args.base_port}; waiting for "
-          f"{args.num_clients} silos", flush=True)
+    if args.async_server:
+        server = _async_server(args, device, host_map, quant_spec, init,
+                               kw)
+        broker = None
+    else:
+        comm, broker = _make_comm(args, 0, host_map)
+        server = cls(init, args.comm_round, args.num_clients,
+                     base_port=args.base_port, host_map=host_map,
+                     comm=comm, round_deadline=args.round_deadline,
+                     quorum=args.quorum,
+                     heartbeat_timeout=args.heartbeat_timeout,
+                     device=device, **kw)
+        print(f"[server] {args.transport} control plane on port "
+              f"{args.broker_port or args.base_port}; waiting for "
+              f"{args.num_clients} silos", flush=True)
     extra_rules = ()
     if recipe_doc is not None:
         from neuroimagedisttraining_tpu_torch.tune import recipe as tune_recipe
@@ -1033,6 +1078,24 @@ def _serve(args, device, host_map, quant_spec, recipe_doc, FedAvgServer,
 
     bus.register("quarantine_silo", _act_quarantine)
     bus.register("escalate_defense", _act_escalate)
+    if args.async_server:
+        def _act_adapt_buffer(*, rule, round_idx, value=None):
+            # a staleness runaway: aggregate more eagerly (halve the
+            # trigger) and discount stale arrivals harder
+            old_k = server.buffer_k
+            old_a = server.staleness_alpha
+            new_k = max(1, (old_k + 1) // 2)
+            new_a = min(old_a + 0.25, 2.0)
+            if new_k == old_k and new_a == old_a:
+                return {"status": "skipped",
+                        "reason": "buffer_k at its floor and "
+                                  "staleness_alpha at its cap"}
+            server.buffer_k = new_k
+            server.staleness_alpha = new_a
+            return {"buffer_k": [old_k, new_k],
+                    "staleness_alpha": [old_a, new_a]}
+
+        bus.register("adapt_buffer", _act_adapt_buffer)
 
     def _health() -> dict:
         # a bounded lock wait: a busy server reports busy, itself a
@@ -1047,21 +1110,32 @@ def _serve(args, device, host_map, quant_spec, recipe_doc, FedAvgServer,
                     "health": obs_rules.health_block(),
                     "actions": bus.actions_block()}
         try:
-            return {"round": int(server.round_idx),
-                    "registered": len(server._registered),
-                    "suspects": len(server._suspect),
-                    "compute": obs_compute.PROFILER.health(),
-                    "fallbacks": obs_health.fallback_block(None),
-                    "health": obs_rules.health_block(),
-                    "actions": bus.actions_block()}
+            h = {"round": int(server.round_idx),
+                 "registered": len(server._registered),
+                 "suspects": len(server._suspect),
+                 "compute": obs_compute.PROFILER.health(),
+                 "fallbacks": obs_health.fallback_block(
+                     server.fanin.merged_snapshot()
+                     if args.ingest_workers else None),
+                 "health": obs_rules.health_block(),
+                 "actions": bus.actions_block()}
+            if args.async_server:
+                h["buffered"] = (server._pending() if args.ingest_workers
+                                 else len(server._buffer))
         finally:
             server._rlock.release()
+        return h
 
+    # the sharded plane serves the merged view: the root's samples, the
+    # workers' (labelled), their snapshots' ages
     msrv = start_metrics_server(args.metrics_port, health_probe=_health,
+                                registry=(server.metrics_view()
+                                          if args.ingest_workers else None),
                                 host=args.metrics_host)
     if msrv is not None:
-        print(f"[server] obs: /metrics + /healthz on port {msrv.port}",
-              flush=True)
+        print(f"[server] obs: /metrics + /healthz on port {msrv.port}"
+              + (" (merged across ingest workers)"
+                 if args.ingest_workers else ""), flush=True)
     clean_exit = False
     try:
         # failure_context dumps the flight ring before re-raising
@@ -1069,10 +1143,13 @@ def _serve(args, device, host_map, quant_spec, recipe_doc, FedAvgServer,
             server.run()
         clean_exit = True
     finally:
-        if args.flight_out and clean_exit:
-            obs_flight.dump(reason="end of run")
-        if args.trace_out:
-            obs_trace.dump()
+        # the sharded root writes the merged artifacts at the bare paths
+        # itself (ShardedIngestServer.dump_obs)
+        if not args.ingest_workers:
+            if args.flight_out and clean_exit:
+                obs_flight.dump(reason="end of run")
+            if args.trace_out:
+                obs_trace.dump()
         if msrv is not None:
             msrv.close()
         if not clean_exit:
@@ -1085,10 +1162,39 @@ def _serve(args, device, host_map, quant_spec, recipe_doc, FedAvgServer,
         for v in named_leaves(server.params).values())))
     stats = server.com_manager.byte_stats()
     extra = {}
+    timing = {}
+    if args.async_server:
+        extra = {"async_server": True,
+                 # the server's values, not the flags: adapt_buffer may
+                 # have changed them
+                 "buffer_k": server.buffer_k,
+                 "staleness_alpha": server.staleness_alpha,
+                 "max_staleness": args.max_staleness,
+                 "upload_audit": server.upload_audit(),
+                 "staleness_taus": sorted({
+                     t for h in server.history
+                     for t in h.get("taus", ())})}
+        timing = {"versions": [{k: h[k] for k in
+                                ("version", "contributors", "taus",
+                                 "weights", "t")}
+                               for h in server.history]}
+        if args.ingest_workers:
+            extra["ingest_workers"] = args.ingest_workers
+            if args.regions:
+                extra["regions"] = args.regions
+            if args.ingest_shm or args.sync_delta:
+                extra["worker_xstats"] = server.worker_xstats()
+            # the workers own the silos' sockets and their byte counts
+            stats = server.worker_byte_stats()
+            timing["upload_stage_ms"] = _stage_summary(
+                server.fanin.merged_snapshot())
     dp = server.dp_report()
     if dp is not None:
         extra["dp"] = dp
-    obs_rules.observe_boundary(int(server.round_idx))
+    if args.async_server:
+        server._observe_health_boundary()
+    else:
+        obs_rules.observe_boundary(int(server.round_idx))
     health_verdict = hrules.verdict()
     obs_rules.disarm()
     obs_actions.disarm()
@@ -1101,8 +1207,8 @@ def _serve(args, device, host_map, quant_spec, recipe_doc, FedAvgServer,
     # the server's own clock: each aggregation's seconds, on the line
     # before the result
     print(json.dumps({"server": str(device),
-                      "aggregate_seconds": server.aggregate_seconds}),
-          flush=True)
+                      "aggregate_seconds": server.aggregate_seconds,
+                      **timing}), flush=True)
     print(json.dumps({"rounds_completed": len(server.history),
                       "clients": args.num_clients,
                       "secure": bool(args.secure),
@@ -1124,6 +1230,81 @@ def _serve(args, device, host_map, quant_spec, recipe_doc, FedAvgServer,
               file=sys.stderr, flush=True)
         return 1
     return 0
+
+
+def _stage_summary(snapshot: dict) -> dict:
+    """The upload-stage histogram (``nidt_upload_stage_ms``) of a merged
+    snapshot, summed over the workers: each stage's count and total ms."""
+    from neuroimagedisttraining_tpu_torch.obs import names as obs_names
+
+    out: dict = {}
+    for cell in snapshot.get(obs_names.UPLOAD_STAGE_MS, {}).get(
+            "values", []):
+        stage = cell["labels"].get("stage")
+        agg = out.setdefault(stage, {"count": 0, "sum_ms": 0.0})
+        agg["count"] += int(cell["value"]["count"])
+        agg["sum_ms"] += float(cell["value"]["sum"])
+    return out
+
+
+def _async_server(args, device, host_map, quant_spec, init, kw):
+    """The asynchronous plane's root: ``BufferedFedAvgServer``, or the
+    sharded ingest root (``--ingest_workers``), or the region tree
+    (``--regions``)."""
+    from neuroimagedisttraining_tpu_torch.asyncfl import (
+        BufferedFedAvgServer,
+    )
+
+    if args.secure_quant:
+        # the buffered server speaks one-phase secure_quant itself
+        kw = {"secure_quant": quant_spec, "defense": args.defense,
+              "norm_bound": args.norm_bound, "stddev": args.stddev,
+              "defense_seed": args.seed, "dp_delta": args.dp_delta}
+    if not args.ingest_workers:
+        server = BufferedFedAvgServer(
+            init, args.comm_round, args.num_clients,
+            buffer_k=args.buffer_k, staleness_alpha=args.staleness_alpha,
+            max_staleness=args.max_staleness, base_port=args.base_port,
+            host_map=host_map, heartbeat_timeout=args.heartbeat_timeout,
+            device=device, **kw)
+        print(f"[server] asyncfl selector control plane on port "
+              f"{args.base_port}; buffer_k={server.buffer_k}, "
+              f"staleness_alpha={args.staleness_alpha}, max_staleness="
+              f"{args.max_staleness}", flush=True)
+        return server
+    ikw = dict(buffer_k=args.buffer_k,
+               staleness_alpha=args.staleness_alpha,
+               max_staleness=args.max_staleness, base_port=args.base_port,
+               host_map=host_map, heartbeat_timeout=args.heartbeat_timeout,
+               trace_out=args.trace_out, flight_out=args.flight_out,
+               use_shm=args.ingest_shm, sync_delta=args.sync_delta,
+               device=device, **kw)
+    if args.regions:
+        from neuroimagedisttraining_tpu_torch.asyncfl.region import (
+            HierarchicalIngestServer,
+        )
+
+        server = HierarchicalIngestServer(
+            init, args.comm_round, args.num_clients, regions=args.regions,
+            workers_per_region=args.ingest_workers, **ikw)
+        topo = (f"{args.regions} regions x {args.ingest_workers} workers "
+                "(hierarchical tier)")
+    else:
+        from neuroimagedisttraining_tpu_torch.asyncfl.ingest import (
+            ShardedIngestServer,
+        )
+
+        server = ShardedIngestServer(
+            init, args.comm_round, args.num_clients,
+            ingest_workers=args.ingest_workers, **ikw)
+        topo = f"{args.ingest_workers} selector workers"
+    print(f"[server] sharded ingest plane on port {args.base_port}: "
+          f"{topo} (SO_REUSEPORT), buffer_k={server.buffer_k}, "
+          f"staleness_alpha={args.staleness_alpha}, max_staleness="
+          f"{args.max_staleness}"
+          + (", shm partial hand-off" if args.ingest_shm else "")
+          + (", delta sync" if args.sync_delta else ""), flush=True)
+    return server
 
 
 if __name__ == "__main__":

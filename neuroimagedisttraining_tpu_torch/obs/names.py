@@ -30,26 +30,26 @@ BYZ_QUARANTINES = "nidt_byz_quarantines_total"
 DP_EPSILON_SILO = "nidt_dp_epsilon_silo"
 
 # -- async buffered server (asyncfl/server.py) --
-ASYNC_UPLOADS = "nidt_async_uploads_total"  # nidt: allow[metric-orphan] -- asyncfl/server.py publishes it (ROADMAP Queue 1 item 4)
+ASYNC_UPLOADS = "nidt_async_uploads_total"
 ASYNC_STALENESS = "nidt_async_staleness"
-ASYNC_BUFFER_OCCUPANCY = "nidt_async_buffer_occupancy"  # nidt: allow[metric-orphan] -- asyncfl/server.py publishes it (ROADMAP Queue 1 item 4)
-ASYNC_BUFFER_K_EFF = "nidt_async_buffer_k_eff"  # nidt: allow[metric-orphan] -- asyncfl/server.py publishes it (ROADMAP Queue 1 item 4)
+ASYNC_BUFFER_OCCUPANCY = "nidt_async_buffer_occupancy"
+ASYNC_BUFFER_K_EFF = "nidt_async_buffer_k_eff"
 
 # -- selector socket core (asyncfl/loop.py) --
-SELECTOR_CONNECTIONS = "nidt_selector_connections"  # nidt: allow[metric-orphan] -- asyncfl/loop.py publishes it (ROADMAP Queue 1 item 4)
-SELECTOR_WRITE_QUEUE = "nidt_selector_write_queue_frames"  # nidt: allow[metric-orphan] -- asyncfl/loop.py publishes it (ROADMAP Queue 1 item 4)
-BACKPRESSURE_STALLS = "nidt_backpressure_stalls_total"  # nidt: allow[metric-orphan] -- asyncfl/loop.py publishes it (ROADMAP Queue 1 item 4)
+SELECTOR_CONNECTIONS = "nidt_selector_connections"
+SELECTOR_WRITE_QUEUE = "nidt_selector_write_queue_frames"
+BACKPRESSURE_STALLS = "nidt_backpressure_stalls_total"
 
 # -- sharded ingest plane (asyncfl/ingest.py) --
-INGEST_HEARTBEATS_SUPPRESSED = "nidt_ingest_heartbeats_suppressed"  # nidt: allow[metric-orphan] -- asyncfl/ingest.py publishes it (ROADMAP Queue 1 item 4)
-INGEST_PENDING_UPLOADS = "nidt_ingest_pending_uploads"  # nidt: allow[metric-orphan] -- asyncfl/ingest.py publishes it (ROADMAP Queue 1 item 4)
-INGEST_WORKERS_LIVE = "nidt_ingest_workers_live"  # nidt: allow[metric-orphan] -- asyncfl/ingest.py publishes it (ROADMAP Queue 1 item 4)
-INGEST_PARTIALS = "nidt_ingest_partials_total"  # nidt: allow[metric-orphan] -- asyncfl/ingest.py publishes it (ROADMAP Queue 1 item 4)
-INGEST_WORKER_UPLOADS = "nidt_ingest_worker_uploads_total"  # nidt: allow[metric-orphan] -- asyncfl/ingest.py publishes it (ROADMAP Queue 1 item 4)
+INGEST_HEARTBEATS_SUPPRESSED = "nidt_ingest_heartbeats_suppressed"
+INGEST_PENDING_UPLOADS = "nidt_ingest_pending_uploads"
+INGEST_WORKERS_LIVE = "nidt_ingest_workers_live"
+INGEST_PARTIALS = "nidt_ingest_partials_total"
+INGEST_WORKER_UPLOADS = "nidt_ingest_worker_uploads_total"
 
 # -- hierarchical aggregation tier (asyncfl/region.py) --
 REGION_STALENESS = "nidt_region_staleness"
-REGION_PARTIAL_AGE = "nidt_region_partial_age_s"  # nidt: allow[metric-orphan] -- asyncfl/region.py publishes it (ROADMAP Queue 1 item 4)
+REGION_PARTIAL_AGE = "nidt_region_partial_age_s"
 
 # -- telemetry fan-in (obs/fanin.py) --
 UPLOAD_STAGE_MS = "nidt_upload_stage_ms"

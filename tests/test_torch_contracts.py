@@ -18,8 +18,8 @@
   reference's; both main CLIs take the control plane's eight flags into
   equal config fields and refuse the same bad values with the same
   messages; both ``distributed/run.py`` parsers refuse the same argv with
-  the same messages and accept the same argv, but for the asynchronous
-  plane's flags, which the port refuses.
+  the same messages and accept the same argv, the asynchronous plane's
+  five flags included.
 """
 
 import json
@@ -307,12 +307,12 @@ def test_port_tree_project_pass_is_clean_and_every_pragma_justified():
 
 
 def test_port_tree_suppressions_are_the_documented_ones():
-    """What the pragmas hide, read before suppression: the 12 metric names
-    of the asynchronous plane's producers still to port (each on a line of
-    its own pragma), the cross-silo runner's smoke-scale defaults (the
-    reference's own pragmas) and the probe's directory name. The transport
-    and synchronous cross-silo series and the two distributed REASONS keys
-    have their producers (``distributed/``) and no pragma."""
+    """What the pragmas hide, read before suppression: the cross-silo
+    runner's smoke-scale defaults (the reference's own pragmas) and the
+    probe's directory name. Every metric name has its producer: the
+    transport and cross-silo series (``distributed/``), the asynchronous
+    plane's selector, buffer, ingest and region series (``asyncfl/``);
+    none carries a pragma."""
     model = PP.build_model(REPO, PORT)
     raw = [f for cls in RULE_REGISTRY.values()
            if issubclass(cls, PP.ProjectRule)
@@ -321,7 +321,7 @@ def test_port_tree_suppressions_are_the_documented_ones():
     for f in raw:
         by_rule.setdefault(f.rule, []).append(f)
     assert sorted(by_rule) == ["flag-config-cross-cli-drift",
-                               "metric-orphan", "metric-undeclared"]
+                               "metric-undeclared"]
     assert sorted(f.message.split()[0] for f in
                   by_rule["flag-config-cross-cli-drift"]) == [
         "--batch_size", "--comm_round", "--data_dir", "--dataset",
@@ -335,10 +335,8 @@ def test_port_tree_suppressions_are_the_documented_ones():
                    for ln in run_py[f.line - 1:f.line + 2]), f
     assert [f.message.split("'")[1] for f in by_rule["metric-undeclared"]
             ] == ["nidt_profile"]
-    names = model.module(f"{PORT}/obs/names.py").source.splitlines()
-    assert len(by_rule["metric-orphan"]) == 12
-    for f in by_rule["metric-orphan"]:
-        assert "# nidt: allow[metric-orphan] -- " in names[f.line - 1], f
+    names = model.module(f"{PORT}/obs/names.py").source
+    assert "allow[metric-orphan]" not in names
 
 
 def test_project_cli_exits_0_and_regen_compat_changes_nothing(tmp_path):
@@ -706,17 +704,38 @@ RUN_ARGV = {
     "async_ingest_accepted": _SRV + ["--async_server", "--ingest_workers",
                                      "2", "--regions", "2", "--ingest_shm",
                                      "--sync_delta"],
+    "accept_async_sq": _SRV + ["--async_server", "--secure_quant",
+                               "--secure_quant_field_bits", "32",
+                               "--ingest_workers", "2", "--regions", "2"],
+    "accept_async_client": ["--role", "client", "--rank", "2",
+                            "--num_clients", "3", "--async_server",
+                            "--buffer_k", "2", "--max_staleness", "4",
+                            "--fault_spec", "straggle:0.5:0.2",
+                            "--wire_codec", "delta+sparse+quant"],
+    "accept_async_ingest_heartbeat": _SRV + [
+        "--async_server", "--ingest_workers", "1", "--sync_delta",
+        "--heartbeat_interval", "0.5", "--heartbeat_timeout", "2"],
+    "ingest_negative": _SRV + ["--async_server", "--ingest_workers", "-1"],
+    "regions_negative": _SRV + ["--async_server", "--ingest_workers", "2",
+                                "--regions", "-1"],
+    "regions_without_async": _SRV + ["--ingest_workers", "2", "--regions",
+                                     "2"],
+    "shm_sync_delta_async_only": _SRV + ["--async_server", "--ingest_shm",
+                                         "--sync_delta"],
+    "ingest_quarantine": _SRV + ["--async_server", "--ingest_workers", "2",
+                                 "--quarantine_rounds", "2"],
+    "async_staleness_negative": _SRV + ["--async_server",
+                                        "--staleness_alpha", "-0.5"],
 }
-#: argv the reference accepts and the port refuses: its asynchronous plane
-NOT_PORTED = ("async_accepted", "async_ingest_accepted")
+#: argv both parsers accept that does not spell ``accept`` in its name
+ACCEPTED = ("async_accepted", "async_ingest_accepted")
 
 
 @pytest.mark.parametrize("case", sorted(RUN_ARGV))
 def test_run_py_parsers_equal_the_reference(case, capsys, monkeypatch):
     """The same argv through both ``distributed/run.py`` parsers: refused
     with equal messages, or accepted by both (the reference's ``main``
-    stops, by a stub, at its first step past the checks); the
-    asynchronous plane's accepted argv is refused by the port alone."""
+    stops, by a stub, at its first step past the checks)."""
     from neuroimagedisttraining_tpu.distributed import run as RR
     from neuroimagedisttraining_tpu.utils import compile_cache
     from neuroimagedisttraining_tpu_torch.distributed import run as PR
@@ -738,11 +757,6 @@ def test_run_py_parsers_equal_the_reference(case, capsys, monkeypatch):
             result = (e.code, err.strip().splitlines()[-1].split(
                 "error: ", 1)[1])
         outcome.append(result)
-    if case in NOT_PORTED:
-        assert outcome[0] == "accepted"
-        assert outcome[1][0] == 2
-        assert "asynchronous plane (asyncfl/) is not yet ported" \
-            in outcome[1][1]
-        return
     assert outcome[0] == outcome[1]
-    assert (outcome[0] == "accepted") == case.startswith("accept")
+    assert (outcome[0] == "accepted") == (case.startswith("accept")
+                                          or case in ACCEPTED)
