@@ -20,6 +20,8 @@
                                      # cross-silo control plane) alone
     python3 chip_smoke.py --async    # kernels, then step 18 (the
                                      # asynchronous plane) alone
+    python3 chip_smoke.py --loadgen  # kernels, then step 19 (the load
+                                     # harness's fleets) alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
@@ -309,7 +311,19 @@
    ``stem_dw``): the audit green, each version within the fold's step
    2^-10 of the plain weighted mean, a mean without silo 3 beyond it. Each
    part's launch counters are 0 just before and read just after.
-19. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+19. The load harness (``loadgen_phase``, ``asyncfl/loadgen.run_load``):
+   simulated clients upload canned trees of the flagship's 2,571,649
+   floats to the port's servers, whose mean runs on ``cuda``: (a) 32
+   clients in 2 fleet processes against ``BufferedFedAvgServer``
+   (``buffer_k 8``, ``max_staleness 8``, 4 aggregations), (b) the same
+   cohort against the round-synchronous server, (c) 16 clients with one
+   permanent crash and stragglers against a cohort-sized buffer, (d) the
+   sharded ingest plane with 2 workers, shared-memory partials and delta
+   syncs. Inside step 16, (e): 16 HTTP clients, 48 requests, against 2
+   workers serving the bf16 flagship bundle. Each part's audits hold, it
+   reached the versions asked for, and its launch counters, 0 just before
+   and read just after (``LG-*``), stay 0 for every kernel.
+20. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -322,7 +336,7 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-20. Prints the run's seconds, one JSON line per kernel, the
+21. Prints the run's seconds, one JSON line per kernel, the
    ``{"kernels": [...]}`` line (each kernel's launches on its main path,
    SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
    run), and last ``{"ok": true, "device": {...}}``.
@@ -4413,6 +4427,8 @@ def serve_phase(card, dev, flagship, build_experiment, by_path: dict) -> None:
         if any(by_path["serve"].values()):
             fail(f"serving launched kernels: {by_path['serve']}")
         obs_compute.PROFILER.reset()
+        # ---- (e) the load harness's serve fleet on the bf16 bundle ----
+        loadgen_serve(card, str(work / "bf16"), by_path)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         free_card()
@@ -5259,6 +5275,162 @@ def async_phase(card, dev, by_path: dict) -> None:
         free_card()
 
 
+#: the load harness's upload: one canned leaf of 2,571,641 floats and the
+#: 8-float bias, the AlexNet3D_Dropout parameter count (2,571,649 floats,
+#: 10.29 MB an upload)
+LG_LEAF_ELEMS = 2_571_641
+#: the load harness's cells (a)-(d): ``run_load``'s arguments
+LG_CELLS = {
+    "a_async": dict(mode="async", num_clients=32, aggregations=4,
+                    buffer_k=8, max_staleness=8, fleet_procs=2),
+    "b_sync": dict(mode="sync", num_clients=32, aggregations=4,
+                   buffer_k=8, max_staleness=8, fleet_procs=1),
+    "c_churn": dict(mode="async", num_clients=16, aggregations=4,
+                    buffer_k=0, fault_spec="crash:3@1,straggle:0.2:0.05",
+                    fleet_procs=1),
+    "d_ingest": dict(mode="ingest", num_clients=12, aggregations=3,
+                     buffer_k=6, ingest_workers=2, ingest_shm=True,
+                     sync_delta=True, upload_local_scale=0.01,
+                     fleet_procs=1),
+}
+#: the serve fleet (e), on the serving phase's bf16 flagship bundle
+LG_SERVE = dict(num_clients=16, serve_workers=2, serve_requests=48,
+                batch_buckets=(1, 2, 4), fleet_procs=1)
+
+
+def lg_no_launches(tag: str, got: dict) -> None:
+    """The load harness trains nothing: every kernel stays at 0."""
+    if any(got.values()):
+        fail(f"loadgen {tag} launched kernels: {got}")
+
+
+def loadgen_phase(card, by_path: dict) -> None:
+    """The load harness on the card (``asyncfl/loadgen.run_load``): simulated
+    clients upload canned trees at the flagship's size (``LG_LEAF_ELEMS``)
+    to the port's servers, whose mean runs on ``cuda``; each part has the
+    launch counters 0 just before and read just after
+    (``by_path["LG-<part>"]``, every kernel at 0):
+
+    (a) ``async``: ``BufferedFedAvgServer``, 32 clients over 2 spawned
+        fleet processes, ``buffer_k 8``, ``max_staleness 8``, 4
+        aggregations;
+    (b) ``sync``: the same cohort against the round-synchronous server
+        (one fleet process: the barrier needs the single fleet), for the
+        p99 version advance of (a) against (b);
+    (c) churn: 16 clients, a cohort-sized buffer, 4 aggregations, client 3
+        crashing for good at version 1 and seeded stragglers: exactly one
+        crash, and the corpse report lets the buffer fill;
+    (d) ``ingest``: 2 worker processes, shared-memory partials, delta
+        syncs, uploads of ``synced + 0.01 x canned``, 3 aggregations: no
+        delta error, delta syncs taken, nothing lost with a worker.
+
+    Each part's audits hold (``frames_reconciled``, ``upload_audit``) and
+    it reached the aggregations asked for."""
+    from neuroimagedisttraining_tpu_torch.asyncfl.loadgen import run_load
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+
+    free_card()
+    t_phase = time.perf_counter()
+    cells = {}
+    for part, kw in LG_CELLS.items():
+        t0 = time.perf_counter()
+        _cuda.reset_counts()
+        res = run_load(leaf_elems=LG_LEAF_ELEMS, seed=0, device="cuda",
+                       **kw)
+        got = by_path[f"LG-{part}"] = _cuda.counts()
+        secs = time.perf_counter() - t0
+        cells[part] = res
+        lg_no_launches(part, got)
+        audit = res["upload_audit"]
+        if not (res["frames_reconciled"] and audit["received_accounted"]
+                and audit["accepted_accounted"]):
+            fail(f"loadgen ({part}): audits {audit}, frames_reconciled "
+                 f"{res['frames_reconciled']}")
+        if res["rounds_or_aggregations"] != res["target"]:
+            fail(f"loadgen ({part}): {res['rounds_or_aggregations']} "
+                 f"versions of {res['target']} asked")
+        cs = res["client_stats"]
+        if part == "c_churn" and cs["crashes"] != 1:
+            fail(f"loadgen (c): {cs['crashes']} crashes, not 1")
+        if part == "d_ingest" and (cs["delta_errors"] != 0
+                                   or cs["delta_syncs"] <= 0
+                                   or res["lost_with_worker"] != 0):
+            fail(f"loadgen (d): delta_errors {cs['delta_errors']}, "
+                 f"delta_syncs {cs['delta_syncs']}, lost_with_worker "
+                 f"{res['lost_with_worker']}")
+        line = {"card": card, "part": part, "seconds": secs,
+                "launches": got, "upload_floats": LG_LEAF_ELEMS + 8,
+                **{k: res[k] for k in (
+                    "mode", "num_clients", "rounds_or_aggregations",
+                    "wall_s", "uploads_sent", "uploads_accepted",
+                    "uploads_per_s", "uploads_per_s_sustained",
+                    "version_advance_p50_ms", "version_advance_p99_ms",
+                    "rtt_ms_p50", "rtt_ms_p99", "peak_connections",
+                    "staleness_hist", "frames_reconciled")},
+                "client_stats": cs}
+        if part == "d_ingest":
+            dense = 4 * (LG_LEAF_ELEMS + 8)
+            per_sync = (cs["sync_body_bytes"] / cs["sync_bodies"]
+                        if cs["sync_bodies"] else None)
+            line["sync_bytes"] = {
+                "per_changed_sync": per_sync, "dense_tree_bytes": dense,
+                "delta_over_dense": (per_sync / dense if per_sync
+                                     else None),
+                "worker_xstats": res["worker_xstats"]}
+        print(json.dumps({"loadgen": line}))
+    a, b = cells["a_async"], cells["b_sync"]
+    print(json.dumps({"loadgen_async_vs_sync": {
+        "card": card,
+        "p99_advance_ms_async": a["version_advance_p99_ms"],
+        "p99_advance_ms_sync": b["version_advance_p99_ms"],
+        "uploads_per_s_sustained_async": a["uploads_per_s_sustained"],
+        "uploads_per_s_sustained_sync": b["uploads_per_s_sustained"],
+        "peak_connections": [a["peak_connections"],
+                             b["peak_connections"]]}}))
+    print(json.dumps({"loadgen_seconds": time.perf_counter() - t_phase}))
+    free_card()
+
+
+def loadgen_serve(card, bundle: str, by_path: dict) -> None:
+    """(e) of the load harness, inside the serving phase: 16 HTTP clients,
+    48 requests, against 2 serving workers of the flagship bf16 bundle on
+    the card (``run_load("serve")``), with the launch counters 0 just before
+    and read just after (``by_path["LG-e_serve"]``, every kernel at 0): all
+    48 served, the audits reconciled, each worker capturing one graph a
+    (model, bucket) and never again (against the merged
+    ``nidt_compiles_total{engine="serve"}``), the two sites served by
+    different models, both workers' samples in the merged scrape."""
+    from neuroimagedisttraining_tpu_torch.asyncfl.loadgen import run_load
+    from neuroimagedisttraining_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    _cuda.reset_counts()
+    res = run_load("serve", serve_bundle=bundle, seed=0, device="cuda",
+                   **LG_SERVE)
+    got = by_path["LG-e_serve"] = _cuda.counts()
+    secs = time.perf_counter() - t0
+    print(json.dumps({"loadgen": {
+        "card": card, "part": "e_serve", "seconds": secs, "launches": got,
+        **{k: res[k] for k in (
+            "wall_s", "requests_sent", "requests_ok", "requests_rejected",
+            "client_errors", "requests_per_s", "rtt_ms_p50", "rtt_ms_p99",
+            "dispatches", "batches", "batch_occupancy", "compiles_total",
+            "recompiles_total", "compile_pin_ok", "routing",
+            "frames_reconciled", "merged_metrics")}}}))
+    lg_no_launches("e_serve", got)
+    if not res["frames_reconciled"]:
+        fail(f"loadgen (e): audit {res['serve_audit']}")
+    if res["requests_ok"] != LG_SERVE["serve_requests"]:
+        fail(f"loadgen (e): {res['requests_ok']} of "
+             f"{LG_SERVE['serve_requests']} requests served")
+    if not res["compile_pin_ok"]:
+        fail(f"loadgen (e): capture pin {res['compiled_programs']}")
+    if not res["routing"]["distinct_site_models"]:
+        fail(f"loadgen (e): routing {res['routing']}")
+    if res["merged_metrics"]["worker_labeled"] != [0, 1]:
+        fail(f"loadgen (e): merged scrape {res['merged_metrics']}")
+
+
 MAIN_PATH = {"stem_dw_bf16": "salientgrads_bf16"}
 
 
@@ -5300,6 +5472,7 @@ def main(argv: list[str]) -> int:
     only_serve = "--serve" in argv
     only_cross = "--cross-silo" in argv
     only_async = "--async" in argv
+    only_loadgen = "--loadgen" in argv
     import numpy as np
     import torch
 
@@ -5918,6 +6091,10 @@ def main(argv: list[str]) -> int:
             async_phase(card, dev, by_path)
             lap("phase")
             return finish(rows, by_path, started, laps)
+        if only_loadgen:
+            loadgen_phase(card, by_path)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
 
         cfg = flagship("salientgrads")
         t0 = time.perf_counter()
@@ -6307,6 +6484,10 @@ def main(argv: list[str]) -> int:
         # ---- the asynchronous plane: buffered, sharded, regions ----
         async_phase(card, dev, by_path)
         lap("async")
+
+        # ---- the load harness: async, sync, churn, ingest fleets ----
+        loadgen_phase(card, by_path)
+        lap("loadgen")
 
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",

@@ -574,7 +574,9 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
     partition_info)``; ``partition_info["file"]`` is the HDF5 file a
     streamed run reads, for the caller to close (None otherwise). The
     engine gets the run's device mesh (:func:`build_mesh`), and a resident
-    federation is padded to a multiple of its size."""
+    federation is padded to a multiple of its size. With ``cfg.log_dir``
+    the experiment log's first line is the resolved config
+    (``cfg.to_json()``)."""
     from neuroimagedisttraining_tpu_torch.core.optim import (
         compute_dtype, resolve_remat,
     )
@@ -592,7 +594,14 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
     from neuroimagedisttraining_tpu_torch.data.vision import federate_vision
     from neuroimagedisttraining_tpu_torch.device import resolve_device
     from neuroimagedisttraining_tpu_torch.models import create_model
+    from neuroimagedisttraining_tpu_torch.utils.logging import (
+        ExperimentLogger,
+    )
 
+    if cfg.log_dir:
+        # the engine's logger of the same identity appends after this line
+        ExperimentLogger(cfg.log_dir, cfg.data.dataset, cfg.identity()
+                         ).info("config: %s", cfg.to_json())
     dev = resolve_device(device)
     mesh = build_mesh(cfg, dev, streaming)
     mesh_size = mesh.devices.size if mesh is not None else 1
@@ -790,7 +799,7 @@ def main(argv: list[str] | None = None) -> int:
         return profile_session(args)
     engine, info = build_experiment(cfg, args.device,
                                     streaming=args.streaming)
-    logging.info("partition: %s", json.dumps(info["train_counts"]))
+    engine.announce.info("partition: %s", json.dumps(info["train_counts"]))
     return run(engine, info, cfg, args, recipe_doc)
 
 

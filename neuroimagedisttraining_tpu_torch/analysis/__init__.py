@@ -7,8 +7,16 @@ machine-checked rules, run as a tier-1 gate
 (``--project``) checks the cross-file contracts — flag<->config
 lockstep, metric-name, fallback-reason, recipe-key and reflex-action
 closure, and the compatibility matrix as data (``analysis/project.py``
-+ ``analysis/contracts.py``). The per-file pass runs the ``pragma`` rule;
-the port's per-file families are still to come.
++ ``analysis/contracts.py``). The per-file pass runs the ``pragma`` rule
+and six families with the reference's ids: ``async_discipline`` (no
+blocking call in an ``asyncfl/`` coroutine), ``lock_discipline`` (sends
+and shared maps under a lock in ``distributed/``, ``faults/`` and
+``asyncfl/``), ``shm_discipline`` (shared-memory owners and attachers),
+``determinism`` (numpy's global stream and unseeded generators),
+``privacy_discipline`` (torch stream roots in ``privacy/``, inline weak-DP
+noise) and ``health_discipline`` (metric-name literals outside ``obs/``).
+The families that check captured step graphs, the engine contract and
+the round program are still to come.
 
 CLI::
 
@@ -34,9 +42,15 @@ from neuroimagedisttraining_tpu_torch.analysis.core import (  # noqa: F401
     register,
 )
 
-# importing the rule module registers every project family
+# importing the rule modules registers every rule family
 from neuroimagedisttraining_tpu_torch.analysis import (  # noqa: E402,F401
+    async_discipline,
     contracts,
+    determinism,
+    health_discipline,
+    lock_discipline,
+    privacy_discipline,
+    shm_discipline,
 )
 
 from neuroimagedisttraining_tpu_torch.analysis.project import (  # noqa: E402,F401

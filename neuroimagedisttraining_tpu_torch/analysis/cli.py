@@ -21,9 +21,10 @@ Beyond the per-file pass:
   torch): a script's gate before it hands a manifest to
   ``--health_rules``.
 
-The per-file pass runs the ``pragma`` rule only: the port's per-file rule
-families (capture safety, host syncs in a window, global RNG, the engine
-contract) are still to come.
+The per-file pass runs the ``pragma`` rule and the async, lock, shm,
+determinism, privacy and health families (the reference's ids); the
+families of captured steps, the engine contract and the round program are
+still to come.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m neuroimagedisttraining_tpu_torch.analysis",
         description=("nidtlint: AST invariant checker of the port: the "
-                     "pragma pass over paths, plus the --project "
+                     "per-file families over paths, plus the --project "
                      "whole-program contract pass"))
     p.add_argument("paths", nargs="*",
                    help="files or directories to lint")

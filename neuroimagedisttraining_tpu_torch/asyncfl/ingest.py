@@ -964,12 +964,12 @@ class _IngestWorkerProc(Observer):
             # heartbeats ride the same flush cadence as the verdict
             # batches but are ordering-independent of the audit (only
             # vb-before-partial is an invariant)
-            self.conn.send(("beats", self.wid,
+            self.conn.send(("beats", self.wid,  # nidt: allow[lock-send] -- every caller holds self._lock (the _locked suffix contract); the one pipe has no other writer thread outside it
                             sorted(self._beats_pending)))
             self._beats_pending.clear()
         if not self._vb_n:
             return
-        self.conn.send(("vb", self.wid, self._vb_counts, self._vb_taus,
+        self.conn.send(("vb", self.wid, self._vb_counts, self._vb_taus,  # nidt: allow[lock-send] -- every caller holds self._lock (the _locked suffix contract); the one pipe has no other writer thread outside it
                         self._vb_marks))
         self._vb_counts, self._vb_taus, self._vb_n = {}, [], 0
         self._vb_marks = {}
@@ -980,7 +980,7 @@ class _IngestWorkerProc(Observer):
         ship so the root's merged artifacts include the tail)."""
         payload = self._shipper.payload(force=force)
         if payload is not None:
-            self.conn.send(("obs", self.wid, payload))
+            self.conn.send(("obs", self.wid, payload))  # nidt: allow[lock-send] -- caller holds self._lock (the _locked suffix contract); the one pipe has no other writer thread outside it
 
     def run(self) -> None:
         self._pipe_thread.start()
@@ -1052,7 +1052,7 @@ class _IngestWorkerProc(Observer):
         t0 = time.perf_counter_ns()
         payload = self.core.export_partial()
         if payload is None:
-            self.conn.send(("partial", self.wid, seq, None,
+            self.conn.send(("partial", self.wid, seq, None,  # nidt: allow[lock-send] -- caller holds self._lock (the _locked suffix contract); the one pipe has no other writer thread outside it
                             dict(self.core.stats)))
             return
         if self._slabs and self._free_slabs:
@@ -1062,7 +1062,7 @@ class _IngestWorkerProc(Observer):
                 payload["w_int"], payload["count"])
             ctrl = {"shm": idx, "gen": gen,
                     "entries": payload["entries"]}
-            self.conn.send(("partial", self.wid, seq, ctrl,
+            self.conn.send(("partial", self.wid, seq, ctrl,  # nidt: allow[lock-send] -- caller holds self._lock (the _locked suffix contract); the one pipe has no other writer thread outside it
                             dict(self.core.stats)))
             self._xstats["shm_exports"] += 1
             self._xstats["shm_export_ns"] += \
@@ -1070,7 +1070,7 @@ class _IngestWorkerProc(Observer):
             return
         if self._slabs:
             self._xstats["shm_fallback_busy"] += 1
-        self.conn.send(("partial", self.wid, seq, payload,
+        self.conn.send(("partial", self.wid, seq, payload,  # nidt: allow[lock-send] -- caller holds self._lock (the _locked suffix contract); the one pipe has no other writer thread outside it
                         dict(self.core.stats)))
         self._xstats["pipe_exports"] += 1
         self._xstats["pipe_export_ns"] += time.perf_counter_ns() - t0
@@ -1465,7 +1465,7 @@ class ShardedIngestServer(BufferedFedAvgServer):
         for wid, w in self._workers.items():
             self._register_fanin(wid)
             try:
-                w["conn"].send(("clock", time.perf_counter_ns()))
+                w["conn"].send(("clock", time.perf_counter_ns()))  # nidt: allow[lock-send] -- ctor is single-threaded: the event loop and monitor threads do not exist yet
             except (BrokenPipeError, OSError):
                 pass
         deadline = time.monotonic() + 2.0
@@ -1704,7 +1704,7 @@ class ShardedIngestServer(BufferedFedAvgServer):
                 inc = int(ev[3])
                 floor = self._watermarks.register(c, inc)
                 try:
-                    w["conn"].send(("seqfloor", c, inc, floor))
+                    w["conn"].send(("seqfloor", c, inc, floor))  # nidt: allow[lock-send] -- caller holds _rlock (method contract) and the event loop is the ONLY thread that ever writes a worker pipe
                 except (BrokenPipeError, OSError):
                     self._mark_worker_dead_locked(wid,
                                                   "seqfloor send failed")
@@ -1776,7 +1776,7 @@ class ShardedIngestServer(BufferedFedAvgServer):
         idx = int(ctrl["shm"])
         flat, w_int, count = w["shm"][idx].read(ctrl["gen"])
         try:
-            w["conn"].send(("shm_ack", idx))
+            w["conn"].send(("shm_ack", idx))  # nidt: allow[lock-send] -- caller holds _rlock (method contract) and the event loop is the ONLY thread that ever writes a worker pipe
         except (BrokenPipeError, OSError):
             pass  # death surfaces on the sentinel; the copy is ours
         segs = np.split(flat, self._fold_splits)
@@ -1811,7 +1811,7 @@ class ShardedIngestServer(BufferedFedAvgServer):
         waiting = set()
         for wid in self.live_workers():
             try:
-                self._workers[wid]["conn"].send(
+                self._workers[wid]["conn"].send(  # nidt: allow[lock-send] -- caller holds _rlock (method contract) and the event loop is the ONLY thread that ever writes a worker pipe
                     ("flush", self._harvest_seq))
                 waiting.add(wid)
             except (BrokenPipeError, OSError):
@@ -1901,7 +1901,7 @@ class ShardedIngestServer(BufferedFedAvgServer):
             return
         for wid in self.live_workers():
             try:
-                self._workers[wid]["conn"].send(
+                self._workers[wid]["conn"].send(  # nidt: allow[lock-send] -- caller holds _rlock (method contract) and the event loop is the ONLY thread that ever writes a worker pipe
                     ("model", self.round_idx, self.params))
             except (BrokenPipeError, OSError):
                 self._mark_worker_dead_locked(wid, "model send failed")
@@ -1961,7 +1961,7 @@ class ShardedIngestServer(BufferedFedAvgServer):
         self._finishing = True
         for wid in self.live_workers():
             try:
-                self._workers[wid]["conn"].send(
+                self._workers[wid]["conn"].send(  # nidt: allow[lock-send] -- caller holds _rlock (method contract) and the event loop is the ONLY thread that ever writes a worker pipe
                     ("finish",))
             except (BrokenPipeError, OSError):
                 self._mark_worker_dead_locked(wid, "finish send failed")

@@ -155,7 +155,7 @@ class _RegionRelay:
             if cmd is None:
                 return
             try:
-                conn.send(cmd)
+                conn.send(cmd)  # nidt: allow[lock-send] -- this thread is the one writer of its worker's pipe: every command reaches it through the worker's queue
             except (BrokenPipeError, OSError):
                 return
 
@@ -173,15 +173,15 @@ class _RegionRelay:
             self._upq.append(ev)
             return
         try:
-            self.conn.send(ev)
+            self.conn.send(ev)  # nidt: allow[lock-send] -- the region relay's loop thread is the one writer of the upstream pipe, sequentially
         except (BrokenPipeError, OSError):
             self._on_root_gone("upstream send failed")
 
     def _announce_ready(self) -> None:
-        self.conn.send(("ready", self.rid))
+        self.conn.send(("ready", self.rid))  # nidt: allow[lock-send] -- the region relay's loop thread is the one writer of the upstream pipe, sequentially
         self._announced = True
         for ev in self._upq:
-            self.conn.send(ev)
+            self.conn.send(ev)  # nidt: allow[lock-send] -- the region relay's loop thread is the one writer of the upstream pipe, sequentially
         self._upq = []
         log.info("ingest region %d: %d workers ready", self.rid,
                  self.wpr)

@@ -11,6 +11,8 @@ defense, fault, DP, wire codec or secure quantized aggregation).
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 
 #: the functions that refuse a configuration at startup beyond the CLI's
@@ -257,3 +259,18 @@ class ExperimentConfig:
             f"dr{s.dense_ratio}", f"seed{self.seed}", self.tag,
         ]
         return "_".join(str(p) for p in parts)
+
+    def to_json(self) -> str:
+        """The resolved config as one JSON line (the experiment log's
+        first line). A field only the port has (:data:`PORT_ONLY_FIELDS`)
+        appears only where it differs from its default, so a config the
+        reference can hold gives the reference's string."""
+        d = dataclasses.asdict(self)
+        for name in PORT_ONLY_FIELDS:
+            if d[name] == getattr(ExperimentConfig, name):
+                del d[name]
+        return json.dumps(d, default=str, sort_keys=True)
+
+
+#: ``ExperimentConfig`` fields the reference's config does not have
+PORT_ONLY_FIELDS = ("virtual_devices",)

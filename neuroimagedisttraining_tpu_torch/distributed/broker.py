@@ -40,7 +40,7 @@ def _write_frame(conn: socket.socket, op: int, topic: str,
                  payload: bytes = b"") -> None:
     t = topic.encode()
     # every caller holds the destination socket's write lock
-    conn.sendall(_HDR.pack(op, len(t), len(payload)) + t + payload)
+    conn.sendall(_HDR.pack(op, len(t), len(payload)) + t + payload)  # nidt: allow[lock-send] -- frame-atomicity helper: every caller holds the destination socket's write lock (contract above)
 
 
 def _read_frame(conn: socket.socket) -> tuple[int, str, bytes] | None:

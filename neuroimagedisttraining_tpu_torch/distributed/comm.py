@@ -242,7 +242,7 @@ class SocketCommManager(QueueDispatchMixin, BaseCommManager):
         for attempt in range(retries):  # receiver may not be listening yet
             try:
                 with socket.create_connection(addr, timeout=10.0) as conn:
-                    conn.sendall(frame)  # a fresh connection: no other writer
+                    conn.sendall(frame)  # nidt: allow[lock-send] -- conn is a fresh per-frame connection local to this call; no concurrent writer exists
                 self._count_sent(len(frame))
                 return
             except OSError as e:

@@ -250,6 +250,8 @@ class FederatedEngine:
                              else tuple(stream.sample_shape))
         self._walks: list[tuple[str, tuple]] = []
         self.perms_for = perms_for
+        #: the experiment log (``LOG/<dataset>/<identity>.log``), None
+        #: without a log dir
         self.log = (ExperimentLogger(cfg.log_dir, cfg.data.dataset,
                                      cfg.identity())
                     if cfg.log_dir else None)
@@ -284,6 +286,13 @@ class FederatedEngine:
         self._init_defended_round(stream)
         self._init_dispatch()
 
+    @property
+    def announce(self):
+        """Where the engine's announcements go: the experiment log (its file
+        and console echo) where a log dir is set, else this module's
+        logger."""
+        return self.log if self.log is not None else log
+
     def _init_dispatch(self) -> None:
         """The startup checks of ``--client_mesh`` and
         ``--rounds_per_dispatch``, with the reference's messages: a mesh of
@@ -309,7 +318,7 @@ class FederatedEngine:
             key = self.program.cohort_fallback_key()
             if key is None:
                 self._cohort_on = True
-                log.info(
+                self.announce.info(
                     "client_mesh=%d: cohort sharding armed — the sampled-"
                     "client axis of every round shards over the "
                     "%d-device mesh (pad rows zero-weighted; "
@@ -317,14 +326,14 @@ class FederatedEngine:
             else:
                 round_program.report_fallback(
                     self.name, key, "client_mesh=%d requested; running the "
-                    "unsharded round program", cm)
+                    "unsharded round program", cm, sink=self.log)
         if f.rounds_per_dispatch > 1:
             key = self.fused_fallback_key()
             if key is not None:
                 round_program.report_fallback(
                     self.name, key, "rounds_per_dispatch=%d requested; "
                     "dispatching one round at a time",
-                    f.rounds_per_dispatch)
+                    f.rounds_per_dispatch, sink=self.log)
 
     # ---------- the round program (engines/program.py) ----------
 
@@ -407,7 +416,8 @@ class FederatedEngine:
             with obs_trace.span("checkpoint", round=round_idx):
                 path = ckpt.save_checkpoint(self.cfg.checkpoint_dir,
                                             round_idx, state)
-            log.info("checkpoint saved: round %d -> %s", round_idx, path)
+            self.announce.info("checkpoint saved: round %d -> %s", round_idx,
+                               path)
 
     def restore_checkpoint(self) -> tuple[int, dict | None]:
         """``(start_round, state)``: the round to resume at and the state
@@ -423,7 +433,7 @@ class FederatedEngine:
         gen = state.pop("generator", None)
         if gen is not None:
             self.trainer.generator.set_state(gen)
-        log.info("resuming from checkpoint: round %d", round_idx + 1)
+        self.announce.info("resuming from checkpoint: round %d", round_idx + 1)
         return round_idx + 1, self._ckpt_decode(state)
 
     def ckpt_extra(self) -> dict:
@@ -575,7 +585,7 @@ class FederatedEngine:
         """A single round's cohort, logged (None for an engine that trains
         every client)."""
         sampled = self.client_sampling(round_idx)
-        log.info("round %d: clients %s", round_idx, sampled.tolist())
+        self.announce.info("round %d: clients %s", round_idx, sampled.tolist())
         return sampled
 
     def read_host(self, values: list[torch.Tensor]) -> list:
@@ -608,10 +618,10 @@ class FederatedEngine:
             bad = row.get("n_bad", 0.0)
             if bad:
                 self.stat_info["nonfinite_uploads"] += bad
-                log.warning("round %d: %d non-finite uploads %s",
-                            round_idx + r, int(bad),
-                            "dropped" if self.sq_spec is None else
-                            "folded as the zero residue")
+                self.announce.warning("round %d: %d non-finite uploads %s",
+                                      round_idx + r, int(bad),
+                                      "dropped" if self.sq_spec is None else
+                                      "folded as the zero residue")
             health = {k: row.pop(k) for k in keys if k.startswith("h_")}
             if health:
                 obs_health.publish_round_stats(self.name, round_idx + r,
@@ -785,8 +795,8 @@ class FederatedEngine:
         if total == per_round:
             sampled = np.arange(total)
         else:
-            np.random.seed(round_idx)
-            sampled = np.sort(np.random.choice(range(total), per_round,
+            np.random.seed(round_idx)  # nidt: allow[determinism-global-random] -- reference-parity shim (fedavg_api.py:92-100)
+            sampled = np.sort(np.random.choice(range(total), per_round,  # nidt: allow[determinism-global-random] -- reference-parity shim (fedavg_api.py:92-100)
                                                replace=False))
         if self.fault_schedule is not None:
             # crashed clients (rank = index + 1) leave the cohort; the
@@ -980,8 +990,9 @@ class FederatedEngine:
                 self.name, per_round, precision=self.cfg.optim.precision,
                 device_name=None if self.device.type == "cuda" else "cpu")
         except Exception as e:  # noqa: BLE001 — MFU is best-effort
-            log.info("compute profiler: analytic FLOPs unavailable for "
-                     "this model (%s); nidt_mfu stays unpublished", e)
+            self.announce.info("compute profiler: analytic FLOPs unavailable "
+                               "for this model (%s); nidt_mfu stays "
+                               "unpublished", e)
 
     def _dump_metrics_jsonl(self, round_idx: int) -> None:
         """One registry record a round into ``--metrics_out``, with the
@@ -1114,9 +1125,10 @@ class FederatedEngine:
         until = r + 1 + self._REFLEX_QUARANTINE_ROUNDS
         self._quarantine_windows.setdefault(offender, []).append(
             (r + 1, until))
-        log.warning("reflex: client %d quarantined rounds [%d, %d) (rule "
-                    "%s, min leave-one-out cosine %.3f)", offender, r + 1,
-                    until, rule, float(cos[:n].min()))
+        self.announce.warning(
+            "reflex: client %d quarantined rounds [%d, %d) (rule %s, min "
+            "leave-one-out cosine %.3f)", offender, r + 1, until, rule,
+            float(cos[:n].min()))
         return {"client": offender, "from_round": r + 1, "until": until,
                 "cos": float(cos[:n].min())}
 
@@ -1150,8 +1162,8 @@ class FederatedEngine:
                 return {"status": "skipped", "reason": str(e)}
         self._defense_override = nxt
         self._invalidate_round_programs()
-        log.warning("reflex: defense escalated %s -> %s (rule %s); the "
-                    "step graphs are dropped", cur, nxt, rule)
+        self.announce.warning("reflex: defense escalated %s -> %s (rule %s); "
+                              "the step graphs are dropped", cur, nxt, rule)
         return {"from": cur, "to": nxt}
 
     def _act_freeze_rollback(self, *, rule: str, round_idx: int | None,
@@ -1185,10 +1197,10 @@ class FederatedEngine:
                 obs_flight.record("rollback", rule=pend.get("rule"),
                                   round=int(round_idx),
                                   pin_round=int(pin["round"]))
-                log.warning("reflex: rolled back to the healthy state of "
-                            "round %d at boundary %d (rule %s); codec EF "
-                            "reset", pin["round"], round_idx,
-                            pend.get("rule"))
+                self.announce.warning(
+                    "reflex: rolled back to the healthy state of round %d "
+                    "at boundary %d (rule %s); codec EF reset",
+                    pin["round"], round_idx, pend.get("rule"))
             return params, bstats
         bus = obs_actions.active()
         if bus is not None and bus.mode == "on":
@@ -1246,11 +1258,11 @@ class FederatedEngine:
         start, restored = self.restore_checkpoint()
         if restored is not None:
             self._wire_ef = {}  # as a fresh process's resume
-        log.warning("preemption at round %d (scheduled @%d): mesh shrunk "
-                    "%d -> %d entries; resuming from %s", round_idx, at,
-                    old, ndev, (f"checkpoint round {start}"
-                                if restored is not None else
-                                "live state (no checkpoint configured)"))
+        self.announce.warning(
+            "preemption at round %d (scheduled @%d): mesh shrunk %d -> %d "
+            "entries; resuming from %s", round_idx, at, old, ndev,
+            (f"checkpoint round {start}" if restored is not None else
+             "live state (no checkpoint configured)"))
         obs_actions.record_action(
             "shrink_mesh", rule="device-loss", round_idx=round_idx,
             detail={"devices_before": int(old), "devices_after": int(ndev),
@@ -1271,9 +1283,10 @@ class FederatedEngine:
         loss_h, bad_h = self.read_host([loss, n_bad])
         if bad_h:
             self.stat_info["nonfinite_uploads"] += bad_h
-            log.warning("round %d: %d non-finite uploads %s", round_idx,
-                        int(bad_h), "dropped" if self.sq_spec is None else
-                        "folded as the zero residue")
+            self.announce.warning(
+                "round %d: %d non-finite uploads %s", round_idx, int(bad_h),
+                "dropped" if self.sq_spec is None else
+                "folded as the zero residue")
         return loss_h
 
     def masks_nnz(self, masks: list[State]) -> torch.Tensor:
@@ -1293,16 +1306,18 @@ class FederatedEngine:
                 self.name, round_idx, float(np.mean(nnz) / per_client))
         return nnz
 
-    @staticmethod
-    def warn_collapsed(nnz, round_idx: int) -> np.ndarray:
+    def warn_collapsed(self, nnz, round_idx: int) -> np.ndarray:
         """Logs a warning naming every client whose mask kept none of the
         host counts ``nnz`` (a NaN in the weights or gradients ranks every
         entry out)."""
         nnz = np.asarray(nnz)
         if (nnz == 0).any():
-            log.warning("round %d: clients %s have an empty mask (0 kept "
-                        "weights); check their local losses for divergence",
-                        round_idx, np.flatnonzero(nnz == 0).tolist())
+            self.announce.warning(
+                "round %d: clients %s evolved an EMPTY mask (0 surviving "
+                "weights) — a NaN in params/gradients poisons the "
+                "fire/regrow magnitude ranks into all-False; check the "
+                "local losses of these clients for divergence",
+                round_idx, np.flatnonzero(nnz == 0).tolist())
         return nnz
 
     def metrics(self, round_idx: int, **values) -> None:
@@ -1339,7 +1354,7 @@ class FederatedEngine:
                 return silo_then_global_mean(states, w, self.mesh)
             if not getattr(self, "_warned_flat_fallback", False):
                 self._warned_flat_fallback = True
-                log.info(
+                self.announce.info(
                     "two-level mesh: sampled-client axis (%d) does not "
                     "tile the %d-device grid; falling back to the FLAT "
                     "weighted mean (same result, but aggregation will NOT "
@@ -1432,10 +1447,11 @@ class FederatedEngine:
         mult, std, nan = adversary.plan_arrays(sched, round_idx, ranks)
         bad = np.flatnonzero((mult != 1.0) | (std != 0.0) | nan)
         if bad.size:
-            log.info("round %d: clients %s upload BYZANTINE values (%s)",
-                     round_idx, np.asarray(sampled)[bad].tolist(),
-                     [sched.byzantine_kind(round_idx, int(r))
-                      for r in ranks[bad]])
+            self.announce.info(
+                "round %d: clients %s upload BYZANTINE values (%s)",
+                round_idx, np.asarray(sampled)[bad].tolist(),
+                [sched.byzantine_kind(round_idx, int(r))
+                 for r in ranks[bad]])
         return mult, std, nan
 
     def wire_masks(self, ref: State) -> State | None:
@@ -1610,7 +1626,7 @@ class FederatedEngine:
         seen = self.__dict__.setdefault("_warned", set())
         if msg not in seen:
             seen.add(msg)
-            log.warning(msg)
+            self.announce.warning(msg)
 
     # ---------- privacy accounting ----------
 
@@ -1632,7 +1648,7 @@ class FederatedEngine:
         if weak and (f.stddev <= 0 or f.norm_bound <= 0):
             if not getattr(self, "_warned_dp_disabled", False):
                 self._warned_dp_disabled = True
-                log.warning(
+                self.announce.warning(
                     "weak_dp with stddev=%s/norm_bound=%s adds no "
                     "accountable noise — epsilon is infinite; the "
                     "accountant records nothing", f.stddev, f.norm_bound)

@@ -39,7 +39,6 @@ at each client's ERK densities plus the dense probe.
 
 from __future__ import annotations
 
-import logging
 import time
 
 import numpy as np
@@ -51,7 +50,6 @@ from neuroimagedisttraining_tpu_torch.faults.schedule import activity_mask
 from neuroimagedisttraining_tpu_torch.ops import flops as flops_ops
 from neuroimagedisttraining_tpu_torch.ops import masks as M
 
-log = logging.getLogger(__name__)
 
 DIFF_SPA_CYCLE = (0.2, 0.4, 0.6, 0.8, 1.0)
 
@@ -297,8 +295,8 @@ class DisPFLEngine(FederatedEngine):
             self.plan_walks(r)
             active = self.active_draw(r)
             A = self.adjacency(r, active)
-            log.info("round %d: active %s", r,
-                     np.flatnonzero(active[:real]).tolist())
+            self.announce.info("round %d: active %s", r,
+                               np.flatnonzero(active[:real]).tolist())
             t0 = time.perf_counter()
             (per_params, per_bstats, masks_local, masks_shared, dist_self,
              loss) = self.run_round(r, per_params, per_bstats, masks_local,
@@ -324,7 +322,7 @@ class DisPFLEngine(FederatedEngine):
                 history.append({"round": r, "train_loss": loss_h,
                                 "personal_acc": mp["acc"],
                                 "mask_change": change})
-                log.info("round %d: %s", r, history[-1])
+                self.announce.info("round %d: %s", r, history[-1])
             self.publish_stat_info(r)
             self.maybe_checkpoint(r, {
                 "per_params": per_params, "per_bstats": per_bstats,

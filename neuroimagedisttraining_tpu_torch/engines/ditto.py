@@ -19,15 +19,12 @@ asked for the personal track's permutations with ``track="personal"``.
 
 from __future__ import annotations
 
-import logging
 
 import torch
 
 from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
 from neuroimagedisttraining_tpu_torch.engines.program import RoundStages
-
-log = logging.getLogger(__name__)
 
 
 class DittoEngine(FederatedEngine):
@@ -92,7 +89,7 @@ class DittoEngine(FederatedEngine):
                 history.append({"round": r, "train_loss": row["loss"],
                                 "personal_acc": m["acc"],
                                 "global_acc": mg["acc"]})
-                log.info("round %d: %s", r, history[-1])
+                self.announce.info("round %d: %s", r, history[-1])
 
         start, carry = self.resume(
             (params, bstats, per_params, per_bstats), history)

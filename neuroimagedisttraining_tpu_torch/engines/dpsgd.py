@@ -33,7 +33,6 @@ generator. ``stat_info`` records the global accuracy at each evaluation.
 
 from __future__ import annotations
 
-import logging
 
 import numpy as np
 import torch
@@ -42,7 +41,6 @@ from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
 from neuroimagedisttraining_tpu_torch.engines.program import RoundStages
 
-log = logging.getLogger(__name__)
 
 #: the fine-tune-from-global pass runs after rounds ``r % FINETUNE_EVERY ==
 #: FINETUNE_EVERY - 1``
@@ -58,10 +56,10 @@ def benefit_choose(round_idx: int, cur_clnt: int, total: int,
         return np.arange(total)
     if cs == "random":
         num = min(per_round, total)
-        np.random.seed(round_idx + cur_clnt)
-        idx = np.random.choice(range(total), num, replace=False)
+        np.random.seed(round_idx + cur_clnt)  # nidt: allow[determinism-global-random] -- reference-parity shim (dpsgd_api.py:116-139)
+        idx = np.random.choice(range(total), num, replace=False)  # nidt: allow[determinism-global-random] -- reference-parity shim (dpsgd_api.py:116-139)
         while cur_clnt in idx:
-            idx = np.random.choice(range(total), num, replace=False)
+            idx = np.random.choice(range(total), num, replace=False)  # nidt: allow[determinism-global-random] -- reference-parity shim (dpsgd_api.py:116-139)
         return idx
     if cs == "ring":
         return np.asarray([(cur_clnt - 1) % total, (cur_clnt + 1) % total])
@@ -90,7 +88,7 @@ class DPSGDEngine(FederatedEngine):
         return r % FINETUNE_EVERY == FINETUNE_EVERY - 1
 
     def round_sampling(self, round_idx):
-        log.info("round %d: decentralized cohort", round_idx)
+        self.announce.info("round %d: decentralized cohort", round_idx)
         return None
 
     def mixing_matrix(self, round_idx: int) -> np.ndarray:
@@ -213,20 +211,20 @@ class DPSGDEngine(FederatedEngine):
                 history.append({"round": r, "train_loss": row["loss"],
                                 "global_acc": mg["acc"],
                                 "personal_acc": mp["acc"]})
-                log.info("round %d: %s", r, history[-1])
+                self.announce.info("round %d: %s", r, history[-1])
             if (self._finetune_hooked(r) and self.stream is not None
                     and not warned_skip):
                 warned_skip = True
-                log.info("streaming run: skipping the every-100-rounds "
-                         "fine-tune DIAGNOSTIC pass (its models are "
-                         "evaluated then discarded; no training state "
-                         "depends on it)")
+                self.announce.info(
+                    "streaming run: skipping the every-100-rounds "
+                    "fine-tune DIAGNOSTIC pass (its models are evaluated "
+                    "then discarded; no training state depends on it)")
             if self._finetune_hooked(r) and self.stream is None:
                 ft_p, ft_b = self.finetune(g_params, g_bstats)
                 mft = self.eval_personalized(ft_p, ft_b)
                 self.metrics(-1, finetune_after_round=r,
                              finetune_personal=mft)
-                log.info("fine-tune after round %d: %s", r, mft)
+                self.announce.info("fine-tune after round %d: %s", r, mft)
 
         start, carry = self.resume(
             (per_params, per_bstats, g_params, g_bstats), history)

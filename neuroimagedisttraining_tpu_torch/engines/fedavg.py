@@ -25,14 +25,11 @@ model; FedAvg adds nothing, FedProx (engines/fedprox.py) its proximal pull.
 
 from __future__ import annotations
 
-import logging
 import time
 
 from neuroimagedisttraining_tpu_torch.core import robust
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
 from neuroimagedisttraining_tpu_torch.engines.program import RoundStages
-
-log = logging.getLogger(__name__)
 
 
 class FedAvgEngine(FederatedEngine):
@@ -93,7 +90,7 @@ class FedAvgEngine(FederatedEngine):
                 self.stat_info["global_test_acc"].append(m["acc"])
                 self.metrics(r, train_loss=row["loss"], **m)
                 history.append({"round": r, "train_loss": row["loss"], **m})
-                log.info("round %d: %s", r, history[-1])
+                self.announce.info("round %d: %s", r, history[-1])
 
         self._register_reflexes()
         start, carry = self.resume(self.start_state(init_state), history)

@@ -34,7 +34,6 @@ transfer (each neighbour a client receives from).
 
 from __future__ import annotations
 
-import logging
 import time
 
 import numpy as np
@@ -43,8 +42,6 @@ import torch
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
 from neuroimagedisttraining_tpu_torch.obs import compute as obs_compute
 from neuroimagedisttraining_tpu_torch.ops import flops as flops_ops
-
-log = logging.getLogger(__name__)
 
 
 class FedFomoEngine(FederatedEngine):
@@ -251,7 +248,8 @@ class FedFomoEngine(FederatedEngine):
             round_seconds.append(time.perf_counter() - t0)
             obs_compute.note_dispatch(self.name, "round", round_seconds[-1],
                                       rounds=1)
-            log.info("round %d: %d neighbour evaluations", r, n_pairs)
+            self.announce.info("round %d: %d neighbour evaluations", r,
+                               n_pairs)
             self.stat_info["sum_training_flops"] += (
                 flops_per_sample * cfg.optim.epochs * n_samples)
             self.stat_info["sum_comm_params"] += float(transfers * n_params)
@@ -261,7 +259,7 @@ class FedFomoEngine(FederatedEngine):
                 self.metrics(r, train_loss=loss_h, personal=mp)
                 history.append({"round": r, "train_loss": loss_h,
                                 "personal_acc": mp["acc"]})
-                log.info("round %d: %s", r, history[-1])
+                self.announce.info("round %d: %s", r, history[-1])
             self.publish_stat_info(r)
             self.maybe_checkpoint(r, {
                 "per_params": per_params, "per_bstats": per_bstats,

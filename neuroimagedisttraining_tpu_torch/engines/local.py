@@ -11,14 +11,11 @@ every client's training rows in chunks (the reference package's
 
 from __future__ import annotations
 
-import logging
 
 import torch
 
 from neuroimagedisttraining_tpu_torch.engines.base import FederatedEngine
 from neuroimagedisttraining_tpu_torch.engines.program import RoundStages
-
-log = logging.getLogger(__name__)
 
 
 class LocalEngine(FederatedEngine):
@@ -76,7 +73,7 @@ class LocalEngine(FederatedEngine):
                 self.stat_info["person_test_acc"].append(m["acc"])
                 self.metrics(r, train_loss=row["loss"], **m)
                 history.append({"round": r, "train_loss": row["loss"], **m})
-                log.info("round %d: %s", r, history[-1])
+                self.announce.info("round %d: %s", r, history[-1])
 
         start, carry = self.resume((per_params, per_bstats), history)
         per_params, per_bstats = self.run_rounds(carry, on_round, history,

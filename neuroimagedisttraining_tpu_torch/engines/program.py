@@ -122,9 +122,12 @@ def reason(key: str) -> str:
     return REASONS[key][1]
 
 
-def report_fallback(engine_name: str, key: str, line: str, *args) -> str:
-    """Log the fallback line ``line % args`` followed by ``key``'s message,
-    count it by (plane, engine, key) and return the message."""
+def report_fallback(engine_name: str, key: str, line: str, *args,
+                    sink=None) -> str:
+    """Log the fallback line ``line % args`` followed by ``key``'s message
+    to ``sink`` (an engine's experiment log; this module's logger where
+    there is none), count it by (plane, engine, key) and return the
+    message."""
     from neuroimagedisttraining_tpu_torch.obs import metrics as obs_metrics
     from neuroimagedisttraining_tpu_torch.obs import names as obs_names
 
@@ -137,7 +140,7 @@ def report_fallback(engine_name: str, key: str, line: str, *args) -> str:
         "(engines/program.py REASONS)",
         labelnames=("plane", "engine", "reason")).labels(
         plane=plane, engine=engine_name, reason=key).inc()
-    log.info(line + ": %s", *args, msg)
+    (sink or log).info(line + ": %s", *args, msg)
     return msg
 
 
@@ -341,13 +344,15 @@ class RoundProgram:
         eng = self.eng
         if self.stages is not None and not self.stages.gathers_cohort:
             for off in range(k):
-                log.info("################ round %d: %s (fused window of "
-                         "%d)", round_idx + off, eng.cohort_label, k)
+                (eng.log or log).info(
+                    "################ round %d: %s (fused window of %d)",
+                    round_idx + off, eng.cohort_label, k)
             return WindowInputs(sampled=None, k=k)
         sampled, k = self.window_sampling(round_idx, k)
         for off, s in enumerate(sampled):
-            log.info("################ round %d: clients %s (fused window "
-                     "of %d)", round_idx + off, s.tolist(), k)
+            (eng.log or log).info(
+                "################ round %d: clients %s (fused window of %d)",
+                round_idx + off, s.tolist(), k)
         return WindowInputs(sampled=sampled, k=k)
 
     # ---------- the window runner ----------

@@ -30,7 +30,6 @@ parameters.
 
 from __future__ import annotations
 
-import logging
 import time
 
 import numpy as np
@@ -45,8 +44,6 @@ from neuroimagedisttraining_tpu_torch.ops.masks import mask_density, ones_mask
 from neuroimagedisttraining_tpu_torch.ops.snip import (
     iter_snip_scores, mask_from_scores,
 )
-
-log = logging.getLogger(__name__)
 
 
 class SalientGradsEngine(FederatedEngine):
@@ -157,8 +154,8 @@ class SalientGradsEngine(FederatedEngine):
         self._masks = masks
         density = float(mask_density(masks))
         phase1_seconds = time.perf_counter() - t0
-        log.info("global SNIP mask density = %.4f (target %.4f)", density,
-                 cfg.sparsity.dense_ratio)
+        self.announce.info("global SNIP mask density = %.4f (target %.4f)",
+                           density, cfg.sparsity.dense_ratio)
         self.stat_info["mask_density"] = density
         flops_per_sample = flops_ops.count_training_flops_per_sample(
             self.trainer.model, self.sample_shape,
@@ -189,7 +186,7 @@ class SalientGradsEngine(FederatedEngine):
                 self.metrics(r, train_loss=row["loss"], **m,
                              personal_acc=mp["acc"])
                 entry.update(m, personal_acc=mp["acc"])
-            log.info("round %d: %s", r, entry)
+            self.announce.info("round %d: %s", r, entry)
             history.append(entry)
 
         params, bstats, per_params, per_bstats = self.run_rounds(

@@ -30,7 +30,6 @@ and the dense training FLOPs of the round's samples and epochs.
 
 from __future__ import annotations
 
-import logging
 
 import numpy as np
 import torch
@@ -43,8 +42,6 @@ from neuroimagedisttraining_tpu_torch.ops.masks import ones_mask
 from neuroimagedisttraining_tpu_torch.ops.prune import (
     density_all_leaves, fake_prune, mask_distance_mean,
 )
-
-log = logging.getLogger(__name__)
 
 
 def _times(a: dict, b: dict) -> dict:
@@ -193,7 +190,7 @@ class SubFedAvgEngine(FederatedEngine):
                                 "personal_acc": mp["acc"],
                                 "mean_mask_dist": mean_dist,
                                 "prunes_accepted": int(n_accept)})
-                log.info("round %d: %s", r, history[-1])
+                self.announce.info("round %d: %s", r, history[-1])
 
         start, carry = self.resume((params, bstats, mask_pers), history)
         params, bstats, mask_pers = self.run_rounds(carry, on_round,

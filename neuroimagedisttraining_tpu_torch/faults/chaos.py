@@ -144,7 +144,7 @@ class FaultyCommManager(BaseCommManager, Observer):
         try:
             with socket.create_connection(addr, timeout=5.0) as conn:
                 # a fresh connection: no other writer
-                conn.sendall(frame[: 8 + max(1, (len(frame) - 8) // 2)])
+                conn.sendall(frame[: 8 + max(1, (len(frame) - 8) // 2)])  # nidt: allow[lock-send] -- fault injection writes a deliberately torn frame on a fresh per-call connection; no concurrent writer exists
         except OSError:
             pass  # receiver gone — the message is lost either way
 

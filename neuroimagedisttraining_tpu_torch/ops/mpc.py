@@ -93,7 +93,7 @@ def bgw_encode(X, N: int, T: int, p: int = P_DEFAULT, rng=None) -> np.ndarray:
     """Degree-``T`` Shamir shares of the field elements ``X`` (any shape)
     at alpha = 1..N: ``[N, *X.shape]``. Any ``T`` shares reveal nothing;
     ``T + 1`` reconstruct."""
-    rng = rng or np.random.default_rng()  # masks must be unpredictable
+    rng = rng or np.random.default_rng()  # nidt: allow[determinism-unseeded-rng] -- secret-sharing masks MUST be unpredictable: fresh OS entropy unless a test injects rng
     X = _asfield(X, p)
     coeffs = np.concatenate(
         [X[None], rng.integers(0, p, size=(T,) + X.shape, dtype=np.int64)])
@@ -139,7 +139,7 @@ def lcc_encode(X, N: int, K: int, T: int, p: int = P_DEFAULT,
     """``X`` (first axis divisible by ``K``) split into ``K`` chunks plus
     ``T`` random ones, interpolated through them at the betas and
     evaluated at the alphas: ``[N, m // K, ...]``."""
-    rng = rng or np.random.default_rng()  # masks must be unpredictable
+    rng = rng or np.random.default_rng()  # nidt: allow[determinism-unseeded-rng] -- secret-sharing masks MUST be unpredictable: fresh OS entropy unless a test injects rng
     X = _asfield(X, p)
     m = X.shape[0]
     assert m % K == 0, f"first axis {m} not divisible by K={K}"
@@ -238,7 +238,7 @@ def additive_shares(x, n_out: int, p: int = P_DEFAULT,
                     rng=None) -> np.ndarray:
     """``[n_out, ...]`` shares summing to ``x`` mod p: ``n_out - 1``
     uniform draws and the remainder."""
-    rng = rng or np.random.default_rng()  # masks must be unpredictable
+    rng = rng or np.random.default_rng()  # nidt: allow[determinism-unseeded-rng] -- secret-sharing masks MUST be unpredictable: fresh OS entropy unless a test injects rng
     x = _asfield(x, p)
     shares = rng.integers(0, p, size=(n_out - 1,) + x.shape, dtype=np.int64)
     last = np.mod(x - np.mod(shares.sum(axis=0), p), p)
@@ -253,7 +253,7 @@ def secure_sum(stack, n_shares: int, frac_bits: int = 16,
     combined, then dequantized (float64). ``trace``: a list that receives
     every slot accumulator after every client (the server's
     intermediates)."""
-    rng = rng or np.random.default_rng()  # masks must be unpredictable
+    rng = rng or np.random.default_rng()  # nidt: allow[determinism-unseeded-rng] -- secret-sharing masks MUST be unpredictable: fresh OS entropy unless a test injects rng
     stack = np.asarray(stack)
     slots = np.zeros((n_shares,) + stack.shape[1:], np.int64)
     for c in range(stack.shape[0]):

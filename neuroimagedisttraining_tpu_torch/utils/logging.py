@@ -1,24 +1,45 @@
 """Experiment logging: the reference's per-experiment log file
-``LOG/<dataset>/<identity>.log`` (message-only lines) beside a JSONL
-stream ``<identity>.metrics.jsonl`` with one record per ``metrics`` call
+``LOG/<dataset>/<identity>.log`` (message-only lines: the resolved config
+first, then the engine's announcements and the round metrics), echoed to
+stdout unless ``console=False``, beside a JSONL stream
+``<identity>.metrics.jsonl`` with one record per ``metrics`` call
 (``round``, seconds since the logger started, and the values). Every
 numeric value of a record is also set in the metrics registry
 (``obs/metrics.py``, ``nidt_exp_metric{key}``), so a ``/metrics`` scrape
-sees what the JSONL file records."""
+sees what the JSONL file records. ``get_logger`` is the console logger
+with the process id in each line."""
 
 from __future__ import annotations
 
 import json
 import logging
 import os
+import sys
 import time
 from typing import Any, Mapping
 
 
-class ExperimentLogger:
-    """File log and JSONL metrics of one experiment identity."""
+def get_logger(name: str = "nidt", process_id: int = 0) -> logging.Logger:
+    """Console logger with the process id in the format (the original
+    code's fedml_api/utils/logger.py:7-33)."""
+    logger = logging.getLogger(name)
+    if not logger.handlers:
+        handler = logging.StreamHandler(sys.stdout)
+        handler.setFormatter(logging.Formatter(
+            f"[p{process_id}] %(asctime)s %(levelname)s %(name)s: "
+            "%(message)s"))
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+        logger.propagate = False
+    return logger
 
-    def __init__(self, log_dir: str, dataset: str, identity: str):
+
+class ExperimentLogger:
+    """File log and JSONL metrics of one experiment identity; its lines
+    are echoed to stdout unless ``console=False``."""
+
+    def __init__(self, log_dir: str, dataset: str, identity: str,
+                 console: bool = True):
         self.dir = os.path.join(log_dir, dataset)
         os.makedirs(self.dir, exist_ok=True)
         self.identity = identity
@@ -33,7 +54,17 @@ class ExperimentLogger:
         fh = logging.FileHandler(self.log_path)
         fh.setFormatter(logging.Formatter("%(message)s"))
         self._log.addHandler(fh)
+        if console:
+            ch = logging.StreamHandler(sys.stdout)
+            ch.setFormatter(logging.Formatter("%(message)s"))
+            self._log.addHandler(ch)
         self._t0 = time.monotonic()
+
+    def info(self, msg: str, *args: Any) -> None:
+        self._log.info(msg, *args)
+
+    def warning(self, msg: str, *args: Any) -> None:
+        self._log.warning(msg, *args)
 
     def metrics(self, round_idx: int, **values: Any) -> None:
         """Append one metrics record for a round and log it."""

@@ -9,7 +9,9 @@
   leaves out (JAX buffer donation, the bench-spec closure) are not run.
 - The port's extractor over the reference's tree gives the reference's
   committed ``MATRIX`` row for row.
-- The port's own tree: ``--project`` clean, every pragma justified, the
+- The port's own tree: ``--project`` clean, the per-file families clean
+  with each pragma's findings pinned by rule and file, every pragma
+  justified, the
   committed matrix a fresh extraction, ``--regen-compat`` a no-op, and
   the reference's 17 startup refusals outside ``distributed/run.py`` and
   its 20 in ``distributed/run.py`` held, each matched by its knobs and the
@@ -22,6 +24,8 @@
   five flags included.
 """
 
+import ast
+import collections
 import json
 import os
 import re
@@ -337,6 +341,53 @@ def test_port_tree_suppressions_are_the_documented_ones():
             ] == ["nidt_profile"]
     names = model.module(f"{PORT}/obs/names.py").source
     assert "allow[metric-orphan]" not in names
+
+
+#: what the per-file families' pragmas hide in the port's tree, by rule
+#: and file: the transports' single-writer sends (the reference pragmas 33
+#: lock-send and 1 lock-shared-map), numpy's global stream in the
+#: reference-parity sampling shims (7 in the reference) and the
+#: secret-sharing masks' and random topologies' OS entropy (5)
+PER_FILE_PRAGMAS = {
+    "lock-send": {"asyncfl/ingest.py": 12, "asyncfl/loadgen.py": 4,
+                  "asyncfl/loop.py": 3, "asyncfl/region.py": 4,
+                  "distributed/broker.py": 1, "distributed/comm.py": 1,
+                  "faults/chaos.py": 1},
+    "lock-shared-map": {"asyncfl/loop.py": 1},
+    "determinism-global-random": {"engines/base.py": 2,
+                                  "engines/dpsgd.py": 3},
+    "determinism-unseeded-rng": {"ops/mpc.py": 4, "parallel/topology.py": 1},
+}
+
+
+def test_port_tree_per_file_suppressions_are_the_documented_ones():
+    """The async, lock, shm, determinism, privacy and health families over
+    the port's tree, read before suppression: only the pinned findings,
+    each under a justified pragma on its statement (the per-file pass
+    above is clean)."""
+    families = [cls for cls in RULE_REGISTRY.values()
+                if not issubclass(cls, PP.ProjectRule)
+                and cls.rule_ids[0] != "pragma"]
+    assert {rid for cls in families for rid in cls.rule_ids} == {
+        "async-blocking-call", "async-queue-get", "lock-send",
+        "lock-shared-map", "shm-owner-teardown", "shm-attach-unlink",
+        "determinism-global-random", "determinism-unseeded-rng",
+        "dp-key-discipline", "health-metric-literal"}
+    raw = collections.defaultdict(collections.Counter)
+    root = os.path.join(REPO, PORT)
+    for fp in PCORE.iter_py_files([root]):
+        with open(fp) as f:
+            src = f.read()
+        tree = ast.parse(src)
+        mod = PCORE.ModuleInfo(path=fp, source=src, tree=tree,
+                               pragmas=PCORE.parse_pragmas(src),
+                               aliases=PCORE.collect_aliases(tree))
+        for cls in families:
+            for finding in cls().check(mod):
+                raw[finding.rule][os.path.relpath(fp, root)] += 1
+                assert finding.rule in src.splitlines()[
+                    finding.line - 1], finding
+    assert {k: dict(v) for k, v in raw.items()} == PER_FILE_PRAGMAS
 
 
 def test_project_cli_exits_0_and_regen_compat_changes_nothing(tmp_path):

@@ -421,7 +421,7 @@ def test_collapsed_mask_is_reported(caplog):
         nnz = eng.warn_if_masks_collapsed(masks, 3)
     full = sum(v.numel() for v in params.values() if v.dim() >= 2)
     assert nnz.tolist() == [full, 0, full]  # real_clients: the first 3
-    assert "round 3: clients [1] have an empty mask" in caplog.text
+    assert "round 3: clients [1] evolved an EMPTY mask" in caplog.text
 
 
 def test_personal_states_do_not_share_tensors():

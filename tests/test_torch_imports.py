@@ -82,13 +82,18 @@ def test_port_imports_without_jax_or_cuda():
     "parallel/spatial.py", "utils/checkpoint.py", "utils/profiling.py",
     "utils/pytree.py", "obs/__init__.py", "obs/names.py", "obs/metrics.py",
     "obs/flight.py", "obs/trace.py", "obs/http.py", "obs/compute.py",
-    "obs/health.py", "obs/rules.py", "obs/actions.py"])
+    "obs/health.py", "obs/rules.py", "obs/actions.py",
+    "asyncfl/loadgen.py", "analysis/async_discipline.py",
+    "analysis/lock_discipline.py", "analysis/shm_discipline.py",
+    "analysis/determinism.py", "analysis/privacy_discipline.py",
+    "analysis/health_discipline.py"])
 def test_engine_slice_modules_are_checked(module):
     """The engines', the data planes', the model zoo's (the 2D one with its
     vision data included), the precision contract's and the defended
     round's (faults, defenses, accountant, wire codec) modules, the
-    checkpoints' and the telemetry plane's (``utils/``, ``obs/``) are among
-    the sources checked above (none imports JAX or the reference
+    checkpoints' and the telemetry plane's (``utils/``, ``obs/``), the load
+    harness and the per-file rule families are among the sources checked
+    above (none imports JAX or the reference
     package)."""
     path = PORT / module
     assert path in SOURCES

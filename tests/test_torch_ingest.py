@@ -25,13 +25,15 @@ import numpy as np
 import pytest
 
 from neuroimagedisttraining_tpu.asyncfl import ingest as RI
-from neuroimagedisttraining_tpu.asyncfl.loadgen import canned_update_tree
 from neuroimagedisttraining_tpu.distributed import message as RM
 from neuroimagedisttraining_tpu.privacy import QuantSpec as RQuant
 from neuroimagedisttraining_tpu.privacy import (
     encode_secure_quant as r_encode,
 )
 from neuroimagedisttraining_tpu_torch.asyncfl import ingest as PI
+from neuroimagedisttraining_tpu_torch.asyncfl.loadgen import (
+    canned_update_tree,
+)
 from neuroimagedisttraining_tpu_torch.distributed import message as M
 from neuroimagedisttraining_tpu_torch.distributed.ports import (
     free_port_block,

@@ -23,12 +23,14 @@ import numpy as np
 import pytest
 
 from neuroimagedisttraining_tpu.asyncfl import ingest as RI
-from neuroimagedisttraining_tpu.asyncfl.loadgen import canned_update_tree
 from neuroimagedisttraining_tpu.privacy import QuantSpec as RQuant
 from neuroimagedisttraining_tpu.privacy import (
     encode_secure_quant as r_encode,
 )
 from neuroimagedisttraining_tpu_torch.asyncfl import ingest as PI
+from neuroimagedisttraining_tpu_torch.asyncfl.loadgen import (
+    canned_update_tree,
+)
 from neuroimagedisttraining_tpu_torch.codec import wire
 from neuroimagedisttraining_tpu_torch.distributed import message as M
 from neuroimagedisttraining_tpu_torch.distributed.cross_silo import (
