@@ -22,6 +22,8 @@
                                      # asynchronous plane) alone
     python3 chip_smoke.py --loadgen  # kernels, then step 19 (the load
                                      # harness's fleets) alone
+    python3 chip_smoke.py --multihost  # kernels, then step 20 (the mesh
+                                     # that spans ranks) alone
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    four CUDA kernel sources of ``neuroimagedisttraining_tpu_torch/csrc``
@@ -193,7 +195,7 @@
    the launches with replays equal to the single rounds', the graphs'
    captures and replays, round times and the busy share of a window and
    of four single rounds; FedAvg on ResNet-18 over the synthetic cohort at
-   CIFAR-10's size (10 clients a round), a 2-round window against 2
+   CIFAR-10's size (2 clients a round), a 2-round window against 2
    single rounds, bit-equal, round time and busy share of both; the mesh:
    ``--client_mesh 2`` on 2 entries of the card bit-equal to the
    unsharded run, ``--client_mesh 1`` logging its one-device fallback,
@@ -249,7 +251,7 @@
 15. The autotuner (``tune_phase``): a ``driver`` search of ``tune/`` over 8
    flagship FedAvg cells (fp32 / bf16_mixed x ``fused_update`` off / on x
    ``rounds_per_dispatch`` 1 / 4; batch 16, no remat, 4 clients of 32
-   rows, the fast stem), screened at 2 rounds with 2 survivors refined at
+   rows, the fast stem), screened at 2 rounds with 1 survivor refined at
    3, seed 20, every cell's MFU against the session's one peak; each
    measurement's launches must be those its cell implies, and the search
    again on its journal measures nothing. Its recipe then drives a
@@ -323,7 +325,21 @@
    workers serving the bf16 flagship bundle. Each part's audits hold, it
    reached the versions asked for, and its launch counters, 0 just before
    and read just after (``LG-*``), stay 0 for every kernel.
-20. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
+20. The mesh that spans ranks (``multihost_phase``): the flagship through
+   the CLI on two ranks of one ``torch.distributed`` group (gloo,
+   ``--multihost_coordinator 127.0.0.1:<free port> --num_processes 2
+   --process_id 0|1``, both on the one card, each with its own checkpoint
+   directory) beside the same command in one process with
+   ``--virtual_devices 2``. (a) FedAvg, ``--client_mesh 2 --frac 0.75
+   --fused_update``, 2 rounds: both ranks' final models bit-equal to each
+   other and to the single process's, each rank's ``stem_dw`` and
+   ``fused_sgd`` launches printed and summing to the single process's.
+   (b) SalientGrads, ``--mesh_shape 2 1``, 1 round: the global mask equal
+   on both ranks and to the single process's, ``kth_select`` launched on
+   each rank, the silo-first mean bit-equal to the single process's. Each
+   process counts its own launches from its start; the phase's seconds,
+   each process's start-up and each exchange's bytes and ms are printed.
+21. Runs SalientGrads, FedProx, Ditto, Sub-FedAvg, DisPFL, D-PSGD, FedFomo
    and TurboAggregate on a small input (69^3, 4 sites, 2 rounds) through
    the kernels and through the plain paths (SalientGrads under one phase-1
    mask), and holds the two runs' losses, weights (global and personal;
@@ -336,7 +352,7 @@
    version on the call's own inputs (``PerCallCheck``). SalientGrads and
    DisPFL also run streamed (2 clients a chunk) and must equal their
    resident runs bit for bit.
-21. Prints the run's seconds, one JSON line per kernel, the
+22. Prints the run's seconds, one JSON line per kernel, the
    ``{"kernels": [...]}`` line (each kernel's launches on its main path,
    SalientGrads, in bf16 for the bf16 ``stem_dw``, and on every engine's
    run), and last ``{"ok": true, "device": {...}}``.
@@ -1102,11 +1118,11 @@ def zoo_precision_phase(card, dev, flagship, build_experiment,
     (121x145x121, the flagship slice's cohort), each run with the launch
     counters set to 0 just before and read just after:
 
-    - cuDNN's determinism: a FedAvg run (``--frac 0.75``, 4 rounds) under
+    - cuDNN's determinism: a FedAvg run (``--frac 0.75``, 3 rounds) under
       the default algorithms and under ``cudnn.deterministic`` (benchmark
       off), in turns (default, deterministic, deterministic, default), in
       fp32 and in bf16_mixed; the cost is the mean round's seconds (rounds
-      1-3) deterministic over default. The two deterministic runs must be
+      1-2) deterministic over default. The two deterministic runs must be
       bit-equal; whether the default ones are is printed.
     - bf16_mixed: SalientGrads and FedAvg with ``--fused_update`` and the
       fast stem must launch the bf16 ``stem_dw`` (2 a step or SNIP pass),
@@ -1146,7 +1162,7 @@ def zoo_precision_phase(card, dev, flagship, build_experiment,
         runs = {False: [], True: []}
         for det in (False, True, True, False):
             r = drive(build_experiment, flagship(
-                *fedavg, "--comm_round", "4", "--precision", prec), dev,
+                *fedavg, "--comm_round", "3", "--precision", prec), dev,
                 deterministic=det)
             secs[det].append(mean(r["result"]["round_seconds"][1:]))
             runs[det].append(r["result"])
@@ -2797,10 +2813,10 @@ RING_WITNESS_FACTOR = 3.0
 #: last), so K = 4 runs round 0 alone and rounds 1-4 as one window
 WINDOW_ROUNDS = ("--comm_round", "5", "--frequency_of_the_test", "4")
 #: the host-bound window: FedAvg on ResNet-18 over the synthetic cohort at
-#: CIFAR-10's size, 10 clients a round (100 at frac 0.1, Dirichlet 0.3)
+#: CIFAR-10's size, 2 clients a round (100 at frac 0.02, Dirichlet 0.3)
 RESNET_WINDOW = ("--algorithm", "fedavg", "--dataset", "cifar10",
                  "--model", "resnet18", "--client_num_in_total", "100",
-                 "--frac", "0.1", "--partition_method", "dir",
+                 "--frac", "0.02", "--partition_method", "dir",
                  "--partition_alpha", "0.3", "--batch_size", "16",
                  "--epochs", "1", "--comm_round", "2",
                  "--rounds_per_dispatch", "2", "--fused_update")
@@ -3982,7 +3998,7 @@ def cell_launches(cell: dict, steps: int) -> dict:
 def tune_phase(card, dev, by_path: dict) -> None:
     """The autotuner on the card (``tune/``): a ``driver`` search over
     :data:`TUNE_AXES` at the flagship width (AlexNet3D_Dropout at
-    121x145x121, the fast stem), screened at 2 rounds, 2 survivors refined
+    121x145x121, the fast stem), screened at 2 rounds, 1 survivor refined
     at 3, seed 20, every cell's MFU against the session's one peak, the
     counters at 0 just before and read just after
     (``by_path["tune_search"]``). Each measurement's launches must be
@@ -4027,7 +4043,7 @@ def tune_phase(card, dev, by_path: dict) -> None:
     measure = tune_search.make_driver_measure(device=dev)
     res = tune_search.run_search(
         space, 20, measure, tune_search.Journal(journal_path),
-        screen_fidelity=2, commit_fidelity=3, survivors=2)
+        screen_fidelity=2, commit_fidelity=3, survivors=1)
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
     by_path["tune_search"] = _cuda.counts()
@@ -4058,7 +4074,7 @@ def tune_phase(card, dev, by_path: dict) -> None:
                    f"not its cells' {summed}")
     again = tune_search.run_search(
         space, 20, measure, tune_search.Journal(journal_path),
-        screen_fidelity=2, commit_fidelity=3, survivors=2,
+        screen_fidelity=2, commit_fidelity=3, survivors=1,
         log=lambda *a: None)
     if again["fresh_measurements"] != 0 or \
             again["winner"]["fingerprint"] != res["winner"]["fingerprint"]:
@@ -5434,6 +5450,196 @@ def loadgen_serve(card, bundle: str, by_path: dict) -> None:
 MAIN_PATH = {"stem_dw_bf16": "salientgrads_bf16"}
 
 
+#: the flagship FedAvg and SalientGrads of the multi-process mesh phase:
+#: the slice's cohort and model, ``--fused_update``, fp32, a checkpoint a
+#: round (each process its own directory), on ``cuda``
+MULTIHOST_COMMON = ("--dataset", "synthetic", "--model", "3DCNN",
+                    "--synthetic_shape", "121", "145", "121",
+                    "--synthetic_num_subjects", "48",
+                    "--client_num_in_total", "4", "--batch_size", "16",
+                    "--epochs", "1", "--fused_update", "--checkpoint_every",
+                    "1", "--device", "cuda")
+MULTIHOST_CELLS = {
+    "fedavg": ("--algorithm", "fedavg", "--comm_round", "2", "--frac",
+               "0.75", "--client_mesh", "2"),
+    "salientgrads": ("--algorithm", "salientgrads", "--comm_round", "1",
+                     "--itersnip_iteration", "1", "--mesh_shape", "2", "1"),
+}
+#: a rank of the multi-process mesh: the CLI's ``main`` for each command
+#: of the JSON list ``argv[2]`` in turn (the synthetic cohort drawn once,
+#: as in the smoke's own process), a line of each one's launches (its own
+#: counters, 0 at its start), seconds and end (wall clock) after it
+RANK_MAIN = (
+    "import functools, json, sys, time\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "from neuroimagedisttraining_tpu_torch.__main__ import main\n"
+    "from neuroimagedisttraining_tpu_torch.data import synthetic\n"
+    "from neuroimagedisttraining_tpu_torch.ops import _cuda\n"
+    "synthetic.generate_synthetic_abcd = functools.lru_cache(maxsize=1)(\n"
+    "    synthetic.generate_synthetic_abcd)\n"
+    "for argv in json.loads(sys.argv[2]):\n"
+    "    _cuda.reset_counts()\n"
+    "    t0 = time.perf_counter()\n"
+    "    if main(argv) != 0:\n"
+    "        sys.exit(1)\n"
+    "    print('MULTIHOST ' + json.dumps({\n"
+    "        'launches': _cuda.counts(),\n"
+    "        'seconds': time.perf_counter() - t0, 'end': time.time()}),\n"
+    "        flush=True)\n")
+
+
+def multihost_runs(cells: dict, tmp: Path, timeout: float = 240.0) -> dict:
+    """Each command of ``cells`` on two ranks of one ``torch.distributed``
+    group (gloo, ``--multihost_coordinator 127.0.0.1:<free port>`` a
+    command, both ranks on ``cuda:0``) and, beside them, in one process
+    with ``--virtual_devices 2``; each of the three is one process that
+    runs the commands in turn. ``{cell: {rank0, rank1, one}}``, each with
+    its result line, launches, seconds, exchanges (bytes, transfer ms,
+    wait ms) and last checkpoint, and on the first cell the process's
+    ``startup_seconds`` (its spawn to the first command's end, less that
+    command's rounds and fine-tune). Fails on a non-zero exit."""
+    from neuroimagedisttraining_tpu_torch.distributed.ports import (
+        free_port_block,
+    )
+    from neuroimagedisttraining_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+    )
+
+    port = free_port_block(len(cells))
+    env = {**os.environ, "PYTHONPATH": str(HERE), "NIDT_FAST_STEM": "1",
+           "OMP_NUM_THREADS": "2"}
+    runs = {f"rank{r}": lambda i, r=r: (
+        "--multihost_coordinator", f"127.0.0.1:{port + i}",
+        "--num_processes", "2", "--process_id", str(r)) for r in (0, 1)}
+    runs["one"] = lambda i: ("--virtual_devices", "2")
+    procs, spawned = {}, time.time()
+    try:
+        for name, extra in runs.items():
+            argvs = [[*argv, *extra(i), "--checkpoint_dir",
+                      str(tmp / f"{cell}_{name}")]
+                     for i, (cell, argv) in enumerate(cells.items())]
+            out = open(tmp / f"{name}.log", "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-c", RANK_MAIN, str(HERE),
+                 json.dumps(argvs)], cwd=HERE, env=env, stdout=out,
+                stderr=subprocess.STDOUT), out)
+        for p, _ in procs.values():
+            p.wait(timeout=max(1.0, timeout - (time.time() - spawned)))
+    except subprocess.TimeoutExpired:
+        fail(f"multihost: the runs did not finish in {timeout} s")
+    finally:
+        for p, out in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    res = {cell: {} for cell in cells}
+    for name, (p, _) in procs.items():
+        text = (tmp / f"{name}.log").read_text()
+        if p.returncode != 0:
+            fail(f"multihost: {name} exited {p.returncode}: {text[-1500:]}")
+        lines = text.splitlines()
+        ends = [i for i, ln in enumerate(lines)
+                if ln.startswith("MULTIHOST ")]
+        start = 0
+        for cell, end in zip(cells, ends):
+            done = json.loads(lines[end][len("MULTIHOST "):])
+            result = json.loads(lines[end - 1])
+            ex = [ln.split() for ln in lines[start:end]
+                  if ln.startswith("exchange: ")]
+            row = {"result": result, "launches": done["launches"],
+                   "seconds": done["seconds"],
+                   "exchanges": [(int(e[1]), float(e[7]), float(e[11]))
+                                 for e in ex],
+                   "state": load_checkpoint(
+                       str(tmp / f"{cell}_{name}"))[1]}
+            if start == 0:
+                row["startup_seconds"] = (
+                    done["end"] - spawned
+                    - sum(result.get("round_seconds", []))
+                    - result.get("finetune_seconds", 0.0))
+            res[cell][name] = row
+            start = end + 1
+    return res
+
+
+def trees_bit_equal(a, b) -> bool:
+    """Two checkpoint trees (nested dicts of arrays) equal bit for bit."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(trees_bit_equal(a[k], b[k]) for k in a))
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def multihost_phase(card, by_path: dict) -> None:
+    """The mesh that spans ranks (``--multihost_coordinator``, gloo): two
+    CLI ranks of the flagship on the one card, held against the same
+    command in one process with ``--virtual_devices 2`` (three processes,
+    each running the two cells in turn). (a) FedAvg,
+    ``--client_mesh 2 --frac 0.75``, 2 rounds: each rank trains its
+    entry's clients and the ranks exchange the trained states; both
+    ranks' final models bit-equal to each other and to the single
+    process's, and the ranks' ``stem_dw`` and ``fused_sgd`` launches sum
+    to the single process's. (b) SalientGrads, ``--mesh_shape 2 1``, 1
+    round: the global mask equal on both ranks and to the single
+    process's, ``kth_select`` launched on each rank, the silo-first mean
+    bit-equal to the single process's. Each run's launches are counted
+    from 0 at its start; the phase's seconds, a rank's start-up and each
+    exchange's bytes, transfer ms and wait for the other rank are
+    printed."""
+    import tempfile
+
+    free_card()
+    tmp = Path(tempfile.mkdtemp(prefix="nidt_multihost_"))
+    t_phase = time.perf_counter()
+    cells = {c: (*MULTIHOST_COMMON, *argv)
+             for c, argv in MULTIHOST_CELLS.items()}
+    for cell, res in multihost_runs(cells, tmp).items():
+        r0, r1, one = res["rank0"], res["rank1"], res["one"]
+        for name, r in res.items():
+            by_path[f"multihost_{cell}_{name}"] = r["launches"]
+        keys = (("masks", "params", "batch_stats") if cell == "salientgrads"
+                else ("params", "batch_stats"))
+        equal = {k: (trees_bit_equal(r0["state"][k], r1["state"][k]),
+                     trees_bit_equal(r0["state"][k], one["state"][k]))
+                 for k in keys}
+        row = {"card": card, "bit_equal_ranks_and_one": equal,
+               "history_equal": (r0["result"]["history"]
+                                 == r1["result"]["history"]
+                                 == one["result"]["history"]),
+               **{name: {"launches": r["launches"],
+                         "seconds": r["seconds"],
+                         "startup_seconds": r.get("startup_seconds"),
+                         "exchanges_bytes_ms_wait_ms": r["exchanges"]}
+                  for name, r in res.items()}}
+        print(json.dumps({"multihost": {cell: row}}))
+        if not all(a and b for a, b in equal.values()):
+            fail(f"multihost {cell}: the ranks' final states are not bit "
+                 f"for bit each other's and the single process's: {equal}")
+        if not row["history_equal"]:
+            fail(f"multihost {cell}: the ranks' histories differ from the "
+                 "single process's")
+        if not (r0["exchanges"] and r1["exchanges"]):
+            fail(f"multihost {cell}: a rank exchanged no trained states")
+        if cell == "fedavg":
+            for k in ("stem_dw", "fused_sgd"):
+                got = [r0["launches"].get(k, 0), r1["launches"].get(k, 0)]
+                if min(got) == 0 or sum(got) != one["launches"].get(k, 0):
+                    fail(f"multihost fedavg: {k} launches {got} on the "
+                         f"ranks against {one['launches'].get(k, 0)} in "
+                         "one process")
+        elif not (r0["launches"].get("kth_select")
+                  and r1["launches"].get("kth_select")):
+            fail("multihost salientgrads: kth_select did not launch on "
+                 "each rank")
+    print(json.dumps({"multihost_phase_seconds":
+                      time.perf_counter() - t_phase}))
+
+
 def finish(rows: list, by_path: dict, started: float,
            laps: dict | None = None) -> int:
     """The run's seconds since ``started`` (and each part's, ``laps``), the
@@ -5473,6 +5679,7 @@ def main(argv: list[str]) -> int:
     only_cross = "--cross-silo" in argv
     only_async = "--async" in argv
     only_loadgen = "--loadgen" in argv
+    only_multihost = "--multihost" in argv
     import numpy as np
     import torch
 
@@ -6095,6 +6302,10 @@ def main(argv: list[str]) -> int:
             loadgen_phase(card, by_path)
             lap("phase")
             return finish(rows, by_path, started, laps)
+        if only_multihost:
+            multihost_phase(card, by_path)
+            lap("phase")
+            return finish(rows, by_path, started, laps)
 
         cfg = flagship("salientgrads")
         t0 = time.perf_counter()
@@ -6488,6 +6699,10 @@ def main(argv: list[str]) -> int:
         # ---- the load harness: async, sync, churn, ingest fleets ----
         loadgen_phase(card, by_path)
         lap("loadgen")
+
+        # ---- the mesh that spans ranks: two CLI ranks against one ----
+        multihost_phase(card, by_path)
+        lap("multihost")
 
         # ---- the slice on a small input: kernels against plain paths ----
         def small(kernels: bool, algorithm: str = "salientgrads",

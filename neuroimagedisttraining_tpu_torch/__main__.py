@@ -23,6 +23,8 @@
         --wire_topk_ratio R] [--secure_quant --secure_quant_field_bits \\
         8|16|32 --secure_quant_frac_bits F] [--rounds_per_dispatch K] \\
         [--client_mesh N] [--mesh_shape S [C]] [--virtual_devices N] \\
+        [--multihost_coordinator HOST:PORT --num_processes P \\
+        --process_id K] \\
         [--cs random|ring|full --neighbor_num K] \\
         [--checkpoint_dir DIR --checkpoint_every N] [--profile_dir DIR] \\
         [--trace_out FILE] [--metrics_port P --metrics_host H] \\
@@ -76,8 +78,13 @@ built-in staleness rule reads ``--max_staleness``.
 steps of every round replay CUDA graphs (``core/graphs.py``); ``--client_mesh N`` splits each round's clients over a
 mesh of N entries, ``--mesh_shape S C`` aggregates silo first, and
 ``--virtual_devices N`` makes the mesh's N entries on the run's device
-(``parallel/``). ``--neighbor_num`` is stored, as in the reference, and read
-by no engine.
+(``parallel/``). ``--multihost_coordinator HOST:PORT --num_processes P
+--process_id K`` joins P processes into one ``torch.distributed`` group
+(gloo; ``distributed/cross_silo.py`` ``init_multihost``) before the mesh is
+built, so the mesh spans every rank's entries: each rank runs the same
+command with its own ``--process_id``, trains the clients of its own
+entries and ends every round with the same model. ``--neighbor_num`` is
+stored, as in the reference, and read by no engine.
 
 ``--checkpoint_dir DIR --checkpoint_every N`` saves a checkpoint every N
 rounds and at the last (``utils/checkpoint.py``); a run started again with
@@ -393,6 +400,16 @@ def add_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint_every", type=int, default=0,
                         help="rounds between checkpoints (and the last "
                              "round); 0 = off")
+    parser.add_argument("--multihost_coordinator", type=str, default="",
+                        help="host:port of process 0; joins this process "
+                             "to a multi-process torch.distributed group "
+                             "(gloo) before mesh construction, so the mesh "
+                             "spans every process's entries")
+    parser.add_argument("--process_id", type=int, default=0,
+                        help="this process's rank in the multi-process "
+                             "group")
+    parser.add_argument("--num_processes", type=int, default=1,
+                        help="total processes in the multi-process group")
     parser.add_argument("--profile_dir", type=str, default="",
                         help="trace the run with torch.profiler into this "
                              "dir (Chrome trace; the host spans appear as "
@@ -492,6 +509,8 @@ def config_from_args(args) -> ExperimentConfig:
         recipe=args.recipe,
         mesh_shape=tuple(args.mesh_shape),
         virtual_devices=args.virtual_devices,
+        multihost_coordinator=args.multihost_coordinator,
+        process_id=args.process_id, num_processes=args.num_processes,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
         trace_out=args.trace_out, metrics_port=args.metrics_port,
@@ -641,7 +660,7 @@ def build_experiment(cfg: ExperimentConfig, device: str = "cuda",
                 cohort["site"], d.seed_split, d.val_fraction)
             stream = StreamingFederation(
                 cohort["X"], cohort["y"], train_map, test_map,
-                val_map=val_map, device=dev)
+                val_map=val_map, device=dev, mesh=mesh)
         else:
             fed, info = federate_cohort(
                 cohort, dev, d.seed_split, d.val_fraction,
@@ -666,18 +685,23 @@ def build_mesh(cfg: ExperimentConfig, dev, streaming: bool = False):
     plain streamed run; ``--client_mesh N`` (without ``--mesh_shape``) the
     1-D mesh of N entries; else ``--mesh_shape`` (by default every device)
     over the visible devices, or ``--virtual_devices`` entries of the run's
-    device."""
+    device. In a process group (``--multihost_coordinator``) the entries
+    are every rank's, in rank order (``parallel/mesh.py``
+    ``global_entries``)."""
     from neuroimagedisttraining_tpu_torch.parallel.mesh import (
-        make_mesh, virtual_devices, visible_devices,
+        global_entries, make_mesh, virtual_devices, visible_devices,
     )
 
     if streaming and not cfg.mesh_shape and not cfg.fed.client_mesh:
         return None
-    devices = (virtual_devices(cfg.virtual_devices, dev)
-               if cfg.virtual_devices else visible_devices(dev))
+    devices, ranks, me = global_entries(
+        virtual_devices(cfg.virtual_devices, dev)
+        if cfg.virtual_devices else visible_devices(dev))
     if cfg.fed.client_mesh > 0 and not cfg.mesh_shape:
-        return make_mesh(num_devices=cfg.fed.client_mesh, devices=devices)
-    return make_mesh(shape=cfg.mesh_shape, devices=devices)
+        return make_mesh(num_devices=cfg.fed.client_mesh, devices=devices,
+                         ranks=ranks, process_id=me)
+    return make_mesh(shape=cfg.mesh_shape, devices=devices, ranks=ranks,
+                     process_id=me)
 
 
 def check_privacy_flags(parser: argparse.ArgumentParser, args) -> None:
@@ -797,10 +821,25 @@ def main(argv: list[str] | None = None) -> int:
                      "the flag does nothing")
     if args.profile_session:
         return profile_session(args)
-    engine, info = build_experiment(cfg, args.device,
-                                    streaming=args.streaming)
-    engine.announce.info("partition: %s", json.dumps(info["train_counts"]))
-    return run(engine, info, cfg, args, recipe_doc)
+    if cfg.multihost_coordinator:
+        # the group comes before the mesh, which spans every rank's
+        # entries, and before any engine touches the device
+        from neuroimagedisttraining_tpu_torch.distributed.cross_silo import (
+            init_multihost,
+        )
+        init_multihost(cfg.multihost_coordinator, cfg.num_processes,
+                       cfg.process_id)
+    try:
+        engine, info = build_experiment(cfg, args.device,
+                                        streaming=args.streaming)
+        engine.announce.info("partition: %s",
+                             json.dumps(info["train_counts"]))
+        return run(engine, info, cfg, args, recipe_doc)
+    finally:
+        if cfg.multihost_coordinator:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 def profile_session(args) -> int:

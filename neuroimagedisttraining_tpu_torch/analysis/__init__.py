@@ -8,15 +8,24 @@ machine-checked rules, run as a tier-1 gate
 lockstep, metric-name, fallback-reason, recipe-key and reflex-action
 closure, and the compatibility matrix as data (``analysis/project.py``
 + ``analysis/contracts.py``). The per-file pass runs the ``pragma`` rule
-and six families with the reference's ids: ``async_discipline`` (no
+and twelve families with the reference's ids: ``async_discipline`` (no
 blocking call in an ``asyncfl/`` coroutine), ``lock_discipline`` (sends
 and shared maps under a lock in ``distributed/``, ``faults/`` and
 ``asyncfl/``), ``shm_discipline`` (shared-memory owners and attachers),
 ``determinism`` (numpy's global stream and unseeded generators),
 ``privacy_discipline`` (torch stream roots in ``privacy/``, inline weak-DP
-noise) and ``health_discipline`` (metric-name literals outside ``obs/``).
-The families that check captured step graphs, the engine contract and
-the round program are still to come.
+noise), ``health_discipline`` (metric-name literals outside ``obs/``),
+``engine_contract`` (engine classes' names, round method and base
+signatures), ``round_program`` (no hand-rolled window outside
+``engines/program.py``, fallback reasons from its table),
+``trace_safety`` (no host sync or numpy draw inside a captured step:
+a ``StepGraph`` body, a ``torch.cuda.graph`` block and their resolvable
+callees), ``obs_discipline`` (no clock, metric or sync inside a captured
+step; the trace-context key and batched ingest pipe),
+``mesh_discipline`` (pad-row weights from ``parallel/cohort.py``; the
+reference's ``shard_map`` spec rule is JAX-only) and
+``precision_discipline`` (no float32 upcast inside a captured step under
+``core/``, ``ops/`` and ``models/``).
 
 CLI::
 
@@ -47,10 +56,16 @@ from neuroimagedisttraining_tpu_torch.analysis import (  # noqa: E402,F401
     async_discipline,
     contracts,
     determinism,
+    engine_contract,
     health_discipline,
     lock_discipline,
+    mesh_discipline,
+    obs_discipline,
+    precision_discipline,
     privacy_discipline,
+    round_program,
     shm_discipline,
+    trace_safety,
 )
 
 from neuroimagedisttraining_tpu_torch.analysis.project import (  # noqa: E402,F401

@@ -208,7 +208,8 @@ class ExperimentConfig:
     # LOG/<dataset>/<identity>.log and .metrics.jsonl go here; None writes
     # no experiment log
     log_dir: str | None = None
-    # clients a streamed chunk holds (--streaming); 0 picks 4
+    # clients a streamed chunk holds (--streaming); 0 picks the mesh's
+    # entries, or 4 without a mesh
     stream_chunk_clients: int = 0
     # the AlexNet family's rematerialisation: auto | none | stem | all
     # (core/optim.py resolve_remat)
@@ -223,6 +224,12 @@ class ExperimentConfig:
     # a mesh of N entries on the run's device (N > 0), as the reference
     # provisions N virtual CPU devices; 0: the visible devices
     virtual_devices: int = 0
+    # a mesh over several processes (parallel/mesh.py): process 0's
+    # host:port, this process's rank and the process count; the ranks
+    # join one torch.distributed group (gloo) before the mesh is built
+    multihost_coordinator: str = ""
+    process_id: int = 0
+    num_processes: int = 1
     # the last part of the experiment's identity (its log file name)
     tag: str = "exp"
     # checkpoints (utils/checkpoint.py): saved every checkpoint_every
@@ -273,4 +280,5 @@ class ExperimentConfig:
 
 
 #: ``ExperimentConfig`` fields the reference's config does not have
-PORT_ONLY_FIELDS = ("virtual_devices",)
+PORT_ONLY_FIELDS = ("virtual_devices", "multihost_coordinator",
+                    "process_id", "num_processes")

@@ -136,7 +136,7 @@ class LocalTrainer:
         float32 (a raw cast): uint8 volumes [B, D, H, W] -> [B, 1, D, H,
         W]; images [B, H, W, C] -> NCHW; single-channel images [B, H, W]
         -> [B, 1, H, W]."""
-        x = x.to(torch.float32)
+        x = x.to(torch.float32)  # nidt: allow[precision-upcast] -- the input's raw cast: uint8 volumes enter as float32, as the reference's step takes them
         if input_rank == 4 and x.dim() == 4:
             return x.permute(0, 3, 1, 2).contiguous()
         return x.unsqueeze(1) if x.dim() == input_rank - 1 else x

@@ -58,9 +58,16 @@ Each fetch's totals (``transfer_stats``) are also published as the
 set under the stats lock, so ``/metrics`` shows the feed mid-run and each
 series equals the dict's entry.
 
-Left out of the port: the mesh sharding of the reference's ``_put`` (a
-streamed run under ``--client_mesh`` runs unsharded with the reference's
-``streaming-sharded-feed`` reason).
+Under a mesh (``mesh``, ``parallel/mesh.py``) each served fetch is also
+placed as the reference's ``_put`` shards it (:meth:`place`): its client
+axis (axis 0, or axis 1 of a window's ``[K, S, ...]``) cut into the
+entries' consecutive blocks, row-major (silo-major on a two-level mesh),
+each block on its entry's device (a view where the entry is the feed's
+device), for this process's entries (``placed``). The streamed round
+itself reads the whole fetch and runs unsharded, with the reference's
+``streaming-sharded-feed`` reason (``engines/program.py``); on a mesh
+that spans ranks every rank fetches and runs the streamed round whole,
+which is what the reference's unsharded program computes.
 """
 
 from __future__ import annotations
@@ -113,15 +120,21 @@ class StreamingFederation:
     ``X_source``: an ``h5py`` dataset or an ndarray (a memmap, say), read
     by rows. ``y``: the labels (on the host). ``train_map`` / ``test_map``
     / ``val_map``: each client's rows (``data/federate.py``
-    ``federation_maps``). ``device``: where the chunks go.
+    ``federation_maps``). ``device``: where the chunks go. ``mesh``: the
+    run's mesh, whose entries each served fetch is placed over
+    (:meth:`place`).
     """
 
     def __init__(self, X_source, y: np.ndarray,
                  train_map: dict[int, np.ndarray],
                  test_map: dict[int, np.ndarray],
                  val_map: dict[int, np.ndarray] | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         self.X = X_source
+        self.mesh = mesh
+        #: the last served fetch's ``(X, y, n)`` as :meth:`place` puts
+        #: them (None without a mesh)
+        self.placed = None
         self.y = np.asarray(y)
         self.device = torch.device(device)
         self.train_map = {c: np.asarray(v) for c, v in train_map.items()}
@@ -300,6 +313,33 @@ class StreamingFederation:
             slot.dev_X[a:b].zero_()
         slot.dev_i[:n_ints].copy_(slot.host_i[:n_ints], non_blocking=nb)
 
+    # ---------- the mesh placement (main thread) ----------
+
+    def place(self, x: torch.Tensor, client_axis: int = 0):
+        """``x``'s client axis cut into the mesh's entries' consecutive
+        blocks (row-major entries: silo-major on a two-level mesh), each
+        on its entry's device, as the reference's ``_put`` shards a fetch:
+        ``[(entry, block)]`` for this process's entries. None without a
+        mesh, or where the axis does not tile the mesh (a fetch the
+        reference's ``device_put`` refuses; the streamed round reads the
+        whole fetch either way)."""
+        if self.mesh is None:
+            return None
+        D = self.mesh.devices.size
+        C = x.shape[client_axis]
+        if C % D:
+            return None
+        B = C // D
+        return [(e, x.narrow(client_axis, e * B, B).to(
+            self.mesh.entries[e], non_blocking=True))
+            for e in self.mesh.local_entries]
+
+    def _placed(self, out: tuple, client_axis: int = 0) -> tuple:
+        """Serve ``out`` with its placement kept in ``placed``."""
+        if self.mesh is not None:
+            self.placed = tuple(self.place(t, client_axis) for t in out)
+        return out
+
     # ---------- the double buffer (main thread) ----------
 
     def _submit(self, key: tuple, client_ids, n_real: int | None) -> None:
@@ -357,8 +397,8 @@ class StreamingFederation:
     def get_train(self, client_ids: np.ndarray, n_real: int | None = None):
         """``(X, y, n)`` of ``client_ids``' training rows on the device:
         the prefetched chunk where it matches, else a fresh read."""
-        return self._get(self._train_key(client_ids, n_real), client_ids,
-                         n_real)
+        return self._placed(self._get(self._train_key(client_ids, n_real),
+                                      client_ids, n_real))
 
     @staticmethod
     def _window_key(ids_per_round, n_real):
@@ -384,8 +424,9 @@ class StreamingFederation:
             [np.asarray(i) for i in ids_per_round]), None)
         K = len(ids_per_round)
         S = len(ids_per_round[0])
-        return (X.view((K, S) + tuple(X.shape[1:])),
-                y.view((K, S) + tuple(y.shape[1:])), n.view(K, S))
+        return self._placed((X.view((K, S) + tuple(X.shape[1:])),
+                             y.view((K, S) + tuple(y.shape[1:])),
+                             n.view(K, S)), client_axis=1)
 
     # ---------- resident validation rows (FedFomo) ----------
 
@@ -439,6 +480,7 @@ class StreamingFederation:
                 if first:
                     self._submit(key(*first[0], sp=then_split), first[0][1],
                                  len(first[0][0]))
+            self._placed((X, y, n))
             yield EvalChunk(real, padded, X, y, n)
 
     def sync(self) -> None:

@@ -231,6 +231,34 @@ def train_lock(device) -> threading.Lock:
         return _TRAIN_LOCKS.setdefault(key, threading.Lock())
 
 
+def init_multihost(coordinator_address: str, num_processes: int,
+                   process_id: int) -> None:
+    """Join this process to the multi-process group of a mesh that spans
+    ranks (``parallel/mesh.py``): ``torch.distributed`` over gloo, rank
+    ``process_id`` of ``num_processes``, with process 0 listening at
+    ``coordinator_address`` (``host:port``). Every process calls it
+    before the mesh is built; a second call is refused.
+
+    The backend is gloo, and only gloo: it runs on the CPU and beside a
+    card alike, and two ranks may share one card (NCCL refuses two ranks
+    on one device). The mesh's exchanges are built from ``broadcast``
+    and ``all_reduce`` of host tensors (``parallel/cohort.py``), which
+    gloo runs everywhere."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        raise RuntimeError(
+            "init_multihost: this process already joined a process group "
+            f"(rank {dist.get_rank()} of {dist.get_world_size()})")
+    if not 0 <= int(process_id) < int(num_processes):
+        raise ValueError(f"--process_id {process_id} is not a rank of "
+                         f"--num_processes {num_processes}")
+    dist.init_process_group(backend="gloo",
+                            init_method=f"tcp://{coordinator_address}",
+                            world_size=int(num_processes),
+                            rank=int(process_id))
+
+
 def silo_round_seed(seed: int, rank: int, round_idx: int) -> int:
     """The seed of silo ``rank``'s trainer generator in round
     ``round_idx`` (its epoch permutations and dropout)."""

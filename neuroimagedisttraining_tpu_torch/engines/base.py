@@ -31,8 +31,12 @@ entries) the sampled clients of a round are split over the mesh's entries
 (:meth:`FederatedEngine.map_clients`, ``parallel/cohort.py``); on a
 two-level ``--mesh_shape S C`` mesh the mean is taken silo first
 (``parallel/hierarchical.py``); D-PSGD and DisPFL gossip over the mesh
-(``parallel/gossip.py``). A streamed round pads nothing (sharding refuses
-streaming, as the reference's ``streaming-sharded-feed``).
+(``parallel/gossip.py``). On a mesh that spans ranks each rank trains its
+own entries' clients, in rank order from the generator state the rank
+before it left, and the ranks exchange the trained states, so every rank
+runs the same round tail. A streamed round pads nothing (sharding
+refuses streaming, as the reference's ``streaming-sharded-feed``; the feed
+places each fetch over the mesh's entries).
 
 The round's tail (``defended_aggregate``) runs, in the reference's order:
 the Byzantine attack on the uploads of the clients the fault schedule
@@ -301,6 +305,21 @@ class FederatedEngine:
         f = self.cfg.fed
         self._cohort_on = False
         cm = int(f.client_mesh)
+        #: a mesh that spans ranks splits the round's clients over the
+        #: ranks wherever cohort sharding would run on its entries (a
+        #: two-level mesh included); elsewhere each rank runs it all
+        self._rank_split = (self.mesh is not None
+                            and self.mesh.num_processes > 1
+                            and self.program.cohort_fallback_key(flat=True)
+                            is None)
+        if self._rank_split:
+            self.announce.info(
+                "mesh of %d processes: rank %d trains the clients of its "
+                "%d of the %d entries in its turn; the ranks hand on the "
+                "trained states and the generator's state every round "
+                "(parallel/cohort.py)",
+                self.mesh.num_processes, self.mesh.process_id,
+                len(self.mesh.local_entries), self.mesh.devices.size)
         if cm > 0:
             mesh = self.mesh
             if mesh is None:
@@ -478,9 +497,13 @@ class FederatedEngine:
         rows, in client order. With cohort sharding armed the clients
         (padded to tile the mesh where the round trains a sampled set) are
         split over the mesh's entries (``cohort.cohort_map``); a pad row
-        trains nothing and is dropped, so the list is ``ids``'."""
+        trains nothing and is dropped, so the list is ``ids``'. On a mesh
+        that spans ranks each rank trains its own entries' clients (a
+        two-level mesh's entries row-major, as its silo-first mean cuts
+        them), in turns that hand the trainer generator's state from rank
+        to rank, and receives the others' trained states."""
         ids = np.asarray(ids)
-        if not self._cohort_on:
+        if not (self._cohort_on or self._rank_split):
             return [fn(c, rows) for c, rows in self.client_rows(ids)]
         if self.program.stages.gathers_cohort:
             padded, n_real = self._cohort_pad(ids)
@@ -491,8 +514,8 @@ class FederatedEngine:
         items = [(int(c), rows[int(c)] if live[i] else None)
                  for i, c in enumerate(padded)]
         out = cohort.cohort_map(
-            self.mesh, lambda it: None if it[1] is None else fn(*it), items,
-            self.device)
+            self.mesh.flat(), lambda it: None if it[1] is None else fn(*it),
+            items, self.device, generator=self.trainer.generator)
         return out[:n_real]
 
     # ---------- the round loop with windows ----------
@@ -826,8 +849,11 @@ class FederatedEngine:
     # ---------- client rows ----------
 
     def _eval_chunk_size(self) -> int:
-        """Clients a streamed chunk holds: ``stream_chunk_clients``, or 4."""
-        return self.cfg.stream_chunk_clients or 4
+        """Clients a streamed chunk holds: ``stream_chunk_clients``, or the
+        mesh's entries (so a chunk tiles the mesh), or 4."""
+        if self.cfg.stream_chunk_clients:
+            return self.cfg.stream_chunk_clients
+        return self.mesh.devices.size if self.mesh is not None else 4
 
     def _resident(self, split: str):
         d = self.data
@@ -868,25 +894,6 @@ class FederatedEngine:
     #: a streamed window's rows of the round being trained (client ->
     #: rows), which ``client_rows`` serves its training walk from
     _round_rows: dict | None = None
-
-    def stream_window(self, sampled: list, next_round: int) -> list[dict]:
-        """A streamed window's training rows, one fetch for its rounds
-        (``get_window``), each round's as a dict client -> rows; the next
-        window's fetch starts behind it unless the window ends at an
-        evaluation, whose test walks come first."""
-        X, y, _ = self.stream.get_window(sampled)
-        out = [{int(c): ClientRows(X[off, j], y[off, j],
-                                   int(self.n_train[c]))
-                for j, c in enumerate(ids)}
-               for off, ids in enumerate(sampled)]
-        last = next_round - 1
-        if next_round < self.cfg.fed.comm_round \
-                and not self.is_eval_round(last):
-            k = self.program.dispatch_window(next_round)
-            if k > 1:
-                nxt, _ = self.program.window_sampling(next_round, k)
-                self.stream.prefetch_window(nxt)
-        return out
 
     def plan_walks(self, round_idx: int, before=()) -> None:
         """Streamed runs: the walks from round ``round_idx`` on that the
@@ -1227,8 +1234,6 @@ class FederatedEngine:
         ``(resume_round, state)``, or ``(round_idx, None)`` to go on from
         the live state. None when nothing fires. Recorded as
         ``shrink_mesh`` whatever ``--actions`` says."""
-        from neuroimagedisttraining_tpu_torch.parallel.mesh import make_mesh
-
         if self.fault_schedule is None:
             return None
         hits = [(at, nd) for (at, nd) in self.fault_schedule.spec.preempts
@@ -1247,7 +1252,7 @@ class FederatedEngine:
                                    f"the {old}-device mesh"),
                         "scheduled_round": int(at)})
             return None
-        self.mesh = make_mesh(num_devices=ndev, devices=self.mesh.entries)
+        self.mesh = self.mesh.first(ndev)
         if int(self.cfg.fed.client_mesh) > 0:
             self.cfg = dataclasses.replace(
                 self.cfg, fed=dataclasses.replace(self.cfg.fed,
@@ -1255,6 +1260,9 @@ class FederatedEngine:
         self._invalidate_round_programs()
         if self._cohort_on:
             self._cohort_on = self.program.cohort_fallback_key() is None
+        if self._rank_split:
+            self._rank_split = self.program.cohort_fallback_key(
+                flat=True) is None
         start, restored = self.restore_checkpoint()
         if restored is not None:
             self._wire_ef = {}  # as a fresh process's resume

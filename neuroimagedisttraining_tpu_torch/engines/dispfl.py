@@ -58,8 +58,8 @@ class DisPFLEngine(FederatedEngine):
     name = "dispfl"
     trains_sampled = False
 
-    def __init__(self, cfg, data, trainer, perms_for=None,
-                 screen_idx_for=None, stream=None, mesh=None):
+    def __init__(self, cfg, data, trainer, perms_for=None, stream=None,
+                 mesh=None, screen_idx_for=None):
         super().__init__(cfg, data, trainer, perms_for, stream=stream,
                          mesh=mesh)
         self.screen_idx_for = screen_idx_for

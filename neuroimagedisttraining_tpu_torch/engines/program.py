@@ -280,13 +280,16 @@ class RoundProgram:
             return "wire-codec-host-bytes"
         return None
 
-    def cohort_fallback_key(self) -> str | None:
+    def cohort_fallback_key(self, flat: bool = False) -> str | None:
         """Why the engine runs unsharded even when ``--client_mesh`` asks
-        for the sharded round: a :data:`REASONS` key, or None."""
+        for the sharded round: a :data:`REASONS` key, or None. ``flat``:
+        the answer for the mesh's entries row-major, a two-level mesh as
+        a 1-D one (where its ranks split the round)."""
         eng = self.eng
         if self.stages is None or not eng.supports_cohort_sharding:
             return eng.cohort_fallback_key()
-        if eng.mesh is not None and len(eng.mesh.axis_names) != 1:
+        if not flat and eng.mesh is not None \
+                and len(eng.mesh.axis_names) != 1:
             return "two-level-mesh"
         if eng.mesh is not None and eng.mesh.devices.size == 1:
             return "one-device"
@@ -357,6 +360,28 @@ class RoundProgram:
 
     # ---------- the window runner ----------
 
+    def stream_window(self, sampled: list, next_round: int) -> list[dict]:
+        """A streamed window's training rows, one fetch for its rounds
+        (the feed's ``get_window``), each round's as a dict client ->
+        ``ClientRows``; the next window's fetch starts behind it unless the
+        window ends at an evaluation, whose test walks come first."""
+        from neuroimagedisttraining_tpu_torch.engines.base import ClientRows
+
+        eng = self.eng
+        X, y, _ = eng.stream.get_window(sampled)
+        out = [{int(c): ClientRows(X[off, j], y[off, j],
+                                   int(eng.n_train[c]))
+                for j, c in enumerate(ids)}
+               for off, ids in enumerate(sampled)]
+        last = next_round - 1
+        if next_round < eng.cfg.fed.comm_round \
+                and not eng.is_eval_round(last):
+            k = self.dispatch_window(next_round)
+            if k > 1:
+                nxt, _ = self.window_sampling(next_round, k)
+                eng.stream.prefetch_window(nxt)
+        return out
+
     def run_window(self, carry: tuple, round_idx: int, k: int):
         """Rounds ``[round_idx, round_idx + k)`` of the engine's
         ``window_round``, with no host read between them. Returns
@@ -365,7 +390,7 @@ class RoundProgram:
         have shrunk)."""
         eng = self.eng
         wi = self.window_inputs(round_idx, k)
-        window = (eng.stream_window(wi.sampled, round_idx + wi.k)
+        window = (self.stream_window(wi.sampled, round_idx + wi.k)
                   if eng.stream is not None else None)
         outs = []
         try:

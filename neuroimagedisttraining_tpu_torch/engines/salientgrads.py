@@ -68,8 +68,8 @@ class SalientGradsEngine(FederatedEngine):
     def round_stages(self):
         return RoundStages()
 
-    def __init__(self, cfg, data, trainer, perms_for=None, snip_idx_for=None,
-                 stream=None, mesh=None):
+    def __init__(self, cfg, data, trainer, perms_for=None, stream=None,
+                 mesh=None, snip_idx_for=None):
         super().__init__(cfg, data, trainer, perms_for, stream=stream,
                          mesh=mesh)
         self.snip_idx_for = snip_idx_for

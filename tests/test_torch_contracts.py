@@ -347,7 +347,8 @@ def test_port_tree_suppressions_are_the_documented_ones():
 #: and file: the transports' single-writer sends (the reference pragmas 33
 #: lock-send and 1 lock-shared-map), numpy's global stream in the
 #: reference-parity sampling shims (7 in the reference) and the
-#: secret-sharing masks' and random topologies' OS entropy (5)
+#: secret-sharing masks' and random topologies' OS entropy (5); and the
+#: local step's raw input cast to float32 (the reference pragmas its own)
 PER_FILE_PRAGMAS = {
     "lock-send": {"asyncfl/ingest.py": 12, "asyncfl/loadgen.py": 4,
                   "asyncfl/loop.py": 3, "asyncfl/region.py": 4,
@@ -357,14 +358,16 @@ PER_FILE_PRAGMAS = {
     "determinism-global-random": {"engines/base.py": 2,
                                   "engines/dpsgd.py": 3},
     "determinism-unseeded-rng": {"ops/mpc.py": 4, "parallel/topology.py": 1},
+    "precision-upcast": {"core/trainer.py": 1},
 }
 
 
 def test_port_tree_per_file_suppressions_are_the_documented_ones():
-    """The async, lock, shm, determinism, privacy and health families over
-    the port's tree, read before suppression: only the pinned findings,
-    each under a justified pragma on its statement (the per-file pass
-    above is clean)."""
+    """The twelve per-file families over the port's tree (async, lock,
+    shm, determinism, privacy, health, engine contract, round program,
+    trace safety, obs, mesh and precision), read before suppression: only
+    the pinned findings, each under a justified pragma on its statement
+    (the per-file pass above is clean)."""
     families = [cls for cls in RULE_REGISTRY.values()
                 if not issubclass(cls, PP.ProjectRule)
                 and cls.rule_ids[0] != "pragma"]
@@ -372,7 +375,12 @@ def test_port_tree_per_file_suppressions_are_the_documented_ones():
         "async-blocking-call", "async-queue-get", "lock-send",
         "lock-shared-map", "shm-owner-teardown", "shm-attach-unlink",
         "determinism-global-random", "determinism-unseeded-rng",
-        "dp-key-discipline", "health-metric-literal"}
+        "dp-key-discipline", "health-metric-literal", "engine-attrs",
+        "engine-round", "engine-signature", "round-program-fused-body",
+        "round-program-reason", "trace-host-sync", "trace-np-random",
+        "obs-clock-in-trace", "obs-metrics-in-trace", "obs-sync-in-trace",
+        "obs-trace-ctx-key", "obs-pipe-per-upload", "mesh-pad-weights",
+        "precision-upcast"}
     raw = collections.defaultdict(collections.Counter)
     root = os.path.join(REPO, PORT)
     for fp in PCORE.iter_py_files([root]):

@@ -86,7 +86,10 @@ def test_port_imports_without_jax_or_cuda():
     "asyncfl/loadgen.py", "analysis/async_discipline.py",
     "analysis/lock_discipline.py", "analysis/shm_discipline.py",
     "analysis/determinism.py", "analysis/privacy_discipline.py",
-    "analysis/health_discipline.py"])
+    "analysis/health_discipline.py", "analysis/engine_contract.py",
+    "analysis/round_program.py", "analysis/trace_safety.py",
+    "analysis/obs_discipline.py", "analysis/mesh_discipline.py",
+    "analysis/precision_discipline.py", "distributed/cross_silo.py"])
 def test_engine_slice_modules_are_checked(module):
     """The engines', the data planes', the model zoo's (the 2D one with its
     vision data included), the precision contract's and the defended
